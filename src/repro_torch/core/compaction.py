@@ -1,0 +1,149 @@
+"""OPD leveling compaction (paper Algorithm 1), packed on the card.
+
+Port of ``repro/core/compaction.py`` for the 'opd' codec with the reference's
+'jax_packed' backend (here ``"packed"``).  The key merge stays on the host:
+concatenate the inputs' key columns, sort by (key asc, seqno desc), keep the
+newest version per key and, at the bottom level, drop tombstones; then cut
+the survivors into output files.  The values never leave the encoded
+domain, and their columns never leave the card:
+
+  1. each input's packed words are unpacked once per merge by the
+     ``unpack_codes`` kernel (tombstones set to -1);
+  2. per output file, the old code of every surviving entry is gathered on
+     the card and the dictionary codes it uses are marked there;
+  3. the used masks go to the host, where the dictionaries are merged
+     (``OPD.merge_subset_flat``: sort + unique over the used entries only);
+  4. the flat ``old -> new`` table goes back and the ``remap_pack_codes``
+     kernel rewrites and packs the output column in one pass.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.opd import OPD
+from repro_torch.core.sct import SCT, build_sct, pack_width
+from repro_torch.core.stats import StageStats
+from repro_torch.kernels import ops
+from repro_torch.storage.io import FileStore
+
+_SEQ_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+@dataclasses.dataclass
+class CompactionResult:
+    outputs: List[SCT]
+    n_in: int
+    n_out: int
+    n_dropped: int
+    dict_compares: int  # total distinct values sorted (paper's D_i terms)
+
+
+def merge_scts(
+    inputs: List[SCT],
+    *,
+    out_level: int,
+    is_bottom: bool,
+    file_entries: int,
+    store: FileStore,
+    stats: StageStats,
+    device,
+    block_bytes: int = 4096,
+    bloom_bits_per_key: int = 10,
+) -> CompactionResult:
+    n_in = sum(s.n for s in inputs)
+
+    # ---- stage: read (charge full-file I/O for every input) -------------- #
+    with stats.time("read"):
+        for s in inputs:
+            store.read(s.file_id)
+
+    # ---- stage: merge (keys + GC on the host) ----------------------------- #
+    with stats.time("merge"):
+        keys = np.concatenate([s.keys for s in inputs])
+        seqnos = np.concatenate([s.seqnos for s in inputs])
+        tombs = np.concatenate([s.tombs for s in inputs])
+        srcs = np.concatenate(
+            [np.full(s.n, i, np.int32) for i, s in enumerate(inputs)])
+        idxs = np.concatenate([np.arange(s.n, dtype=np.int64) for s in inputs])
+        order = np.lexsort((_SEQ_MAX - seqnos, keys))  # key asc, seqno desc
+        keys, seqnos, tombs = keys[order], seqnos[order], tombs[order]
+        srcs, idxs = srcs[order], idxs[order]
+        keep = np.ones(keys.shape[0], np.bool_)
+        keep[1:] = keys[1:] != keys[:-1]   # newest version per key survives
+        if is_bottom:
+            keep &= ~tombs  # physical delete at the deepest level
+        keys, seqnos, tombs = keys[keep], seqnos[keep], tombs[keep]
+        srcs, idxs = srcs[keep], idxs[keep]
+    n_out = int(keys.shape[0])
+
+    outputs: List[SCT] = []
+    dict_compares = 0
+    if n_out:
+        with stats.time("encode"):
+            codes, code_base, dict_off = _source_codes(inputs, device)
+    for lo in range(0, n_out, file_entries):
+        hi = min(lo + file_entries, n_out)
+        ck, cs, ct = keys[lo:hi], seqnos[lo:hi], tombs[lo:hi]
+        with stats.time("encode"):
+            packed_encoded, ncmp = _remap_codes(
+                inputs, codes, code_base, dict_off, srcs[lo:hi], idxs[lo:hi],
+                ct, device)
+        dict_compares += ncmp
+        with stats.time("write"):
+            out = build_sct(
+                keys=ck, seqnos=cs, tombs=ct, level=out_level,
+                key_bytes=inputs[0].key_bytes,
+                value_width=inputs[0].value_width, block_bytes=block_bytes,
+                bloom_bits_per_key=bloom_bits_per_key, store=store,
+                device=device, packed_encoded=packed_encoded)
+        outputs.append(out)
+    return CompactionResult(outputs, n_in, n_out, n_in - n_out, dict_compares)
+
+
+def _source_codes(inputs: List[SCT], device
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Old-code columns of all inputs, unpacked on the card into one int32
+    tensor (-1 at tombstones); returns (codes, per-input base into codes,
+    per-input base into the concatenated dictionaries), bases int64."""
+    cols = []
+    for s in inputs:
+        c = ops.unpack_codes(s.packed, s.code_bits, s.n)
+        cols.append(torch.where(s.live, c, -1))
+    code_base = np.zeros(len(inputs), np.int64)
+    np.cumsum([s.n for s in inputs[:-1]], out=code_base[1:])
+    dict_off = np.zeros(len(inputs), np.int64)
+    np.cumsum([s.opd.size for s in inputs[:-1]], out=dict_off[1:])
+    return (torch.cat(cols), torch.from_numpy(code_base).to(device),
+            torch.from_numpy(dict_off).to(device))
+
+
+def _remap_codes(inputs: List[SCT], codes: torch.Tensor,
+                 code_base: torch.Tensor, dict_off: torch.Tensor,
+                 c_src: np.ndarray, c_idx: np.ndarray, c_tombs: np.ndarray,
+                 device) -> Tuple[Tuple[torch.Tensor, int, OPD], int]:
+    """Algorithm 1 lines 4-9 for one output file: returns ((packed words,
+    pack width, new opd), dict_compares)."""
+    src = torch.from_numpy(c_src).to(device)
+    src64 = src.to(torch.int64)
+    old = codes[code_base[src64] + torch.from_numpy(c_idx).to(device)]
+    live = (old >= 0) & ~torch.from_numpy(c_tombs).to(device)
+    # dictionary codes each input contributes to this output
+    n_dict = sum(s.opd.size for s in inputs)
+    used = torch.zeros(n_dict, dtype=torch.bool, device=device)
+    used[(dict_off[src64] + old.to(torch.int64))[live]] = True
+    used_np = used.cpu().numpy()
+    bounds = np.cumsum([0] + [s.opd.size for s in inputs])
+    used_masks = [used_np[bounds[i]:bounds[i + 1]] for i in range(len(inputs))]
+    new_opd, flat, offsets = OPD.merge_subset_flat(
+        [s.opd for s in inputs], used_masks)
+    width = pack_width(new_opd.code_bits)
+    ev_in = torch.where(live, old, -1)
+    words = ops.remap_pack_codes(
+        ev_in, src, torch.from_numpy(flat).to(device),
+        torch.from_numpy(offsets[:-1].astype(np.int32)).to(device), width)
+    return (words, width, new_opd), int(used_np.sum())

@@ -1,0 +1,56 @@
+"""Compaction-time code remap fused with k-bit packing (Algorithm 1 line 9).
+
+Port of ``repro/kernels/merge_remap.py::remap_pack_codes_3d``.  With the
+per-source ``old -> new`` tables concatenated into one flat table and a
+per-source base offset, output entry i packs
+
+    code = max(table[ev[i] + offsets[src[i]]], 0)   if ev[i] >= 0 else 0
+
+so dead entries (tombstones, padding) and unused-code slots (-1) pack as 0,
+bit-identical to ``bitpack(clip(remapped, 0))``.  The output uses the
+engine's linear word layout.  ``remap_pack_codes`` launches
+``csrc/merge_remap.cu`` for tensors on the card and runs the plain version
+for tensors on the CPU.  ``remap_codes_2d`` (the unpacked variant) is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.bitpack import n_words_for, pack_codes_plain
+
+
+def remap_pack_codes_plain(evs: torch.Tensor, srcs: torch.Tensor,
+                           table: torch.Tensor, offsets: torch.Tensor,
+                           width: int) -> torch.Tensor:
+    """Plain version: int32 evs/srcs [n], int32 table [T], int32 offsets
+    [n_src] -> int32 words [ceil(n / (32/width))]."""
+    live = evs >= 0
+    new = torch.zeros(evs.shape[0], dtype=torch.int64, device=evs.device)
+    idx = (evs.to(torch.int64)[live]
+           + offsets.to(torch.int64)[srcs.to(torch.int64)[live]])
+    new[live] = table.to(torch.int64)[idx]
+    return pack_codes_plain(new.clamp(min=0).to(torch.int32), width)
+
+
+def remap_pack_codes(evs: torch.Tensor, srcs: torch.Tensor,
+                     table: torch.Tensor, offsets: torch.Tensor,
+                     width: int) -> torch.Tensor:
+    """Remap <src, ev> pairs through the flat table and pack the new codes."""
+    if not _build.on_card(evs, srcs, table, offsets):
+        return remap_pack_codes_plain(evs, srcs, table, offsets, width)
+    n = evs.shape[0]
+    m = n_words_for(n, width)
+    for t, name in ((evs, "evs"), (srcs, "srcs"), (table, "table"),
+                    (offsets, "offsets")):
+        _build.check_operand(t, name, torch.int32, 1)
+    if srcs.shape[0] != n:
+        raise ValueError(f"evs and srcs differ in length: {n} vs {srcs.shape[0]}")
+    words = torch.empty(m, dtype=torch.int32, device=evs.device)
+    if m:
+        _build.launch("remap_pack_codes", "repro_remap_pack_codes", evs.device,
+                      evs.data_ptr(), srcs.data_ptr(), table.data_ptr(),
+                      offsets.data_ptr(), words.data_ptr(), n, m, width)
+    return words

@@ -1,0 +1,258 @@
+"""The port's kernels against the JAX kernels, on the CPU.
+
+Each plain PyTorch version (what a kernel wrapper runs for tensors on the
+CPU) is held bit for bit against the reference's ``repro.kernels.ops``
+entry point (Pallas in interpret mode) and its ``kernels/ref.py`` oracle,
+over widths 1-32, K of 1, 4 and 16 with empty ``lo > hi`` ranges,
+padding-only tiles, SCTs without zones or not tile-aligned, dead entries
+and unused-code table slots, and n = 0 and n = 1.  The CUDA kernels
+themselves are held against these plain versions on the card in
+``test_torch_gpu.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.sct import bitpack as np_bitpack
+from repro.kernels import fused_scan as jfused
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import bitpack, fused_scan, merge_remap, ops
+
+WIDTHS = [1, 2, 4, 8, 16, 32]
+TILE = fused_scan.DEFAULT_TILE_WORDS
+
+
+def _t(a, dtype=torch.int32):
+    """numpy (uint32 bits allowed) -> CPU tensor of ``dtype``."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a.copy()).to(dtype)
+
+
+def _u32(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().astype(np.int32).view(np.uint32)
+
+
+def _codes(n, width, rng):
+    return rng.integers(0, 2 ** width, n, dtype=np.int64).astype(np.int32)
+
+
+def _ranges(k, width, rng):
+    """k inclusive ranges within the width's domain; every fourth empty."""
+    maxv = 2 ** min(width, 16)
+    out = []
+    for i in range(k):
+        if i % 4 == 3:
+            out.append((1, 0))
+        else:
+            a, b = sorted(rng.integers(0, maxv, 2).tolist())
+            out.append((a, b))
+    return np.asarray(out, np.uint32)
+
+
+# --------------------------------------------------------------------------- #
+# pack / unpack
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("width", WIDTHS)
+def test_pack_unpack_plain_match_jax(width):
+    rng = np.random.default_rng(width)
+    per = 32 // width
+    for n in (1, 3 * per + 1, 5000):
+        codes = _codes(n, width, rng)
+        want = np.asarray(jops.pack_codes(codes, width))
+        got = bitpack.pack_codes(_t(codes), width)
+        assert np.array_equal(_u32(got), want), (width, n)
+        assert np.array_equal(want, np_bitpack(codes, width))
+        back = bitpack.unpack_codes(got, width, n)
+        assert np.array_equal(back.numpy(),
+                              np.asarray(jops.unpack_codes(want, width, n)))
+        assert np.array_equal(back.numpy(), codes)
+    # the oracle wants whole words
+    codes = _codes(per * 64, width, rng)
+    oracle = np.asarray(jref.pack_codes(jnp.asarray(codes), width))
+    got = bitpack.pack_codes_plain(_t(codes), width)
+    assert np.array_equal(_u32(got), oracle)
+    assert np.array_equal(bitpack.unpack_codes_plain(got, width, codes.shape[0]).numpy(),
+                          np.asarray(jref.unpack_codes(jnp.asarray(oracle), width)))
+
+
+@pytest.mark.parametrize("width", [1, 32])
+def test_pack_unpack_empty(width):
+    empty = torch.zeros(0, dtype=torch.int32)
+    assert bitpack.pack_codes(empty, width).shape == (0,)
+    assert bitpack.unpack_codes(empty, width, 0).shape == (0,)
+    assert np_bitpack(np.zeros(0, np.int32), width).shape == (0,)
+
+
+def test_bad_width_raises():
+    with pytest.raises(ValueError):
+        bitpack.pack_codes(torch.zeros(4, dtype=torch.int32), 3)
+
+
+# --------------------------------------------------------------------------- #
+# fused zone filter: the kernel's function
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("width,k", [(1, 1), (2, 4), (4, 1), (8, 16),
+                                     (16, 4), (32, 16)])
+def test_fused_plain_matches_jax_kernel_and_oracle(width, k):
+    """Bitmaps + hit flags identical for hit, skipped and padding tiles,
+    with two range_base groups and empty ranges mixed in."""
+    rng = np.random.default_rng(100 + width * k)
+    n_tiles = 4
+    words = rng.integers(0, 2 ** 32, n_tiles * TILE,
+                         dtype=np.uint64).astype(np.uint32)
+    ranges = _ranges(2 * k, width, rng)
+    meta = np.zeros((n_tiles, 4), np.uint32)
+    for t in range(n_tiles):
+        if t == 2:
+            meta[t, 0], meta[t, 1] = fused_scan.EMPTY_ZONE
+        else:
+            lo, hi = sorted(rng.integers(0, 2 ** min(width, 16), 2).tolist())
+            meta[t, 0], meta[t, 1] = lo, hi
+        meta[t, 2] = (t % 2) * k
+    want_b, want_h = jfused.fused_zone_filter_2d(
+        jnp.asarray(words.reshape(-1, 128)), jnp.asarray(meta),
+        jnp.asarray(ranges), width=width, n_preds=k,
+        block_rows=TILE // 128, interpret=True)
+    got_b, got_h = fused_scan.fused_zone_filter(
+        _t(words), _t(meta), _t(ranges), width, k, TILE)
+    assert np.array_equal(_u32(got_b), np.asarray(want_b).reshape(k, -1))
+    assert np.array_equal(got_h.numpy(), np.asarray(want_h).reshape(-1))
+    assert got_h[2] == 0
+    if k <= 4:   # the oracle loops in Python: keep it to the small batches
+        ob, oh = jref.fused_zone_filter(
+            jnp.asarray(words.reshape(-1, 128)), jnp.asarray(meta),
+            jnp.asarray(ranges), width, k, TILE // 128)
+        assert np.array_equal(_u32(got_b), np.asarray(ob).reshape(k, -1))
+        assert np.array_equal(got_h.numpy(), np.asarray(oh).reshape(-1))
+
+
+def test_fused_rejects_bad_operands():
+    words = torch.zeros(TILE, dtype=torch.int32)
+    meta = torch.zeros((1, 4), dtype=torch.int32)
+    ranges = torch.zeros((1, 2), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        fused_scan.fused_zone_filter(words[:-1], meta, ranges, 8, 1, TILE)
+    with pytest.raises(ValueError):
+        fused_scan.fused_zone_filter(words, meta, ranges, 8, 0, TILE)
+
+
+# --------------------------------------------------------------------------- #
+# fused_level_filter: tile/meta construction, bitmaps and telemetry
+# --------------------------------------------------------------------------- #
+def _level(width, ns, k, rng, zoned=(True, True, True)):
+    """A level of SCTs with sorted (clustered) codes, block zones and
+    narrow ranges, so zones prune tiles."""
+    packed, zones_np, zones_t, ranges = [], [], [], []
+    epb = 146   # the engine's 4 KB block at 28 bytes per record
+    for n, z in zip(ns, zoned):
+        codes = np.sort(_codes(n, min(width, 16), rng))
+        w = np_bitpack(codes, width)
+        packed.append(w)
+        if z:
+            edges = np.arange(0, max(n, 1), epb)
+            lo = np.full(max(1, -(-n // epb)), 0xFFFFFFFF, np.uint32)
+            hi = np.zeros_like(lo)
+            if n:
+                lo[:edges.shape[0]] = np.minimum.reduceat(codes, edges)
+                hi[:edges.shape[0]] = np.maximum.reduceat(codes, edges)
+            zones_np.append((lo, hi, epb))
+            zones_t.append((_t(lo.astype(np.int64), torch.int64),
+                            _t(hi.astype(np.int64), torch.int64), epb))
+        else:
+            zones_np.append(None)
+            zones_t.append(None)
+        r = _ranges(k, min(width, 16), rng)
+        r[:, 1] = np.where(r[:, 0] <= r[:, 1],
+                           np.minimum(r[:, 1], r[:, 0] + 3), r[:, 1])
+        ranges.append(r)
+    return packed, zones_np, zones_t, ranges
+
+
+@pytest.mark.parametrize("width,k,ns,zoned", [
+    (32, 4, (2500, 1, 3100), (True, True, True)),     # ragged, one-entry SCT
+    (8, 16, (9000, 4100), (True, False)),             # an SCT without zones
+    (2, 1, (40000, 0, 17), (True, True, True)),       # an empty SCT
+    (16, 16, (5000,), (True,)),
+])
+def test_fused_level_filter_matches_jax(width, k, ns, zoned):
+    rng = np.random.default_rng(width + k + len(ns))
+    packed, zones_np, zones_t, ranges = _level(width, ns, k, rng, zoned)
+    want, want_info = jops.fused_level_filter(
+        packed, list(ns), ranges, zones_np, width)
+    got, info = ops.fused_level_filter(
+        [_t(p) for p in packed], list(ns),
+        [torch.from_numpy(r.astype(np.int64)) for r in ranges], zones_t, width)
+    assert info == want_info
+    for g, w, n in zip(got, want, ns):
+        assert np.array_equal(_u32(g), w)
+        assert np.array_equal(ops.bitmap_to_mask(g, width, n).numpy(),
+                              np.stack([jops.bitmap_to_mask(w[q], width, n)
+                                        for q in range(k)]))
+    if width in (8, 32):   # clustered codes, narrow ranges: tiles skipped
+        assert info["tiles_skipped"] > 0
+
+
+def test_tile_zones_blocks_wider_than_tiles():
+    """Blocks straddle tiles and may span several; each tile's zone is the
+    min/max over the blocks it touches (the reference's per-tile loop)."""
+    rng = np.random.default_rng(9)
+    n, epb, te = 10_000, 2500, 1024
+    nb = -(-n // epb)
+    lo = rng.integers(0, 1000, nb)
+    hi = lo + rng.integers(0, 1000, nb)
+    n_tiles = -(-n // te) + 1   # one padding-only tile at the end
+    z_lo, z_hi = ops.tile_zones(n, n, (torch.from_numpy(lo), torch.from_numpy(hi),
+                                       epb), n_tiles, te, "cpu")
+    for t in range(n_tiles):
+        e0, e1 = t * te, min(n, (t + 1) * te)
+        if e0 >= e1:
+            assert (z_lo[t], z_hi[t]) == fused_scan.EMPTY_ZONE
+            continue
+        b0, b1 = e0 // epb, (e1 - 1) // epb
+        assert z_lo[t] == lo[b0:b1 + 1].min() and z_hi[t] == hi[b0:b1 + 1].max()
+
+
+# --------------------------------------------------------------------------- #
+# remap + pack
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("width", [1, 8, 32])
+def test_remap_pack_plain_matches_jax(width):
+    """Dead (-1) entries and unused-code (-1) table slots pack as 0."""
+    rng = np.random.default_rng(50 + width)
+    sizes = [37, 0, 120, 9]
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    table = rng.integers(0, 2 ** min(width, 16), offsets[-1]).astype(np.int32)
+    table[rng.random(offsets[-1]) < 0.2] = -1
+    for n in (1, 3000):
+        srcs = rng.choice([0, 2, 3], n).astype(np.int32)
+        evs = np.asarray([rng.integers(0, sizes[s]) for s in srcs], np.int32)
+        evs[rng.random(n) < 0.15] = -1
+        want = np.asarray(jops.remap_pack_codes(evs, srcs, table, offsets, width))
+        got = merge_remap.remap_pack_codes(
+            _t(evs), _t(srcs), _t(table), _t(offsets[:-1].astype(np.int32)),
+            width)
+        assert np.array_equal(_u32(got), want), (width, n)
+        per = 32 // width
+        pad = -(-n // per) * per - n
+        oracle = jref.merge_remap_pack(
+            jnp.asarray(np.concatenate([evs, np.full(pad, -1, np.int32)])),
+            jnp.asarray(np.concatenate([srcs, np.zeros(pad, np.int32)])),
+            jnp.asarray(table), jnp.asarray(offsets[:-1].astype(np.int32)),
+            width)
+        assert np.array_equal(_u32(got), np.asarray(oracle))
+
+
+def test_remap_pack_empty_and_all_dead():
+    empty = torch.zeros(0, dtype=torch.int32)
+    assert merge_remap.remap_pack_codes(empty, empty, empty,
+                                        torch.zeros(1, dtype=torch.int32),
+                                        8).shape == (0,)
+    dead = torch.full((5,), -1, dtype=torch.int32)
+    got = merge_remap.remap_pack_codes(dead, torch.zeros(5, dtype=torch.int32),
+                                       empty, torch.zeros(1, dtype=torch.int32), 1)
+    assert got.tolist() == [0]

@@ -1,0 +1,155 @@
+"""The port's rules, enforced.
+
+* ``src/repro_torch`` and ``chip_smoke.py`` never import ``jax`` or
+  ``repro`` (the JAX engine reaches its Pallas kernels through deferred
+  imports, so a port importing ``repro.core`` would silently run them).
+* Entry points run on the card by default and raise without one; they do
+  not carry on on the CPU.
+* A kernel wrapper handed tensors on the card launches its kernel or
+  raises: it never falls back to its plain version.
+* Configuration values outside the ported slice raise ``ValueError``.
+* ``chip_smoke.py`` gives no result without a card or outside the repo.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch.core as T
+from repro_torch.core.lsm import SUPPORTED
+from repro_torch.kernels import _build, bitpack, fused_scan, merge_remap, ops
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_port_sources_import_neither_jax_nor_repro():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    bad = [(str(f.relative_to(ROOT)), m) for f in files
+           for m in _imported_modules(f) if _forbidden(m)]
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_neither_jax_nor_repro():
+    code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_default_device_is_the_card_and_missing_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.LSMTree(T.LSMConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.LSMTree(T.LSMConfig(), device="cuda")
+    assert T.LSMTree(T.LSMConfig(), device="cpu").device.type == "cpu"
+
+
+OTHER_VALUES = {"codec": "plain", "filter_backend": "jax_packed",
+                "compaction_backend": "jax_packed", "compaction_policy": "tiered",
+                "policy_autotune": True, "maintenance": "background",
+                "wal_sync": "group", "blob_compress": True,
+                "level_modes": ("L", "T")}
+
+
+@pytest.mark.parametrize("field", sorted(SUPPORTED))
+def test_unsupported_config_value_raises(field):
+    with pytest.raises(ValueError, match="ROADMAP"):
+        T.LSMConfig(**{field: OTHER_VALUES[field]})
+
+
+def test_spill_dir_raises(tmp_path):
+    with pytest.raises(ValueError, match="ROADMAP"):
+        T.LSMTree(T.LSMConfig(), spill_dir=str(tmp_path), device="cpu")
+
+
+def _no_plain(*_a, **_k):
+    raise AssertionError("a request for the card fell back to the plain version")
+
+
+@pytest.fixture
+def pretend_card(monkeypatch):
+    """Every operand counts as lying on the card, the plain versions are
+    booby-trapped, and the kernel library cannot be found or built."""
+    monkeypatch.setattr(_build, "on_card", lambda *t: True)
+    for mod, name in ((bitpack, "pack_codes_plain"),
+                      (bitpack, "unpack_codes_plain"),
+                      (fused_scan, "fused_zone_filter_plain"),
+                      (merge_remap, "remap_pack_codes_plain")):
+        monkeypatch.setattr(mod, name, _no_plain)
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: (_ for _ in ()).throw(
+        RuntimeError("nvcc not found")))
+    monkeypatch.setattr(_build, "check_operand", lambda *a, **k: None)
+
+
+def test_card_requests_raise_instead_of_falling_back(pretend_card, tmp_path,
+                                                    monkeypatch):
+    monkeypatch.setattr(_build, "library_path", lambda: tmp_path / "missing.so")
+    i32 = torch.zeros(64, dtype=torch.int32)
+    calls = [
+        lambda: ops.pack_codes(i32, 8),
+        lambda: ops.unpack_codes(i32, 8, 64),
+        lambda: ops.remap_pack_codes(i32, i32, i32, i32[:1], 8),
+        lambda: fused_scan.fused_zone_filter(
+            torch.zeros(1024, dtype=torch.int32), torch.zeros((1, 4), dtype=torch.int32),
+            torch.zeros((1, 2), dtype=torch.int32), 8, 1),
+    ]
+    before = dict(ops.LAUNCHES)
+    for call in calls:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            call()
+    assert ops.LAUNCHES == before
+
+
+def test_cpu_tensor_on_card_path_is_rejected(monkeypatch):
+    """The operand check refuses a CPU tensor before any pointer reaches C."""
+    monkeypatch.setattr(_build, "on_card", lambda *t: True)
+    with pytest.raises(ValueError, match="card"):
+        ops.pack_codes(torch.zeros(8, dtype=torch.int32), 8)
+
+
+def test_mixed_devices_raise():
+    with pytest.raises(ValueError):
+        _build.on_card(torch.zeros(1), torch.zeros(1, device="meta"))
+
+
+def test_chip_smoke_gives_no_result_without_a_card(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    # alone in a directory, without the repository, it fails as well
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
