@@ -5,7 +5,7 @@
 
 Phases, each printing JSON lines:
 
-1. build:   nvcc builds the four CUDA kernels from ``src/repro_torch``;
+1. build:   nvcc builds the six CUDA kernels from ``src/repro_torch``;
             prints build seconds, the card (nvidia-smi), torch and CUDA.
 2. main:    the port's main path through ``LSMTree`` at the paper's
             section 5.1 shapes (16-byte keys, 256-byte values from a
@@ -17,11 +17,24 @@ Phases, each printing JSON lines:
             held against a plain host reference written here (numpy
             last-write-wins + byte compares), independent of the port.
             Kernel launch counts are reset just before and read just
-            after; each of the four kernels must have launched.
-3. kernels: each kernel against its plain PyTorch version on the card, on
-            operands recorded from the main path (bit-identical required),
-            with CUDA-event medians, the plain version's time and the
-            memory-bound time from the card's data-sheet bandwidth.
+            after; each of the four kernels of that path must have launched.
+3. agg:     the analytics path through ``LSMTree.aggregate_many`` (COUNT,
+            SUM, MIN/MAX, GROUP BY prefix with top-k and by 16 buckets):
+            agg.general on the main tree (overlapping levels: the fused
+            filter and the host visibility merge), agg.fast on a new tree
+            of the main configuration loaded with sequential keys and
+            compacted (the fast path: fused_zone_agg and zone_histogram),
+            agg.clustered on the clustered tree (tiles skipped and taken in
+            closed form).  Answers, bucket edges included, are held
+            against the plain host model.  Each phase resets the launch
+            counts just before its checked ``aggregate_many`` and reads
+            them just after: agg.general must have launched the fused
+            filter, agg.fast and agg.clustered both aggregate kernels.
+4. kernels: each kernel against its plain PyTorch version on the card, on
+            operands recorded from the main path and agg.fast
+            (bit-identical required), with CUDA-event medians, the plain
+            version's time and the memory-bound time from the card's
+            data-sheet bandwidth.
 
 The last three lines are the card (nvidia-smi name, power limit), the
 kernel table ``{"kernels": [...]}`` and ``{"ok": true, "device": ...}``.
@@ -34,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -58,11 +72,21 @@ KERNELS = {
                           "src/repro/kernels/fused_scan.py:115"),
     "remap_pack_codes": ("src/repro_torch/kernels/csrc/merge_remap.cu",
                          "src/repro/kernels/merge_remap.py:141"),
+    "fused_zone_agg": ("src/repro_torch/kernels/csrc/agg_scan.cu",
+                       "src/repro/kernels/agg_scan.py:228"),
+    "zone_histogram": ("src/repro_torch/kernels/csrc/agg_scan.cu",
+                       "src/repro/kernels/agg_scan.py:344"),
 }
+MAIN_KERNELS = ("pack_codes", "unpack_codes", "fused_zone_filter",
+                "remap_pack_codes")
+AGG_KERNELS = ("fused_zone_agg", "zone_histogram")
 SYMBOLS = {"pack_codes": "pack_codes_kernel",
            "unpack_codes": "unpack_codes_kernel",
            "fused_zone_filter": "fused_zone_filter_kernel",
-           "remap_pack_codes": "remap_pack_kernel"}
+           "remap_pack_codes": "remap_pack_kernel",
+           "fused_zone_agg": "fused_zone_agg_kernel",
+           "zone_histogram": "zone_histogram_kernel"}
+INT32_MAX = 2**31 - 1
 NO_LIBRARY = ("no single PyTorch call computes this bit-field function; "
               "its plain version is several calls")
 
@@ -190,8 +214,9 @@ def run_get_check(tree, ref: Reference, keys: np.ndarray, label: str) -> dict:
             "get_us": (time.perf_counter() - t0) / max(1, keys.shape[0]) * 1e6}
 
 
-def main_phase(args, device: str) -> dict:
-    """Uniform phase then clustered phase; returns the launch counts."""
+def main_phase(args, device: str):
+    """Uniform phase then clustered phase; returns the launch counts and
+    the trees with their host models for the analytics phases."""
     import torch
     from repro_torch import LSMConfig, LSMTree, Predicate
     from repro_torch.kernels import ops
@@ -281,9 +306,249 @@ def main_phase(args, device: str) -> dict:
 
     launches = dict(ops.LAUNCHES)
     emit({"phase": "main.launches", **launches})
-    for name in KERNELS:
+    for name in MAIN_KERNELS:
         check(launches[name] > 0, f"kernel {name} never launched on the main path")
-    return launches
+    return launches, {"cfg": cfg, "tree": tree, "ref": ref, "vocab": vocab,
+                      "ctree": ctree, "cref": cref, "cpreds": cpreds}
+
+
+# --------------------------------------------------------------------------- #
+# analytics path: aggregates held against the plain host model
+# --------------------------------------------------------------------------- #
+# (op, predicate (kind, a, b) or None, group ("prefix", len) or ("bucket", n)
+# or None, top_k)
+AGG_TABLE = [
+    ("count", ("prefix", b"cat_00042_", b""), None, None),
+    ("sum", ("range", b"cat_00100_", b"cat_00199_\xff"), None, None),
+    ("min", None, None, None),
+    ("max", None, None, None),
+    ("group_count", None, ("prefix", 7), 5),
+    ("group_count", None, ("bucket", 16), None),
+]
+
+
+def numeric(value: bytes) -> int:
+    """SUM weight of a value: its first run of ASCII digits as an integer,
+    clipped to int32 max; no digit -> 0."""
+    m = re.search(rb"[0-9]+", value)
+    return min(int(m.group()), INT32_MAX) if m else 0
+
+
+def vocab_hits(vocab: np.ndarray, pred) -> np.ndarray:
+    """Which vocabulary values a predicate matches (numpy byte compares;
+    values hold no NUL, so NUL padding orders as the shorter string)."""
+    if pred is None:
+        return np.ones(vocab.shape[0], bool)
+    kind, a, b = pred
+    lo, hi = (np.asarray([x], vocab.dtype)[0] for x in (a, b))
+    return {"eq": lambda: vocab == lo,
+            "prefix": lambda: np.char.startswith(vocab, a),
+            "range": lambda: (vocab >= lo) & (vocab <= hi),
+            "ge": lambda: vocab >= lo,
+            "le": lambda: vocab <= hi}[kind]()
+
+
+def equi_depth_edges(domain: np.ndarray, n_buckets: int) -> tuple:
+    """Interior edges of n equi-depth buckets over a sorted unique domain."""
+    d = domain.shape[0]
+    idx = np.unique((np.arange(1, n_buckets) * d) // n_buckets)
+    idx = idx[(idx > 0) & (idx < d)]
+    return tuple(bytes(v) for v in np.unique(domain[idx]))
+
+
+def expected_groups(vocab, sel, group, edges, top_k):
+    """Sorted (label, count) groups of the rows with vocabulary indices
+    ``sel``: by value prefix, or by bucket (#(edges <= value))."""
+    if group[0] == "prefix":
+        labels = np.asarray([bytes(v)[:group[1]] for v in vocab], object)
+    else:
+        cut = np.searchsorted(np.asarray(edges, vocab.dtype), vocab,
+                              side="right")
+        names = [b""] + list(edges)
+        labels = np.asarray([names[c] for c in cut], object)
+    uniq, inv = np.unique(labels, return_inverse=True)
+    counts = np.bincount(inv[sel], minlength=uniq.shape[0])
+    items = sorted(((bytes(uniq[i]), int(c)) for i, c in enumerate(counts)
+                    if c), key=lambda kv: (-kv[1], kv[0]))
+    return items[:top_k] if top_k is not None else items
+
+
+def make_specs(table) -> list:
+    from repro_torch import AggSpec, GroupBy, Predicate
+
+    specs = []
+    for op, pred, group, top_k in table:
+        g = None
+        if group is not None:
+            g = (GroupBy("prefix", prefix_len=group[1]) if group[0] == "prefix"
+                 else GroupBy("bucket", n_buckets=group[1]))
+        specs.append(AggSpec(op, Predicate(*pred) if pred else None, g, top_k))
+    return specs
+
+
+def run_agg_check(tree, vocab, idx, table, label, domain=None) -> dict:
+    """One ``aggregate_many`` of ``table`` against the live rows (vocabulary
+    indices ``idx``): counts, sums, min/max values and group lists must
+    equal the host model's.  Bucket edges are equi-depth over ``domain``
+    (``pinned_domain``); without one they are read back from the result's
+    labels, and only the counts are checked under them."""
+    import torch
+
+    specs = make_specs(table)
+    before = dict(tree.agg_stats.seconds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = tree.aggregate_many(specs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    stages = {k: v - before.get(k, 0.0)
+              for k, v in tree.agg_stats.seconds.items()}
+    weights = np.asarray([numeric(bytes(v)) for v in vocab], np.int64)
+    rank = np.empty(vocab.shape[0], np.int64)
+    rank[np.argsort(vocab)] = np.arange(vocab.shape[0])
+    for (op, pred, group, top_k), r in zip(table, got):
+        sel = idx[vocab_hits(vocab, pred)[idx]]
+        what = f"{label}: {op} {pred} {group}"
+        check(r.count == sel.shape[0],
+              f"{what}: count {r.count} != {sel.shape[0]}")
+        if op == "sum":
+            want = int(weights[sel].sum())
+            check(r.total == want, f"{what}: sum {r.total} != {want}")
+        if op in ("min", "max"):
+            want = ((bytes(vocab[sel[np.argmin(rank[sel])]]),
+                     bytes(vocab[sel[np.argmax(rank[sel])]]))
+                    if sel.shape[0] else (None, None))
+            check((r.min_value, r.max_value) == want,
+                  f"{what}: min/max {r.min_value!r}/{r.max_value!r}")
+        if op == "group_count":
+            edges = ()
+            if group[0] == "bucket":
+                edges = (equi_depth_edges(domain, group[1])
+                         if domain is not None else
+                         tuple(sorted(lab for lab, _ in r.groups if lab)))
+                check(len(edges) < group[1], f"{what}: {len(edges)} edges")
+            want = expected_groups(vocab, sel, group, edges, top_k)
+            check(r.groups == want, f"{what}: groups differ")
+    return {"aggregate_many_s": dt, "specs": len(specs), "stages_s": stages}
+
+
+def pinned_domain(ref: Reference):
+    """The bucket domain of a tree built from ``ref``'s operations, or None
+    where the host model cannot pin it.  The port's domain is the union of
+    the runs' dictionaries and the memtable's newest live values: it holds
+    every live row's value and nothing that was never written.  Where every
+    written value still has a live row, both sides are the same set."""
+    written = np.unique(np.concatenate([i for _, i in ref.ops]))
+    written = written[written >= 0]
+    live = np.unique(ref.state()[1])
+    if not np.array_equal(written, live):
+        return None
+    return np.unique(ref.vocab[live])
+
+
+def launch_window(fn):
+    """Run ``fn`` with the kernel launch counts set to 0 just before and
+    read just after; returns (fn's result, the counts)."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    out = fn()
+    return out, dict(ops.LAUNCHES)
+
+
+def agg_counts(tree) -> dict:
+    c = tree.agg_stats.counts
+    return {k: c[k] for k in sorted(c) if k.startswith("agg_")}
+
+
+def agg_phase(args, state, recs, device: str) -> dict:
+    """agg.general, agg.fast and agg.clustered; returns the launch counts
+    of agg.fast's checked call, the aggregate kernels' main path."""
+    import torch
+    from repro_torch import LSMTree
+
+    vocab, cfg = state["vocab"], state["cfg"]
+
+    # agg.general: overlapping levels and memtable rows
+    tree, ref = state["tree"], state["ref"]
+    domain = pinned_domain(ref)
+    res, launches = launch_window(lambda: run_agg_check(
+        tree, vocab, ref.state()[1], AGG_TABLE, "agg.general", domain))
+    c = agg_counts(tree)
+    check(c.get("agg_fallback_runs", 0) > 0, "agg.general: not the general path")
+    check(launches["fused_zone_filter"] > 0,
+          "agg.general: the fused filter never launched")
+    emit({"phase": "agg.general", **res, **c,
+          "bucket_edges": "host model" if domain is not None else
+          "read back from the result (domain not pinned by the host model)",
+          "launches": launches})
+
+    # agg.fast: an append-only log (sequential keys), compacted
+    rng = np.random.default_rng(args.seed + 1)
+    n = args.fast_pairs
+    fidx = rng.integers(0, vocab.shape[0], n)
+    ftree = LSMTree(cfg, device=device)
+    t0 = time.perf_counter()
+    batch = 1 << 20
+    for i in range(0, n, batch):
+        ftree.put_batch(np.arange(i, min(n, i + batch), dtype=np.uint64),
+                        vocab[fidx[i:i + batch]])
+    ftree.compact()
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    # distinct keys: every written value is live
+    domain = np.sort(vocab[np.unique(fidx)])
+    for r in recs.values():
+        r.active = True      # the kernel phase replays agg.fast's operands
+    res, fast_launches = launch_window(lambda: run_agg_check(
+        ftree, vocab, fidx, AGG_TABLE, "agg.fast", domain))
+    for r in recs.values():
+        r.active = False
+    c = agg_counts(ftree)
+    for key in ("agg_fastpath_runs", "agg_launches", "agg_tiles_evaluated"):
+        check(c.get(key, 0) > 0, f"agg.fast: {key} is 0")
+    for name in AGG_KERNELS:
+        check(fast_launches[name] > 0, f"agg.fast: kernel {name} never launched")
+    emit({"phase": "agg.fast", "reduced": "pairs 6.4e7 -> %.1e (host-side "
+          "ingest within the smoke's time limit)" % n, "pairs": n,
+          "ingest_s": ingest_s, "levels": ftree.shape_report()["levels"],
+          "pack_widths": sorted({s.code_bits for s in ftree.all_runs()}),
+          **res, **c, "launches": fast_launches})
+    # the same batch again (per-SCT facts now cached), then under the
+    # profiler: the card's busy time
+    specs = make_specs(AGG_TABLE)
+    before = dict(ftree.agg_stats.seconds)
+    t0 = time.perf_counter()
+    ftree.aggregate_many(specs)
+    torch.cuda.synchronize()
+    again = {"repeat_s": time.perf_counter() - t0,
+             "repeat_stages_s": {k: v - before.get(k, 0.0) for k, v in
+                                 ftree.agg_stats.seconds.items()}}
+    emit({"phase": "agg.fast.profiled", **again,
+          **device_busy(lambda: ftree.aggregate_many(specs))})
+
+    # agg.clustered: narrow ranges skip tiles, a wide one and the buckets
+    # take the closed form
+    ctree, cref, cpreds = state["ctree"], state["cref"], state["cpreds"]
+    n2 = args.clustered_pairs
+    table = [(op, pred, None, None) for pred in cpreds
+             for op in ("count", "sum", "min", "max")]
+    table += [("count", ("range", b"ts_%012d" % (n2 // 8),
+                         b"ts_%012d" % (n2 // 4 - 1)), None, None),
+              ("group_count", None, ("bucket", 16), None)]
+    cdomain = pinned_domain(cref)
+    check(cdomain is not None, "agg.clustered: host model holds dead values")
+    res, claunches = launch_window(lambda: run_agg_check(
+        ctree, cref.vocab, cref.state()[1], table, "agg.clustered", cdomain))
+    c = agg_counts(ctree)
+    for key in ("agg_fastpath_runs", "agg_tiles_skipped",
+                "agg_tiles_shortcircuit"):
+        check(c.get(key, 0) > 0, f"agg.clustered: {key} is 0")
+    for name in AGG_KERNELS:
+        check(claunches[name] > 0,
+              f"agg.clustered: kernel {name} never launched")
+    emit({"phase": "agg.clustered", **res, **c, "launches": claunches})
+    return fast_launches
 
 
 # --------------------------------------------------------------------------- #
@@ -293,10 +558,13 @@ class Recorder:
     """Wraps an ops entry point; keeps the operands of its largest call
     (per key) so the kernel phase can replay the main path's shapes."""
 
-    def __init__(self, fn, size, key=lambda *a, **k: 0):
+    def __init__(self, fn, size, key=lambda *a, **k: 0, active=True):
         self.fn, self.size, self.key, self.calls = fn, size, key, {}
+        self.active = active
 
     def __call__(self, *args, **kw):
+        if not self.active:
+            return self.fn(*args, **kw)
         key = self.key(*args, **kw)
         old = self.calls.get(key)
         if old is None or self.size(*args, **kw) > self.size(*old[0], **old[1]):
@@ -397,7 +665,7 @@ def compare(name: str, kernel, plain, nbytes: int, bw: float, launches: int,
 
 def kernel_phase(recs, launches: dict, bw: float) -> list:
     import torch
-    from repro_torch.kernels import bitpack, fused_scan, merge_remap
+    from repro_torch.kernels import agg_scan, bitpack, fused_scan, merge_remap
 
     rows = []
     (codes, width), _ = recs["pack"].calls[0]
@@ -449,6 +717,40 @@ def kernel_phase(recs, launches: dict, bw: float) -> list:
         8 * n + 4 * m + 4 * table.shape[0] + 4 * offsets.shape[0], bw,
         launches["remap_pack_codes"],
         f"n={n} width={width} table={table.shape[0]} sources={offsets.shape[0]}"))
+
+    # fused_zone_agg at agg.fast's scalar launch, with and without SUM
+    (aw, am, ar, awt, width, k, _ws, tw), _ = recs["agg"].calls[0]
+    n_tiles = am.shape[0]
+    for with_sum in (True, False):
+        evaluated = int((agg_scan.fused_zone_agg(
+            aw, am, ar, awt, width, k, with_sum, tw)[4] == 1).sum())
+        nbytes = (4 * tw * evaluated + 24 * n_tiles + 8 * ar.shape[0]
+                  + 20 * n_tiles * k + 4 * n_tiles
+                  + (4 * awt.shape[0] if with_sum else 0))
+        rows.append(compare(
+            "fused_zone_agg",
+            lambda: agg_scan.fused_zone_agg(aw, am, ar, awt, width, k,
+                                            with_sum, tw),
+            lambda: agg_scan.fused_zone_agg_plain(aw, am, ar, awt, width, k,
+                                                  with_sum, tw),
+            nbytes, bw, launches["fused_zone_agg"],
+            f"words={aw.shape[0]} tiles={n_tiles} evaluated={evaluated} "
+            f"K={k} width={width} sum={with_sum} weights={awt.shape[0]}"))
+        rows[-1]["main_path"] = with_sum
+
+    # zone_histogram at agg.fast's largest GROUP BY launch
+    (hw, hm, he, width, n_bins, tw), _ = recs["hist"].calls[0]
+    n_tiles = hm.shape[0]
+    evaluated = int((agg_scan.zone_histogram(hw, hm, he, width, n_bins,
+                                             tw)[1] == 1).sum())
+    rows.append(compare(
+        "zone_histogram",
+        lambda: agg_scan.zone_histogram(hw, hm, he, width, n_bins, tw),
+        lambda: agg_scan.zone_histogram_plain(hw, hm, he, width, n_bins, tw),
+        4 * tw * evaluated + 24 * n_tiles + 4 * he.numel()
+        + 4 * n_tiles * n_bins + 4 * n_tiles, bw, launches["zone_histogram"],
+        f"words={hw.shape[0]} tiles={n_tiles} evaluated={evaluated} "
+        f"bins={n_bins} width={width}"))
     return rows
 
 
@@ -456,6 +758,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=1 << 23)
     ap.add_argument("--clustered-pairs", type=int, default=1 << 20)
+    ap.add_argument("--fast-pairs", type=int, default=1 << 22,
+                    help="pairs of the agg.fast tree (sequential keys)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -494,10 +798,20 @@ def main() -> int:
         "fused": Recorder(ops.fused_zone_filter,
                           lambda w, *a: w.shape[0], lambda w, m, r, wd, *a: wd),
         "remap": Recorder(ops.remap_pack_codes, lambda e, *a: e.shape[0]),
+        # recorded during agg.fast only
+        "agg": Recorder(ops.fused_zone_agg, lambda w, *a: w.shape[0],
+                        active=False),
+        "hist": Recorder(ops.zone_histogram,
+                         lambda w, m, e, wd, nb, *a: w.shape[0] * nb,
+                         active=False),
     }
     ops.pack_codes, ops.unpack_codes = recs["pack"], recs["unpack"]
     ops.fused_zone_filter, ops.remap_pack_codes = recs["fused"], recs["remap"]
-    launches = main_phase(args, "cuda")
+    ops.fused_zone_agg, ops.zone_histogram = recs["agg"], recs["hist"]
+    launches, state = main_phase(args, "cuda")
+    fast_launches = agg_phase(args, state,
+                              {k: recs[k] for k in ("agg", "hist")}, "cuda")
+    launches.update({k: fast_launches[k] for k in AGG_KERNELS})
     rows = kernel_phase(recs, launches, bw)
     for r in rows:
         emit({"phase": "kernel", **r})
@@ -505,9 +819,9 @@ def main() -> int:
     print(card, flush=True)
     keep = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # one row per kernel; for the filter, the largest level of the main path
-    table = [{k: r[k] for k in keep} for r in rows
-             if r["name"] != "fused_zone_filter" or r.get("main_path")]
+    # one row per kernel: for the filter the largest level of the main path,
+    # for the aggregate kernel its SUM launch of agg.fast
+    table = [{k: r[k] for k in keep} for r in rows if r.get("main_path", True)]
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -6,5 +6,6 @@ card unless the caller passes ``device="cpu"``.
 """
 
 from repro_torch.core import LSMConfig, LSMTree, Predicate
+from repro_torch.query import AggSpec, GroupBy
 
-__all__ = ["LSMConfig", "LSMTree", "Predicate"]
+__all__ = ["LSMConfig", "LSMTree", "Predicate", "AggSpec", "GroupBy"]

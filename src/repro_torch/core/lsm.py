@@ -6,7 +6,9 @@ OPD-encoded SCTs whose packed words and zone maps live on the card;
 ``filter`` / ``filter_many`` run the zone-gated fused scan on the packed
 words, one launch per level; leveled compaction merges the dictionaries on
 the host and rewrites the packed codes on the card; ``get`` is the point
-lookup.  Results are bit-identical to the reference engine configured as
+lookup; ``aggregate`` / ``aggregate_many`` compute COUNT, SUM, MIN/MAX and
+GROUP BY on the packed codes (``repro_torch.query``).  Results are
+bit-identical to the reference engine configured as
 ``LSMConfig(codec='opd', filter_backend='fused',
 compaction_backend='jax_packed')``.
 
@@ -34,20 +36,29 @@ from repro_torch.core.policy import CompactionPolicy, make_policy, run_depth
 from repro_torch.core.sct import SCT, build_sct, record_disk_bytes, sct_from_arrays
 from repro_torch.core.stats import StageStats
 from repro_torch.core.version import Version, VersionEdit, VersionSet
+from repro_torch.query.executor import evaluate_aggregates
+from repro_torch.query.planner import collect_domain, resolve_specs
+from repro_torch.query.spec import (AggPartial, AggResult, AggSpec,
+                                    finalize_partial)
 from repro_torch.storage.io import FileStore
 
-# the one value each configuration field takes in this slice, and the
-# ROADMAP item that ports the others
+# the values each configuration field takes in this slice, and the ROADMAP
+# item that ports the others (kernels named by their function)
 SUPPORTED = {
-    "codec": ("opd", "§1 competitor codecs"),
-    "filter_backend": ("fused", "§2 kernels 6-8"),
-    "compaction_backend": ("packed", "§2 kernel 5"),
-    "compaction_policy": ("leveled", "§1 policy"),
-    "policy_autotune": (False, "§1 policy"),
-    "maintenance": ("sync", "§1 durability and maintenance"),
-    "wal_sync": ("off", "§1 durability and maintenance"),
-    "blob_compress": (False, "§1 competitor codecs"),
-    "level_modes": (None, "§1 policy"),
+    "codec": (("opd",), "§1 competitor codecs"),
+    "filter_backend": (("fused",), "§1 read path, rest, over §2 kernels "
+                       "multi_range_filter_packed_2d, range_filter_packed_2d "
+                       "and range_filter_codes_2d"),
+    # 'packed' is this port's earlier name of the reference's 'jax_packed'
+    "compaction_backend": (("jax_packed", "packed"),
+                           "§2 kernel remap_codes_2d (the 'jax' backend; "
+                           "'numpy' is host code of §1 read path, rest)"),
+    "compaction_policy": (("leveled",), "§1 policy"),
+    "policy_autotune": ((False,), "§1 policy"),
+    "maintenance": (("sync",), "§1 durability and maintenance"),
+    "wal_sync": (("off",), "§1 durability and maintenance"),
+    "blob_compress": ((False,), "§1 competitor codecs"),
+    "level_modes": ((None,), "§1 policy"),
 }
 
 
@@ -69,7 +80,7 @@ class LSMConfig:
     blob_compress: bool = False
     blob_gc_threshold: float = 0.5
     filter_backend: str = "fused"
-    compaction_backend: str = "packed"
+    compaction_backend: str = "jax_packed"
     compaction_policy: str = "leveled"
     tier_runs: int = 4
     level_modes: Optional[tuple] = None
@@ -83,12 +94,13 @@ class LSMConfig:
     wal_group_bytes: int = 64 * 1024
 
     def __post_init__(self):
-        for name, (want, item) in SUPPORTED.items():
+        for name, (accepted, item) in SUPPORTED.items():
             got = getattr(self, name)
-            if got != want:
+            if got not in accepted:
                 raise ValueError(
                     f"LSMConfig.{name}={got!r} is not ported yet (this port "
-                    f"supports {want!r}); see ROADMAP {item}")
+                    f"supports {' or '.join(map(repr, accepted))}); see "
+                    f"ROADMAP {item}")
 
     @property
     def mem_bytes(self) -> int:
@@ -134,6 +146,7 @@ class LSMTree:
         self.filter_stats = StageStats()
         self.flush_stats = StageStats()
         self.lookup_stats = StageStats()
+        self.agg_stats = StageStats()       # analytics (repro_torch.query)
         self.n_flushes = 0
         self.n_compactions = 0
         self.write_stalls = 0
@@ -438,6 +451,50 @@ class LSMTree:
             snap.runs, snap.mems, preds, stats=self.filter_stats,
             store=self.store, snapshot_seqno=snap.seqno,
             value_width=self.cfg.value_width)
+
+    # ------------------------------------------------------------------ #
+    # analytics pushdown (aggregates on packed codes; repro_torch.query)
+    # ------------------------------------------------------------------ #
+    def aggregate(self, spec: AggSpec,
+                  snapshot: Optional[Snapshot] = None) -> AggResult:
+        """One aggregate against a consistent snapshot."""
+        return self.aggregate_many([spec], snapshot)[0]
+
+    def aggregate_many(self, specs: Sequence[AggSpec],
+                       snapshot: Optional[Snapshot] = None) -> List[AggResult]:
+        """Batched aggregates against one snapshot: on a quiescent tree the
+        scalar specs share one ``fused_zone_agg`` launch per level and each
+        GROUP BY one ``zone_histogram`` launch; otherwise the fused filter
+        feeds the visibility merge."""
+        snap = snapshot or self.snapshot()
+        specs = self._resolve_agg_specs(specs, snap)
+        parts = self._aggregate_partials(specs, snap)
+        return [finalize_partial(spec, part)
+                for spec, part in zip(specs, parts)]
+
+    def aggregate_partials(self, specs: Sequence[AggSpec],
+                           snapshot: Optional[Snapshot] = None
+                           ) -> List[AggPartial]:
+        """Mergeable per-tree partials.  Specs must arrive resolved (bucket
+        edges fixed over every tree whose partials are merged)."""
+        snap = snapshot or self.snapshot()
+        return self._aggregate_partials(specs, snap)
+
+    def _aggregate_partials(self, specs, snap: Snapshot) -> List[AggPartial]:
+        return evaluate_aggregates(
+            snap.runs, snap.mems, specs, stats=self.agg_stats,
+            store=self.store, snapshot_seqno=snap.seqno,
+            value_width=self.cfg.value_width)
+
+    def _resolve_agg_specs(self, specs, snap: Snapshot) -> List[AggSpec]:
+        specs = list(specs)
+        if all(spec.group is None or spec.group.resolved()
+               for spec in specs):
+            return specs
+        with self.agg_stats.time("plan"):
+            domain = collect_domain(snap.runs, snap.mems,
+                                    self.cfg.value_width)
+        return resolve_specs(specs, domain)
 
     # ------------------------------------------------------------------ #
     # reporting

@@ -24,7 +24,6 @@ import torch
 from repro_torch.core.blocks import BlockIndex
 from repro_torch.core.opd import OPD
 from repro_torch.kernels import ops
-from repro_torch.query.spec import numeric_values
 from repro_torch.storage.io import FileStore
 
 SEQNO_BYTES = 8
@@ -55,6 +54,11 @@ class SCT:
     opd: OPD                  # memory-resident dictionary
     live: torch.Tensor        # bool [n] on the card: ~tombs
     max_seqno: int = 0
+    # facts the aggregate planner derives once per SCT (SCTs are immutable
+    # after build): weight tables, prefix-label tables, tombstone and key
+    # uniqueness flags
+    facts: Dict[str, object] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     @property
     def n(self) -> int:
@@ -146,9 +150,13 @@ def build_sct(
     # per-block SUM weight totals: weight per entry = numeric(dict[code]),
     # tombstones zeroed
     if opd.size:
+        # deferred: the query package imports this module
+        from repro_torch.query.spec import numeric_values
+
         wtab = numeric_values(opd.values, device)
         entry_w = torch.where(live, wtab[field.to(torch.int64)], 0)
     else:
+        wtab = torch.zeros(0, dtype=torch.int64, device=device)
         entry_w = torch.zeros(n, dtype=torch.int64, device=device)
     blocks.attach_weight_sums(entry_w)
     disk = (n * (key_bytes + SEQNO_BYTES) + 4 * int(packed.shape[0])
@@ -157,6 +165,8 @@ def build_sct(
               blocks=blocks, key_bytes=key_bytes, value_width=value_width,
               disk_bytes=int(disk), packed=packed, code_bits=width, opd=opd,
               live=live, max_seqno=int(seqnos.max()) if n else 0)
+    # the per-code weights are the aggregate planner's SUM table too
+    sct.facts["weight_table"] = wtab.to(torch.int32)
     # the id is allocated before the write, in the reference's order:
     # file ids and so the round-robin compaction victims depend on it
     sct.file_id = store.alloc_id()

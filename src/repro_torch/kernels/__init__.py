@@ -1,7 +1,8 @@
 # Hand-written CUDA kernels for Hopper (csrc/*.cu, built by nvcc at first
 # use) with their plain PyTorch versions: bitpack (pack / unpack codes),
 # fused_scan (zone-gated K-predicate filter), merge_remap (compaction remap
-# fused with packing).  ``ops`` is the public surface.
+# fused with packing), agg_scan (zone-gated aggregation and GROUP BY
+# histogram).  ``ops`` is the public surface.
 from repro_torch.kernels import ops
 
 __all__ = ["ops"]

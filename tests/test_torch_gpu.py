@@ -15,7 +15,8 @@ import pytest
 import torch
 
 import repro_torch.core as T
-from repro_torch.kernels import bitpack, fused_scan, merge_remap, ops
+from repro_torch import AggSpec, GroupBy
+from repro_torch.kernels import agg_scan, bitpack, fused_scan, merge_remap, ops
 
 pytestmark = pytest.mark.gpu
 WIDTHS = [1, 2, 4, 8, 16, 32]
@@ -132,4 +133,161 @@ def test_tree_on_the_card_matches_the_cpu(card):
             assert torch.equal(a.blocks.code_lo, b.blocks.code_lo.cpu())
     for k in range(0, 1500, 7):
         assert trees[0].get(k) == trees[1].get(k)
-    assert all(v > 0 for v in ops.LAUNCHES.values()), ops.LAUNCHES
+    main_path = ("pack_codes", "unpack_codes", "fused_zone_filter",
+                 "remap_pack_codes")
+    assert all(ops.LAUNCHES[k] > 0 for k in main_path), ops.LAUNCHES
+
+
+# --------------------------------------------------------------------------- #
+# analytics: fused_zone_agg and zone_histogram
+# --------------------------------------------------------------------------- #
+def _agg_level(width, rng, ns=(50000, 1, 3000)):
+    """SCTs whose first column is sorted (tiles short-circuit and skip),
+    the rest uniform, with 146-entry block zones and weight totals, and a
+    weight table per SCT."""
+    packed, zones, weights = [], [], []
+    epb, maxv = 146, 2 ** min(width, 12)
+    for j, n in enumerate(ns):
+        codes = torch.from_numpy(rng.integers(1 if j == 0 else 0, maxv, n))
+        if j == 0:
+            codes = torch.sort(codes).values
+        wt = torch.from_numpy(rng.integers(0, 1000, maxv).astype(np.int32))
+        packed.append(bitpack.pack_codes_plain(codes.to(torch.int32), width))
+        nb = -(-n // epb)
+        pad = nb * epb - n
+        lo = torch.cat([codes, torch.full((pad,), 0xFFFFFFFF)]).reshape(nb, epb)
+        hi = torch.cat([codes, torch.zeros(pad, dtype=torch.int64)]).reshape(nb, epb)
+        ws = torch.cat([wt.to(torch.int64)[codes],
+                        torch.zeros(pad, dtype=torch.int64)]).reshape(nb, epb)
+        zones.append((lo.amin(1), hi.amax(1), epb, ws.sum(1)))
+        weights.append(wt)
+    return packed, zones, weights
+
+
+def _to(card, zones):
+    return [tuple(z.to(card) if torch.is_tensor(z) else z for z in zs)
+            for zs in zones]
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("with_sum", [False, True])
+def test_fused_level_agg_matches_plain(card, width, with_sum):
+    rng = np.random.default_rng(width + 7 * with_sum)
+    ns = [50000, 1, 3000]
+    packed, zones, weights = _agg_level(width, rng, ns)
+    maxv = 2 ** min(width, 12)
+    ranges = torch.tensor([(1, maxv - 1), (1, 0), (maxv // 4, maxv // 2),
+                           (0, maxv - 1), (maxv // 3, maxv // 3)])
+    w = weights if with_sum else None
+    want, want_info = ops.fused_level_agg(packed, ns, [ranges] * 3, zones,
+                                          width, weights_list=w)
+    before = ops.LAUNCHES["fused_zone_agg"]
+    got, info = ops.fused_level_agg(
+        [p.to(card) for p in packed], ns, [ranges.to(card)] * 3,
+        _to(card, zones), width,
+        weights_list=[x.to(card) for x in w] if with_sum else None)
+    assert ops.LAUNCHES["fused_zone_agg"] == before + 1
+    assert info == want_info
+    assert info["tiles_evaluated"] > 0
+    for g, r in zip(got, want):
+        for key in r:
+            assert np.array_equal(g[key], r[key]), key
+
+
+def agg_tiles(width, rng, tile_words):
+    """Raw operands of five tiles: skipped (empty zone), closed form,
+    evaluated, evaluated with a part-padding tail, and closed form without
+    SUM but evaluated with it (unknown weight total).  Two groups of 11
+    ranges (more than one register chunk): group 0 contains the closed
+    tiles' zone or is empty, group 1 is narrow and mixed."""
+    per = 32 // width
+    maxv = 2 ** min(width, 12)
+    full = tile_words * per
+    words = torch.from_numpy(
+        rng.integers(-2**31, 2**31, 5 * tile_words).astype(np.int32))
+    meta = torch.tensor([
+        [0xFFFFFFFF, 0, 0, full, 0, 0],
+        [1, maxv - 1, 0, full, 0, 4242],
+        [0, maxv - 1, 11, full, 0, 7],
+        [0, maxv - 1, 11, full // 2 + 1, 3, 0xFFFFFFFF],
+        [1, maxv - 1, 0, full, 5, 0xFFFFFFFF]], dtype=torch.int64)
+    wide = [(0, maxv - 1), (1, 0), (1, maxv - 1)] * 3 + [(maxv, 0), (0, maxv)]
+    narrow = [tuple(sorted(rng.integers(0, maxv, 2).tolist()))
+              for _ in range(9)] + [(1, 0), (maxv - 1, maxv - 1)]
+    ranges = torch.tensor(wide + narrow, dtype=torch.int64)
+    weights = torch.from_numpy(rng.integers(-5000, 5000, maxv + 8)
+                               .astype(np.int32))
+    return (words, bitpack.to_u32_bits(meta), bitpack.to_u32_bits(ranges),
+            weights, 11)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("with_sum", [False, True])
+def test_fused_zone_agg_tiles_match_plain(card, width, with_sum):
+    tw = fused_scan.DEFAULT_TILE_WORDS
+    words, meta, ranges, weights, k = agg_tiles(
+        width, np.random.default_rng(3 * width + with_sum), tw)
+    want = agg_scan.fused_zone_agg_plain(words, meta, ranges, weights, width,
+                                         k, with_sum, tw)
+    got = agg_scan.fused_zone_agg(words.to(card), meta.to(card),
+                                  ranges.to(card), weights.to(card), width,
+                                  k, with_sum, tw)
+    assert want[4].tolist() == [0, 2, 1, 1, 1 if with_sum else 2]
+    for g, r in zip(got, want):
+        assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_level_histogram_matches_plain(card, width):
+    rng = np.random.default_rng(40 + width)
+    ns = [50000, 1, 3000]
+    packed, zones, _ = _agg_level(width, rng, ns)
+    maxv = 2 ** min(width, 12)
+    cuts = [np.unique(np.concatenate([[1], rng.integers(1, maxv, b), [maxv]]))
+            for b in (63, 3, 10)]
+    before = ops.LAUNCHES["zone_histogram"]
+    want, want_info = ops.level_histogram(packed, ns, cuts, zones, width)
+    got, info = ops.level_histogram([p.to(card) for p in packed], ns, cuts,
+                                    _to(card, zones), width)
+    assert ops.LAUNCHES["zone_histogram"] == before + 1
+    assert info == want_info
+    for g, r in zip(got, want):
+        assert np.array_equal(g, r)
+
+
+def test_tree_aggregates_on_the_card_match_the_cpu(card):
+    """A compacted tree with sequential keys (the fast path) and the same
+    tree with fresh writes (the general path) answer alike on the card and
+    the CPU, with both aggregate kernels launched."""
+    cfg = T.LSMConfig(value_width=16, file_bytes=64 * 1024, l0_limit=2,
+                      size_ratio=3)
+    trees = [T.LSMTree(cfg, device=d) for d in ("cpu", "cuda")]
+    rng = np.random.default_rng(8)
+    n = 30000
+    keys = np.arange(n, dtype=np.uint64)
+    vals = np.asarray([b"c%03d_%05d" % (i % 37, i)
+                       for i in rng.integers(0, 400, n)], "S16")
+    specs = [AggSpec("count"), AggSpec("sum"), AggSpec("min"), AggSpec("max"),
+             AggSpec("count", pred=T.Predicate("prefix", b"c01")),
+             AggSpec("sum", pred=T.Predicate("range", b"c005", b"c020")),
+             AggSpec("group_count", group=GroupBy("prefix", prefix_len=4),
+                     top_k=5),
+             AggSpec("group_count", group=GroupBy("bucket", n_buckets=16))]
+    ops.reset_launches()
+    for t in trees:
+        t.put_batch(keys, vals)
+        t.compact()
+    res = [t.aggregate_many(specs) for t in trees]
+    assert res[0] == res[1]
+    assert trees[1].agg_stats.counts["agg_fastpath_runs"] > 0
+    for t in trees:
+        t.put_batch(keys[:700], vals[700:1400])
+        for k in range(2000, 2100):
+            t.delete(k)
+    res = [t.aggregate_many(specs) for t in trees]
+    assert res[0] == res[1]
+    agg = lambda t: {k: v for k, v in t.agg_stats.counts.items()
+                     if k.startswith("agg_")}
+    assert agg(trees[0]) == agg(trees[1])
+    assert ops.LAUNCHES["fused_zone_agg"] > 0, ops.LAUNCHES
+    assert ops.LAUNCHES["zone_histogram"] > 0, ops.LAUNCHES

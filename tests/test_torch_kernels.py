@@ -5,7 +5,9 @@ CPU) is held bit for bit against the reference's ``repro.kernels.ops``
 entry point (Pallas in interpret mode) and its ``kernels/ref.py`` oracle,
 over widths 1-32, K of 1, 4 and 16 with empty ``lo > hi`` ranges,
 padding-only tiles, SCTs without zones or not tile-aligned, dead entries
-and unused-code table slots, and n = 0 and n = 1.  The CUDA kernels
+and unused-code table slots, and n = 0 and n = 1; the aggregate kernels
+with SUM on and off over skipped, closed-form, evaluated and part-padding
+tiles.  The CUDA kernels
 themselves are held against these plain versions on the card in
 ``test_torch_gpu.py``.
 """
@@ -16,10 +18,11 @@ import pytest
 import torch
 
 from repro.core.sct import bitpack as np_bitpack
+from repro.kernels import agg_scan as jagg
 from repro.kernels import fused_scan as jfused
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import bitpack, fused_scan, merge_remap, ops
+from repro_torch.kernels import agg_scan, bitpack, fused_scan, merge_remap, ops
 
 WIDTHS = [1, 2, 4, 8, 16, 32]
 TILE = fused_scan.DEFAULT_TILE_WORDS
@@ -256,3 +259,196 @@ def test_remap_pack_empty_and_all_dead():
     got = merge_remap.remap_pack_codes(dead, torch.zeros(5, dtype=torch.int32),
                                        empty, torch.zeros(1, dtype=torch.int32), 1)
     assert got.tolist() == [0]
+
+
+# --------------------------------------------------------------------------- #
+# fused_zone_agg / zone_histogram: the kernels' functions
+# --------------------------------------------------------------------------- #
+def _agg_tiles(width, rng):
+    """Five tiles: skipped (empty zone), closed form, evaluated, evaluated
+    with a part-padding tail (and a weight base), and closed form without
+    SUM but evaluated with it (unknown weight total).  Range group 0
+    contains the closed tiles' zone or is empty; group 1 is narrow."""
+    per = 32 // width
+    maxv = 2 ** min(width, 12)
+    full = TILE * per
+    words = rng.integers(0, 2 ** 32, 5 * TILE, dtype=np.uint64).astype(np.uint32)
+    meta = np.asarray([
+        [0xFFFFFFFF, 0, 0, full, 0, 0],
+        [1, maxv - 1, 0, full, 0, 4242],
+        [0, maxv - 1, 3, full, 0, 7],
+        [0, maxv - 1, 3, full // 2 + 1, 3, 0xFFFFFFFF],
+        [1, maxv - 1, 0, full, 5, 0xFFFFFFFF]], np.uint32)
+    a, b = sorted(rng.integers(0, maxv, 2).tolist())
+    ranges = np.asarray([(0, maxv - 1), (1, 0), (1, maxv - 1),
+                         (a, b), (1, 0), (maxv - 1, maxv - 1)], np.uint32)
+    weights = rng.integers(-5000, 5000, maxv + 8).astype(np.int32)
+    return words, meta, ranges, weights
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("with_sum", [False, True])
+def test_fused_zone_agg_plain_matches_jax_kernel_and_oracle(width, with_sum):
+    rng = np.random.default_rng(200 + width + with_sum)
+    words, meta, ranges, weights = _agg_tiles(width, rng)
+    k = 3
+    got = agg_scan.fused_zone_agg(_t(words), _t(meta), _t(ranges),
+                                  _t(weights), width, k, with_sum, TILE)
+    assert got[4].tolist() == [0, 2, 1, 1, 1 if with_sum else 2]
+    wpad = np.zeros(-(-weights.shape[0] // 128) * 128, np.int32)
+    wpad[:weights.shape[0]] = weights
+    pallas = jagg.fused_zone_agg_2d(
+        jnp.asarray(words.reshape(-1, 128)), jnp.asarray(meta),
+        jnp.asarray(ranges), jnp.asarray(wpad.reshape(-1, 128)), width=width,
+        n_preds=k, with_sum=with_sum, block_rows=TILE // 128, interpret=True)
+    oracle = jref.fused_zone_agg(words.reshape(-1, 128), meta, ranges, wpad,
+                                 width=width, n_preds=k, with_sum=with_sum,
+                                 block_rows=TILE // 128)
+    mine = (got[0].numpy(), _u32(got[1]), _u32(got[2]), got[3].numpy(),
+            got[4].numpy())
+    for want in (pallas, oracle):
+        want = [np.asarray(w) for w in want]
+        want[4] = want[4].reshape(-1)
+        for name, g, w in zip(("counts", "mins", "maxs", "sums", "flags"),
+                              mine, want):
+            assert np.array_equal(g.astype(np.int64), w.astype(np.int64)), name
+
+
+def _hist_tiles(width, rng):
+    """Five tiles over two SCT edge rows (the second padded by repeating
+    its last edge): zone outside the edges (skipped), zone inside one bin
+    (closed form), zone crossing edges (evaluated), the same with a
+    part-padding tail, and no entry (skipped)."""
+    per = 32 // width
+    maxv = 2 ** min(width, 12)
+    full = TILE * per
+    words = rng.integers(0, 2 ** 32, 5 * TILE, dtype=np.uint64).astype(np.uint32)
+    if width >= 16:   # keep some codes inside the edge range
+        words &= np.uint32(0x0FFF0FFF if width == 16 else 0x00000FFF)
+    cuts = np.unique(rng.integers(2, maxv, 4)) if maxv > 2 else []
+    row0 = np.concatenate([[1], cuts, [maxv]]).astype(np.uint32)
+    n_bins = row0.shape[0] - 1
+    row1 = np.full(n_bins + 1, maxv, np.uint32)
+    row1[0] = 0
+    row1[1:-1] = 1
+    edges = np.stack([row0, row1])
+    meta = np.asarray([
+        [0, 0, 0, full, 0, 0],
+        [1, 1, 0, full, 0, 0],
+        [0, maxv - 1, 1, full, 0, 0],
+        [0, maxv - 1, 0, full // 2 + 1, 0, 0],
+        [0, maxv - 1, 0, 0, 0, 0]], np.uint32)
+    return words, meta, edges, n_bins
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_zone_histogram_plain_matches_jax_kernel_and_oracle(width):
+    rng = np.random.default_rng(300 + width)
+    words, meta, edges, n_bins = _hist_tiles(width, rng)
+    got = agg_scan.zone_histogram(_t(words), _t(meta), _t(edges), width,
+                                  n_bins, TILE)
+    assert got[1].tolist() == [0, 2, 1, 1, 0]
+    assert int(got[0][2].sum()) > 0
+    pallas = jagg.zone_histogram_2d(
+        jnp.asarray(words.reshape(-1, 128)), jnp.asarray(meta),
+        jnp.asarray(edges), width=width, n_bins=n_bins,
+        block_rows=TILE // 128, interpret=True)
+    oracle = jref.zone_histogram(words.reshape(-1, 128), meta, edges,
+                                 width=width, n_bins=n_bins,
+                                 block_rows=TILE // 128)
+    for want in (pallas, oracle):
+        assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
+        assert np.array_equal(got[1].numpy(), np.asarray(want[1]).reshape(-1))
+
+
+def test_agg_kernels_reject_bad_operands():
+    words = torch.zeros(TILE, dtype=torch.int32)
+    meta = torch.zeros((1, 6), dtype=torch.int32)
+    ranges = torch.zeros((1, 2), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        agg_scan.fused_zone_agg(words, meta[:, :4], ranges,
+                                torch.zeros(1, dtype=torch.int32), 8, 1, False)
+    with pytest.raises(ValueError):   # SUM without a weight table
+        agg_scan.fused_zone_agg(words, meta, ranges,
+                                torch.zeros(0, dtype=torch.int32), 8, 1, True)
+    with pytest.raises(ValueError):
+        agg_scan.zone_histogram(words, meta,
+                                torch.zeros((1, 66), dtype=torch.int32), 8, 65)
+
+
+# --------------------------------------------------------------------------- #
+# fused_level_agg / level_histogram: tile/meta construction and per-SCT folds
+# --------------------------------------------------------------------------- #
+def _agg_level(width, ns, rng, zoned):
+    """SCTs whose first column is sorted (tiles close and skip) and the rest
+    uniform, with block zones and weight totals computed as ``build_sct``
+    does, and per-SCT weight tables."""
+    epb = 146
+    maxv = 2 ** min(width, 12)
+    packed, zones_np, zones_t, weights = [], [], [], []
+    for j, (n, z) in enumerate(zip(ns, zoned)):
+        codes = rng.integers(1 if j == 0 else 0, maxv, n)
+        if j == 0:
+            codes = np.sort(codes)
+        wt = rng.integers(0, 1000, maxv).astype(np.int32)
+        packed.append(np_bitpack(codes.astype(np.int32), width))
+        weights.append(wt)
+        if not z:
+            zones_np.append(None)
+            zones_t.append(None)
+            continue
+        starts = np.arange(0, n, epb)
+        lo = np.minimum.reduceat(codes, starts).astype(np.uint32)
+        hi = np.maximum.reduceat(codes, starts).astype(np.uint32)
+        ws = np.add.reduceat(wt.astype(np.int64)[codes], starts)
+        zones_np.append((lo, hi, epb, ws))
+        zones_t.append((_t(lo.astype(np.int64), torch.int64),
+                        _t(hi.astype(np.int64), torch.int64), epb,
+                        torch.from_numpy(ws)))
+    return packed, zones_np, zones_t, weights
+
+
+@pytest.mark.parametrize("width,ns,zoned", [
+    (2, (9000, 1, 700), (True, True, True)),
+    (8, (30000, 2100), (True, False)),          # an SCT without zones
+    (32, (5000, 3000), (True, True)),
+])
+@pytest.mark.parametrize("with_sum", [False, True])
+def test_fused_level_agg_matches_jax(width, ns, zoned, with_sum):
+    rng = np.random.default_rng(width + 5 * with_sum)
+    packed, zones_np, zones_t, weights = _agg_level(width, ns, rng, zoned)
+    maxv = 2 ** min(width, 12)
+    ranges = np.asarray([(1, maxv - 1), (1, 0), (maxv // 4, maxv // 2),
+                         (0, maxv - 1)], np.uint32)
+    w = weights if with_sum else None
+    want, want_info = jops.fused_level_agg(packed, list(ns),
+                                           [ranges] * len(ns), zones_np,
+                                           width, weights_list=w)
+    got, info = ops.fused_level_agg([_t(p) for p in packed], list(ns),
+                                    [ranges] * len(ns), zones_t, width,
+                                    weights_list=w)
+    assert info == want_info
+    for g, r in zip(got, want):
+        for key in r:
+            assert np.array_equal(g[key], r[key]), key
+    if width == 32:   # sorted first SCT: tiles take the closed form
+        assert info["tiles_shortcircuit"] > 0
+
+
+@pytest.mark.parametrize("width,ns,zoned", [
+    (4, (9000, 1, 700), (True, True, True)),
+    (16, (30000, 2100), (True, False)),
+])
+def test_level_histogram_matches_jax(width, ns, zoned):
+    rng = np.random.default_rng(60 + width)
+    packed, zones_np, zones_t, _ = _agg_level(width, ns, rng, zoned)
+    maxv = 2 ** min(width, 12)
+    edges = [np.unique(np.concatenate([[1], rng.integers(1, maxv, b), [maxv]]))
+             .astype(np.uint32) for b in (3, 9, 1)][:len(ns)]
+    want, want_info = jops.level_histogram(packed, list(ns), edges, zones_np,
+                                           width)
+    got, info = ops.level_histogram([_t(p) for p in packed], list(ns), edges,
+                                    zones_t, width)
+    assert info == want_info
+    for g, r in zip(got, want):
+        assert np.array_equal(g, r)

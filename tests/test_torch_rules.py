@@ -7,7 +7,9 @@
   not carry on on the CPU.
 * A kernel wrapper handed tensors on the card launches its kernel or
   raises: it never falls back to its plain version.
-* Configuration values outside the ported slice raise ``ValueError``.
+* Configuration values outside the ported slice raise ``ValueError``
+  naming their ROADMAP item; the reference's name ``'jax_packed'`` of the
+  ported compaction backend builds the same tree as ``'packed'``.
 * ``chip_smoke.py`` gives no result without a card or outside the repo.
 """
 
@@ -18,12 +20,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import repro_torch.core as T
 from repro_torch.core.lsm import SUPPORTED
-from repro_torch.kernels import _build, bitpack, fused_scan, merge_remap, ops
+from repro_torch.kernels import (_build, agg_scan, bitpack, fused_scan,
+                                 merge_remap, ops)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -53,7 +57,8 @@ def test_port_sources_import_neither_jax_nor_repro():
 
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
-    code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
+    code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops, "
+            "repro_torch.query\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -73,7 +78,7 @@ def test_default_device_is_the_card_and_missing_card_raises(monkeypatch):
 
 
 OTHER_VALUES = {"codec": "plain", "filter_backend": "jax_packed",
-                "compaction_backend": "jax_packed", "compaction_policy": "tiered",
+                "compaction_backend": "jax", "compaction_policy": "tiered",
                 "policy_autotune": True, "maintenance": "background",
                 "wal_sync": "group", "blob_compress": True,
                 "level_modes": ("L", "T")}
@@ -83,6 +88,42 @@ OTHER_VALUES = {"codec": "plain", "filter_backend": "jax_packed",
 def test_unsupported_config_value_raises(field):
     with pytest.raises(ValueError, match="ROADMAP"):
         T.LSMConfig(**{field: OTHER_VALUES[field]})
+
+
+@pytest.mark.parametrize("value,kernel", [
+    (("filter_backend", "jax_packed"), "multi_range_filter_packed_2d"),
+    (("filter_backend", "jax"), "range_filter_codes_2d"),
+    (("compaction_backend", "jax"), "remap_codes_2d"),
+])
+def test_rejected_backend_names_its_kernel(value, kernel):
+    """A backend that needs an unported kernel names it by function."""
+    with pytest.raises(ValueError, match=kernel):
+        T.LSMConfig(**dict([value]))
+
+
+def test_jax_packed_compaction_builds_the_same_tree_as_packed():
+    """'jax_packed' (the reference's name) and 'packed' (the port's earlier
+    name) select the same compaction path: identical trees."""
+    trees = [T.LSMTree(T.LSMConfig(value_width=16, file_bytes=8 * 1024,
+                                   l0_limit=2, size_ratio=3,
+                                   compaction_backend=name), device="cpu")
+             for name in ("jax_packed", "packed")]
+    rng = np.random.default_rng(4)
+    keys = rng.integers(0, 3000, 4000).astype(np.uint64)
+    vals = np.asarray([b"v_%04d" % v for v in rng.integers(0, 500, 4000)],
+                      "S16")
+    for t in trees:
+        t.put_batch(keys, vals)
+        t.compact()
+    a, b = trees
+    assert a.n_compactions == b.n_compactions > 0
+    assert [[s.file_id for s in lvl] for lvl in a.levels] == \
+        [[s.file_id for s in lvl] for lvl in b.levels]
+    for la, lb in zip(a.levels, b.levels):
+        for x, y in zip(la, lb):
+            assert torch.equal(x.packed, y.packed)
+            assert np.array_equal(x.keys, y.keys)
+            assert np.array_equal(x.opd.values, y.opd.values)
 
 
 def test_spill_dir_raises(tmp_path):
@@ -102,7 +143,9 @@ def pretend_card(monkeypatch):
     for mod, name in ((bitpack, "pack_codes_plain"),
                       (bitpack, "unpack_codes_plain"),
                       (fused_scan, "fused_zone_filter_plain"),
-                      (merge_remap, "remap_pack_codes_plain")):
+                      (merge_remap, "remap_pack_codes_plain"),
+                      (agg_scan, "fused_zone_agg_plain"),
+                      (agg_scan, "zone_histogram_plain")):
         monkeypatch.setattr(mod, name, _no_plain)
     monkeypatch.setattr(_build, "_lib", None)
     monkeypatch.setattr(_build, "find_nvcc", lambda: (_ for _ in ()).throw(
@@ -121,6 +164,12 @@ def test_card_requests_raise_instead_of_falling_back(pretend_card, tmp_path,
         lambda: fused_scan.fused_zone_filter(
             torch.zeros(1024, dtype=torch.int32), torch.zeros((1, 4), dtype=torch.int32),
             torch.zeros((1, 2), dtype=torch.int32), 8, 1),
+        lambda: agg_scan.fused_zone_agg(
+            torch.zeros(1024, dtype=torch.int32), torch.zeros((1, 6), dtype=torch.int32),
+            torch.zeros((1, 2), dtype=torch.int32), i32, 8, 1, True),
+        lambda: agg_scan.zone_histogram(
+            torch.zeros(1024, dtype=torch.int32), torch.zeros((1, 6), dtype=torch.int32),
+            torch.zeros((1, 5), dtype=torch.int32), 8, 4),
     ]
     before = dict(ops.LAUNCHES)
     for call in calls:
