@@ -5,7 +5,7 @@
 
 Phases, each printing JSON lines:
 
-1. build:   nvcc builds the six CUDA kernels from ``src/repro_torch``;
+1. build:   nvcc builds the eight CUDA kernels from ``src/repro_torch``;
             prints build seconds, the card (nvidia-smi), torch and CUDA.
 2. main:    the port's main path through ``LSMTree`` at the paper's
             section 5.1 shapes (16-byte keys, 256-byte values from a
@@ -18,7 +18,19 @@ Phases, each printing JSON lines:
             last-write-wins + byte compares), independent of the port.
             Kernel launch counts are reset just before and read just
             after; each of the four kernels of that path must have launched.
-3. agg:     the analytics path through ``LSMTree.aggregate_many`` (COUNT,
+3. serve:   the main tree with its filter backend switched by configuration
+            (the write path does not depend on it).  serve.jax_packed: a
+            ``ScanServer`` (max_batch 16) fed the 16 predicates interleaved
+            with 2 selective aggregates; serve.jax: the 16 predicates through
+            ``filter_many`` on the same snapshot, also equal to the 'fused'
+            answers.  Answers are held against the plain host model.  Each
+            phase resets the launch counts just before its checked call and
+            reads them just after: serve.jax_packed must have launched
+            multi_range_filter_packed, serve.jax range_filter_codes and
+            unpack_codes, neither the fused filter.  serve.turns: the
+            three filter backends' ``filter_many`` in turns on the warm
+            main and clustered trees, each answer equal to 'fused'.
+4. agg:     the analytics path through ``LSMTree.aggregate_many`` (COUNT,
             SUM, MIN/MAX, GROUP BY prefix with top-k and by 16 buckets):
             agg.general on the main tree (overlapping levels: the fused
             filter and the host visibility merge), agg.fast on a new tree
@@ -30,10 +42,10 @@ Phases, each printing JSON lines:
             counts just before its checked ``aggregate_many`` and reads
             them just after: agg.general must have launched the fused
             filter, agg.fast and agg.clustered both aggregate kernels.
-4. kernels: each kernel against its plain PyTorch version on the card, on
-            operands recorded from the main path and agg.fast
-            (bit-identical required), with CUDA-event medians, the plain
-            version's time and the memory-bound time from the card's
+5. kernels: each kernel against its plain PyTorch version on the card, on
+            operands recorded from the main path, the serve phases and
+            agg.fast (bit-identical required), with CUDA-event medians, the
+            plain version's time and the memory-bound time from the card's
             data-sheet bandwidth.
 
 The last three lines are the card (nvidia-smi name, power limit), the
@@ -76,6 +88,10 @@ KERNELS = {
                        "src/repro/kernels/agg_scan.py:228"),
     "zone_histogram": ("src/repro_torch/kernels/csrc/agg_scan.cu",
                        "src/repro/kernels/agg_scan.py:344"),
+    "multi_range_filter_packed": ("src/repro_torch/kernels/csrc/multi_filter.cu",
+                                  "src/repro/kernels/multi_filter.py:77"),
+    "range_filter_codes": ("src/repro_torch/kernels/csrc/opd_filter.cu",
+                           "src/repro/kernels/opd_filter.py:49"),
 }
 MAIN_KERNELS = ("pack_codes", "unpack_codes", "fused_zone_filter",
                 "remap_pack_codes")
@@ -85,10 +101,15 @@ SYMBOLS = {"pack_codes": "pack_codes_kernel",
            "fused_zone_filter": "fused_zone_filter_kernel",
            "remap_pack_codes": "remap_pack_kernel",
            "fused_zone_agg": "fused_zone_agg_kernel",
-           "zone_histogram": "zone_histogram_kernel"}
+           "zone_histogram": "zone_histogram_kernel",
+           "multi_range_filter_packed": "multi_range_filter_kernel",
+           "range_filter_codes": "range_filter_codes_kernel"}
 INT32_MAX = 2**31 - 1
 NO_LIBRARY = ("no single PyTorch call computes this bit-field function; "
               "its plain version is several calls")
+LIBRARY_WHY = {"range_filter_codes": (
+    "no single PyTorch call gives the range mask with per-tile counts; its "
+    "plain version is four calls")}
 
 
 def emit(obj) -> None:
@@ -191,6 +212,13 @@ def run_filter_check(tree, ref: Reference, preds, label: str) -> dict:
     got = tree.filter_many(tp)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    n_match = check_filters(got, ref, preds, label)
+    return {"filter_many_s": dt, "k": len(preds), "rows_matched": n_match}
+
+
+def check_filters(got, ref: Reference, preds, label: str) -> int:
+    """Hold each ``FilterResult`` against the host model; returns the rows
+    matched."""
     n_match = 0
     for (kind, a, b), r in zip(preds, got):
         keys, vals = ref.filter(kind, a, b)
@@ -200,7 +228,7 @@ def run_filter_check(tree, ref: Reference, preds, label: str) -> dict:
         check(r.values.tolist() == vals.tolist(),
               f"{label}: filter {kind} {a!r} values differ")
         n_match += int(keys.shape[0])
-    return {"filter_many_s": dt, "k": len(preds), "rows_matched": n_match}
+    return n_match
 
 
 def run_get_check(tree, ref: Reference, keys: np.ndarray, label: str) -> dict:
@@ -309,7 +337,138 @@ def main_phase(args, device: str):
     for name in MAIN_KERNELS:
         check(launches[name] > 0, f"kernel {name} never launched on the main path")
     return launches, {"cfg": cfg, "tree": tree, "ref": ref, "vocab": vocab,
-                      "ctree": ctree, "cref": cref, "cpreds": cpreds}
+                      "preds": preds, "ctree": ctree, "cref": cref,
+                      "cpreds": cpreds}
+
+
+# --------------------------------------------------------------------------- #
+# serving path: the batched scan server on the staged filter backends
+# --------------------------------------------------------------------------- #
+# selective aggregates: the general path's host merge sees few candidates
+SERVE_AGGS = [
+    ("count", ("prefix", b"cat_00042_", b""), None, None),
+    ("sum", ("range", b"cat_00100_", b"cat_00101_\xff"), None, None),
+]
+
+
+def serve_phase(state, recs) -> dict:
+    """serve.jax_packed and serve.jax on the main tree, its filter backend
+    switched by configuration (the write path does not depend on it);
+    returns each phase's launch counts by the kernel it exercises."""
+    import dataclasses
+
+    import torch
+    from repro_torch import Predicate, ScanServer
+
+    tree, ref, preds = state["tree"], state["ref"], state["preds"]
+    fused_cfg = tree.cfg
+    snap = tree.snapshot()
+    for r in recs.values():
+        r.active = True
+
+    # serve.jax_packed: the server, 16 scans interleaved with 2 aggregates
+    tree.cfg = dataclasses.replace(fused_cfg, filter_backend="jax_packed")
+    srv = ScanServer(tree, max_batch=16)
+    specs = make_specs(SERVE_AGGS)
+    rids = srv.submit_many([Predicate(*p) for p in preds[:8]])
+    agg_rids = [srv.submit_agg(specs[0])]
+    rids += srv.submit_many([Predicate(*p) for p in preds[8:]])
+    agg_rids.append(srv.submit_agg(specs[1]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, packed_launches = launch_window(srv.drain)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(packed_launches["multi_range_filter_packed"] > 0,
+          "serve.jax_packed: multi_range_filter_packed never launched")
+    check(packed_launches["fused_zone_filter"] == 0,
+          "serve.jax_packed: the fused filter launched")
+    n_match = check_filters([out[r] for r in rids], ref, preds,
+                            "serve.jax_packed")
+    check_aggs([out[r] for r in agg_rids], state["vocab"], ref.state()[1],
+               SERVE_AGGS, "serve.jax_packed")
+    st = srv.stats
+    emit({"phase": "serve.jax_packed", "requests": st.n_served,
+          "scans": len(rids), "aggregates": len(agg_rids),
+          "batches": st.n_batches, "batch_sizes": st.batch_sizes,
+          "mean_batch": st.mean_batch, "wall_s": wall,
+          "wall_s_per_batch": wall / st.n_batches,
+          "wait_s_median": statistics.median(st.wait_seconds),
+          "rows_matched": n_match, "launches": packed_launches,
+          **device_busy(lambda: tree.filter_many(
+              [Predicate(*p) for p in preds], snapshot=snap))})
+
+    # serve.jax: the same scans through filter_many on the same snapshot,
+    # equal to the host model and to the 'fused' answers
+    tp = [Predicate(*p) for p in preds]
+    tree.cfg = dataclasses.replace(fused_cfg, filter_backend="jax")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    staged, codes_launches = launch_window(
+        lambda: tree.filter_many(tp, snapshot=snap))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for r in recs.values():
+        r.active = False
+    for name in ("range_filter_codes", "unpack_codes"):
+        check(codes_launches[name] > 0, f"serve.jax: {name} never launched")
+    check(codes_launches["fused_zone_filter"] == 0,
+          "serve.jax: the fused filter launched")
+    n_match = check_filters(staged, ref, preds, "serve.jax")
+    tree.cfg = fused_cfg
+    fused = tree.filter_many(tp, snapshot=snap)
+    for p, a, b in zip(preds, staged, fused):
+        check(np.array_equal(a.keys, b.keys) and
+              a.values.tolist() == b.values.tolist(),
+              f"serve.jax: {p} differs from the fused backend")
+    emit({"phase": "serve.jax", "filter_many_s": dt, "k": len(preds),
+          "rows_matched": n_match, "launches": codes_launches,
+          "equal_to_fused": True})
+    emit({"phase": "serve.turns", **backend_turns(state)})
+    return {"multi_range_filter_packed":
+            packed_launches["multi_range_filter_packed"],
+            "range_filter_codes": codes_launches["range_filter_codes"]}
+
+
+FILTER_BACKENDS = ("fused", "jax_packed", "jax")
+
+
+def backend_turns(state) -> dict:
+    """``filter_many`` under each filter backend in turns (A B C C B A A B
+    C) on the warm main and clustered trees, one snapshot each; every
+    answer must equal the turn's first ('fused', held against the host
+    model by main.filter and clustered).  Returns the wall seconds per
+    backend and their medians."""
+    import dataclasses
+
+    import torch
+    from repro_torch import Predicate
+
+    order = FILTER_BACKENDS + FILTER_BACKENDS[::-1] + FILTER_BACKENDS
+    out = {"order": order}
+    for label, tree, preds in (("main", state["tree"], state["preds"]),
+                               ("clustered", state["ctree"],
+                                state["cpreds"])):
+        tp = [Predicate(*p) for p in preds]
+        snap, base = tree.snapshot(), tree.cfg
+        secs = {b: [] for b in FILTER_BACKENDS}
+        first = None
+        for b in order:
+            tree.cfg = dataclasses.replace(base, filter_backend=b)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = tree.filter_many(tp, snapshot=snap)
+            torch.cuda.synchronize()
+            secs[b].append(time.perf_counter() - t0)
+            first = first or got
+            for p, x, y in zip(preds, got, first):
+                check(np.array_equal(x.keys, y.keys) and
+                      x.values.tolist() == y.values.tolist(),
+                      f"serve.turns: {label} {b} {p} differs from 'fused'")
+        tree.cfg = base
+        out[label] = {"filter_many_s": secs, "median_s": {
+            b: statistics.median(v) for b, v in secs.items()}}
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -403,6 +562,13 @@ def run_agg_check(tree, vocab, idx, table, label, domain=None) -> dict:
     dt = time.perf_counter() - t0
     stages = {k: v - before.get(k, 0.0)
               for k, v in tree.agg_stats.seconds.items()}
+    check_aggs(got, vocab, idx, table, label, domain)
+    return {"aggregate_many_s": dt, "specs": len(specs), "stages_s": stages}
+
+
+def check_aggs(got, vocab, idx, table, label, domain=None) -> None:
+    """Hold each aggregate of ``table`` against the live rows (vocabulary
+    indices ``idx``) of the host model."""
     weights = np.asarray([numeric(bytes(v)) for v in vocab], np.int64)
     rank = np.empty(vocab.shape[0], np.int64)
     rank[np.argsort(vocab)] = np.arange(vocab.shape[0])
@@ -429,7 +595,6 @@ def run_agg_check(tree, vocab, idx, table, label, domain=None) -> dict:
                 check(len(edges) < group[1], f"{what}: {len(edges)} edges")
             want = expected_groups(vocab, sel, group, edges, top_k)
             check(r.groups == want, f"{what}: groups differ")
-    return {"aggregate_many_s": dt, "specs": len(specs), "stages_s": stages}
 
 
 def pinned_domain(ref: Reference):
@@ -659,13 +824,15 @@ def compare(name: str, kernel, plain, nbytes: int, bw: float, launches: int,
             "device_ms": profiled_device_ms(kernel, SYMBOLS[name]),
             "plain_ms": plain_ms, "bound_ms": nbytes / bw * 1e3,
             "bytes": nbytes,
-            "bound_by": "bytes", "library_ms": None, "library_why": NO_LIBRARY,
+            "bound_by": "bytes", "library_ms": None,
+            "library_why": LIBRARY_WHY.get(name, NO_LIBRARY),
             "shape": shape}
 
 
 def kernel_phase(recs, launches: dict, bw: float) -> list:
     import torch
-    from repro_torch.kernels import agg_scan, bitpack, fused_scan, merge_remap
+    from repro_torch.kernels import (agg_scan, bitpack, fused_scan,
+                                     merge_remap, multi_filter, opd_filter)
 
     rows = []
     (codes, width), _ = recs["pack"].calls[0]
@@ -751,6 +918,25 @@ def kernel_phase(recs, launches: dict, bw: float) -> list:
         + 4 * n_tiles * n_bins + 4 * n_tiles, bw, launches["zone_histogram"],
         f"words={hw.shape[0]} tiles={n_tiles} evaluated={evaluated} "
         f"bins={n_bins} width={width}"))
+
+    # the staged backends at serve's shapes: the largest SCT of the tree
+    (mw, mr, width, tw), _ = recs["multi"].calls[0]
+    k, n_tiles = mr.shape[0], mw.shape[0] // tw
+    rows.append(compare(
+        "multi_range_filter_packed",
+        lambda: multi_filter.multi_range_filter(mw, mr, width, tw),
+        lambda: multi_filter.multi_range_filter_plain(mw, mr, width, tw),
+        4 * mw.shape[0] + 4 * k * mw.shape[0] + 4 * k * n_tiles + 8 * k, bw,
+        launches["multi_range_filter_packed"],
+        f"words={mw.shape[0]} tiles={n_tiles} K={k} width={width}"))
+    (cc, lo, hi, tc), _ = recs["codes"].calls[0]
+    n_tiles = cc.shape[0] // tc
+    rows.append(compare(
+        "range_filter_codes",
+        lambda: opd_filter.code_range_filter(cc, lo, hi, tc),
+        lambda: opd_filter.code_range_filter_plain(cc, lo, hi, tc),
+        5 * cc.shape[0] + 4 * n_tiles, bw, launches["range_filter_codes"],
+        f"codes={cc.shape[0]} tiles={n_tiles} lo={lo} hi={hi}"))
     return rows
 
 
@@ -804,11 +990,20 @@ def main() -> int:
         "hist": Recorder(ops.zone_histogram,
                          lambda w, m, e, wd, nb, *a: w.shape[0] * nb,
                          active=False),
+        # recorded during the serve phases only
+        "multi": Recorder(ops.multi_range_filter,
+                          lambda w, r, *a: w.shape[0] * r.shape[0],
+                          active=False),
+        "codes": Recorder(ops.code_range_filter, lambda c, *a: c.shape[0],
+                          active=False),
     }
     ops.pack_codes, ops.unpack_codes = recs["pack"], recs["unpack"]
     ops.fused_zone_filter, ops.remap_pack_codes = recs["fused"], recs["remap"]
     ops.fused_zone_agg, ops.zone_histogram = recs["agg"], recs["hist"]
+    ops.multi_range_filter, ops.code_range_filter = recs["multi"], recs["codes"]
     launches, state = main_phase(args, "cuda")
+    launches.update(serve_phase(state, {k: recs[k]
+                                        for k in ("multi", "codes")}))
     fast_launches = agg_phase(args, state,
                               {k: recs[k] for k in ("agg", "hist")}, "cuda")
     launches.update({k: fast_launches[k] for k in AGG_KERNELS})

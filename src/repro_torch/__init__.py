@@ -7,5 +7,7 @@ card unless the caller passes ``device="cpu"``.
 
 from repro_torch.core import LSMConfig, LSMTree, Predicate
 from repro_torch.query import AggSpec, GroupBy
+from repro_torch.serving import ScanServer
 
-__all__ = ["LSMConfig", "LSMTree", "Predicate", "AggSpec", "GroupBy"]
+__all__ = ["LSMConfig", "LSMTree", "Predicate", "AggSpec", "GroupBy",
+           "ScanServer"]

@@ -1,13 +1,21 @@
-"""Scan-based value filtering (paper §4.2.2), the 'fused' read path.
+"""Scan-based value filtering (paper §4.2.2) on the card.
 
-Port of ``repro/core/filter_exec.py`` for the 'opd' codec and the reference's
-'fused' backend.  K predicates are planned per SCT dictionary on the host
-(two binary searches each) and evaluated over every SCT of a level in ONE
-zone-gated ``fused_level_filter`` launch on the packed words.  Per SCT the
-K bitmaps become masks on the card, tombstones are masked there, and only
-the matching positions and their codes (read straight from the packed
+Port of ``repro/core/filter_exec.py`` for the 'opd' codec and three of the
+reference's backends.  K predicates are planned per SCT dictionary on the
+host (two binary searches each) and evaluated on the card:
+
+* ``'fused'``: every SCT of a level in ONE zone-gated
+  ``fused_level_filter`` launch on the packed words;
+* ``'jax_packed'`` (the serving path): one ``multi_range_filter_packed``
+  launch per SCT over its packed words, all K ranges in one pass;
+* ``'jax'``: one ``range_filter_codes`` launch per (SCT, non-empty
+  predicate) over a transient unpacked code column.
+
+Per SCT the K masks stay on the card, tombstones are masked there, and
+only the matching positions and their codes (read straight from the packed
 words) come back to the host, where the dictionary decodes them and the
-cross-level seqno merge discards stale versions.
+cross-level seqno merge discards stale versions.  The backends give the
+same results bit for bit.
 """
 
 from __future__ import annotations
@@ -69,20 +77,25 @@ class FilterResult:
 def evaluate_filter(runs: List[SCT], memtable: MemTables, pred: Predicate,
                     *, stats: StageStats, store: FileStore,
                     snapshot_seqno: Optional[int] = None,
+                    backend: str = "fused",
                     value_width: Optional[int] = None) -> FilterResult:
     """Single-predicate filter: the K=1 case of ``evaluate_filter_many``."""
     return evaluate_filter_many(
         runs, memtable, [pred], stats=stats, store=store,
-        snapshot_seqno=snapshot_seqno, value_width=value_width)[0]
+        snapshot_seqno=snapshot_seqno, backend=backend,
+        value_width=value_width)[0]
 
 
 def evaluate_filter_many(
     runs: List[SCT], memtable: MemTables, preds: Sequence[Predicate],
     *, stats: StageStats, store: FileStore,
     snapshot_seqno: Optional[int] = None,
+    backend: str = "fused",  # 'fused' | 'jax_packed' | 'jax'
     value_width: Optional[int] = None,
 ) -> List[FilterResult]:
-    """Evaluate K predicates with one launch per level over every run.
+    """Evaluate K predicates with one pass over every run's codes: one
+    launch per level ('fused'), per run ('jax_packed') or per (run,
+    predicate) ('jax').
 
     Returns one ``FilterResult`` per predicate, bit-identical to K
     independent ``evaluate_filter`` calls.  ``value_width`` pins the dtype
@@ -106,7 +119,7 @@ def evaluate_filter_many(
     cand_vals = [[] for _ in range(n_preds)]
     n_scanned = 0
     with stats.time("filter"):
-        masks = _fused_level_masks(live_runs, preds, stats)
+        masks = _run_masks(live_runs, preds, backend, stats)
         for i, s in enumerate(live_runs):
             n_scanned += s.n
             if i not in masks:
@@ -145,6 +158,53 @@ def evaluate_filter_many(
                 cand_keys[k], cand_seqs[k], cand_vals[k],
                 live_runs, mem_newest, snap, n_scanned, value_width))
     return results
+
+
+def _run_masks(live_runs: List[SCT], preds: Sequence[Predicate],
+              backend: str, stats: StageStats) -> dict:
+    """{run index -> bool masks [K, n] on the card} under ``backend``; a run
+    where no predicate can match is left out (no launch).  Tombstones may
+    still be set in a mask: callers AND with ``SCT.live``."""
+    if backend == "fused":
+        return _fused_level_masks(live_runs, preds, stats)
+    out = {}
+    for i, s in enumerate(live_runs):
+        masks = _code_masks_many(s, [s.opd.code_range(p) for p in preds],
+                                 backend)
+        if masks is not None:
+            out[i] = masks
+    return out
+
+
+def _code_masks_many(s: SCT, ranges: Sequence[Tuple[int, int]],
+                     backend: str) -> Optional[torch.Tensor]:
+    """K bool masks [K, n] over one SCT's codes from planned [lo, hi)
+    ranges, or None when every range is empty (no launch).
+
+    'jax' unpacks the code column (-1 at tombstones) and launches
+    ``range_filter_codes`` once per non-empty range; 'jax_packed' hands
+    the (K, 2) table to ``multi_range_filter_packed`` so each packed word is
+    read and field-extracted once for all K ranges (tombstones pack as
+    code 0 and stay in its masks)."""
+    if all(lo >= hi for lo, hi in ranges):
+        return None
+    dev = s.packed.device
+    if backend == "jax":
+        # padded to whole tiles once per run: each launch reads it in place
+        col = s.code_column(pad_to=ops.DEFAULT_TILE_CODES)
+        masks = torch.zeros((len(ranges), s.n), dtype=torch.bool, device=dev)
+        for q, (lo, hi) in enumerate(ranges):
+            if lo < hi:
+                masks[q] = ops.range_filter_codes(col, lo, hi - 1)[:s.n]
+        return masks
+    if backend == "jax_packed":
+        # inclusive [lo, hi-1]; lo > hi encodes the empty range in-kernel
+        tbl = torch.tensor([(lo, hi - 1) if lo < hi else (1, 0)
+                            for lo, hi in ranges], dtype=torch.int64,
+                           device=dev)
+        bitmaps = ops.multi_range_filter_packed(s.packed, s.code_bits, tbl)
+        return ops.bitmap_to_mask(bitmaps, s.code_bits, s.n)
+    raise ValueError(f"filter backend {backend!r}")
 
 
 def _fused_level_masks(live_runs: List[SCT], preds: Sequence[Predicate],

@@ -7,10 +7,12 @@ OPD-encoded SCTs whose packed words and zone maps live on the card;
 words, one launch per level; leveled compaction merges the dictionaries on
 the host and rewrites the packed codes on the card; ``get`` is the point
 lookup; ``aggregate`` / ``aggregate_many`` compute COUNT, SUM, MIN/MAX and
-GROUP BY on the packed codes (``repro_torch.query``).  Results are
-bit-identical to the reference engine configured as
-``LSMConfig(codec='opd', filter_backend='fused',
-compaction_backend='jax_packed')``.
+GROUP BY on the packed codes (``repro_torch.query``).  ``filter_backend``
+'jax_packed' (one multi-range launch per SCT, the reference's serving
+path) and 'jax' (one range launch per SCT and predicate over an unpacked
+column) are the staged alternatives to 'fused'.  Results are bit-identical
+to the reference engine configured as ``LSMConfig(codec='opd',
+filter_backend=<the same>, compaction_backend='jax_packed')``.
 
 Maintenance is synchronous: flushes and compactions run inline on the
 writer's thread.  MVCC follows the paper's file-snapshot scheme: a snapshot
@@ -46,9 +48,8 @@ from repro_torch.storage.io import FileStore
 # item that ports the others (kernels named by their function)
 SUPPORTED = {
     "codec": (("opd",), "§1 competitor codecs"),
-    "filter_backend": (("fused",), "§1 read path, rest, over §2 kernels "
-                       "multi_range_filter_packed_2d, range_filter_packed_2d "
-                       "and range_filter_codes_2d"),
+    "filter_backend": (("fused", "jax_packed", "jax"),
+                       "§1 read path, rest (the host-only 'numpy' backend)"),
     # 'packed' is this port's earlier name of the reference's 'jax_packed'
     "compaction_backend": (("jax_packed", "packed"),
                            "§2 kernel remap_codes_2d (the 'jax' backend; "
@@ -289,6 +290,11 @@ class LSMTree:
             self._cascade()
             self.stall_seconds += time.perf_counter() - t0
 
+    def raise_maintenance_errors(self) -> None:
+        """Raise a failed background flush or compaction to a read-only
+        caller.  With synchronous maintenance a failure raises on the
+        writer's own call, so there is never one to raise here."""
+
     def compact(self) -> None:
         """Full maintenance pass: flush, fold L0 into L1, cascade."""
         self.flush()
@@ -440,16 +446,19 @@ class LSMTree:
         return evaluate_filter(
             snap.runs, snap.mems, pred, stats=self.filter_stats,
             store=self.store, snapshot_seqno=snap.seqno,
+            backend=self.cfg.filter_backend,
             value_width=self.cfg.value_width)
 
     def filter_many(self, preds: List[Predicate],
                     snapshot: Optional[Snapshot] = None) -> List[FilterResult]:
-        """Batched filter: all predicates share one zone-gated
-        ``fused_level_filter`` launch per level, against one snapshot."""
+        """Batched filter against one snapshot: all predicates share one
+        pass over each run's codes ('fused': one zone-gated launch per
+        level; 'jax_packed': one launch per run)."""
         snap = snapshot or self.snapshot()
         return evaluate_filter_many(
             snap.runs, snap.mems, preds, stats=self.filter_stats,
             store=self.store, snapshot_seqno=snap.seqno,
+            backend=self.cfg.filter_backend,
             value_width=self.cfg.value_width)
 
     # ------------------------------------------------------------------ #
@@ -484,6 +493,7 @@ class LSMTree:
         return evaluate_aggregates(
             snap.runs, snap.mems, specs, stats=self.agg_stats,
             store=self.store, snapshot_seqno=snap.seqno,
+            backend=self.cfg.filter_backend,
             value_width=self.cfg.value_width)
 
     def _resolve_agg_specs(self, specs, snap: Snapshot) -> List[AggSpec]:

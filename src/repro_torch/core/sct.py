@@ -9,8 +9,10 @@ already packed and their zone map is built by unpacking on the card.
 
 Unlike the reference, an SCT keeps no unpacked code column (``SCT.evs``):
 readers extract just the codes they need from the packed words on the card
-(``codes_at``).  The 'plain', 'heavy' and 'blob' codecs and ``BlobManager``
-are not ported yet (ROADMAP §1).
+(``codes_at``), and the 'jax' filter backend and the host aggregate routes
+unpack a transient column per call (``code_column``).  The 'plain',
+'heavy' and 'blob' codecs and ``BlobManager`` are not ported yet (ROADMAP
+§1).
 """
 
 from __future__ import annotations
@@ -86,6 +88,21 @@ class SCT:
         per = 32 // width
         words = self.packed[idx // per].to(torch.int64) & 0xFFFFFFFF
         return (words >> ((idx % per) * width)) & ((1 << width) - 1)
+
+    def code_column(self, pad_to: int = 1) -> torch.Tensor:
+        """int32 codes on the card, -1 at tombstones: the reference's
+        ``SCT.evs``, unpacked by the kernel on each call, and -1 past ``n``
+        up to a multiple of ``pad_to`` (so a tiled launch takes the column
+        as it is).  The reference caches it on the SCT; the port keeps no
+        unpacked column."""
+        codes = ops.unpack_codes(self.packed, self.code_bits, self.n)
+        codes.masked_fill_(~self.live, -1)
+        want = -(-self.n // pad_to) * pad_to
+        if want == self.n:
+            return codes
+        col = torch.full((want,), -1, dtype=torch.int32, device=codes.device)
+        col[:self.n] = codes
+        return col
 
     def value_at(self, pos: int) -> bytes:
         """Decoded value of live entry ``pos``."""

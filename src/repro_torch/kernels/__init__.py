@@ -2,7 +2,8 @@
 # use) with their plain PyTorch versions: bitpack (pack / unpack codes),
 # fused_scan (zone-gated K-predicate filter), merge_remap (compaction remap
 # fused with packing), agg_scan (zone-gated aggregation and GROUP BY
-# histogram).  ``ops`` is the public surface.
+# histogram), multi_filter (K ranges over packed words) and opd_filter (one
+# range over an unpacked code column).  ``ops`` is the public surface.
 from repro_torch.kernels import ops
 
 __all__ = ["ops"]

@@ -32,7 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 KERNEL_NAMES = ("pack_codes", "unpack_codes", "fused_zone_filter",
-                "remap_pack_codes", "fused_zone_agg", "zone_histogram")
+                "remap_pack_codes", "fused_zone_agg", "zone_histogram",
+                "multi_range_filter_packed", "range_filter_codes")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 _lock = threading.Lock()
@@ -48,6 +49,8 @@ _SIGNATURES = {
     "repro_remap_pack_codes": [_P, _P, _P, _P, _P, _I64, _I64, _INT, _P],
     "repro_fused_zone_agg": [_P] * 9 + [_I64, _INT, _INT, _INT, _INT, _P],
     "repro_zone_histogram": [_P] * 5 + [_I64, _INT, _INT, _INT, _P],
+    "repro_multi_range_filter": [_P] * 4 + [_I64, _INT, _INT, _INT, _P],
+    "repro_range_filter_codes": [_P, _INT, _INT, _P, _P, _I64, _INT, _P],
 }
 
 

@@ -1,13 +1,15 @@
 """Public entry points of the port's kernels.
 
-Port of ``repro/kernels/ops.py`` for the engine's main path and its
-analytics tier.  The reference's host-side reshapes, pads and permutations
-into the TPU's (8 | 128, 128) tile layout are gone: every kernel here works
-on the engine's linear word layout.  What remains is the level-wide
-tile/meta construction of ``fused_level_filter``, ``fused_level_agg`` and
-``level_histogram`` (the reference's per-tile Python loops, vectorised on
-the device, with per-SCT folds there and one transfer per launch), and
-``bitmap_to_mask``.
+Port of ``repro/kernels/ops.py`` for the engine's main path, its analytics
+tier and the staged filter backends.  The reference's host-side reshapes,
+pads and permutations into the TPU's (8 | 128, 128) tile layout are gone:
+every kernel here works on the engine's linear word layout.  What remains
+is the level-wide tile/meta construction of ``fused_level_filter``,
+``fused_level_agg`` and ``level_histogram`` (the reference's per-tile
+Python loops, vectorised on the device, with per-SCT folds there and one
+transfer per launch), the reference's tile padding of
+``multi_range_filter_packed`` ('jax_packed') and ``range_filter_codes`` /
+``range_filter_count`` ('jax'), and ``bitmap_to_mask``.
 """
 
 from __future__ import annotations
@@ -27,11 +29,17 @@ from repro_torch.kernels.bitpack import (check_width, from_u32_bits,
 from repro_torch.kernels.fused_scan import (DEFAULT_TILE_WORDS, EMPTY_ZONE,
                                             fused_zone_filter)
 from repro_torch.kernels.merge_remap import remap_pack_codes
+from repro_torch.kernels.multi_filter import (DEFAULT_TILE_WORDS as
+                                              MULTI_TILE_WORDS,
+                                              multi_range_filter)
+from repro_torch.kernels.opd_filter import (DEFAULT_TILE_CODES,
+                                            code_range_filter)
 
 __all__ = ["LAUNCHES", "reset_launches", "pack_codes", "unpack_codes",
            "remap_pack_codes", "fused_level_filter", "bitmap_to_mask",
            "tile_zones", "fused_zone_agg", "zone_histogram",
-           "fused_level_agg", "level_histogram"]
+           "fused_level_agg", "level_histogram", "multi_range_filter_packed",
+           "range_filter_codes", "range_filter_count"]
 
 # (code_lo int64 [n_blocks], code_hi int64 [n_blocks], entries_per_block)
 # and, for the aggregate launches, optionally the per-block SUM weight
@@ -163,6 +171,56 @@ def fused_level_filter(
     return bitmaps, info
 
 
+def _pad_to_tiles(x: torch.Tensor, tile: int, fill: int) -> torch.Tensor:
+    """``x`` [n] padded with ``fill`` to whole tiles (none when n is 0); a
+    tile-aligned, 16-byte-aligned ``x`` is returned as it is."""
+    n = x.shape[0]
+    want = -(-n // tile) * tile
+    if want == n and x.is_contiguous() and x.data_ptr() % 16 == 0:
+        return x
+    out = torch.full((want,), fill, dtype=x.dtype, device=x.device)
+    out[:n] = x
+    return out
+
+
+def multi_range_filter_packed(words: torch.Tensor, width: int, ranges,
+                              tile_words: int = MULTI_TILE_WORDS
+                              ) -> torch.Tensor:
+    """K predicates, one pass: int32 bitmaps [K, len(words)].
+
+    ``ranges`` is (K, 2) inclusive [lo, hi] code ranges (a tensor or numpy
+    array of uint32 values); lo > hi is the empty range.  The words are
+    padded with 0xFFFFFFFF, whose fields match only where hi = 2**width -
+    1, and the bitmaps are cut back to the real words."""
+    m = words.shape[0]
+    rng = to_u32_bits(_as_tensor(ranges, torch.int64, words.device)
+                      .reshape(-1, 2))
+    flat = _pad_to_tiles(words, tile_words, -1)
+    bitmaps, _counts = multi_range_filter(flat, rng, width, tile_words)
+    return bitmaps[:, :m]
+
+
+def _code_tiles(codes: torch.Tensor, lo: int, hi: int, tile_codes: int):
+    flat = _pad_to_tiles(codes.to(torch.int32), tile_codes, -1)
+    return code_range_filter(flat, int(lo), int(hi), tile_codes)
+
+
+def range_filter_codes(codes: torch.Tensor, lo: int, hi: int,
+                       tile_codes: int = DEFAULT_TILE_CODES) -> torch.Tensor:
+    """bool mask over an int32 code column: lo <= code <= hi (inclusive;
+    the column is padded with -1)."""
+    mask, _counts = _code_tiles(codes, lo, hi, tile_codes)
+    return mask[:codes.shape[0]].view(torch.bool)
+
+
+def range_filter_count(codes: torch.Tensor, lo: int, hi: int,
+                       tile_codes: int = DEFAULT_TILE_CODES) -> int:
+    """How many codes of the column lie in [lo, hi] (padding included, as
+    the reference counts it: -1 matches where lo <= -1)."""
+    _mask, counts = _code_tiles(codes, lo, hi, tile_codes)
+    return int(counts.sum())
+
+
 def bitmap_to_mask(bitmap: torch.Tensor, width: int, n: int) -> torch.Tensor:
     """Expand int32 bitmaps [..., n_words] to bool masks [..., n]."""
     per = check_width(width)
@@ -175,8 +233,9 @@ def bitmap_to_mask(bitmap: torch.Tensor, width: int, n: int) -> torch.Tensor:
 # analytics: zone-gated aggregation and GROUP BY histogram per level
 # --------------------------------------------------------------------------- #
 def _as_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
-    """A numpy array or tensor as a tensor of ``dtype`` on ``device``."""
-    if isinstance(x, np.ndarray):
+    """A tensor, numpy array or sequence as a tensor of ``dtype`` on
+    ``device``."""
+    if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.ascontiguousarray(x).astype(
             np.int64 if dtype == torch.int64 else np.int32))
     return x.to(device=device, dtype=dtype)

@@ -1,24 +1,26 @@
 """Aggregate execution on packed codes, with an MVCC fallback.
 
-Port of ``repro/query/executor.py`` for the 'opd' codec and the 'fused'
-backend.  Two paths, chosen per snapshot by ``planner.fastpath_eligible``:
+Port of ``repro/query/executor.py`` for the 'opd' codec and the 'fused',
+'jax_packed' and 'jax' backends.  Two paths, chosen per snapshot by
+``planner.fastpath_eligible``:
 
 **Fast path** (disjoint key spans, unique keys per run, nothing visible in
 the memtable, the snapshot covers every stored seqno: a compacted,
 quiescent tree).  Every stored row is the newest visible version of its
-key, so per-run partials add up.  Scalar specs take ONE
-``ops.fused_level_agg`` launch per (level, pack width) group and each
-GROUP BY one ``ops.level_histogram`` launch; tiles whose zone a range
-contains contribute closed forms without their words being read.  A run
-whose tombstones (packed as code 0) a planned range could see, or whose
-SUM could overflow the reference kernel's int32 tile accumulator (the
-routing guard, kept so the counters match the reference), goes to the host
-evaluation at 4 KB-block granularity instead.
+key, so per-run partials add up.  On the kernel backends ('fused',
+'jax_packed') scalar specs take ONE ``ops.fused_level_agg`` launch per
+(level, pack width) group and each GROUP BY one ``ops.level_histogram``
+launch; tiles whose zone a range contains contribute closed forms without
+their words being read.  A run whose tombstones (packed as code 0) a
+planned range could see, or whose SUM could overflow the reference
+kernel's int32 tile accumulator (the routing guard, kept so the counters
+match the reference), goes to the host evaluation at 4 KB-block
+granularity instead, as every run does under 'jax'.
 
 **General path** (overlapping runs, visible memtable rows, snapshots older
-than stored seqnos): ``filter_exec``'s fused masks, dedup and global
-shadow check, with candidates carrying ``(run, code)`` instead of decoded
-values; memtable rows carry raw values.
+than stored seqnos): ``filter_exec``'s masks under the tree's filter
+backend, dedup and global shadow check, with candidates carrying
+``(run, code)`` instead of decoded values; memtable rows carry raw values.
 
 MIN and MAX stay codes until one dictionary decode per run; runs merge in
 value space.  SUM gathers ``numeric_values`` weights per code.  GROUP BY
@@ -40,8 +42,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.filter_exec import (_fused_level_masks, _global_newest,
-                                          _memtable_newest, _memtable_visible,
+from repro_torch.core.filter_exec import (_global_newest, _memtable_newest,
+                                          _memtable_visible, _run_masks,
                                           string_mask)
 from repro_torch.core.memtable import MemTables, as_mems
 from repro_torch.core.sct import SCT
@@ -67,6 +69,7 @@ def evaluate_aggregates(
     stats: StageStats,
     store: FileStore,
     snapshot_seqno: Optional[int] = None,
+    backend: str = "fused",  # 'fused' | 'jax_packed' | 'jax'
     value_width: Optional[int] = None,
 ) -> List[AggPartial]:
     """Evaluate K aggregate specs against one snapshot's runs + memtables.
@@ -97,23 +100,16 @@ def evaluate_aggregates(
     if fast:
         stats.counts["agg_fastpath_runs"] += len(live_runs)
         with stats.time("aggregate"):
-            return _fastpath_aggregate(live_runs, specs, stats)
+            return _fastpath_aggregate(live_runs, specs, stats, backend)
     stats.counts["agg_fallback_runs"] += len(live_runs)
     return _general_aggregate(live_runs, mems, mem_newest, specs, stats,
-                              snap, value_width)
+                              snap, backend, value_width)
 
 
 def _zones_of(s: SCT):
     """(code_lo, code_hi, entries_per_block, weight_sums) on the device."""
     b = s.blocks
     return (b.code_lo, b.code_hi, b.entries_per_block, b.weight_sums)
-
-
-def _run_codes(s: SCT) -> torch.Tensor:
-    """int64 code column [n] on the device, -1 at tombstones (the
-    reference's ``SCT.evs``), unpacked by the kernel; not cached."""
-    codes = ops.unpack_codes(s.packed, s.code_bits, s.n).to(torch.int64)
-    return torch.where(s.live, codes, -1)
 
 
 def _decode_one(s: SCT, code: int, stats) -> bytes:
@@ -124,11 +120,12 @@ def _decode_one(s: SCT, code: int, stats) -> bytes:
 # =========================================================================== #
 # fast path: per-run partials in the code domain, no visibility merge
 # =========================================================================== #
-def _fastpath_aggregate(live_runs, specs, stats):
+def _fastpath_aggregate(live_runs, specs, stats, backend):
     K = len(specs)
     partials = [AggPartial() for _ in range(K)]
     scalar_q = [q for q in range(K) if specs[q].op != "group_count"]
     group_q = [q for q in range(K) if specs[q].op == "group_count"]
+    use_kernel = backend in ("fused", "jax_packed")
 
     # half-open planned window per (run, spec)
     windows = [[s.opd.code_range(spec.plan_pred()) for spec in specs]
@@ -138,8 +135,8 @@ def _fastpath_aggregate(live_runs, specs, stats):
         with_sum = any(specs[q].op == "sum" for q in scalar_q)
         kernel_runs, host_runs = [], []
         for i, s in enumerate(live_runs):
-            ok = True
-            if planner.run_has_tombs(s):
+            ok = use_kernel
+            if ok and planner.run_has_tombs(s):
                 # tombstones pack as 0: the kernel may only see this run
                 # if every non-empty planned range excludes code 0
                 ok = all(lo >= 1 or lo >= hi
@@ -157,7 +154,8 @@ def _fastpath_aggregate(live_runs, specs, stats):
                           partials, stats)
 
     for q in group_q:
-        _fastpath_group(live_runs, windows, specs[q], q, partials, stats)
+        _fastpath_group(live_runs, windows, specs[q], q, partials, stats,
+                        use_kernel)
     return partials
 
 
@@ -250,7 +248,8 @@ def _host_scalars(s, windows, specs, scalar_q, partials, stats):
         closed = inter & (lo_i <= code_lo) & (code_hi <= hi_i) & (code_lo >= 1)
         evaluate = inter & ~closed
         if bool(evaluate.any()):
-            evs = _run_codes(s) if evs is None else evs
+            evs = (s.code_column().to(torch.int64) if evs is None
+                   else evs)
             m = evaluate[blk] & (evs >= lo_i) & (evs <= hi_i)
             col = evs
         else:
@@ -292,7 +291,8 @@ def _host_scalars(s, windows, specs, scalar_q, partials, stats):
                  sums, stats)
 
 
-def _fastpath_group(live_runs, windows, spec, q, partials, stats):
+def _fastpath_group(live_runs, windows, spec, q, partials, stats,
+                    use_kernel):
     """GROUP BY on the fast path: per-run code histogram folded through
     the dictionary's label table or the resolved bucket edges."""
     partials[q].groups = {}
@@ -303,7 +303,7 @@ def _fastpath_group(live_runs, windows, spec, q, partials, stats):
             continue
         edges, labels = planner.group_code_edges(s, spec.group, lo, hi)
         plans.append((i, edges, labels))
-    kernel_ok = plans and \
+    kernel_ok = use_kernel and plans and \
         max(len(e) - 1 for _, e, _ in plans) <= MAX_BINS and \
         all(not planner.run_has_tombs(live_runs[i]) or e[0] >= 1
             for i, e, _ in plans)
@@ -323,7 +323,7 @@ def _fastpath_group(live_runs, windows, spec, q, partials, stats):
         return
     for i, edges, labels in plans:
         s = live_runs[i]
-        evs = _run_codes(s)
+        evs = s.code_column().to(torch.int64)
         cnt = torch.bincount(evs[evs >= 0], minlength=s.opd.size)
         cum = torch.cat([cnt.new_zeros(1), torch.cumsum(cnt, 0)]).cpu().numpy()
         hist = cum[edges[1:]] - cum[edges[:-1]]
@@ -343,7 +343,7 @@ def _fold_hist(partial, hist, labels):
 # general path: filter_exec's candidate/visibility machinery, codes carried
 # =========================================================================== #
 def _general_aggregate(live_runs, mems, mem_newest, specs, stats, snap,
-                       value_width):
+                       backend, value_width):
     K = len(specs)
     preds = [spec.plan_pred() for spec in specs]
 
@@ -368,10 +368,10 @@ def _general_aggregate(live_runs, mems, mem_newest, specs, stats, snap,
             other_n[q] += keys.shape[0]
 
     with stats.time("filter"):
-        masks = _fused_level_masks(live_runs, preds, stats)
+        masks = _run_masks(live_runs, preds, backend, stats)
         for i, s in enumerate(live_runs):
             if i not in masks:
-                continue   # no predicate can match in this run's level
+                continue   # no predicate can match in this run
             q_idx = torch.nonzero(masks[i] & s.live)   # [nnz, 2] (q, entry)
             codes = s.codes_at(q_idx[:, 1])
             q_idx, codes = q_idx.cpu().numpy(), codes.cpu().numpy()

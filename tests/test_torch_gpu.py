@@ -15,8 +15,9 @@ import pytest
 import torch
 
 import repro_torch.core as T
-from repro_torch import AggSpec, GroupBy
-from repro_torch.kernels import agg_scan, bitpack, fused_scan, merge_remap, ops
+from repro_torch import AggSpec, GroupBy, ScanServer
+from repro_torch.kernels import (agg_scan, bitpack, fused_scan, merge_remap,
+                                 multi_filter, opd_filter, ops)
 
 pytestmark = pytest.mark.gpu
 WIDTHS = [1, 2, 4, 8, 16, 32]
@@ -291,3 +292,91 @@ def test_tree_aggregates_on_the_card_match_the_cpu(card):
     assert agg(trees[0]) == agg(trees[1])
     assert ops.LAUNCHES["fused_zone_agg"] > 0, ops.LAUNCHES
     assert ops.LAUNCHES["zone_histogram"] > 0, ops.LAUNCHES
+
+
+# --------------------------------------------------------------------------- #
+# staged filter backends: multi_range_filter ('jax_packed') and
+# code_range_filter ('jax')
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("width,k", [(1, 1), (2, 3), (4, 16), (8, 16),
+                                     (16, 3), (32, 1), (32, 16)])
+@pytest.mark.parametrize("tile", [multi_filter.DEFAULT_TILE_WORDS, 1000])
+def test_multi_range_filter_matches_plain(card, width, k, tile):
+    """Bitmaps and per-tile counts, with padding words, empty ranges and a
+    range reaching 2**width - 1; tiles of 1,000 words split blocks."""
+    rng = np.random.default_rng(width * k + tile)
+    n_words = 2 * tile + 777
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, n_words)
+                             .astype(np.int32))
+    words = torch.cat([words, torch.full((-n_words % tile,), -1,
+                                         dtype=torch.int32)])
+    r = np.sort(rng.integers(0, 2 ** min(width, 16), (k, 2)), axis=1)
+    r[0, 1] = 2 ** width - 1
+    r[3::4] = (1, 0)
+    ranges = bitpack.to_u32_bits(torch.from_numpy(r.astype(np.int64)))
+    want = multi_filter.multi_range_filter_plain(words, ranges, width, tile)
+    got = multi_filter.multi_range_filter(words.to(card), ranges.to(card),
+                                          width, tile)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 3), (-1, 40), (9, 2), (-5, -1)])
+@pytest.mark.parametrize("tile", [opd_filter.DEFAULT_TILE_CODES, 1000])
+def test_code_range_filter_matches_plain(card, lo, hi, tile):
+    rng = np.random.default_rng(tile + lo + 100)
+    n = 3 * tile
+    codes = torch.from_numpy(rng.integers(-1, 60, n).astype(np.int32))
+    want = opd_filter.code_range_filter_plain(codes, lo, hi, tile)
+    got = opd_filter.code_range_filter(codes.to(card), lo, hi, tile)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert torch.equal(ops.range_filter_codes(codes[:-5].to(card), lo, hi).cpu(),
+                       ops.range_filter_codes(codes[:-5], lo, hi))
+
+
+@pytest.mark.parametrize("backend,kernel", [
+    ("jax_packed", "multi_range_filter_packed"), ("jax", "range_filter_codes")])
+def test_staged_backend_on_the_card_matches_the_cpu(card, backend, kernel):
+    """filter_many, aggregate_many and a ScanServer batch under a staged
+    backend answer alike on the card and the CPU, through its kernel and
+    not the fused filter."""
+    cfg = T.LSMConfig(value_width=16, file_bytes=16 * 1024, l0_limit=2,
+                      size_ratio=3, filter_backend=backend)
+    trees = [T.LSMTree(cfg, device=d) for d in ("cpu", "cuda")]
+    rng = np.random.default_rng(9)
+    for _ in range(4):
+        keys = rng.integers(0, 3000, 800).astype(np.uint64)
+        vals = np.asarray([b"c%03d_%05d" % (i % 37, i)
+                           for i in rng.integers(0, 900, 800)], "S16")
+        dels = rng.integers(0, 3000, 60).tolist()
+        for t in trees:
+            t.put_batch(keys, vals)
+            for k in dels:
+                t.delete(k)
+    preds = [T.Predicate("prefix", b"c00%d" % i) for i in range(8)] + [
+        T.Predicate("range", b"c005", b"c020"), T.Predicate("prefix", b"zzz")]
+    specs = [AggSpec("count", pred=T.Predicate("prefix", b"c01")),
+             AggSpec("sum", pred=T.Predicate("range", b"c005", b"c020"))]
+    ops.reset_launches()
+    res = [t.filter_many(preds) for t in trees]
+    for a, b in zip(*res):
+        assert np.array_equal(a.keys, b.keys) and \
+            np.array_equal(a.values, b.values)
+    assert ops.LAUNCHES[kernel] > 0 and ops.LAUNCHES["fused_zone_filter"] == 0
+    agg_cpu, agg_card = (t.aggregate_many(specs) for t in trees)
+    assert agg_cpu == agg_card
+    outs = []
+    for t in trees:
+        srv = ScanServer(t, max_batch=4)
+        srv.submit_many(preds[:5])
+        srv.submit_aggs(specs)
+        outs.append(srv.drain())
+        assert srv.stats.batch_sizes == [4, 3]
+    for rid, a in outs[0].items():
+        b = outs[1][rid]
+        if hasattr(a, "keys"):
+            assert np.array_equal(a.keys, b.keys)
+        else:
+            assert a == b
+    assert ops.LAUNCHES["fused_zone_filter"] == 0, ops.LAUNCHES

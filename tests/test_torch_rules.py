@@ -9,7 +9,9 @@
   raises: it never falls back to its plain version.
 * Configuration values outside the ported slice raise ``ValueError``
   naming their ROADMAP item; the reference's name ``'jax_packed'`` of the
-  ported compaction backend builds the same tree as ``'packed'``.
+  ported compaction backend builds the same tree as ``'packed'``, and the
+  ported filter backends ``'jax_packed'`` and ``'jax'`` build the same tree
+  as ``'fused'``.
 * ``chip_smoke.py`` gives no result without a card or outside the repo.
 """
 
@@ -27,7 +29,7 @@ import torch
 import repro_torch.core as T
 from repro_torch.core.lsm import SUPPORTED
 from repro_torch.kernels import (_build, agg_scan, bitpack, fused_scan,
-                                 merge_remap, ops)
+                                 merge_remap, multi_filter, opd_filter, ops)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -56,9 +58,12 @@ def test_port_sources_import_neither_jax_nor_repro():
     assert not bad, bad
 
 
-def test_importing_the_port_loads_neither_jax_nor_repro():
-    code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops, "
-            "repro_torch.query\n"
+@pytest.mark.parametrize("modules", [
+    "repro_torch, repro_torch.core, repro_torch.kernels.ops, repro_torch.query",
+    "repro_torch.serving.scan_server",
+])
+def test_importing_the_port_loads_neither_jax_nor_repro(modules):
+    code = (f"import sys, {modules}\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -77,7 +82,7 @@ def test_default_device_is_the_card_and_missing_card_raises(monkeypatch):
     assert T.LSMTree(T.LSMConfig(), device="cpu").device.type == "cpu"
 
 
-OTHER_VALUES = {"codec": "plain", "filter_backend": "jax_packed",
+OTHER_VALUES = {"codec": "plain", "filter_backend": "numpy",
                 "compaction_backend": "jax", "compaction_policy": "tiered",
                 "policy_autotune": True, "maintenance": "background",
                 "wal_sync": "group", "blob_compress": True,
@@ -91,14 +96,43 @@ def test_unsupported_config_value_raises(field):
 
 
 @pytest.mark.parametrize("value,kernel", [
-    (("filter_backend", "jax_packed"), "multi_range_filter_packed_2d"),
-    (("filter_backend", "jax"), "range_filter_codes_2d"),
     (("compaction_backend", "jax"), "remap_codes_2d"),
 ])
 def test_rejected_backend_names_its_kernel(value, kernel):
     """A backend that needs an unported kernel names it by function."""
     with pytest.raises(ValueError, match=kernel):
         T.LSMConfig(**dict([value]))
+
+
+@pytest.mark.parametrize("backend", ["jax_packed", "jax"])
+def test_ported_filter_backend_builds_the_fused_tree(backend):
+    """The filter backend touches only reads: a tree configured with a
+    ported staged backend writes the same SCTs as under 'fused' and
+    answers the same filter."""
+    kw = dict(value_width=16, file_bytes=8 * 1024, l0_limit=2, size_ratio=3)
+    trees = [T.LSMTree(T.LSMConfig(filter_backend=name, **kw), device="cpu")
+             for name in (backend, "fused")]
+    rng = np.random.default_rng(8)
+    keys = rng.integers(0, 3000, 4000).astype(np.uint64)
+    vals = np.asarray([b"v_%04d" % v for v in rng.integers(0, 500, 4000)],
+                      "S16")
+    for t in trees:
+        t.put_batch(keys, vals)
+        t.delete(int(keys[0]))
+    a, b = trees
+    assert a.cfg.filter_backend == backend
+    assert a.n_compactions == b.n_compactions > 0
+    assert [[s.file_id for s in lvl] for lvl in a.levels] == \
+        [[s.file_id for s in lvl] for lvl in b.levels]
+    for la, lb in zip(a.levels, b.levels):
+        for x, y in zip(la, lb):
+            assert torch.equal(x.packed, y.packed)
+            assert np.array_equal(x.keys, y.keys)
+    p = T.Predicate("range", b"v_0100", b"v_0300")
+    ra, rb = a.filter(p), b.filter(p)
+    assert ra.keys.shape[0] > 0
+    assert np.array_equal(ra.keys, rb.keys) and \
+        np.array_equal(ra.values, rb.values)
 
 
 def test_jax_packed_compaction_builds_the_same_tree_as_packed():
@@ -145,7 +179,9 @@ def pretend_card(monkeypatch):
                       (fused_scan, "fused_zone_filter_plain"),
                       (merge_remap, "remap_pack_codes_plain"),
                       (agg_scan, "fused_zone_agg_plain"),
-                      (agg_scan, "zone_histogram_plain")):
+                      (agg_scan, "zone_histogram_plain"),
+                      (multi_filter, "multi_range_filter_plain"),
+                      (opd_filter, "code_range_filter_plain")):
         monkeypatch.setattr(mod, name, _no_plain)
     monkeypatch.setattr(_build, "_lib", None)
     monkeypatch.setattr(_build, "find_nvcc", lambda: (_ for _ in ()).throw(
@@ -170,6 +206,8 @@ def test_card_requests_raise_instead_of_falling_back(pretend_card, tmp_path,
         lambda: agg_scan.zone_histogram(
             torch.zeros(1024, dtype=torch.int32), torch.zeros((1, 6), dtype=torch.int32),
             torch.zeros((1, 5), dtype=torch.int32), 8, 4),
+        lambda: ops.multi_range_filter_packed(i32, 8, [(0, 3), (1, 0)]),
+        lambda: ops.range_filter_codes(i32, 0, 3),
     ]
     before = dict(ops.LAUNCHES)
     for call in calls:
