@@ -5,7 +5,7 @@
 
 Phases, each printing JSON lines:
 
-1. build:   nvcc builds the eight CUDA kernels from ``src/repro_torch``;
+1. build:   nvcc builds the nine CUDA kernels from ``src/repro_torch``;
             prints build seconds, the card (nvidia-smi), torch and CUDA.
 2. main:    the port's main path through ``LSMTree`` at the paper's
             section 5.1 shapes (16-byte keys, 256-byte values from a
@@ -42,11 +42,25 @@ Phases, each printing JSON lines:
             counts just before its checked ``aggregate_many`` and reads
             them just after: agg.general must have launched the fused
             filter, agg.fast and agg.clustered both aggregate kernels.
-5. kernels: each kernel against its plain PyTorch version on the card, on
-            operands recorded from the main path, the serve phases and
-            agg.fast (bit-identical required), with CUDA-event medians, the
-            plain version's time and the memory-bound time from the card's
-            data-sheet bandwidth.
+5. compact: the main phase's write stream replayed into a tree under
+            each other compaction backend: compact.jax (the remap_codes
+            kernel) and compact.numpy (the remap on the host).  Every SCT of
+            every level must equal the main ('jax_packed') tree's, and
+            filter_many (K=16) the host model.  Each phase resets the launch
+            counts before its ingest and reads them after its filter:
+            compact.jax must have launched remap_codes, unpack_codes and
+            pack_codes, compact.numpy not remap_codes, and neither
+            remap_pack_codes.
+6. range:   main.range: ``range_lookup`` on the main tree over 8 windows of
+            1/64 of the key space (one on a snapshot pinned before a few
+            overwrites), an empty and an inverted window, each held key for
+            key and byte for byte against the host model; host code, no
+            kernel launches.
+7. kernels: each kernel against its plain PyTorch version on the card, on
+            operands recorded from the main path, the serve phases,
+            agg.fast and compact.jax (bit-identical required), with
+            CUDA-event medians, the plain version's time and the
+            memory-bound time from the card's data-sheet bandwidth.
 
 The last three lines are the card (nvidia-smi name, power limit), the
 kernel table ``{"kernels": [...]}`` and ``{"ok": true, "device": ...}``.
@@ -92,6 +106,8 @@ KERNELS = {
                                   "src/repro/kernels/multi_filter.py:77"),
     "range_filter_codes": ("src/repro_torch/kernels/csrc/opd_filter.cu",
                            "src/repro/kernels/opd_filter.py:49"),
+    "remap_codes": ("src/repro_torch/kernels/csrc/merge_remap.cu",
+                    "src/repro/kernels/merge_remap.py:109"),
 }
 MAIN_KERNELS = ("pack_codes", "unpack_codes", "fused_zone_filter",
                 "remap_pack_codes")
@@ -103,13 +119,16 @@ SYMBOLS = {"pack_codes": "pack_codes_kernel",
            "fused_zone_agg": "fused_zone_agg_kernel",
            "zone_histogram": "zone_histogram_kernel",
            "multi_range_filter_packed": "multi_range_filter_kernel",
-           "range_filter_codes": "range_filter_codes_kernel"}
+           "range_filter_codes": "range_filter_codes_kernel",
+           "remap_codes": "remap_codes_kernel"}
 INT32_MAX = 2**31 - 1
 NO_LIBRARY = ("no single PyTorch call computes this bit-field function; "
               "its plain version is several calls")
 LIBRARY_WHY = {"range_filter_codes": (
     "no single PyTorch call gives the range mask with per-tile counts; its "
-    "plain version is four calls")}
+    "plain version is four calls"), "remap_codes": (
+    "no single PyTorch call computes a gather with -1 kept at dead entries "
+    "and per-source offsets; its plain version is several calls")}
 
 
 def emit(obj) -> None:
@@ -261,32 +280,16 @@ def main_phase(args, device: str):
           "ingest within the smoke's time limit)" % n, "pairs": n,
           "value_width": width, "ndv": ndv, "file_bytes": cfg.file_bytes})
 
+    dels = rng.choice(keys, max(1, n // 512), replace=False)
+    stream = (keys, vocab, vidx, dels)
+
     ops.reset_launches()
     tree = LSMTree(cfg, device=device)
+    ingest_s = ingest(tree, stream)
     ref = Reference(vocab)
-    t0 = time.perf_counter()
-    batch = 1 << 20
-    for i in range(0, n, batch):
-        tree.put_batch(keys[i:i + batch], vocab[vidx[i:i + batch]])
-        ref.put(keys[i:i + batch], vidx[i:i + batch])
-    n_del = max(1, n // 512)
-    dels = rng.choice(keys, n_del, replace=False)
-    for k in dels.tolist():
-        tree.delete(k)
+    ref.put(keys, vidx)
     ref.delete(dels)
-    torch.cuda.synchronize()
-    ingest_s = time.perf_counter() - t0
-    shape = tree.shape_report()
-    widths = sorted({s.code_bits for s in tree.all_runs()})
-    emit({"phase": "main.ingest", "ops": n + n_del, "seconds": ingest_s,
-          "ops_per_s": (n + n_del) / ingest_s,
-          "flush_s": tree.flush_stats.total(),
-          "compaction_s": tree.compaction_stats.total(),
-          "compaction_stages_s": dict(tree.compaction_stats.seconds),
-          "n_flushes": shape["n_flushes"], "n_compactions": shape["n_compactions"],
-          "levels": shape["levels"], "pack_widths": widths,
-          "dict_sizes": sorted({s.opd.size for s in tree.all_runs()})[-3:],
-          "disk_bytes": shape["disk_bytes"]})
+    emit({"phase": "main.ingest", **ingest_report(tree, stream, ingest_s)})
 
     preds = [("prefix", b"cat_%05d_" % (37 * i + 5), b"") for i in range(11)]
     preds += [("range", b"cat_00100_", b"cat_00104_\xff"),
@@ -338,7 +341,38 @@ def main_phase(args, device: str):
         check(launches[name] > 0, f"kernel {name} never launched on the main path")
     return launches, {"cfg": cfg, "tree": tree, "ref": ref, "vocab": vocab,
                       "preds": preds, "ctree": ctree, "cref": cref,
-                      "cpreds": cpreds}
+                      "cpreds": cpreds, "stream": stream}
+
+
+def ingest(tree, stream) -> float:
+    """The main phase's write stream into ``tree``: puts in batches of 2^20,
+    then the deletes; returns the seconds (ending in a synchronize)."""
+    import torch
+
+    keys, vocab, vidx, dels = stream
+    t0 = time.perf_counter()
+    batch = 1 << 20
+    for i in range(0, keys.shape[0], batch):
+        tree.put_batch(keys[i:i + batch], vocab[vidx[i:i + batch]])
+    for k in dels.tolist():
+        tree.delete(k)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def ingest_report(tree, stream, seconds: float) -> dict:
+    n_ops = stream[0].shape[0] + stream[3].shape[0]
+    shape = tree.shape_report()
+    return {"ops": n_ops, "seconds": seconds, "ops_per_s": n_ops / seconds,
+            "flush_s": tree.flush_stats.total(),
+            "compaction_s": tree.compaction_stats.total(),
+            "compaction_stages_s": dict(tree.compaction_stats.seconds),
+            "n_flushes": shape["n_flushes"],
+            "n_compactions": shape["n_compactions"],
+            "levels": shape["levels"],
+            "pack_widths": sorted({s.code_bits for s in tree.all_runs()}),
+            "dict_sizes": sorted({s.opd.size for s in tree.all_runs()})[-3:],
+            "disk_bytes": shape["disk_bytes"]}
 
 
 # --------------------------------------------------------------------------- #
@@ -717,6 +751,148 @@ def agg_phase(args, state, recs, device: str) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# compaction backends: the main write stream under 'jax' and 'numpy'
+# --------------------------------------------------------------------------- #
+# backend: (kernels that must launch in the phase's window, kernels that
+# must not)
+COMPACT_LAUNCHES = {
+    "jax": (("remap_codes", "unpack_codes", "pack_codes"),
+            ("remap_pack_codes",)),
+    "numpy": (("pack_codes",), ("remap_codes", "remap_pack_codes")),
+}
+
+
+def check_same_tree(got, want, label: str) -> int:
+    """Every SCT of every level of ``got`` equals ``want``'s: file ids,
+    keys, seqnos, tombstones, packed words, code width, dictionary, zones
+    and weight sums.  Returns the number of SCTs compared."""
+    import torch
+
+    ids = [[[s.file_id for s in lvl] for lvl in t.levels] for t in (got, want)]
+    check(ids[0] == ids[1], f"{label}: file ids {ids[0]} vs {ids[1]}")
+    n = 0
+    for la, lb in zip(got.levels, want.levels):
+        for a, b in zip(la, lb):
+            what = f"{label}: SCT {a.file_id}"
+            check((a.code_bits, a.disk_bytes) == (b.code_bits, b.disk_bytes),
+                  f"{what}: width or size differs")
+            for f in ("keys", "seqnos", "tombs"):
+                check(np.array_equal(getattr(a, f), getattr(b, f)),
+                      f"{what}: {f} differ")
+            check(np.array_equal(a.opd.values, b.opd.values),
+                  f"{what}: dictionary differs")
+            check(torch.equal(a.packed, b.packed), f"{what}: words differ")
+            for f in ("code_lo", "code_hi", "weight_sums"):
+                check(torch.equal(getattr(a.blocks, f), getattr(b.blocks, f)),
+                      f"{what}: {f} differ")
+            n += 1
+    return n
+
+
+def compact_phase(state, backend: str, device: str) -> dict:
+    """compact.<backend>: the main phase's write stream into a tree of the
+    main configuration under compaction ``backend``; every SCT must equal
+    the main ('jax_packed') tree's and filter_many the host model.  Returns
+    the launch counts of the phase's window (ingest and filter)."""
+    import dataclasses
+
+    from repro_torch import LSMTree
+
+    label = f"compact.{backend}"
+    tree = LSMTree(dataclasses.replace(state["cfg"],
+                                       compaction_backend=backend),
+                   device=device)
+
+    def drive():
+        seconds = ingest(tree, state["stream"])
+        return seconds, run_filter_check(tree, state["ref"], state["preds"],
+                                         label)
+
+    (seconds, res), launches = launch_window(drive)
+    n_scts = check_same_tree(tree, state["tree"], label)
+    must, must_not = COMPACT_LAUNCHES[backend]
+    for name in must:
+        check(launches[name] > 0, f"{label}: {name} never launched")
+    for name in must_not:
+        check(launches[name] == 0, f"{label}: {name} launched")
+    emit({"phase": label, **ingest_report(tree, state["stream"], seconds),
+          "scts_equal_to_main": n_scts, **res, "launches": launches})
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# range scans on the main tree
+# --------------------------------------------------------------------------- #
+def range_phase(args, state) -> None:
+    """main.range: ``range_lookup`` over 8 windows of 1/64 of the key space
+    (the 4th on a snapshot pinned before overwrites and deletes in it, and
+    then again after them), an empty and an inverted window; each held key
+    for key and byte for byte against the host model."""
+    import torch
+
+    tree, ref, vocab = state["tree"], state["ref"], state["vocab"]
+    space = 4 * args.pairs           # keys are uniform over [0, 4 * pairs)
+    width = space // 64
+    windows = [(i * space // 8 + space // 32,
+                i * space // 8 + space // 32 + width - 1) for i in range(8)]
+    pinned_state, snap = ref.state(), tree.snapshot()
+    keys, _ = pinned_state
+    lo, hi = windows[3]
+    inside = keys[(keys >= lo) & (keys <= hi)]
+    rng = np.random.default_rng(args.seed + 2)
+    over = rng.choice(inside, 64, replace=False)
+    over_idx = rng.integers(0, vocab.shape[0], 64)
+    gone = rng.choice(np.setdiff1d(inside, over), 16, replace=False)
+    for k, j in zip(over.tolist(), over_idx.tolist()):
+        tree.put(k, bytes(vocab[j]))
+    ref.put(over, over_idx)
+    for k in gone.tolist():
+        tree.delete(k)
+    ref.delete(gone)
+
+    def expect(state_, lo, hi):
+        k, idx = state_
+        sel = (k >= np.uint64(lo)) & (k <= np.uint64(hi)) if lo <= hi else             np.zeros(k.shape[0], bool)
+        return k[sel], vocab[idx[sel]]
+
+    reads = [(w, None) for w in windows]
+    reads[3] = (windows[3], snap)
+    reads += [(windows[3], None), ((space, space + width), None),
+              ((windows[0][1], windows[0][0]), None)]
+
+    def drive():
+        out = []
+        for (lo, hi), sn in reads:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = tree.range_lookup(lo, hi, snapshot=sn)
+            out.append((got, time.perf_counter() - t0))
+        return out
+
+    out, launches = launch_window(drive)
+    rows = []
+    for ((lo, hi), sn), ((gk, gv), dt) in zip(reads, out):
+        wk, wv = expect(pinned_state if sn is not None else ref.state(),
+                        lo, hi)
+        what = f"main.range [{lo}, {hi}]" + (" pinned" if sn else "")
+        check(np.array_equal(gk, wk), f"{what}: keys differ "
+              f"({gk.shape[0]} vs {wk.shape[0]})")
+        check(gv.dtype == wv.dtype and np.array_equal(gv, wv),
+              f"{what}: values differ")
+        rows.append({"lo": lo, "hi": hi, "pinned": sn is not None,
+                     "rows": int(gk.shape[0]), "seconds": dt})
+    check(rows[8]["rows"] == rows[3]["rows"] - 16 and rows[9]["rows"] == 0
+          and rows[10]["rows"] == 0, "main.range: window row counts")
+    check(sum(launches.values()) == 0, f"main.range: launches {launches}")
+    emit({"phase": "main.range", "window_keys": width,
+          "median_s_per_window": statistics.median(r["seconds"]
+                                                   for r in rows[:8]),
+          "overwrites": int(over.shape[0]), "deletes": int(gone.shape[0]),
+          "lookup_stages_s": dict(tree.lookup_stats.seconds),
+          "windows": rows, "launches": launches})
+
+
+# --------------------------------------------------------------------------- #
 # kernels against their plain versions, on operands the main path produced
 # --------------------------------------------------------------------------- #
 class Recorder:
@@ -937,6 +1113,19 @@ def kernel_phase(recs, launches: dict, bw: float) -> list:
         lambda: opd_filter.code_range_filter_plain(cc, lo, hi, tc),
         5 * cc.shape[0] + 4 * n_tiles, bw, launches["range_filter_codes"],
         f"codes={cc.shape[0]} tiles={n_tiles} lo={lo} hi={hi}"))
+
+    # the plain remap at compact.jax's largest merge output
+    (evs, srcs, table, offsets), _ = recs["remap_codes"].calls[0]
+    n = evs.shape[0]
+    dead = int((evs < 0).sum())
+    rows.append(compare(
+        "remap_codes",
+        lambda: merge_remap.remap_codes(evs, srcs, table, offsets),
+        lambda: merge_remap.remap_codes_plain(evs, srcs, table, offsets),
+        12 * n + 4 * table.shape[0] + 4 * offsets.shape[0], bw,
+        launches["remap_codes"],
+        f"n={n} dead={dead} table={table.shape[0]} "
+        f"sources={offsets.shape[0]}"))
     return rows
 
 
@@ -996,17 +1185,30 @@ def main() -> int:
                           active=False),
         "codes": Recorder(ops.code_range_filter, lambda c, *a: c.shape[0],
                           active=False),
+        # recorded during compact.jax only
+        "remap_codes": Recorder(ops.remap_codes, lambda e, *a: e.shape[0],
+                                active=False),
     }
     ops.pack_codes, ops.unpack_codes = recs["pack"], recs["unpack"]
     ops.fused_zone_filter, ops.remap_pack_codes = recs["fused"], recs["remap"]
     ops.fused_zone_agg, ops.zone_histogram = recs["agg"], recs["hist"]
     ops.multi_range_filter, ops.code_range_filter = recs["multi"], recs["codes"]
+    ops.remap_codes = recs["remap_codes"]
     launches, state = main_phase(args, "cuda")
     launches.update(serve_phase(state, {k: recs[k]
                                         for k in ("multi", "codes")}))
     fast_launches = agg_phase(args, state,
                               {k: recs[k] for k in ("agg", "hist")}, "cuda")
     launches.update({k: fast_launches[k] for k in AGG_KERNELS})
+    # the main path's operands stay those of the main tree's own ingest
+    for key in ("pack", "unpack", "fused", "remap"):
+        recs[key].active = False
+    recs["remap_codes"].active = True
+    launches["remap_codes"] = compact_phase(state, "jax",
+                                            "cuda")["remap_codes"]
+    recs["remap_codes"].active = False
+    compact_phase(state, "numpy", "cuda")
+    range_phase(args, state)
     rows = kernel_phase(recs, launches, bw)
     for r in rows:
         emit({"phase": "kernel", **r})

@@ -1,20 +1,26 @@
-"""OPD leveling compaction (paper Algorithm 1), packed on the card.
+"""OPD leveling compaction (paper Algorithm 1).
 
-Port of ``repro/core/compaction.py`` for the 'opd' codec with the reference's
-'jax_packed' backend (here ``"packed"``).  The key merge stays on the host:
-concatenate the inputs' key columns, sort by (key asc, seqno desc), keep the
-newest version per key and, at the bottom level, drop tombstones; then cut
-the survivors into output files.  The values never leave the encoded
-domain, and their columns never leave the card:
+Port of ``repro/core/compaction.py`` for the 'opd' codec with the
+reference's three encode backends (``backend=``), which write bit-identical
+SCTs.  The key merge stays on the host: concatenate the inputs' key
+columns, sort by (key asc, seqno desc), keep the newest version per key
+and, at the bottom level, drop tombstones; then cut the survivors into
+output files.  The values never leave the encoded domain.  Per merge, the
+inputs' old codes are read once (tombstones set to -1); per output file,
+the old code of every surviving entry is gathered, the dictionary codes it
+uses are marked, the dictionaries are merged on the host
+(``OPD.merge_subset_flat``: sort + unique over the used entries only) and
+every entry is rewritten through the flat ``old -> new`` table:
 
-  1. each input's packed words are unpacked once per merge by the
-     ``unpack_codes`` kernel (tombstones set to -1);
-  2. per output file, the old code of every surviving entry is gathered on
-     the card and the dictionary codes it uses are marked there;
-  3. the used masks go to the host, where the dictionaries are merged
-     (``OPD.merge_subset_flat``: sort + unique over the used entries only);
-  4. the flat ``old -> new`` table goes back and the ``remap_pack_codes``
-     kernel rewrites and packs the output column in one pass.
+  'jax_packed'  on the card: the ``unpack_codes`` kernel, the gather and
+                marks, then the ``remap_pack_codes`` kernel rewrites and
+                packs the output column in one pass;
+  'jax'         the same, with the ``remap_codes`` kernel; the remapped
+                column is packed by ``build_sct`` (``pack_codes``);
+  'numpy'       on the host, as the reference's default: the inputs'
+                packed words come to the host once per merge and are
+                unpacked there, the gather, marks and remap are numpy; the
+                remapped column goes to the card and ``build_sct`` packs it.
 """
 
 from __future__ import annotations
@@ -29,9 +35,11 @@ from repro_torch.core.opd import OPD
 from repro_torch.core.sct import SCT, build_sct, pack_width
 from repro_torch.core.stats import StageStats
 from repro_torch.kernels import ops
+from repro_torch.kernels.bitpack import unpack_codes_plain
 from repro_torch.storage.io import FileStore
 
 _SEQ_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
+BACKENDS = ("numpy", "jax", "jax_packed")
 
 
 @dataclasses.dataclass
@@ -54,7 +62,11 @@ def merge_scts(
     device,
     block_bytes: int = 4096,
     bloom_bits_per_key: int = 10,
+    backend: str = "jax_packed",
 ) -> CompactionResult:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown compaction backend {backend!r} (one of "
+                         f"{', '.join(map(repr, BACKENDS))})")
     n_in = sum(s.n for s in inputs)
 
     # ---- stage: read (charge full-file I/O for every input) -------------- #
@@ -83,16 +95,24 @@ def merge_scts(
 
     outputs: List[SCT] = []
     dict_compares = 0
+    host = backend == "numpy"
+    # 'jax_packed' hands build_sct (words, width, opd), the others (evs, opd)
+    source_kw = "packed_encoded" if backend == "jax_packed" else "encoded"
     if n_out:
         with stats.time("encode"):
-            codes, code_base, dict_off = _source_codes(inputs, device)
+            source = (_host_source_codes(inputs) if host
+                      else _source_codes(inputs, device))
     for lo in range(0, n_out, file_entries):
         hi = min(lo + file_entries, n_out)
         ck, cs, ct = keys[lo:hi], seqnos[lo:hi], tombs[lo:hi]
         with stats.time("encode"):
-            packed_encoded, ncmp = _remap_codes(
-                inputs, codes, code_base, dict_off, srcs[lo:hi], idxs[lo:hi],
-                ct, device)
+            if host:
+                value, ncmp = _host_remap_codes(
+                    inputs, *source, srcs[lo:hi], idxs[lo:hi], ct, device)
+            else:
+                value, ncmp = _remap_codes(
+                    inputs, *source, srcs[lo:hi], idxs[lo:hi], ct, device,
+                    backend)
         dict_compares += ncmp
         with stats.time("write"):
             out = build_sct(
@@ -100,7 +120,7 @@ def merge_scts(
                 key_bytes=inputs[0].key_bytes,
                 value_width=inputs[0].value_width, block_bytes=block_bytes,
                 bloom_bits_per_key=bloom_bits_per_key, store=store,
-                device=device, packed_encoded=packed_encoded)
+                device=device, **{source_kw: value})
         outputs.append(out)
     return CompactionResult(outputs, n_in, n_out, n_in - n_out, dict_compares)
 
@@ -114,20 +134,28 @@ def _source_codes(inputs: List[SCT], device
     for s in inputs:
         c = ops.unpack_codes(s.packed, s.code_bits, s.n)
         cols.append(torch.where(s.live, c, -1))
+    code_base, dict_off = _bases(inputs)
+    return (torch.cat(cols), torch.from_numpy(code_base).to(device),
+            torch.from_numpy(dict_off).to(device))
+
+
+def _bases(inputs: List[SCT]) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-input base (int64) into the concatenated code columns and into
+    the concatenated dictionaries."""
     code_base = np.zeros(len(inputs), np.int64)
     np.cumsum([s.n for s in inputs[:-1]], out=code_base[1:])
     dict_off = np.zeros(len(inputs), np.int64)
     np.cumsum([s.opd.size for s in inputs[:-1]], out=dict_off[1:])
-    return (torch.cat(cols), torch.from_numpy(code_base).to(device),
-            torch.from_numpy(dict_off).to(device))
+    return code_base, dict_off
 
 
 def _remap_codes(inputs: List[SCT], codes: torch.Tensor,
                  code_base: torch.Tensor, dict_off: torch.Tensor,
                  c_src: np.ndarray, c_idx: np.ndarray, c_tombs: np.ndarray,
-                 device) -> Tuple[Tuple[torch.Tensor, int, OPD], int]:
-    """Algorithm 1 lines 4-9 for one output file: returns ((packed words,
-    pack width, new opd), dict_compares)."""
+                 device, backend: str) -> Tuple[tuple, int]:
+    """Algorithm 1 lines 4-9 for one output file on the card: returns
+    ((packed words, pack width, new opd) for 'jax_packed', (new codes, new
+    opd) for 'jax'; dict_compares)."""
     src = torch.from_numpy(c_src).to(device)
     src64 = src.to(torch.int64)
     old = codes[code_base[src64] + torch.from_numpy(c_idx).to(device)]
@@ -141,9 +169,45 @@ def _remap_codes(inputs: List[SCT], codes: torch.Tensor,
     used_masks = [used_np[bounds[i]:bounds[i + 1]] for i in range(len(inputs))]
     new_opd, flat, offsets = OPD.merge_subset_flat(
         [s.opd for s in inputs], used_masks)
-    width = pack_width(new_opd.code_bits)
     ev_in = torch.where(live, old, -1)
-    words = ops.remap_pack_codes(
-        ev_in, src, torch.from_numpy(flat).to(device),
-        torch.from_numpy(offsets[:-1].astype(np.int32)).to(device), width)
-    return (words, width, new_opd), int(used_np.sum())
+    table = torch.from_numpy(flat).to(device)
+    bases = torch.from_numpy(offsets[:-1].astype(np.int32)).to(device)
+    ncmp = int(used_np.sum())
+    if backend == "jax":
+        return (ops.remap_codes(ev_in, src, table, bases), new_opd), ncmp
+    width = pack_width(new_opd.code_bits)
+    words = ops.remap_pack_codes(ev_in, src, table, bases, width)
+    return (words, width, new_opd), ncmp
+
+
+def _host_source_codes(inputs: List[SCT]) -> Tuple[np.ndarray, np.ndarray,
+                                                    np.ndarray]:
+    """The 'numpy' backend's ``_source_codes``: each input's packed words
+    come to the host once and are unpacked there by the plain unpack
+    (int32, -1 at tombstones)."""
+    cols = []
+    for s in inputs:
+        codes = unpack_codes_plain(s.packed.cpu(), s.code_bits, s.n).numpy()
+        cols.append(np.where(s.tombs, np.int32(-1), codes))
+    return (np.concatenate(cols), *_bases(inputs))
+
+
+def _host_remap_codes(inputs: List[SCT], codes: np.ndarray,
+                      code_base: np.ndarray, dict_off: np.ndarray,
+                      c_src: np.ndarray, c_idx: np.ndarray,
+                      c_tombs: np.ndarray, device
+                      ) -> Tuple[Tuple[torch.Tensor, OPD], int]:
+    """Algorithm 1 lines 4-9 for one output file on the host (the
+    reference's 'numpy' branch): returns ((new codes on the card, new
+    opd), dict_compares)."""
+    old = codes[code_base[c_src] + c_idx]
+    live = (old >= 0) & ~c_tombs
+    used = np.zeros(sum(s.opd.size for s in inputs), np.bool_)
+    used[dict_off[c_src[live]] + old[live]] = True
+    bounds = np.cumsum([0] + [s.opd.size for s in inputs])
+    used_masks = [used[bounds[i]:bounds[i + 1]] for i in range(len(inputs))]
+    new_opd, flat, offsets = OPD.merge_subset_flat(
+        [s.opd for s in inputs], used_masks)
+    new = np.full(c_src.shape[0], -1, np.int32)
+    new[live] = flat[old[live].astype(np.int64) + offsets[c_src[live]]]
+    return (torch.from_numpy(new).to(device), new_opd), int(used.sum())

@@ -5,14 +5,17 @@ Port of ``repro/core/lsm.py`` for the paper's main loop on one tree:
 OPD-encoded SCTs whose packed words and zone maps live on the card;
 ``filter`` / ``filter_many`` run the zone-gated fused scan on the packed
 words, one launch per level; leveled compaction merges the dictionaries on
-the host and rewrites the packed codes on the card; ``get`` is the point
-lookup; ``aggregate`` / ``aggregate_many`` compute COUNT, SUM, MIN/MAX and
-GROUP BY on the packed codes (``repro_torch.query``).  ``filter_backend``
-'jax_packed' (one multi-range launch per SCT, the reference's serving
-path) and 'jax' (one range launch per SCT and predicate over an unpacked
-column) are the staged alternatives to 'fused'.  Results are bit-identical
-to the reference engine configured as ``LSMConfig(codec='opd',
-filter_backend=<the same>, compaction_backend='jax_packed')``.
+the host and rewrites the codes, packed on the card; ``get`` is the point
+lookup and ``range_lookup`` the merged range scan; ``aggregate`` /
+``aggregate_many`` compute COUNT, SUM, MIN/MAX and GROUP BY on the packed
+codes (``repro_torch.query``).  ``filter_backend`` 'jax_packed' (one
+multi-range launch per SCT, the reference's serving path) and 'jax' (one
+range launch per SCT and predicate over an unpacked column) are the
+staged alternatives to 'fused'; ``compaction_backend``
+'jax' (the ``remap_codes`` kernel) and 'numpy' (the remap on the host) are
+the alternatives to 'jax_packed'.  Results are bit-identical to the
+reference engine configured as ``LSMConfig(codec='opd', filter_backend=<the
+same>, compaction_backend=<the same>)``.
 
 Maintenance is synchronous: flushes and compactions run inline on the
 writer's thread.  MVCC follows the paper's file-snapshot scheme: a snapshot
@@ -24,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import warnings
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +35,7 @@ import torch
 from repro_torch.core.compaction import merge_scts
 from repro_torch.core.filter_exec import (FilterResult, evaluate_filter,
                                           evaluate_filter_many)
+from repro_torch.core.iterator import range_scan
 from repro_torch.core.memtable import MemTable
 from repro_torch.core.opd import Predicate
 from repro_torch.core.policy import CompactionPolicy, make_policy, run_depth
@@ -45,15 +49,13 @@ from repro_torch.query.spec import (AggPartial, AggResult, AggSpec,
 from repro_torch.storage.io import FileStore
 
 # the values each configuration field takes in this slice, and the ROADMAP
-# item that ports the others (kernels named by their function)
+# item that ports the others (kernels named by their function); None where
+# the port takes every value the reference takes
 SUPPORTED = {
     "codec": (("opd",), "§1 competitor codecs"),
     "filter_backend": (("fused", "jax_packed", "jax"),
                        "§1 read path, rest (the host-only 'numpy' backend)"),
-    # 'packed' is this port's earlier name of the reference's 'jax_packed'
-    "compaction_backend": (("jax_packed", "packed"),
-                           "§2 kernel remap_codes_2d (the 'jax' backend; "
-                           "'numpy' is host code of §1 read path, rest)"),
+    "compaction_backend": (("numpy", "jax", "jax_packed"), None),
     "compaction_policy": (("leveled",), "§1 policy"),
     "policy_autotune": ((False,), "§1 policy"),
     "maintenance": (("sync",), "§1 durability and maintenance"),
@@ -66,7 +68,8 @@ SUPPORTED = {
 @dataclasses.dataclass(frozen=True)
 class LSMConfig:
     """The reference's configuration fields; values outside this slice
-    raise ``ValueError`` naming the ROADMAP item that will port them."""
+    raise ``ValueError`` naming the ROADMAP item that will port them, and
+    values the reference does not take raise as well."""
 
     codec: str = "opd"
     key_bytes: int = 16                # S_K
@@ -97,11 +100,15 @@ class LSMConfig:
     def __post_init__(self):
         for name, (accepted, item) in SUPPORTED.items():
             got = getattr(self, name)
-            if got not in accepted:
-                raise ValueError(
-                    f"LSMConfig.{name}={got!r} is not ported yet (this port "
-                    f"supports {' or '.join(map(repr, accepted))}); see "
-                    f"ROADMAP {item}")
+            if got in accepted:
+                continue
+            takes = " or ".join(map(repr, accepted))
+            if item is None:
+                raise ValueError(f"LSMConfig.{name}={got!r} is not one of "
+                                 f"{takes}")
+            raise ValueError(
+                f"LSMConfig.{name}={got!r} is not ported yet (this port "
+                f"supports {takes}); see ROADMAP {item}")
 
     @property
     def mem_bytes(self) -> int:
@@ -382,7 +389,8 @@ class LSMTree:
             file_entries=self.file_entries, store=self.store,
             stats=self.compaction_stats, device=self.device,
             block_bytes=self.cfg.block_bytes,
-            bloom_bits_per_key=self.cfg.bloom_bits_per_key)
+            bloom_bits_per_key=self.cfg.bloom_bits_per_key,
+            backend=self.cfg.compaction_backend)
         self.n_compactions += 1
         self.dict_compares += res.dict_compares
         self.compaction_in_bytes += sum(s.disk_bytes for s in inputs)
@@ -439,6 +447,17 @@ class LSMTree:
             if best is None:
                 return None
             return best[0].value_at(best[1])
+
+    def range_lookup(self, lo: int, hi: int,
+                     snapshot: Optional[Snapshot] = None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Newest visible (keys, values) with lo <= key <= hi, tombstones
+        elided (the merged range scan)."""
+        snap = snapshot or self.snapshot()
+        return range_scan(
+            snap.runs, snap.mems, lo, hi, stats=self.lookup_stats,
+            store=self.store, snapshot_seqno=snap.seqno,
+            block_bytes=self.cfg.block_bytes)
 
     def filter(self, pred: Predicate,
                snapshot: Optional[Snapshot] = None) -> FilterResult:

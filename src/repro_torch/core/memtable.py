@@ -23,6 +23,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 _SEQ_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
+_U64_MAX = 2**64 - 1
 
 MemTables = Union[None, "MemTable", Sequence["MemTable"]]
 
@@ -139,12 +140,22 @@ class MemTable:
                 return seq, (None if v.tombs[i] else bytes(v.values[i]))
         return None
 
-    def newest_rows(self, max_seqno: Optional[int] = None
+    def newest_rows(self, max_seqno: Optional[int] = None,
+                    lo: Optional[int] = None, hi: Optional[int] = None
                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """Newest visible version per key as columnar arrays
-        ``(keys, seqnos, tombs, values)``, tombstones included."""
+        ``(keys, seqnos, tombs, values)``, tombstones included; with ``lo``
+        / ``hi``, only keys in ``[lo, hi]``."""
         v = self._sorted()
         keys, seqs, tombs, vals = v.keys, v.seqnos, v.tombs, v.values
+        a, b = 0, keys.shape[0]
+        if lo is not None and lo > 0:
+            a = b if lo > _U64_MAX else int(np.searchsorted(keys, np.uint64(lo)))
+        if hi is not None and hi < _U64_MAX:
+            b = 0 if hi < 0 else int(np.searchsorted(keys, np.uint64(hi),
+                                                      side="right"))
+        sl = slice(a, max(a, b))
+        keys, seqs, tombs, vals = keys[sl], seqs[sl], tombs[sl], vals[sl]
         if max_seqno is not None:
             vis = seqs <= np.uint64(max_seqno)
             keys, seqs, tombs, vals = keys[vis], seqs[vis], tombs[vis], vals[vis]

@@ -4,8 +4,10 @@ Port of ``repro/core/sct.py`` for the paper's own design: keys and seqnos
 stay columnar on the host, values are OPD-encoded to dense codes that are
 bit-packed at a power-of-two width into words on the card, and the
 file-grained dictionary stays memory-resident on the host.  Flush packs the
-codes with the ``pack_codes`` kernel; SCTs written by compaction arrive
-already packed and their zone map is built by unpacking on the card.
+codes with the ``pack_codes`` kernel, and so do the 'jax' and 'numpy'
+compaction backends, whose outputs arrive as remapped code columns; SCTs
+written by the 'jax_packed' backend arrive already packed and their zone
+map is built by unpacking on the card.
 
 Unlike the reference, an SCT keeps no unpacked code column (``SCT.evs``):
 readers extract just the codes they need from the packed words on the card
@@ -144,11 +146,15 @@ def build_sct(
     store: FileStore,
     device,
     raw_values: Optional[np.ndarray] = None,
+    encoded: Optional[Tuple[torch.Tensor, OPD]] = None,
     packed_encoded: Optional[Tuple[torch.Tensor, int, OPD]] = None,
 ) -> SCT:
     """Build + "write" one SCT from exactly one value source: raw values
-    (flush: OPD construction, then the pack kernel) or ``packed_encoded`` =
-    (packed words on the card, pack width, opd) from compaction."""
+    (flush: OPD construction, then the pack kernel), ``encoded`` = (int32
+    codes on the card, -1 at tombstones; opd) from the 'jax' and 'numpy'
+    compaction backends (the pack kernel; no column is kept), or
+    ``packed_encoded`` = (packed words on the card, pack width, opd) from
+    the 'jax_packed' backend."""
     n = keys.shape[0]
     rec = record_disk_bytes("opd", key_bytes, value_width)
     epb = max(1, int(block_bytes // max(rec, 1)))
@@ -157,6 +163,11 @@ def build_sct(
     if packed_encoded is not None:
         packed, width, opd = packed_encoded
         field = ops.unpack_codes(packed, width, n)
+    elif encoded is not None:
+        evs, opd = encoded
+        width = pack_width(opd.code_bits)
+        field = evs.clamp(min=0)
+        packed = ops.pack_codes(field, width)
     else:
         evs, opd = _opd_encode(raw_values, tombs)
         width = pack_width(opd.code_bits)

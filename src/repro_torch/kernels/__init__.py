@@ -1,7 +1,7 @@
 # Hand-written CUDA kernels for Hopper (csrc/*.cu, built by nvcc at first
 # use) with their plain PyTorch versions: bitpack (pack / unpack codes),
-# fused_scan (zone-gated K-predicate filter), merge_remap (compaction remap
-# fused with packing), agg_scan (zone-gated aggregation and GROUP BY
+# fused_scan (zone-gated K-predicate filter), merge_remap (compaction remap,
+# plain and fused with packing), agg_scan (zone-gated aggregation and GROUP BY
 # histogram), multi_filter (K ranges over packed words) and opd_filter (one
 # range over an unpacked code column).  ``ops`` is the public surface.
 from repro_torch.kernels import ops

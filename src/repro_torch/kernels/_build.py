@@ -33,7 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 KERNEL_NAMES = ("pack_codes", "unpack_codes", "fused_zone_filter",
                 "remap_pack_codes", "fused_zone_agg", "zone_histogram",
-                "multi_range_filter_packed", "range_filter_codes")
+                "multi_range_filter_packed", "range_filter_codes",
+                "remap_codes")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 _lock = threading.Lock()
@@ -51,6 +52,7 @@ _SIGNATURES = {
     "repro_zone_histogram": [_P] * 5 + [_I64, _INT, _INT, _INT, _P],
     "repro_multi_range_filter": [_P] * 4 + [_I64, _INT, _INT, _INT, _P],
     "repro_range_filter_codes": [_P, _INT, _INT, _P, _P, _I64, _INT, _P],
+    "repro_remap_codes": [_P] * 5 + [_I64, _INT, _P],
 }
 
 

@@ -1,17 +1,21 @@
-"""Compaction-time code remap fused with k-bit packing (Algorithm 1 line 9).
+"""Compaction-time code remap (Algorithm 1 line 9).
 
-Port of ``repro/kernels/merge_remap.py::remap_pack_codes_3d``.  With the
-per-source ``old -> new`` tables concatenated into one flat table and a
-per-source base offset, output entry i packs
+Port of ``repro/kernels/merge_remap.py``.  With the per-source ``old ->
+new`` tables concatenated into one flat table and a per-source base offset,
+``remap_codes`` (``remap_codes_2d``, the 'jax' compaction backend) maps
+output entry i to
+
+    code = table[ev[i] + offsets[src[i]]]   if ev[i] >= 0 else -1
+
+(an unused-code slot, -1, comes through as -1), and ``remap_pack_codes``
+(``remap_pack_codes_3d``, the 'jax_packed' backend) packs
 
     code = max(table[ev[i] + offsets[src[i]]], 0)   if ev[i] >= 0 else 0
 
 so dead entries (tombstones, padding) and unused-code slots (-1) pack as 0,
 bit-identical to ``bitpack(clip(remapped, 0))``.  The output uses the
-engine's linear word layout.  ``remap_pack_codes`` launches
-``csrc/merge_remap.cu`` for tensors on the card and runs the plain version
-for tensors on the CPU.  ``remap_codes_2d`` (the unpacked variant) is not
-ported yet.
+engine's linear word layout.  Both launch ``csrc/merge_remap.cu`` for
+tensors on the card and run their plain versions for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -20,6 +24,47 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.bitpack import n_words_for, pack_codes_plain
+
+
+def remap_codes_plain(evs: torch.Tensor, srcs: torch.Tensor,
+                      table: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """Plain version: int32 evs/srcs [n], int32 table [T], int32 offsets
+    [n_src] -> int32 codes [n], -1 at dead entries."""
+    live = evs >= 0
+    out = torch.full_like(evs, -1)
+    idx = (evs.to(torch.int64)[live]
+           + offsets.to(torch.int64)[srcs.to(torch.int64)[live]])
+    out[live] = table[idx]
+    return out
+
+
+def remap_codes(evs: torch.Tensor, srcs: torch.Tensor, table: torch.Tensor,
+                offsets: torch.Tensor) -> torch.Tensor:
+    """Remap <src, ev> pairs through the flat table; dead entries stay -1."""
+    if not _build.on_card(evs, srcs, table, offsets):
+        return remap_codes_plain(evs, srcs, table, offsets)
+    n = _check_pairs(evs, srcs, table, offsets)
+    for t, name in ((evs, "evs"), (srcs, "srcs")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             "loads 4 entries at a time)")
+    out = torch.empty(n, dtype=torch.int32, device=evs.device)
+    if n:
+        _build.launch("remap_codes", "repro_remap_codes", evs.device,
+                      evs.data_ptr(), srcs.data_ptr(), table.data_ptr(),
+                      offsets.data_ptr(), out.data_ptr(), n,
+                      offsets.shape[0])
+    return out
+
+
+def _check_pairs(evs, srcs, table, offsets) -> int:
+    for t, name in ((evs, "evs"), (srcs, "srcs"), (table, "table"),
+                    (offsets, "offsets")):
+        _build.check_operand(t, name, torch.int32, 1)
+    n = evs.shape[0]
+    if srcs.shape[0] != n:
+        raise ValueError(f"evs and srcs differ in length: {n} vs {srcs.shape[0]}")
+    return n
 
 
 def remap_pack_codes_plain(evs: torch.Tensor, srcs: torch.Tensor,
@@ -41,13 +86,8 @@ def remap_pack_codes(evs: torch.Tensor, srcs: torch.Tensor,
     """Remap <src, ev> pairs through the flat table and pack the new codes."""
     if not _build.on_card(evs, srcs, table, offsets):
         return remap_pack_codes_plain(evs, srcs, table, offsets, width)
-    n = evs.shape[0]
+    n = _check_pairs(evs, srcs, table, offsets)
     m = n_words_for(n, width)
-    for t, name in ((evs, "evs"), (srcs, "srcs"), (table, "table"),
-                    (offsets, "offsets")):
-        _build.check_operand(t, name, torch.int32, 1)
-    if srcs.shape[0] != n:
-        raise ValueError(f"evs and srcs differ in length: {n} vs {srcs.shape[0]}")
     words = torch.empty(m, dtype=torch.int32, device=evs.device)
     if m:
         _build.launch("remap_pack_codes", "repro_remap_pack_codes", evs.device,

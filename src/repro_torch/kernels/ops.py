@@ -1,7 +1,7 @@
 """Public entry points of the port's kernels.
 
 Port of ``repro/kernels/ops.py`` for the engine's main path, its analytics
-tier and the staged filter backends.  The reference's host-side reshapes,
+tier, the staged filter backends and the compaction backends.  The reference's host-side reshapes,
 pads and permutations into the TPU's (8 | 128, 128) tile layout are gone:
 every kernel here works on the engine's linear word layout.  What remains
 is the level-wide tile/meta construction of ``fused_level_filter``,
@@ -28,7 +28,7 @@ from repro_torch.kernels.bitpack import (check_width, from_u32_bits,
                                          pack_codes, to_u32_bits, unpack_codes)
 from repro_torch.kernels.fused_scan import (DEFAULT_TILE_WORDS, EMPTY_ZONE,
                                             fused_zone_filter)
-from repro_torch.kernels.merge_remap import remap_pack_codes
+from repro_torch.kernels.merge_remap import remap_codes, remap_pack_codes
 from repro_torch.kernels.multi_filter import (DEFAULT_TILE_WORDS as
                                               MULTI_TILE_WORDS,
                                               multi_range_filter)
@@ -36,7 +36,7 @@ from repro_torch.kernels.opd_filter import (DEFAULT_TILE_CODES,
                                             code_range_filter)
 
 __all__ = ["LAUNCHES", "reset_launches", "pack_codes", "unpack_codes",
-           "remap_pack_codes", "fused_level_filter", "bitmap_to_mask",
+           "remap_codes", "remap_pack_codes", "fused_level_filter", "bitmap_to_mask",
            "tile_zones", "fused_zone_agg", "zone_histogram",
            "fused_level_agg", "level_histogram", "multi_range_filter_packed",
            "range_filter_codes", "range_filter_count"]

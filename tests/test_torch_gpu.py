@@ -109,6 +109,75 @@ def test_remap_pack_matches_plain(card, width):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("n_src", [6, 1500])
+@pytest.mark.parametrize("n", [0, 3, 100_003, 1_200_000])
+def test_remap_codes_matches_plain(card, n, n_src):
+    """Dead entries, unused-code (-1) slots, n that 4 does not divide, the
+    per-source bases in shared memory (6 sources) and past it (1,500);
+    then misaligned operands raise instead of launching."""
+    rng = np.random.default_rng(n + n_src)
+    t = 400_000 - 400_000 % n_src
+    table = torch.from_numpy(rng.integers(-1, 2 ** 20, t).astype(np.int32))
+    offsets = torch.from_numpy((np.arange(n_src) * (t // n_src)).astype(np.int32))
+    srcs = torch.from_numpy(rng.integers(0, n_src, n).astype(np.int32))
+    evs = torch.from_numpy(rng.integers(-1, t // n_src, n).astype(np.int32))
+    want = merge_remap.remap_codes_plain(evs, srcs, table, offsets)
+    before = ops.LAUNCHES["remap_codes"]
+    got = merge_remap.remap_codes(evs.to(card), srcs.to(card), table.to(card),
+                                  offsets.to(card))
+    assert torch.equal(got.cpu(), want)
+    assert ops.LAUNCHES["remap_codes"] == before + (n > 0)
+    dead = torch.full((5,), -1, dtype=torch.int32, device=card)
+    empty = torch.zeros(0, dtype=torch.int32, device=card)
+    assert merge_remap.remap_codes(dead, dead + 1, empty,
+                                   offsets[:2].to(card)).tolist() == [-1] * 5
+    if n > 4:
+        e, s = evs.to(card), srcs.to(card)
+        with pytest.raises(ValueError, match="aligned"):
+            merge_remap.remap_codes(e[1:], s[1:], table.to(card),
+                                    offsets.to(card))
+        with pytest.raises(ValueError, match="aligned"):
+            merge_remap.remap_codes(e[:-1], s[1:], table.to(card),
+                                    offsets.to(card))
+
+
+@pytest.mark.parametrize("backend,kernel", [("jax", "remap_codes"),
+                                            ("numpy", None)])
+def test_compaction_backend_on_the_card_matches_the_cpu(card, backend, kernel):
+    """A tree compacted under 'jax' or 'numpy' on the card writes the
+    CPU tree's SCTs; neither launches the fused remap-pack kernel."""
+    cfg = T.LSMConfig(value_width=24, file_bytes=8 * 1024, l0_limit=2,
+                      size_ratio=3, compaction_backend=backend)
+    trees = [T.LSMTree(cfg, device=d) for d in ("cpu", "cuda")]
+    rng = np.random.default_rng(6)
+    ops.reset_launches()
+    for _ in range(3):
+        keys = rng.integers(0, 3000, 1500).astype(np.uint64)
+        vals = np.asarray([b"tag_%05d" % i for i in rng.integers(0, 400, 1500)],
+                          "S24")
+        dels = rng.integers(0, 3000, 80).tolist()
+        for t in trees:
+            t.put_batch(keys, vals)
+            for k in dels:
+                t.delete(k)
+    for t in trees:
+        t.compact()
+    assert trees[1].n_compactions > 0
+    for la, lb in zip(trees[0].levels, trees[1].levels):
+        for a, b in zip(la, lb):
+            assert torch.equal(a.packed, b.packed.cpu())
+            assert torch.equal(a.blocks.code_lo, b.blocks.code_lo.cpu())
+            assert torch.equal(a.blocks.weight_sums, b.blocks.weight_sums.cpu())
+    ra, rb = (t.range_lookup(0, 3000) for t in trees)
+    assert np.array_equal(ra[0], rb[0]) and np.array_equal(ra[1], rb[1])
+    assert ops.LAUNCHES["remap_pack_codes"] == 0, ops.LAUNCHES
+    assert ops.LAUNCHES["pack_codes"] > 0
+    if kernel is None:
+        assert ops.LAUNCHES["remap_codes"] == 0
+    else:
+        assert ops.LAUNCHES[kernel] > 0
+
+
 def test_tree_on_the_card_matches_the_cpu(card):
     """The same stream into a tree on the card and one on the CPU: same
     SCT words, zones and results, with every kernel launched."""

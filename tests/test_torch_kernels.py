@@ -5,7 +5,8 @@ CPU) is held bit for bit against the reference's ``repro.kernels.ops``
 entry point (Pallas in interpret mode) and its ``kernels/ref.py`` oracle,
 over widths 1-32, K of 1, 4 and 16 with empty ``lo > hi`` ranges,
 padding-only tiles, SCTs without zones or not tile-aligned, dead entries
-and unused-code table slots, and n = 0 and n = 1; the aggregate kernels
+and unused-code table slots (remap with and without packing, 1 to 7
+sources, an empty table), and n = 0 and n = 1; the aggregate kernels
 with SUM on and off over skipped, closed-form, evaluated and part-padding
 tiles.  The CUDA kernels
 themselves are held against these plain versions on the card in
@@ -259,6 +260,63 @@ def test_remap_pack_empty_and_all_dead():
     got = merge_remap.remap_pack_codes(dead, torch.zeros(5, dtype=torch.int32),
                                        empty, torch.zeros(1, dtype=torch.int32), 1)
     assert got.tolist() == [0]
+
+
+# --------------------------------------------------------------------------- #
+# plain remap ('jax' compaction backend)
+# --------------------------------------------------------------------------- #
+def _remap_case(n, sizes, dead, rng):
+    """evs/srcs over dictionaries of ``sizes`` (a size-0 source is never
+    chosen), a share ``dead`` of entries -1, and the flat table with -1 at
+    a fifth of its slots."""
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    table = rng.integers(0, 5000, offsets[-1]).astype(np.int32)
+    table[rng.random(offsets[-1]) < 0.2] = -1
+    live_src = [i for i, d in enumerate(sizes) if d]
+    srcs = (rng.choice(live_src, n) if live_src
+            else np.zeros(n, np.int64)).astype(np.int32)
+    evs = np.asarray([rng.integers(0, sizes[s]) if sizes[s] else -1
+                      for s in srcs], np.int32).reshape(-1)
+    evs[rng.random(n) < dead] = -1
+    return evs, srcs, table, offsets
+
+
+@pytest.mark.parametrize("n", [1, 7, 4096, 5001])
+@pytest.mark.parametrize("sizes", [[40], [37, 0, 120, 9], [3] * 6 + [250]],
+                         ids=["1src", "4src", "7src"])
+@pytest.mark.parametrize("dead", [0.0, 0.3, 1.0])
+def test_remap_codes_plain_matches_jax(n, sizes, dead):
+    """Dead entries stay -1, unused-code table slots come through as -1,
+    for n that 4 divides and n that it does not."""
+    rng = np.random.default_rng(n + 10 * len(sizes) + int(100 * dead))
+    evs, srcs, table, offsets = _remap_case(n, sizes, dead, rng)
+    want = np.asarray(jops.remap_codes(evs, srcs, table, offsets))
+    got = merge_remap.remap_codes_plain(
+        _t(evs), _t(srcs), _t(table), _t(offsets[:-1].astype(np.int32)))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    oracle = jref.merge_remap(jnp.asarray(evs), jnp.asarray(srcs),
+                              jnp.asarray(table),
+                              jnp.asarray(offsets[:-1].astype(np.int32)))
+    assert np.array_equal(got.numpy(), np.asarray(oracle))
+    assert torch.equal(ops.remap_codes(_t(evs), _t(srcs), _t(table),
+                                       _t(offsets[:-1].astype(np.int32))), got)
+
+
+@pytest.mark.parametrize("n", [0, 5])
+def test_remap_codes_empty_table_and_empty_input(n):
+    """An empty table with every entry dead gives all -1; n = 0 gives an
+    empty column; both as the reference gives them."""
+    empty = np.zeros(0, np.int32)
+    evs = np.full(n, -1, np.int32)
+    srcs = np.zeros(n, np.int32)
+    offsets = np.zeros(2, np.int64)
+    want = np.asarray(jops.remap_codes(evs, srcs, empty, offsets))
+    got = merge_remap.remap_codes_plain(_t(evs), _t(srcs), _t(empty),
+                                        _t(offsets[:1].astype(np.int32)))
+    assert got.shape == (n,) and got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    assert got.tolist() == [-1] * n
 
 
 # --------------------------------------------------------------------------- #

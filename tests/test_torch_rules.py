@@ -8,15 +8,17 @@
 * A kernel wrapper handed tensors on the card launches its kernel or
   raises: it never falls back to its plain version.
 * Configuration values outside the ported slice raise ``ValueError``
-  naming their ROADMAP item; the reference's name ``'jax_packed'`` of the
-  ported compaction backend builds the same tree as ``'packed'``, and the
-  ported filter backends ``'jax_packed'`` and ``'jax'`` build the same tree
-  as ``'fused'``.
+  naming their ROADMAP item, and values the reference does not take (the
+  retired ``compaction_backend='packed'``) raise naming the accepted ones;
+  the compaction backends ``'numpy'`` and ``'jax'`` build the same tree as
+  ``'jax_packed'``, and the ported filter backends ``'jax_packed'`` and
+  ``'jax'`` build the same tree as ``'fused'``.
 * ``chip_smoke.py`` gives no result without a card or outside the repo.
 """
 
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -61,6 +63,7 @@ def test_port_sources_import_neither_jax_nor_repro():
 @pytest.mark.parametrize("modules", [
     "repro_torch, repro_torch.core, repro_torch.kernels.ops, repro_torch.query",
     "repro_torch.serving.scan_server",
+    "repro_torch.core.iterator",
 ])
 def test_importing_the_port_loads_neither_jax_nor_repro(modules):
     code = (f"import sys, {modules}\n"
@@ -83,7 +86,7 @@ def test_default_device_is_the_card_and_missing_card_raises(monkeypatch):
 
 
 OTHER_VALUES = {"codec": "plain", "filter_backend": "numpy",
-                "compaction_backend": "jax", "compaction_policy": "tiered",
+                "compaction_backend": "packed", "compaction_policy": "tiered",
                 "policy_autotune": True, "maintenance": "background",
                 "wal_sync": "group", "blob_compress": True,
                 "level_modes": ("L", "T")}
@@ -91,16 +94,21 @@ OTHER_VALUES = {"codec": "plain", "filter_backend": "numpy",
 
 @pytest.mark.parametrize("field", sorted(SUPPORTED))
 def test_unsupported_config_value_raises(field):
-    with pytest.raises(ValueError, match="ROADMAP"):
+    """An unported value names its ROADMAP item; where the port takes every
+    value of the reference, a value outside them names the accepted ones."""
+    accepted, item = SUPPORTED[field]
+    want = "ROADMAP" if item is not None else \
+        " or ".join(repr(v) for v in accepted)
+    with pytest.raises(ValueError, match=re.escape(want)):
         T.LSMConfig(**{field: OTHER_VALUES[field]})
 
 
-@pytest.mark.parametrize("value,kernel", [
-    (("compaction_backend", "jax"), "remap_codes_2d"),
+@pytest.mark.parametrize("value,item", [
+    (("filter_backend", "numpy"), "read path, rest"),
 ])
-def test_rejected_backend_names_its_kernel(value, kernel):
-    """A backend that needs an unported kernel names it by function."""
-    with pytest.raises(ValueError, match=kernel):
+def test_rejected_backend_names_its_kernel(value, item):
+    """A backend that is not ported yet names its ROADMAP item."""
+    with pytest.raises(ValueError, match=item):
         T.LSMConfig(**dict([value]))
 
 
@@ -135,13 +143,14 @@ def test_ported_filter_backend_builds_the_fused_tree(backend):
         np.array_equal(ra.values, rb.values)
 
 
-def test_jax_packed_compaction_builds_the_same_tree_as_packed():
-    """'jax_packed' (the reference's name) and 'packed' (the port's earlier
-    name) select the same compaction path: identical trees."""
+@pytest.mark.parametrize("backend", ["numpy", "jax"])
+def test_jax_packed_compaction_builds_the_same_tree_as_packed(backend):
+    """The compaction backends 'numpy' and 'jax' write the same trees as
+    'jax_packed' (the reference's contract for its three backends)."""
     trees = [T.LSMTree(T.LSMConfig(value_width=16, file_bytes=8 * 1024,
                                    l0_limit=2, size_ratio=3,
                                    compaction_backend=name), device="cpu")
-             for name in ("jax_packed", "packed")]
+             for name in ("jax_packed", backend)]
     rng = np.random.default_rng(4)
     keys = rng.integers(0, 3000, 4000).astype(np.uint64)
     vals = np.asarray([b"v_%04d" % v for v in rng.integers(0, 500, 4000)],
@@ -178,6 +187,7 @@ def pretend_card(monkeypatch):
                       (bitpack, "unpack_codes_plain"),
                       (fused_scan, "fused_zone_filter_plain"),
                       (merge_remap, "remap_pack_codes_plain"),
+                      (merge_remap, "remap_codes_plain"),
                       (agg_scan, "fused_zone_agg_plain"),
                       (agg_scan, "zone_histogram_plain"),
                       (multi_filter, "multi_range_filter_plain"),
@@ -197,6 +207,7 @@ def test_card_requests_raise_instead_of_falling_back(pretend_card, tmp_path,
         lambda: ops.pack_codes(i32, 8),
         lambda: ops.unpack_codes(i32, 8, 64),
         lambda: ops.remap_pack_codes(i32, i32, i32, i32[:1], 8),
+        lambda: ops.remap_codes(i32, i32, i32, i32[:1]),
         lambda: fused_scan.fused_zone_filter(
             torch.zeros(1024, dtype=torch.int32), torch.zeros((1, 4), dtype=torch.int32),
             torch.zeros((1, 2), dtype=torch.int32), 8, 1),
