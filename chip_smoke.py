@@ -5,7 +5,7 @@
 
 Phases, each printing JSON lines:
 
-1. build:   nvcc builds the nine CUDA kernels from ``src/repro_torch``;
+1. build:   nvcc builds the twelve CUDA kernels from ``src/repro_torch``;
             prints build seconds, the card (nvidia-smi), torch and CUDA.
 2. main:    the port's main path through ``LSMTree`` at the paper's
             section 5.1 shapes (16-byte keys, 256-byte values from a
@@ -23,13 +23,15 @@ Phases, each printing JSON lines:
             ``ScanServer`` (max_batch 16) fed the 16 predicates interleaved
             with 2 selective aggregates; serve.jax: the 16 predicates through
             ``filter_many`` on the same snapshot, also equal to the 'fused'
-            answers.  Answers are held against the plain host model.  Each
-            phase resets the launch counts just before its checked call and
-            reads them just after: serve.jax_packed must have launched
-            multi_range_filter_packed, serve.jax range_filter_codes and
-            unpack_codes, neither the fused filter.  serve.turns: the
-            three filter backends' ``filter_many`` in turns on the warm
-            main and clustered trees, each answer equal to 'fused'.
+            answers; serve.numpy: the same under 'numpy' (the codes unpacked
+            and compared on the host), also equal to 'fused'.  Answers are
+            held against the plain host model.  Each phase resets the launch
+            counts just before its checked call and reads them just after:
+            serve.jax_packed must have launched multi_range_filter_packed,
+            serve.jax range_filter_codes and unpack_codes, neither the fused
+            filter, and serve.numpy no kernel at all.  serve.turns: the four
+            filter backends' ``filter_many`` in turns on the warm main and
+            clustered trees, each answer equal to 'fused'.
 4. agg:     the analytics path through ``LSMTree.aggregate_many`` (COUNT,
             SUM, MIN/MAX, GROUP BY prefix with top-k and by 16 buckets):
             agg.general on the main tree (overlapping levels: the fused
@@ -56,11 +58,30 @@ Phases, each printing JSON lines:
             overwrites), an empty and an inverted window, each held key for
             key and byte for byte against the host model; host code, no
             kernel launches.
-7. kernels: each kernel against its plain PyTorch version on the card, on
+7. fig5:    the paper's Figure-5 pipeline (``examples/filter_analytics.py``)
+            on every SCT of the main tree for its 16 predicates: numpy on
+            the host-unpacked codes, range_filter_codes on the code column
+            and range_filter_packed on the packed words, all equal to each
+            other and to the host model; it must launch range_filter_packed.
+            fig5.example: the example itself on the port at its own
+            configuration (200,000 puts, 128-byte values, 1 MiB files,
+            'numpy' backends), through filter, filter_many (K=16) and a
+            ScanServer (max_batch 8), every answer held against the host
+            model.
+8. bench:   the kernel micro-bench's entry points
+            (``benchmarks/bench_kernels.py``): range_filter_packed on 2^20
+            codes at widths 8 and 16, bloom_probe on a 2^14-bit bloom and
+            on the largest documented one (2,048 words, 2^20 keys, no false
+            negative), ssm_scan at falcon-mamba-7b's width (d_inner 8192,
+            d_state 16, 2,048 tokens), held against host models.
+9. kernels: each kernel against its plain PyTorch version on the card, on
             operands recorded from the main path, the serve phases,
-            agg.fast and compact.jax (bit-identical required), with
-            CUDA-event medians, the plain version's time and the
-            memory-bound time from the card's data-sheet bandwidth.
+            agg.fast, compact.jax and fig5, and at bench's shapes
+            (bit-identical required; ssm_scan within rtol = atol = 1e-4),
+            with CUDA-event medians, the plain version's time and the bound:
+            the larger of the bytes over the card's data-sheet bandwidth
+            and, for range_filter_packed, bloom_probe and ssm_scan, the
+            operations over the card's integer, float32 or exp rate.
 
 The last three lines are the card (nvidia-smi name, power limit), the
 kernel table ``{"kernels": [...]}`` and ``{"ok": true, "device": ...}``.
@@ -88,6 +109,13 @@ SRC = ROOT / "src"
 # device-memory bandwidth (bytes/s) from NVIDIA's data sheets, by card name
 BANDWIDTH = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
              ("H100", 3.35e12))
+# float32 rate outside the tensor cores (FLOP/s), from the same data sheets
+FP32_RATE = (("H100 PCIe", 51.2e12), ("H200", 67e12), ("H100", 67e12))
+# results per clock per SM on compute capability 9.0 (the CUDA C++
+# Programming Guide's arithmetic throughput table): exp2 (expf costs one)
+# and 32-bit integer add, multiply, shift and logic
+EXP_PER_CLOCK_PER_SM = 16
+INT32_PER_CLOCK_PER_SM = 64
 
 KERNELS = {
     "pack_codes": ("src/repro_torch/kernels/csrc/bitpack.cu",
@@ -108,6 +136,12 @@ KERNELS = {
                            "src/repro/kernels/opd_filter.py:49"),
     "remap_codes": ("src/repro_torch/kernels/csrc/merge_remap.cu",
                     "src/repro/kernels/merge_remap.py:109"),
+    "range_filter_packed": ("src/repro_torch/kernels/csrc/packed_filter.cu",
+                            "src/repro/kernels/packed_filter.py:63"),
+    "bloom_probe": ("src/repro_torch/kernels/csrc/bloom_probe.cu",
+                    "src/repro/kernels/bloom_probe.py:73"),
+    "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan.py:83"),
 }
 MAIN_KERNELS = ("pack_codes", "unpack_codes", "fused_zone_filter",
                 "remap_pack_codes")
@@ -120,7 +154,10 @@ SYMBOLS = {"pack_codes": "pack_codes_kernel",
            "zone_histogram": "zone_histogram_kernel",
            "multi_range_filter_packed": "multi_range_filter_kernel",
            "range_filter_codes": "range_filter_codes_kernel",
-           "remap_codes": "remap_codes_kernel"}
+           "remap_codes": "remap_codes_kernel",
+           "range_filter_packed": "range_filter_packed_kernel",
+           "bloom_probe": "bloom_probe_kernel",
+           "ssm_scan": "ssm_scan_kernel"}
 INT32_MAX = 2**31 - 1
 NO_LIBRARY = ("no single PyTorch call computes this bit-field function; "
               "its plain version is several calls")
@@ -128,7 +165,13 @@ LIBRARY_WHY = {"range_filter_codes": (
     "no single PyTorch call gives the range mask with per-tile counts; its "
     "plain version is four calls"), "remap_codes": (
     "no single PyTorch call computes a gather with -1 kept at dead entries "
-    "and per-source offsets; its plain version is several calls")}
+    "and per-source offsets; its plain version is several calls"),
+    "bloom_probe": (
+        "no single PyTorch call hashes keys and tests their bloom bits; its "
+        "plain version is several calls per hash"),
+    "ssm_scan": (
+        "no single PyTorch call computes a selective scan (sequential in L); "
+        "its plain version is several calls per time step")}
 
 
 def emit(obj) -> None:
@@ -386,9 +429,10 @@ SERVE_AGGS = [
 
 
 def serve_phase(state, recs) -> dict:
-    """serve.jax_packed and serve.jax on the main tree, its filter backend
-    switched by configuration (the write path does not depend on it);
-    returns each phase's launch counts by the kernel it exercises."""
+    """serve.jax_packed, serve.jax and serve.numpy on the main tree, its
+    filter backend switched by configuration (the write path does not
+    depend on it); returns each phase's launch counts by the kernel it
+    exercises."""
     import dataclasses
 
     import torch
@@ -458,18 +502,41 @@ def serve_phase(state, recs) -> dict:
     emit({"phase": "serve.jax", "filter_many_s": dt, "k": len(preds),
           "rows_matched": n_match, "launches": codes_launches,
           "equal_to_fused": True})
+
+    # serve.numpy: the same scans on the host (the reference's default
+    # backend): each SCT's packed words come to the host once, no kernel
+    tree.cfg = dataclasses.replace(fused_cfg, filter_backend="numpy")
+    before = dict(tree.filter_stats.seconds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host, host_launches = launch_window(
+        lambda: tree.filter_many(tp, snapshot=snap))
+    dt = time.perf_counter() - t0
+    tree.cfg = fused_cfg
+    check(sum(host_launches.values()) == 0,
+          f"serve.numpy: kernels launched {host_launches}")
+    n_match = check_filters(host, ref, preds, "serve.numpy")
+    for p, a, b in zip(preds, host, fused):
+        check(np.array_equal(a.keys, b.keys) and
+              a.values.tolist() == b.values.tolist(),
+              f"serve.numpy: {p} differs from the fused backend")
+    emit({"phase": "serve.numpy", "filter_many_s": dt, "k": len(preds),
+          "rows_matched": n_match, "launches": host_launches,
+          "stages_s": {k: v - before.get(k, 0.0)
+                       for k, v in tree.filter_stats.seconds.items()},
+          "equal_to_fused": True})
     emit({"phase": "serve.turns", **backend_turns(state)})
     return {"multi_range_filter_packed":
             packed_launches["multi_range_filter_packed"],
             "range_filter_codes": codes_launches["range_filter_codes"]}
 
 
-FILTER_BACKENDS = ("fused", "jax_packed", "jax")
+FILTER_BACKENDS = ("fused", "jax_packed", "jax", "numpy")
 
 
 def backend_turns(state) -> dict:
-    """``filter_many`` under each filter backend in turns (A B C C B A A B
-    C) on the warm main and clustered trees, one snapshot each; every
+    """``filter_many`` under each filter backend in turns (A B C D D C B A
+    A B C D) on the warm main and clustered trees, one snapshot each; every
     answer must equal the turn's first ('fused', held against the host
     model by main.filter and clustered).  Returns the wall seconds per
     backend and their medians."""
@@ -893,6 +960,317 @@ def range_phase(args, state) -> None:
 
 
 # --------------------------------------------------------------------------- #
+# the paper's Figure-5 pipeline: one planned range evaluated three ways
+# --------------------------------------------------------------------------- #
+def fig5_pipeline(tree, vocab: np.ndarray, preds, label: str) -> dict:
+    """For every SCT of ``tree`` and each predicate, the planned code range
+    evaluated three ways: numpy on the host-unpacked codes,
+    ``range_filter_codes`` on ``SCT.code_column`` and ``range_filter_packed``
+    + ``bitmap_to_mask`` on the packed words.  The three masks must be
+    equal, and equal to the host model's predicate over the SCT's
+    dictionary values (located in the vocabulary), and the matches' codes
+    must decode to vocabulary values the predicate holds.  Returns the
+    seconds of each way and the counts."""
+    import torch
+    from repro_torch import Predicate
+    from repro_torch.kernels import ops
+
+    svocab = np.sort(vocab)
+    hits = [vocab_hits(svocab, p) for p in preds]
+    secs = {"numpy": 0.0, "range_filter_codes": 0.0,
+            "range_filter_packed": 0.0}
+    n_masks = n_match = 0
+    runs = tree.all_runs()
+    for s in runs:
+        codes = s.host_codes()
+        live = codes >= 0
+        pos = np.searchsorted(svocab, s.opd.values)
+        check(bool((pos < svocab.shape[0]).all()) and
+              np.array_equal(svocab[np.minimum(pos, svocab.shape[0] - 1)],
+                             s.opd.values),
+              f"{label}: SCT {s.file_id} holds a value outside the vocabulary")
+        col = s.code_column()
+        for p, hit in zip(preds, hits):
+            lo, hi = s.opd.code_range(Predicate(*p))
+            # inclusive bounds; an empty plan as the engine encodes it
+            k_lo, k_hi = (lo, hi - 1) if lo < hi else (1, 0)
+            t0 = time.perf_counter()
+            m_np = (codes >= lo) & (codes < hi)
+            t1 = time.perf_counter()
+            m_codes = ops.range_filter_codes(col, k_lo, k_hi)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            m_packed = ops.bitmap_to_mask(
+                ops.range_filter_packed(s.packed, s.code_bits, k_lo, k_hi),
+                s.code_bits, s.n)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            secs["numpy"] += t1 - t0
+            secs["range_filter_codes"] += t2 - t1
+            secs["range_filter_packed"] += t3 - t2
+            what = f"{label}: SCT {s.file_id} {p}"
+            check(np.array_equal(m_codes.cpu().numpy(), m_np),
+                  f"{what}: range_filter_codes differs from numpy")
+            check(np.array_equal(m_packed.cpu().numpy(), m_np),
+                  f"{what}: range_filter_packed differs from numpy")
+            model = np.zeros(s.n, bool)
+            model[live] = hit[pos[codes[live]]]
+            check(np.array_equal(m_np, model),
+                  f"{what}: mask differs from the host model")
+            got = np.unique(codes[m_np])
+            dec = s.opd.decode(got)
+            where = np.searchsorted(svocab, dec)
+            check(bool((where < svocab.shape[0]).all()) and
+                  bool(hit[np.minimum(where, svocab.shape[0] - 1)].all()) and
+                  np.array_equal(svocab[np.minimum(where,
+                                                   svocab.shape[0] - 1)], dec),
+                  f"{what}: a decoded match is not a value the host model "
+                  "matches")
+            n_masks += 1
+            n_match += int(m_np.sum())
+    return {"scts": len(runs), "predicates": len(preds), "masks": n_masks,
+            "entries_matched": n_match, "seconds": secs}
+
+
+def fig5_phase(state, recs) -> int:
+    """fig5: the Figure-5 pipeline over every SCT of the main tree for its
+    16 predicates; returns the launches of ``range_filter_packed`` in the
+    phase's window."""
+    tree = state["tree"]
+    recs["packed"].active = True
+    res, launches = launch_window(lambda: fig5_pipeline(
+        tree, state["vocab"], state["preds"], "fig5"))
+    recs["packed"].active = False
+    for name in ("range_filter_packed", "range_filter_codes", "unpack_codes"):
+        check(launches[name] > 0, f"fig5: {name} never launched")
+    emit({"phase": "fig5", **res, "pack_widths": sorted(
+        {s.code_bits for s in tree.all_runs()}), "launches": launches})
+    return launches["range_filter_packed"]
+
+
+FIG5_VW, FIG5_PUTS = 128, 200_000
+
+
+def fig5_example(device: str) -> None:
+    """fig5.example: ``examples/filter_analytics.py`` on the port at the
+    example's own configuration (``LSMConfig(codec='opd', value_width=128,
+    file_bytes=1 MiB)`` with the reference's default backends, 'numpy'
+    filter and compaction; 200,000 puts from seed 0 over the 1,000-value
+    'commodity/%03d/' + 80 x 'd' vocabulary): the Figure-5 pipeline on
+    every SCT for ``prefix b"commodity/00"``, the full-tree ``filter``, K=16
+    prefix predicates through ``filter`` and ``filter_many`` on one
+    snapshot, and a ``ScanServer(max_batch=8)``, every answer held against
+    the host model."""
+    import torch
+    from repro_torch import LSMConfig, LSMTree, Predicate, ScanServer
+
+    rng = np.random.default_rng(0)
+    n = FIG5_PUTS
+    cfg = LSMConfig(value_width=FIG5_VW, file_bytes=2**20,
+                    filter_backend="numpy", compaction_backend="numpy")
+    vocab = np.asarray([b"commodity/%03d/" % i + b"d" * 80
+                        for i in range(1000)], f"S{FIG5_VW}")
+    keys = rng.integers(0, 10**9, n, dtype=np.uint64)
+    vidx = rng.integers(0, 1000, n)
+    ref = Reference(vocab)
+    ref.put(keys, vidx)
+    pred = ("prefix", b"commodity/00", b"")
+    preds = [("prefix", b"commodity/%03d" % i, b"") for i in range(16)]
+
+    def drive():
+        out = {}
+        tree = LSMTree(cfg, device=device)
+        t0 = time.perf_counter()
+        tree.put_batch(keys, vocab[vidx])
+        torch.cuda.synchronize()
+        out["ingest_s"] = time.perf_counter() - t0
+        out["levels"] = tree.shape_report()["levels"]
+        out["pipeline"] = fig5_pipeline(tree, vocab, [pred], "fig5.example")
+        one = tree.filter(Predicate(*pred))
+        out["filter_rows"] = check_filters([one], ref, [pred], "fig5.example")
+        tp = [Predicate(*p) for p in preds]
+        snap = tree.snapshot()
+        tree.filter_many(tp, snapshot=snap)               # warm
+        t0 = time.perf_counter()
+        seq = [tree.filter(p, snapshot=snap) for p in tp]
+        out["sequential_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bat = tree.filter_many(tp, snapshot=snap)
+        out["filter_many_s"] = time.perf_counter() - t0
+        for p, a, b in zip(preds, seq, bat):
+            check(np.array_equal(a.keys, b.keys) and
+                  a.values.tolist() == b.values.tolist(),
+                  f"fig5.example: filter_many {p} differs from filter")
+        out["rows_matched"] = check_filters(bat, ref, preds, "fig5.example")
+        srv = ScanServer(tree, max_batch=8)
+        rids = srv.submit_many(tp)
+        served = srv.drain()
+        check(srv.stats.batch_sizes == [8, 8],
+              f"fig5.example: batches {srv.stats.batch_sizes}")
+        check_filters([served[r] for r in rids], ref, preds,
+                      "fig5.example.server")
+        out["server_batches"] = srv.stats.batch_sizes
+        return out
+
+    res, launches = launch_window(drive)
+    check(launches["range_filter_packed"] > 0,
+          "fig5.example: range_filter_packed never launched")
+    emit({"phase": "fig5.example", "puts": n, "value_width": FIG5_VW,
+          "file_bytes": cfg.file_bytes, "backends": "filter 'numpy', "
+          "compaction 'numpy' (the reference's defaults)", **res,
+          "launches": launches})
+
+
+# --------------------------------------------------------------------------- #
+# the kernel micro-bench's entry points (benchmarks/bench_kernels.py)
+# --------------------------------------------------------------------------- #
+BENCH_CODES = 1 << 20
+BLOOM_SEEDS32 = (0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F, 0x165667B1,
+                 0x9E377969)
+# falcon-mamba-7b's mixer at full width: d_inner 8192 = expand 2 x d_model
+# 4096, d_state 16 (src/repro/configs/falcon_mamba_7b.py); batch 1, 2,048
+# tokens
+SSM_SHAPE = (1, 2048, 8192, 16)
+SSM_TOL = 1e-4
+
+
+def np_mix32(x: np.ndarray, seed: int) -> np.ndarray:
+    """murmur3's 32-bit finalizer in numpy uint32 arithmetic (the host
+    model of the bloom hash)."""
+    x = x ^ np.uint32(seed)
+    x = x ^ (x >> np.uint32(16))
+    x = x * np.uint32(0x85EBCA6B)
+    x = x ^ (x >> np.uint32(13))
+    x = x * np.uint32(0xC2B2AE35)
+    return x ^ (x >> np.uint32(16))
+
+
+def np_bloom_hits(words: np.ndarray, nbits: int, keys: np.ndarray,
+                  n_hashes: int = 6) -> np.ndarray:
+    """Host model of the bloom probe: a bit past the words is a miss."""
+    hits = np.ones(keys.shape[0], bool)
+    padded = np.concatenate([words, np.zeros(1, np.uint32)])
+    for s in range(n_hashes):
+        h = np_mix32(keys, BLOOM_SEEDS32[s]) % np.uint32(nbits)
+        w = np.minimum(h >> np.uint32(5), words.shape[0])
+        hits &= ((padded[w] >> (h & np.uint32(31))) & np.uint32(1)) == 1
+    return hits
+
+
+def np_ssm(u, dt, A, Bm, Cm):
+    """Host model of the selective scan in float64, batch row 0."""
+    x = np.zeros(A.shape, np.float64)
+    y = np.zeros(u.shape[1:], np.float64)
+    for t in range(u.shape[1]):
+        d = dt[0, t].astype(np.float64)[:, None]
+        x = np.exp(d * A) * x + (d * u[0, t].astype(np.float64)[:, None]) \
+            * Bm[0, t].astype(np.float64)[None, :]
+        y[t] = x @ Cm[0, t].astype(np.float64)
+    return y, x
+
+
+def bench_phase(args) -> tuple:
+    """bench: the kernel micro-bench's three entry points on the port, on
+    the card, at its shapes (2^20 codes packed at widths 8 and 16 with the
+    range [1, 200]; a 2^14-bit bloom with 4,096 keys; the selective scan at
+    falcon-mamba-7b's width), plus the largest documented bloom (2,048
+    words) filled by mix32 with 2^20 keys, which must all hit.  Answers are
+    held against host models (numpy masks, a numpy bloom, a float64 scan
+    over 128 channels).  Returns the launches of the phase's window and the
+    operands for the kernel rows."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bitpack import pack_codes_plain
+
+    rng = np.random.default_rng(args.seed)
+    codes = rng.integers(0, 60000, BENCH_CODES).astype(np.int32)
+    words = {w: pack_codes_plain(torch.from_numpy(codes % (1 << w)), w
+                                 ).cuda() for w in (8, 16)}
+    nbits = 1 << 14
+    bloom = rng.integers(0, 2**32, nbits // 32, dtype=np.uint64
+                         ).astype(np.uint32)
+    bkeys = rng.integers(0, 2**32, 4096, dtype=np.uint64).astype(np.uint32)
+    # the largest documented bloom, 10 bits per inserted key (the engine's
+    # bloom_bits_per_key), probed with 2^20 keys, the inserted ones first
+    big_bits = 2048 * 32
+    ins = rng.integers(0, 2**32, 1 << 20, dtype=np.uint64).astype(np.uint32)
+    n_ins = big_bits // 10
+    big = np.zeros(2048, np.uint32)
+    for seed in BLOOM_SEEDS32:
+        h = np_mix32(ins[:n_ins], seed) % np.uint32(big_bits)
+        np.bitwise_or.at(big, h >> np.uint32(5),
+                         np.uint32(1) << (h & np.uint32(31)))
+    B, L, D, N = SSM_SHAPE
+    u = rng.normal(size=(B, L, D)).astype(np.float32)
+    dt = (np.abs(rng.normal(size=(B, L, D))) * 0.1).astype(np.float32)
+    A = -np.abs(rng.normal(size=(D, N))).astype(np.float32)
+    Bm = rng.normal(size=(B, L, N)).astype(np.float32)
+    Cm = rng.normal(size=(B, L, N)).astype(np.float32)
+
+    def u32(a):
+        return torch.from_numpy(a.view(np.int32)).cuda()
+
+    dev = {"bloom": (u32(bloom), nbits, u32(bkeys)),
+           "big": (u32(big), big_bits, u32(ins)),
+           "ssm": tuple(torch.from_numpy(a).cuda()
+                        for a in (u, dt, A, Bm, Cm))}
+    torch.cuda.synchronize()
+
+    def drive():
+        out = {w: ops.range_filter_packed(words[w], w, 1, 200)
+               for w in (8, 16)}
+        out["bloom"] = ops.bloom_probe(*dev["bloom"])
+        out["big"] = ops.bloom_probe(*dev["big"])
+        out["ssm"] = ops.ssm_scan(*dev["ssm"], chunk=32)
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    out, launches = launch_window(drive)
+    wall = time.perf_counter() - t0
+    for name, n in (("range_filter_packed", 2), ("bloom_probe", 2),
+                    ("ssm_scan", 1)):
+        check(launches[name] == n, f"bench: {name} launched "
+              f"{launches[name]} times, expected {n}")
+    for w in (8, 16):
+        c = codes % (1 << w)
+        got = ops.bitmap_to_mask(out[w], w, BENCH_CODES).cpu().numpy()
+        check(np.array_equal(got, (c >= 1) & (c <= 200)),
+              f"bench: range_filter_packed width {w} differs from numpy")
+    check(np.array_equal(out["bloom"].cpu().numpy(),
+                         np_bloom_hits(bloom, nbits, bkeys)),
+          "bench: bloom_probe differs from the host model")
+    big_hits = out["big"].cpu().numpy()
+    check(bool(big_hits[:n_ins].all()), "bench: an inserted key missed the "
+          "bloom")
+    check(np.array_equal(big_hits, np_bloom_hits(big, big_bits, ins)),
+          "bench: bloom_probe (2,048 words) differs from the host model")
+    y, state = out["ssm"]
+    check(tuple(y.shape) == (B, L, D) and tuple(state.shape) == (B, D, N)
+          and bool(torch.isfinite(y).all()) and
+          bool(torch.isfinite(state).all()), "bench: ssm_scan output")
+    ch = slice(0, 128)
+    wy, ws = np_ssm(u[:, :, ch], dt[:, :, ch], A[ch], Bm, Cm)
+    gy, gs = y[0, :, ch].cpu().double().numpy(), \
+        state[0, ch].cpu().double().numpy()
+    ssm_err = max(float(np.abs(gy - wy).max()), float(np.abs(gs - ws).max()))
+    check(bool((np.abs(gy - wy) <= SSM_TOL + SSM_TOL * np.abs(wy)).all()) and
+          bool((np.abs(gs - ws) <= SSM_TOL + SSM_TOL * np.abs(ws)).all()),
+          f"bench: ssm_scan outside rtol = atol = {SSM_TOL} of the float64 "
+          f"host model (max |err| {ssm_err})")
+    emit({"phase": "bench", "codes": BENCH_CODES, "bloom_bits": nbits,
+          "bloom_keys": int(bkeys.shape[0]),
+          "bloom_hit_share": float(out["bloom"].float().mean()),
+          "big_bloom_bits": big_bits, "big_bloom_keys": int(ins.shape[0]),
+          "big_bloom_inserted": n_ins,
+          "big_bloom_hit_share": float(big_hits.mean()),
+          "ssm_shape_BLDN": list(SSM_SHAPE),
+          "ssm_max_abs_err_vs_float64_model": ssm_err,
+          "wall_s": wall, "launches": launches})
+    return launches, {"words": words, **dev}
+
+
+# --------------------------------------------------------------------------- #
 # kernels against their plain versions, on operands the main path produced
 # --------------------------------------------------------------------------- #
 class Recorder:
@@ -950,30 +1328,43 @@ def device_busy(fn) -> dict:
             "device_idle_share": 1.0 - busy / wall}
 
 
-def profiled_device_ms(fn, symbol: str, reps: int = 20):
+def profiled_device_ms(fn, symbol: str, reps: int = 20, tries: int = 3):
     """Mean device time of the kernel ``symbol`` over ``reps`` calls, from
-    torch.profiler's CUDA activity; None when the trace has no such kernel."""
+    torch.profiler's CUDA activity; a trace without the kernel (the
+    profiler drops a window's device records now and then) is taken again,
+    up to ``tries`` times, then None."""
     import re
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     pat = re.compile(r"(^|[^A-Za-z_])" + symbol + r"\b")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = count = 0
-    for e in prof.key_averages():
-        dt = getattr(e, "device_time_total", None)
-        if dt is not None and pat.search(e.key):
-            total += dt
-            count += e.count
-    return total / count / 1e3 if count else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = count = 0
+        for e in prof.key_averages():
+            dt = getattr(e, "device_time_total", None)
+            if dt is not None and pat.search(e.key):
+                total += dt
+                count += e.count
+        if count:
+            return total / count / 1e3
+    return None
 
 
 def compare(name: str, kernel, plain, nbytes: int, bw: float, launches: int,
-            shape: str) -> dict:
+            shape: str, tol=None, op_bound_ms: float = 0.0,
+            plain_reps: int = 21) -> dict:
+    """Run ``kernel`` and ``plain`` on the same operands and time both.
+    Without ``tol`` the outputs must agree bit for bit; with ``tol`` every
+    element must satisfy |kernel - plain| <= tol + tol * |plain|, and the
+    relative error reported is max |kernel - plain| / max |plain|.  The
+    bound is the larger of ``nbytes`` over the bandwidth and
+    ``op_bound_ms`` (the operations over the card's rates)."""
     import torch
     from repro_torch.kernels import ops
 
@@ -984,31 +1375,49 @@ def compare(name: str, kernel, plain, nbytes: int, bw: float, launches: int,
     want = plain()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    err = 0
+    err, rel = 0, 0.0
     for g, w in zip(got, want):
         check(g.shape == w.shape and g.dtype == w.dtype,
               f"{name}: shape/dtype {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
-        if g.numel():
+        if not g.numel():
+            continue
+        if tol is None:
             err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
                                .abs().max()))
-    check(err == 0, f"{name} ({shape}): kernel differs from plain, max |err| {err}")
+            continue
+        d = (g.double() - w.double()).abs()
+        err = max(err, float(d.max()))
+        rel = max(rel, float(d.max() / w.double().abs().max().clamp(min=tol)))
+        check(bool((d <= tol + tol * w.double().abs()).all()),
+              f"{name} ({shape}): kernel outside rtol = atol = {tol} of "
+              f"plain, max |err| {err}")
+    check(tol is not None or err == 0,
+          f"{name} ({shape}): kernel differs from plain, max |err| {err}")
     ms = event_median_ms(kernel, inner=10)
-    plain_ms = event_median_ms(plain, inner=1, warmup=1)
+    plain_ms = event_median_ms(plain, inner=1, reps=plain_reps, warmup=1)
+    bytes_ms = nbytes / bw * 1e3
     src, rep = KERNELS[name]
-    return {"name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches, "max_abs_err": err, "ms": ms,
-            "device_ms": profiled_device_ms(kernel, SYMBOLS[name]),
-            "plain_ms": plain_ms, "bound_ms": nbytes / bw * 1e3,
-            "bytes": nbytes,
-            "bound_by": "bytes", "library_ms": None,
-            "library_why": LIBRARY_WHY.get(name, NO_LIBRARY),
-            "shape": shape}
+    row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+           "launches": launches, "max_abs_err": err, "ms": ms,
+           "device_ms": profiled_device_ms(kernel, SYMBOLS[name]),
+           "plain_ms": plain_ms, "bound_ms": max(bytes_ms, op_bound_ms),
+           "bytes": nbytes, "bytes_ms": bytes_ms,
+           "ops_ms": op_bound_ms,
+           "bound_by": "operations" if op_bound_ms > bytes_ms else "bytes",
+           "library_ms": None,
+           "library_why": LIBRARY_WHY.get(name, NO_LIBRARY),
+           "shape": shape}
+    if tol is not None:
+        row.update({"tolerance": tol, "max_rel_err": rel})
+    return row
 
 
-def kernel_phase(recs, launches: dict, bw: float) -> list:
+def kernel_phase(recs, launches: dict, bw: float, bench: dict,
+                 rates: dict) -> list:
     import torch
-    from repro_torch.kernels import (agg_scan, bitpack, fused_scan,
-                                     merge_remap, multi_filter, opd_filter)
+    from repro_torch.kernels import (agg_scan, bitpack, bloom_probe,
+                                     fused_scan, merge_remap, multi_filter,
+                                     opd_filter, packed_filter, ssm_scan)
 
     rows = []
     (codes, width), _ = recs["pack"].calls[0]
@@ -1126,6 +1535,63 @@ def kernel_phase(recs, launches: dict, bw: float) -> list:
         launches["remap_codes"],
         f"n={n} dead={dead} table={table.shape[0]} "
         f"sources={offsets.shape[0]}"))
+
+    # the Figure-5 kernel at fig5's largest SCT of the main tree, then at
+    # the micro-bench's 2^20 codes
+    (pw, lo, hi, width, tw), _ = recs["packed"].calls[0]
+    cases = [(pw, lo, hi, width, tw, "fig5: the main tree's largest SCT")]
+    cases += [(w, 1, 200, wd, packed_filter.DEFAULT_TILE_WORDS, "micro-bench")
+              for wd, w in bench["words"].items()]
+    for i, (pw, lo, hi, width, tw, where) in enumerate(cases):
+        n_tiles = pw.shape[0] // tw
+        # per field: shift, mask, subtract, compare, shift-or; per word: a
+        # popcount and the count's add
+        n_ops = pw.shape[0] * (5 * (32 // width) + 2)
+        rows.append(compare(
+            "range_filter_packed",
+            lambda: packed_filter.packed_range_filter(pw, lo, hi, width, tw),
+            lambda: packed_filter.packed_range_filter_plain(pw, lo, hi, width,
+                                                            tw),
+            8 * pw.shape[0] + 4 * n_tiles, bw, launches["range_filter_packed"],
+            f"words={pw.shape[0]} tiles={n_tiles} width={width} lo={lo} "
+            f"hi={hi} ({where})",
+            op_bound_ms=n_ops / rates["int32_ops"] * 1e3))
+        rows[-1].update({"main_path": i == 0, "int_ops": n_ops})
+
+    # the bloom probe at the micro-bench's bloom, then the largest one
+    for key, where in (("bloom", "micro-bench"),
+                       ("big", "the largest documented bloom")):
+        words, nbits, keys = bench[key]
+        # per hash: mix32 (9), the modulo, word and bit index, the bit test
+        # and the AND into the hit (6)
+        n_ops = keys.shape[0] * 6 * 15
+        rows.append(compare(
+            "bloom_probe",
+            lambda: bloom_probe.bloom_probe(words, nbits, keys),
+            lambda: bloom_probe.bloom_probe_plain(words, nbits, keys),
+            5 * keys.shape[0] + 4 * words.shape[0], bw, launches["bloom_probe"],
+            f"bloom={words.shape[0]} words ({nbits} bits) keys={keys.shape[0]} "
+            f"hashes=6 ({where})",
+            op_bound_ms=n_ops / rates["int32_ops"] * 1e3))
+        rows[-1].update({"main_path": key == "bloom", "int_ops": n_ops})
+
+    # the selective scan at falcon-mamba-7b's width: bytes of u, delta and
+    # y (plus B, C, A and the state) against one exp per (b, t, d, n) at
+    # the card's exp rate and 6 float32 operations per (b, t, d, n)
+    u, dt, A, Bm, Cm = bench["ssm"]
+    B, L, D, N = SSM_SHAPE
+    elems = B * L * D * N
+    exp_ms = elems / rates["exp_per_s"] * 1e3
+    flop_ms = 6 * elems / rates["fp32_flops"] * 1e3
+    rows.append(compare(
+        "ssm_scan", lambda: ssm_scan.ssm_scan(u, dt, A, Bm, Cm),
+        lambda: ssm_scan.ssm_scan_plain(u, dt, A, Bm, Cm),
+        4 * (3 * B * L * D + 2 * B * L * N + D * N + B * D * N), bw,
+        launches["ssm_scan"],
+        f"B={B} L={L} D={D} N={N} (falcon-mamba-7b's d_inner and d_state)",
+        tol=SSM_TOL, op_bound_ms=max(exp_ms, flop_ms), plain_reps=5))
+    rows[-1].update({"exps": elems, "exp_ms": exp_ms, "flops": 6 * elems,
+                     "flop_ms": flop_ms})
     return rows
 
 
@@ -1156,6 +1622,14 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
     bw = next(rate for key, rate in BANDWIDTH if key in name)
+    max_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rates = {"exp_per_s": EXP_PER_CLOCK_PER_SM * sms * max_mhz * 1e6,
+             "int32_ops": INT32_PER_CLOCK_PER_SM * sms * max_mhz * 1e6,
+             "fp32_flops": next(r for key, r in FP32_RATE if key in name)}
 
     t0 = time.perf_counter()
     lib = _build.build()
@@ -1165,7 +1639,8 @@ def main() -> int:
              if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": build_s, "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "bandwidth_Bps": bw, "ptxas": ptxas})
+          "bandwidth_Bps": bw, "sm_count": sms, "max_sm_clock_mhz": max_mhz,
+          **rates, "ptxas": ptxas})
 
     recs = {
         "pack": Recorder(ops.pack_codes, lambda c, w: c.shape[0]),
@@ -1188,12 +1663,16 @@ def main() -> int:
         # recorded during compact.jax only
         "remap_codes": Recorder(ops.remap_codes, lambda e, *a: e.shape[0],
                                 active=False),
+        # recorded during fig5 only
+        "packed": Recorder(ops.packed_range_filter, lambda w, *a: w.shape[0],
+                           active=False),
     }
     ops.pack_codes, ops.unpack_codes = recs["pack"], recs["unpack"]
     ops.fused_zone_filter, ops.remap_pack_codes = recs["fused"], recs["remap"]
     ops.fused_zone_agg, ops.zone_histogram = recs["agg"], recs["hist"]
     ops.multi_range_filter, ops.code_range_filter = recs["multi"], recs["codes"]
-    ops.remap_codes = recs["remap_codes"]
+    ops.remap_codes, ops.packed_range_filter = (recs["remap_codes"],
+                                                recs["packed"])
     launches, state = main_phase(args, "cuda")
     launches.update(serve_phase(state, {k: recs[k]
                                         for k in ("multi", "codes")}))
@@ -1209,7 +1688,11 @@ def main() -> int:
     recs["remap_codes"].active = False
     compact_phase(state, "numpy", "cuda")
     range_phase(args, state)
-    rows = kernel_phase(recs, launches, bw)
+    launches["range_filter_packed"] = fig5_phase(state, recs)
+    fig5_example("cuda")
+    bench_launches, bench = bench_phase(args)
+    launches.update({k: bench_launches[k] for k in ("bloom_probe", "ssm_scan")})
+    rows = kernel_phase(recs, launches, bw, bench, rates)
     for r in rows:
         emit({"phase": "kernel", **r})
 
@@ -1217,7 +1700,8 @@ def main() -> int:
     keep = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # one row per kernel: for the filter the largest level of the main path,
-    # for the aggregate kernel its SUM launch of agg.fast
+    # for the aggregate kernel its SUM launch of agg.fast, for the packed
+    # range filter fig5's largest SCT, for the bloom probe the micro-bench's
     table = [{k: r[k] for k in keep} for r in rows if r.get("main_path", True)]
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -35,7 +35,6 @@ from repro_torch.core.opd import OPD
 from repro_torch.core.sct import SCT, build_sct, pack_width
 from repro_torch.core.stats import StageStats
 from repro_torch.kernels import ops
-from repro_torch.kernels.bitpack import unpack_codes_plain
 from repro_torch.storage.io import FileStore
 
 _SEQ_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -185,11 +184,8 @@ def _host_source_codes(inputs: List[SCT]) -> Tuple[np.ndarray, np.ndarray,
     """The 'numpy' backend's ``_source_codes``: each input's packed words
     come to the host once and are unpacked there by the plain unpack
     (int32, -1 at tombstones)."""
-    cols = []
-    for s in inputs:
-        codes = unpack_codes_plain(s.packed.cpu(), s.code_bits, s.n).numpy()
-        cols.append(np.where(s.tombs, np.int32(-1), codes))
-    return (np.concatenate(cols), *_bases(inputs))
+    return (np.concatenate([s.host_codes() for s in inputs]),
+            *_bases(inputs))
 
 
 def _host_remap_codes(inputs: List[SCT], codes: np.ndarray,

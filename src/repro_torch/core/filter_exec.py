@@ -1,27 +1,31 @@
 """Scan-based value filtering (paper §4.2.2) on the card.
 
-Port of ``repro/core/filter_exec.py`` for the 'opd' codec and three of the
-reference's backends.  K predicates are planned per SCT dictionary on the
-host (two binary searches each) and evaluated on the card:
+Port of ``repro/core/filter_exec.py`` for the 'opd' codec and the
+reference's four backends.  K predicates are planned per SCT dictionary on
+the host (two binary searches each) and evaluated:
 
 * ``'fused'``: every SCT of a level in ONE zone-gated
   ``fused_level_filter`` launch on the packed words;
 * ``'jax_packed'`` (the serving path): one ``multi_range_filter_packed``
   launch per SCT over its packed words, all K ranges in one pass;
 * ``'jax'``: one ``range_filter_codes`` launch per (SCT, non-empty
-  predicate) over a transient unpacked code column.
+  predicate) over a transient unpacked code column;
+* ``'numpy'`` (the reference's default): on the host, no kernel.  Each
+  SCT's packed words come to the host once per call, are unpacked by the
+  plain unpack (-1 at tombstones), and the K ranges are compared as one
+  (K, n) numpy broadcast.
 
-Per SCT the K masks stay on the card, tombstones are masked there, and
-only the matching positions and their codes (read straight from the packed
-words) come back to the host, where the dictionary decodes them and the
-cross-level seqno merge discards stale versions.  The backends give the
-same results bit for bit.
+On the card backends the K masks of an SCT stay on the card, tombstones
+are masked there, and only the matching positions and their codes (read
+straight from the packed words) come back to the host.  There the
+dictionary decodes them and the cross-level seqno merge discards stale
+versions.  The backends give the same results bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -90,12 +94,12 @@ def evaluate_filter_many(
     runs: List[SCT], memtable: MemTables, preds: Sequence[Predicate],
     *, stats: StageStats, store: FileStore,
     snapshot_seqno: Optional[int] = None,
-    backend: str = "fused",  # 'fused' | 'jax_packed' | 'jax'
+    backend: str = "fused",  # 'fused' | 'jax_packed' | 'jax' | 'numpy'
     value_width: Optional[int] = None,
 ) -> List[FilterResult]:
     """Evaluate K predicates with one pass over every run's codes: one
     launch per level ('fused'), per run ('jax_packed') or per (run,
-    predicate) ('jax').
+    predicate) ('jax'), or none ('numpy', on the host).
 
     Returns one ``FilterResult`` per predicate, bit-identical to K
     independent ``evaluate_filter`` calls.  ``value_width`` pins the dtype
@@ -119,18 +123,12 @@ def evaluate_filter_many(
     cand_vals = [[] for _ in range(n_preds)]
     n_scanned = 0
     with stats.time("filter"):
-        masks = _run_masks(live_runs, preds, backend, stats)
+        hits = _run_hits(live_runs, preds, backend, stats, snap)
         for i, s in enumerate(live_runs):
             n_scanned += s.n
-            if i not in masks:
+            if i not in hits:
                 continue
-            q_idx = torch.nonzero(masks[i] & s.live)   # [nnz, 2] (q, entry)
-            codes = s.codes_at(q_idx[:, 1])
-            q_idx, codes = q_idx.cpu().numpy(), codes.cpu().numpy()
-            q, idx = q_idx[:, 0], q_idx[:, 1]
-            if snap is not None and np.uint64(s.max_seqno) > snap:
-                vis = s.seqnos[idx] <= snap
-                q, idx, codes = q[vis], idx[vis], codes[vis]
+            q, idx, codes = hits[i]
             bounds = np.searchsorted(q, np.arange(n_preds + 1))
             for k in range(n_preds):
                 sel = slice(bounds[k], bounds[k + 1])
@@ -160,11 +158,40 @@ def evaluate_filter_many(
     return results
 
 
+def _run_hits(live_runs: List[SCT], preds: Sequence[Predicate],
+              backend: str, stats: StageStats, snap
+              ) -> Dict[int, Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """{run index -> (q, idx, codes)}: the (predicate, entry) pairs of the
+    run's live entries that match and are visible at ``snap``, with the
+    entries' codes, as host arrays ordered by predicate, then entry.  A run
+    where no predicate can match is left out."""
+    out = {}
+    run_masks = _run_masks(live_runs, preds, backend, stats)
+    for i in sorted(run_masks):
+        s, masks = live_runs[i], run_masks[i]
+        if isinstance(masks, tuple):          # 'numpy': host masks, codes
+            masks, col = masks
+            q, idx = np.nonzero(masks)
+            codes = col[idx]
+        else:
+            q_idx = torch.nonzero(masks & s.live)   # [nnz, 2] (q, entry)
+            codes = s.codes_at(q_idx[:, 1])
+            q_idx, codes = q_idx.cpu().numpy(), codes.cpu().numpy()
+            q, idx = q_idx[:, 0], q_idx[:, 1]
+        if snap is not None and np.uint64(s.max_seqno) > snap:
+            vis = s.seqnos[idx] <= snap
+            q, idx, codes = q[vis], idx[vis], codes[vis]
+        out[i] = (q, idx, codes)
+    return out
+
+
 def _run_masks(live_runs: List[SCT], preds: Sequence[Predicate],
-              backend: str, stats: StageStats) -> dict:
-    """{run index -> bool masks [K, n] on the card} under ``backend``; a run
-    where no predicate can match is left out (no launch).  Tombstones may
-    still be set in a mask: callers AND with ``SCT.live``."""
+               backend: str, stats: StageStats) -> dict:
+    """{run index -> masks} under ``backend``; a run where no predicate can
+    match is left out (no launch).  On the card backends the masks are
+    bool [K, n] on the card, where tombstones may still be set (callers AND
+    with ``SCT.live``); under 'numpy' they are a host pair (bool [K, n]
+    without tombstones, the int32 code column)."""
     if backend == "fused":
         return _fused_level_masks(live_runs, preds, stats)
     out = {}
@@ -177,17 +204,24 @@ def _run_masks(live_runs: List[SCT], preds: Sequence[Predicate],
 
 
 def _code_masks_many(s: SCT, ranges: Sequence[Tuple[int, int]],
-                     backend: str) -> Optional[torch.Tensor]:
+                     backend: str):
     """K bool masks [K, n] over one SCT's codes from planned [lo, hi)
     ranges, or None when every range is empty (no launch).
 
-    'jax' unpacks the code column (-1 at tombstones) and launches
+    'numpy' brings the packed words to the host, unpacks them there (-1 at
+    tombstones, which no planned range holds) and compares the K ranges as
+    one (K, n) broadcast; it returns (masks, column) on the host.  'jax'
+    unpacks the code column on the card and launches
     ``range_filter_codes`` once per non-empty range; 'jax_packed' hands
     the (K, 2) table to ``multi_range_filter_packed`` so each packed word is
     read and field-extracted once for all K ranges (tombstones pack as
     code 0 and stay in its masks)."""
     if all(lo >= hi for lo, hi in ranges):
         return None
+    if backend == "numpy":
+        col = s.host_codes()
+        lo, hi = np.asarray(ranges, np.int64).reshape(-1, 2).T
+        return (col >= lo[:, None]) & (col < hi[:, None]), col
     dev = s.packed.device
     if backend == "jax":
         # padded to whole tiles once per run: each launch reads it in place

@@ -9,9 +9,10 @@ the host and rewrites the codes, packed on the card; ``get`` is the point
 lookup and ``range_lookup`` the merged range scan; ``aggregate`` /
 ``aggregate_many`` compute COUNT, SUM, MIN/MAX and GROUP BY on the packed
 codes (``repro_torch.query``).  ``filter_backend`` 'jax_packed' (one
-multi-range launch per SCT, the reference's serving path) and 'jax' (one
-range launch per SCT and predicate over an unpacked column) are the
-staged alternatives to 'fused'; ``compaction_backend``
+multi-range launch per SCT, the reference's serving path), 'jax' (one
+range launch per SCT and predicate over an unpacked column) and 'numpy'
+(the reference's default: the codes unpacked and compared on the host, no
+kernel) are the alternatives to 'fused'; ``compaction_backend``
 'jax' (the ``remap_codes`` kernel) and 'numpy' (the remap on the host) are
 the alternatives to 'jax_packed'.  Results are bit-identical to the
 reference engine configured as ``LSMConfig(codec='opd', filter_backend=<the
@@ -53,8 +54,7 @@ from repro_torch.storage.io import FileStore
 # the port takes every value the reference takes
 SUPPORTED = {
     "codec": (("opd",), "§1 competitor codecs"),
-    "filter_backend": (("fused", "jax_packed", "jax"),
-                       "§1 read path, rest (the host-only 'numpy' backend)"),
+    "filter_backend": (("fused", "jax_packed", "jax", "numpy"), None),
     "compaction_backend": (("numpy", "jax", "jax_packed"), None),
     "compaction_policy": (("leveled",), "§1 policy"),
     "policy_autotune": ((False,), "§1 policy"),

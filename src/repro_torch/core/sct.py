@@ -11,8 +11,9 @@ map is built by unpacking on the card.
 
 Unlike the reference, an SCT keeps no unpacked code column (``SCT.evs``):
 readers extract just the codes they need from the packed words on the card
-(``codes_at``), and the 'jax' filter backend and the host aggregate routes
-unpack a transient column per call (``code_column``).  The 'plain',
+(``codes_at``), the 'jax' filter backend and the host aggregate routes
+unpack a transient column per call on the card (``code_column``), and the
+'numpy' filter and compaction backends one on the host (``host_codes``).  The 'plain',
 'heavy' and 'blob' codecs and ``BlobManager`` are not ported yet (ROADMAP
 §1).
 """
@@ -28,6 +29,7 @@ import torch
 from repro_torch.core.blocks import BlockIndex
 from repro_torch.core.opd import OPD
 from repro_torch.kernels import ops
+from repro_torch.kernels.bitpack import unpack_codes_plain
 from repro_torch.storage.io import FileStore
 
 SEQNO_BYTES = 8
@@ -105,6 +107,14 @@ class SCT:
         col = torch.full((want,), -1, dtype=torch.int32, device=codes.device)
         col[:self.n] = codes
         return col
+
+    def host_codes(self) -> np.ndarray:
+        """int32 codes on the host, -1 at tombstones: the packed words come
+        to the host once and are unpacked there by the plain unpack (no
+        kernel launch)."""
+        codes = unpack_codes_plain(self.packed.cpu(), self.code_bits,
+                                   self.n).numpy()
+        return np.where(self.tombs, np.int32(-1), codes)
 
     def value_at(self, pos: int) -> bytes:
         """Decoded value of live entry ``pos``."""

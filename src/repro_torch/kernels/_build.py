@@ -34,7 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNEL_NAMES = ("pack_codes", "unpack_codes", "fused_zone_filter",
                 "remap_pack_codes", "fused_zone_agg", "zone_histogram",
                 "multi_range_filter_packed", "range_filter_codes",
-                "remap_codes")
+                "remap_codes", "range_filter_packed", "bloom_probe",
+                "ssm_scan")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 _lock = threading.Lock()
@@ -43,6 +44,7 @@ _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
+_U32 = ctypes.c_uint32
 _SIGNATURES = {
     "repro_pack_codes": [_P, _P, _I64, _I64, _INT, _P],
     "repro_unpack_codes": [_P, _P, _I64, _I64, _INT, _P],
@@ -53,6 +55,9 @@ _SIGNATURES = {
     "repro_multi_range_filter": [_P] * 4 + [_I64, _INT, _INT, _INT, _P],
     "repro_range_filter_codes": [_P, _INT, _INT, _P, _P, _I64, _INT, _P],
     "repro_remap_codes": [_P] * 5 + [_I64, _INT, _P],
+    "repro_range_filter_packed": [_P, _U32, _U32, _P, _P, _I64, _INT, _INT, _P],
+    "repro_bloom_probe": [_P, _I64, _U32, _P, _I64, _INT, _P, _P],
+    "repro_ssm_scan": [_P] * 7 + [_I64, _INT, _INT, _INT, _P],
 }
 
 

@@ -1,7 +1,9 @@
 """Public entry points of the port's kernels.
 
-Port of ``repro/kernels/ops.py`` for the engine's main path, its analytics
-tier, the staged filter backends and the compaction backends.  The reference's host-side reshapes,
+Port of ``repro/kernels/ops.py``: the engine's main path, its analytics
+tier, the staged filter backends, the compaction backends, and the
+kernels no engine configuration reaches (``range_filter_packed``, the
+Figure-5 pipeline's; ``bloom_probe``; ``ssm_scan``).  The reference's host-side reshapes,
 pads and permutations into the TPU's (8 | 128, 128) tile layout are gone:
 every kernel here works on the engine's linear word layout.  What remains
 is the level-wide tile/meta construction of ``fused_level_filter``,
@@ -9,7 +11,8 @@ is the level-wide tile/meta construction of ``fused_level_filter``,
 Python loops, vectorised on the device, with per-SCT folds there and one
 transfer per launch), the reference's tile padding of
 ``multi_range_filter_packed`` ('jax_packed') and ``range_filter_codes`` /
-``range_filter_count`` ('jax'), and ``bitmap_to_mask``.
+``range_filter_count`` ('jax') and ``range_filter_packed``, and
+``bitmap_to_mask``.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import bloom_probe as _bloom
 from repro_torch.kernels._build import LAUNCHES, reset_launches
 from repro_torch.kernels.agg_scan import (AGG_META_COLS, FLAG_EVALUATED,
                                           FLAG_SHORTCIRCUIT, FLAG_SKIPPED,
@@ -34,12 +38,17 @@ from repro_torch.kernels.multi_filter import (DEFAULT_TILE_WORDS as
                                               multi_range_filter)
 from repro_torch.kernels.opd_filter import (DEFAULT_TILE_CODES,
                                             code_range_filter)
+from repro_torch.kernels.packed_filter import (DEFAULT_TILE_WORDS as
+                                               PACKED_TILE_WORDS,
+                                               packed_range_filter)
+from repro_torch.kernels.ssm_scan import ssm_scan
 
 __all__ = ["LAUNCHES", "reset_launches", "pack_codes", "unpack_codes",
            "remap_codes", "remap_pack_codes", "fused_level_filter", "bitmap_to_mask",
            "tile_zones", "fused_zone_agg", "zone_histogram",
            "fused_level_agg", "level_histogram", "multi_range_filter_packed",
-           "range_filter_codes", "range_filter_count"]
+           "range_filter_codes", "range_filter_count", "range_filter_packed",
+           "bloom_probe", "ssm_scan"]
 
 # (code_lo int64 [n_blocks], code_hi int64 [n_blocks], entries_per_block)
 # and, for the aggregate launches, optionally the per-block SUM weight
@@ -219,6 +228,29 @@ def range_filter_count(codes: torch.Tensor, lo: int, hi: int,
     the reference counts it: -1 matches where lo <= -1)."""
     _mask, counts = _code_tiles(codes, lo, hi, tile_codes)
     return int(counts.sum())
+
+
+def range_filter_packed(words: torch.Tensor, width: int, lo: int, hi: int,
+                        tile_words: int = PACKED_TILE_WORDS) -> torch.Tensor:
+    """int32 bitmap aligned with ``words``: bit f of ``bitmap[j]`` is
+    ``lo <= code <= hi`` for the code in field f of word j (inclusive
+    uint32 bounds; lo > hi is the empty range).  The words are padded with
+    0xFFFFFFFF, whose fields match only where hi = 2**width - 1, and the
+    bitmap is cut back to the real words."""
+    m = words.shape[0]
+    flat = _pad_to_tiles(words, tile_words, -1)
+    bitmap, _counts = packed_range_filter(flat, int(lo), int(hi), width,
+                                          tile_words)
+    return bitmap[:m]
+
+
+def bloom_probe(bloom_words: torch.Tensor, nbits: int, keys32: torch.Tensor,
+                n_hashes: int = 6) -> torch.Tensor:
+    """bool hits [Q] for uint32 keys against one bloom of uint32 words (both
+    int32 tensors of the same bits); a bit past the words is a miss, as in
+    the reference's kernel."""
+    return _bloom.bloom_probe(bloom_words, nbits, keys32,
+                              n_hashes).view(torch.bool)
 
 
 def bitmap_to_mask(bitmap: torch.Tensor, width: int, n: int) -> torch.Tensor:

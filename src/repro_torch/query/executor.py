@@ -1,7 +1,7 @@
 """Aggregate execution on packed codes, with an MVCC fallback.
 
 Port of ``repro/query/executor.py`` for the 'opd' codec and the 'fused',
-'jax_packed' and 'jax' backends.  Two paths, chosen per snapshot by
+'jax_packed', 'jax' and 'numpy' backends.  Two paths, chosen per snapshot by
 ``planner.fastpath_eligible``:
 
 **Fast path** (disjoint key spans, unique keys per run, nothing visible in
@@ -15,7 +15,7 @@ their words being read.  A run whose tombstones (packed as code 0) a
 planned range could see, or whose SUM could overflow the reference
 kernel's int32 tile accumulator (the routing guard, kept so the counters
 match the reference), goes to the host evaluation at 4 KB-block
-granularity instead, as every run does under 'jax'.
+granularity instead, as every run does under 'jax' and 'numpy'.
 
 **General path** (overlapping runs, visible memtable rows, snapshots older
 than stored seqnos): ``filter_exec``'s masks under the tree's filter
@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.filter_exec import (_global_newest, _memtable_newest,
-                                          _memtable_visible, _run_masks,
+                                          _memtable_visible, _run_hits,
                                           string_mask)
 from repro_torch.core.memtable import MemTables, as_mems
 from repro_torch.core.sct import SCT
@@ -69,7 +69,7 @@ def evaluate_aggregates(
     stats: StageStats,
     store: FileStore,
     snapshot_seqno: Optional[int] = None,
-    backend: str = "fused",  # 'fused' | 'jax_packed' | 'jax'
+    backend: str = "fused",  # 'fused' | 'jax_packed' | 'jax' | 'numpy'
     value_width: Optional[int] = None,
 ) -> List[AggPartial]:
     """Evaluate K aggregate specs against one snapshot's runs + memtables.
@@ -368,17 +368,10 @@ def _general_aggregate(live_runs, mems, mem_newest, specs, stats, snap,
             other_n[q] += keys.shape[0]
 
     with stats.time("filter"):
-        masks = _run_masks(live_runs, preds, backend, stats)
-        for i, s in enumerate(live_runs):
-            if i not in masks:
-                continue   # no predicate can match in this run
-            q_idx = torch.nonzero(masks[i] & s.live)   # [nnz, 2] (q, entry)
-            codes = s.codes_at(q_idx[:, 1])
-            q_idx, codes = q_idx.cpu().numpy(), codes.cpu().numpy()
-            q, idx = q_idx[:, 0], q_idx[:, 1]
-            if snap is not None and np.uint64(s.max_seqno) > snap:
-                vis = s.seqnos[idx] <= snap
-                q, idx, codes = q[vis], idx[vis], codes[vis]
+        # runs where no predicate can match are left out
+        for i, (q, idx, codes) in _run_hits(live_runs, preds, backend, stats,
+                                            snap).items():
+            s = live_runs[i]
             bounds = np.searchsorted(q, np.arange(K + 1))
             for k in range(K):
                 if bounds[k] == bounds[k + 1]:

@@ -16,8 +16,9 @@ import torch
 
 import repro_torch.core as T
 from repro_torch import AggSpec, GroupBy, ScanServer
-from repro_torch.kernels import (agg_scan, bitpack, fused_scan, merge_remap,
-                                 multi_filter, opd_filter, ops)
+from repro_torch.kernels import (agg_scan, bitpack, bloom_probe, fused_scan,
+                                 merge_remap, multi_filter, opd_filter, ops,
+                                 packed_filter, ssm_scan)
 
 pytestmark = pytest.mark.gpu
 WIDTHS = [1, 2, 4, 8, 16, 32]
@@ -449,3 +450,75 @@ def test_staged_backend_on_the_card_matches_the_cpu(card, backend, kernel):
         else:
             assert a == b
     assert ops.LAUNCHES["fused_zone_filter"] == 0, ops.LAUNCHES
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("tile", [packed_filter.DEFAULT_TILE_WORDS, 1000])
+def test_packed_range_filter_matches_plain(card, width, tile):
+    rng = np.random.default_rng(width * 7 + tile)
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, 3 * tile,
+                                          dtype=np.int64).astype(np.int32))
+    top = 2 ** width - 1
+    ranges = [(1, min(200, top)), (top // 3, top), (5, 2), (0, 0)]
+    if width == 32:
+        ranges += [(0, 0xFFFFFFFF), (2**31, 0xFFFFFFFF)]
+    for lo, hi in ranges:
+        want = packed_filter.packed_range_filter_plain(words, lo, hi, width,
+                                                       tile)
+        got = packed_filter.packed_range_filter(words.to(card), lo, hi, width,
+                                                tile)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), (lo, hi)
+        assert torch.equal(
+            ops.range_filter_packed(words[:-5].to(card), width, lo, hi).cpu(),
+            ops.range_filter_packed(words[:-5], width, lo, hi))
+
+
+@pytest.mark.parametrize("n_words,nbits,n_keys", [
+    (512, 1 << 14, 4096), (2048, 1 << 16, 1 << 20), (4, 4096, 3000),
+    (20000, 20000 * 32, 100_003), (0, 64, 10)])
+@pytest.mark.parametrize("n_hashes", [0, 1, 6])
+def test_bloom_probe_matches_plain(card, n_words, nbits, n_keys, n_hashes):
+    """The micro-bench's bloom, the kernel's largest documented one (2,048
+    words) with 2^20 keys, nbits past the words, a bloom above 48 KB (read
+    through __ldg) and no words at all."""
+    rng = np.random.default_rng(n_words + n_hashes)
+    bloom = torch.from_numpy(rng.integers(-2**31, 2**31, n_words,
+                                          dtype=np.int64).astype(np.int32))
+    keys = torch.from_numpy(rng.integers(-2**31, 2**31, n_keys,
+                                         dtype=np.int64).astype(np.int32))
+    want = bloom_probe.bloom_probe_plain(bloom, nbits, keys, n_hashes)
+    got = bloom_probe.bloom_probe(bloom.to(card), nbits, keys.to(card),
+                                  n_hashes)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_bloom_probe_has_no_false_negatives(card):
+    keys = torch.arange(5000, dtype=torch.int64) * 2654435761 % 2**32
+    nbits = 1 << 16
+    h = torch.stack([bloom_probe.mix32(keys, s) % nbits
+                     for s in bloom_probe.BLOOM_SEEDS32])
+    bits = torch.zeros(nbits, dtype=torch.int64)
+    bits[h.reshape(-1)] = 1
+    words = (bits.reshape(-1, 32) << torch.arange(32)).sum(1)
+    got = ops.bloom_probe(bitpack.to_u32_bits(words).to(card), nbits,
+                          bitpack.to_u32_bits(keys).to(card))
+    assert bool(got.all())
+
+
+@pytest.mark.parametrize("shape", [(1, 32, 128, 8), (2, 64, 256, 16),
+                                   (1, 64, 128, 5), (1, 32, 256, 32),
+                                   (1, 32, 128, 1)])
+def test_ssm_scan_matches_plain(card, shape):
+    B, L, D, N = shape
+    rng = np.random.default_rng(sum(shape))
+    u = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32))
+    dt = torch.from_numpy(np.abs(rng.normal(size=(B, L, D))).astype(
+        np.float32) * 0.1)
+    A = torch.from_numpy(-np.abs(rng.normal(size=(D, N))).astype(np.float32))
+    Bm = torch.from_numpy(rng.normal(size=(B, L, N)).astype(np.float32))
+    Cm = torch.from_numpy(rng.normal(size=(B, L, N)).astype(np.float32))
+    want = ssm_scan.ssm_scan_plain(u, dt, A, Bm, Cm)
+    got = ssm_scan.ssm_scan(*(t.to(card) for t in (u, dt, A, Bm, Cm)))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)

@@ -1,0 +1,273 @@
+"""The port's ``range_filter_packed``, ``bloom_probe`` and ``ssm_scan``
+against the JAX package's, on the CPU.
+
+No engine configuration reaches these three kernels: the paper's Figure-5
+pipeline (``examples/filter_analytics.py``) and the kernel micro-bench
+(``benchmarks/bench_kernels.py``) do.  Each plain PyTorch version (what a
+wrapper runs for tensors on the CPU) is held against the reference's
+Pallas kernel in interpret mode at its (256, 128) tile and against its
+``kernels.ops`` entry point:
+
+* ``range_filter_packed``: bitmaps and per-tile counts bit for bit at
+  widths 1-32, with ranges reaching ``2**width - 1`` (the padding words'
+  fields match them and are counted), empty ``lo > hi`` ranges, and width
+  32 with ``hi = 0xFFFFFFFF``;
+* ``bloom_probe``: hits bit for bit, including a bloom whose ``nbits``
+  exceeds its words (the kernel reads the missing words as 0, a miss,
+  where ``ref.bloom_probe`` clamps the index and hits), and no false
+  negative for keys inserted by mix32;
+* ``ssm_scan``: y and the final state within the reference test's own
+  tolerance (rtol = atol = 3e-5) at its shapes, chunk 16 and 32.
+
+The CUDA kernels are held against these plain versions on the card in
+``test_torch_gpu.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.sct import bitpack as np_bitpack
+from repro.kernels import bloom_probe as jbloom
+from repro.kernels import ops as jops
+from repro.kernels import packed_filter as jpacked
+from repro.kernels import ref as jref
+from repro_torch.kernels import bloom_probe, ops, packed_filter, ssm_scan
+from test_torch_kernels import _t, _u32
+
+WIDTHS = [1, 2, 4, 8, 16, 32]
+BLOCK_ROWS = 256            # the reference kernels' default tile rows
+TILE = BLOCK_ROWS * 128
+
+
+def _pad(a: np.ndarray, fill) -> np.ndarray:
+    out = np.full(-(-a.shape[0] // TILE) * TILE, fill, a.dtype)
+    out[:a.shape[0]] = a
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# range_filter_packed
+# --------------------------------------------------------------------------- #
+def _range(kind, width, rng):
+    top = 2 ** width - 1
+    maxv = 2 ** min(width, 16)
+    if kind == "top":            # reaches 2**width - 1: padding fields match
+        return int(rng.integers(0, maxv)) % (top + 1), top
+    if kind == "empty":
+        return 5, 2
+    a, b = sorted(rng.integers(0, maxv, 2).tolist())
+    return a, b
+
+
+@pytest.mark.parametrize("kind", ["mid", "top", "empty"])
+@pytest.mark.parametrize("width", WIDTHS)
+def test_range_filter_packed_plain_matches_pallas(width, kind):
+    rng = np.random.default_rng(10 * width + len(kind))
+    per = 32 // width
+    n_words = TILE + 1000 + 7 * width          # two tiles, the last partial
+    n = n_words * per - (per - 1)              # and a part-filled last word
+    codes = rng.integers(0, 2 ** min(width, 16), n).astype(np.int32)
+    words = np_bitpack(codes, width)
+    assert words.shape[0] == n_words
+    lo, hi = _range(kind, width, rng)
+    flat = _pad(words, np.uint32(0xFFFFFFFF))
+    jb, jc = jpacked.range_filter_packed_2d(
+        jnp.asarray(flat.reshape(-1, 128)), jnp.uint32(lo), jnp.uint32(hi),
+        width=width, block_rows=BLOCK_ROWS, interpret=True)
+    pb, pc = packed_filter.packed_range_filter_plain(_t(flat), lo, hi, width,
+                                                     TILE)
+    assert np.array_equal(_u32(pb), np.asarray(jb).reshape(-1))
+    assert pc.dtype == torch.int32
+    assert np.array_equal(pc.numpy(), np.asarray(jc).reshape(-1))
+    # the op-level entry point: padded, cut back to the real words
+    got = ops.range_filter_packed(_t(words), width, lo, hi)
+    assert got.shape == (n_words,)
+    assert np.array_equal(_u32(got), jops.range_filter_packed(words, width,
+                                                              lo, hi))
+    mask = ops.bitmap_to_mask(got, width, n).numpy()
+    assert np.array_equal(mask, (codes >= lo) & (codes <= hi))
+    pad_fields = (flat.shape[0] - n_words) * per
+    if lo <= hi == 2 ** width - 1:   # every field of the padding words counts
+        assert int(pc.sum()) == int(mask.sum()) + pad_fields
+    else:
+        assert int(pc.sum()) == int(mask.sum())
+
+
+def test_range_filter_packed_width_32_full_uint32_range():
+    """Width 32 with hi = 0xFFFFFFFF: the uint32 bound must not wrap to -1
+    (every code matches, and so does every padding word)."""
+    rng = np.random.default_rng(32)
+    words = rng.integers(0, 2**32, 5000, dtype=np.uint64).astype(np.uint32)
+    for lo in (0, 2**31, 0xFFFFFFFF):
+        got = ops.range_filter_packed(_t(words), 32, lo, 0xFFFFFFFF)
+        want = jops.range_filter_packed(words, 32, lo, 0xFFFFFFFF)
+        assert np.array_equal(_u32(got), want)
+        assert np.array_equal(_u32(got) == 1, words >= lo)
+    _, counts = packed_filter.packed_range_filter_plain(
+        _t(_pad(words, np.uint32(0xFFFFFFFF))), 0, 0xFFFFFFFF, 32, TILE)
+    assert int(counts.sum()) == TILE
+
+
+def test_range_filter_packed_rejects_bad_operands():
+    words = torch.zeros(TILE, dtype=torch.int32)
+    with pytest.raises(ValueError, match="whole tiles"):
+        packed_filter.packed_range_filter(words[:-1], 0, 1, 8)
+    with pytest.raises(ValueError, match="width"):
+        packed_filter.packed_range_filter(words, 0, 1, 3)
+    with pytest.raises(ValueError, match="uint32"):
+        packed_filter.packed_range_filter(words, -1, 1, 8)
+    with pytest.raises(ValueError, match="uint32"):
+        ops.range_filter_packed(words, 32, 0, 2**32)
+    assert ops.range_filter_packed(torch.zeros(0, dtype=torch.int32), 8,
+                                   0, 3).shape == (0,)
+
+
+# --------------------------------------------------------------------------- #
+# bloom_probe
+# --------------------------------------------------------------------------- #
+def _bloom_case(seed, nbits, n_words, n_keys):
+    rng = np.random.default_rng(seed)
+    bloom = rng.integers(0, 2**32, n_words, dtype=np.uint64).astype(np.uint32)
+    keys = rng.integers(0, 2**32, n_keys, dtype=np.uint64).astype(np.uint32)
+    return bloom, keys
+
+
+@pytest.mark.parametrize("scale", [1, 3, 5])
+@pytest.mark.parametrize("n_hashes", [1, 6])
+def test_bloom_probe_plain_matches_pallas(scale, n_hashes):
+    nbits = 1 << (10 + scale)
+    bloom, keys = _bloom_case(scale * 7 + n_hashes, nbits, nbits // 32, 1500)
+    got = ops.bloom_probe(_t(bloom), nbits, _t(keys), n_hashes)
+    assert got.dtype == torch.bool and got.shape == (1500,)
+    want = jops.bloom_probe(bloom, nbits, keys, n_hashes)
+    assert np.array_equal(got.numpy(), want)
+    oracle = jref.bloom_probe(jnp.asarray(bloom), nbits, jnp.asarray(keys),
+                              n_hashes)
+    assert np.array_equal(got.numpy(), np.asarray(oracle))
+    assert 0 < int(got.sum()) < 1500
+    # the Pallas kernel itself, at its padded layout
+    kq = np.zeros(2048, np.uint32)
+    kq[:1500] = keys
+    bw = np.zeros(-(-bloom.shape[0] // 128) * 128, np.uint32)
+    bw[:bloom.shape[0]] = bloom
+    j2 = jbloom.bloom_probe_2d(jnp.asarray(bw.reshape(-1, 128)),
+                               jnp.asarray(kq.reshape(-1, 128)), nbits,
+                               n_hashes, interpret=True)
+    plain = bloom_probe.bloom_probe_plain(_t(bloom), nbits, _t(kq), n_hashes)
+    assert plain.dtype == torch.int8
+    assert np.array_equal(plain.numpy(), np.asarray(j2).reshape(-1))
+
+
+def test_bloom_probe_bits_past_the_words_miss_as_in_the_kernel():
+    """nbits > 32 * len(words): the kernel (and the port) read the missing
+    words as 0, a miss; ``ref.bloom_probe`` clamps the index, a hit."""
+    bloom = np.full(4, 0xFFFFFFFF, np.uint32)          # 128 bits of ones
+    keys = np.random.default_rng(3).integers(0, 2**32, 300, dtype=np.uint64
+                                             ).astype(np.uint32)
+    got = ops.bloom_probe(_t(bloom), 4096, _t(keys))
+    want = jops.bloom_probe(bloom, 4096, keys)
+    assert np.array_equal(got.numpy(), want)
+    assert int(got.sum()) == 0
+    oracle = np.asarray(jref.bloom_probe(jnp.asarray(bloom), 4096,
+                                         jnp.asarray(keys)))
+    assert oracle.all()
+    # with one hash, a key hits exactly when its bit lies in the 128 bits
+    one = ops.bloom_probe(_t(bloom), 4096, _t(keys), 1).numpy()
+    h = np.asarray(jref.mix32(jnp.asarray(keys), jref.BLOOM_SEEDS32[0])) % 4096
+    assert np.array_equal(one, h < 128)
+    assert np.array_equal(one, jops.bloom_probe(bloom, 4096, keys, 1))
+
+
+def test_bloom_probe_no_false_negatives():
+    """Keys inserted by mix32 always probe positive (the bloom contract)."""
+    nbits = 1 << 13
+    keys = np.random.default_rng(42).integers(0, 2**32, 200, dtype=np.uint64
+                                              ).astype(np.uint32)
+    words = np.zeros(nbits // 32, np.uint32)
+    for s in range(6):
+        h = np.asarray(jref.mix32(jnp.asarray(keys), jref.BLOOM_SEEDS32[s])) \
+            % nbits
+        np.bitwise_or.at(words, h >> 5,
+                         np.uint32(1) << (h & 31).astype(np.uint32))
+    assert ops.bloom_probe(_t(words), nbits, _t(keys)).all()
+    assert jops.bloom_probe(words, nbits, keys).all()
+    # the port's mix32 is the reference's
+    k64 = torch.from_numpy(keys.astype(np.int64))
+    for seed in jref.BLOOM_SEEDS32:
+        assert np.array_equal(
+            bloom_probe.mix32(k64, seed).numpy(),
+            np.asarray(jref.mix32(jnp.asarray(keys), seed)).astype(np.int64))
+
+
+def test_bloom_probe_rejects_bad_operands():
+    words, keys = torch.zeros(8, dtype=torch.int32), torch.zeros(
+        4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="n_hashes"):
+        ops.bloom_probe(words, 256, keys, 7)
+    with pytest.raises(ValueError, match="nbits"):
+        ops.bloom_probe(words, 0, keys)
+    with pytest.raises(ValueError, match="1-D"):
+        ops.bloom_probe(words.reshape(2, 4), 256, keys)
+    assert ops.bloom_probe(words, 256, keys, 0).all()
+    assert ops.bloom_probe(words, 256, keys[:0]).shape == (0,)
+
+
+# --------------------------------------------------------------------------- #
+# ssm_scan
+# --------------------------------------------------------------------------- #
+def _ssm_inputs(shape, seed):
+    B, L, D, N = shape
+    rng = np.random.default_rng(seed)
+    u = rng.normal(size=(B, L, D)).astype(np.float32)
+    dt = np.abs(rng.normal(size=(B, L, D))).astype(np.float32) * 0.1
+    A = -np.abs(rng.normal(size=(D, N))).astype(np.float32)
+    Bm = rng.normal(size=(B, L, N)).astype(np.float32)
+    Cm = rng.normal(size=(B, L, N)).astype(np.float32)
+    return u, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("shape", [(1, 32, 128, 8), (2, 64, 256, 16),
+                                   (3, 96, 384, 16)])
+@pytest.mark.parametrize("chunk", [16, 32])
+def test_ssm_scan_plain_matches_pallas(shape, chunk):
+    arrays = _ssm_inputs(shape, sum(shape) + chunk)
+    y, state = ops.ssm_scan(*(torch.from_numpy(a) for a in arrays),
+                            chunk=chunk)
+    assert y.dtype == state.dtype == torch.float32
+    B, L, D, N = shape
+    assert y.shape == (B, L, D) and state.shape == (B, D, N)
+    jy, js = jops.ssm_scan(*arrays, chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=3e-5, atol=3e-5)
+    np.testing.assert_allclose(state.numpy(), np.asarray(js), rtol=3e-5,
+                               atol=3e-5)
+    ry, rs = jref.ssm_scan_batched(*(jnp.asarray(a) for a in arrays))
+    np.testing.assert_allclose(y.numpy(), np.asarray(ry), rtol=3e-5, atol=3e-5)
+    np.testing.assert_allclose(state.numpy(), np.asarray(rs), rtol=3e-5,
+                               atol=3e-5)
+
+
+def test_ssm_scan_takes_other_float_types_as_float32():
+    arrays = [torch.from_numpy(a) for a in _ssm_inputs((1, 32, 128, 16), 5)]
+    half = [a.to(torch.bfloat16) for a in arrays]
+    y, state = ops.ssm_scan(*half)
+    wy, ws = ops.ssm_scan(*(a.to(torch.float32) for a in half))
+    assert y.dtype == torch.float32 and torch.equal(y, wy) and \
+        torch.equal(state, ws)
+
+
+@pytest.mark.parametrize("bad", ["D", "L", "A", "BC"])
+def test_ssm_scan_keeps_the_reference_shape_contract(bad):
+    u, dt, A, Bm, Cm = (torch.from_numpy(a)
+                        for a in _ssm_inputs((1, 32, 128, 16), 6))
+    if bad == "D":
+        u, dt, A = u[..., :100], dt[..., :100], A[:100]
+    elif bad == "L":
+        u, dt, Bm, Cm = u[:, :24], dt[:, :24], Bm[:, :24], Cm[:, :24]
+    elif bad == "A":
+        A = A[:64]
+    else:
+        Cm = Cm[:, :, :8]
+    with pytest.raises(ValueError):
+        ops.ssm_scan(u, dt, A, Bm, Cm, chunk=32)

@@ -9,10 +9,11 @@
   raises: it never falls back to its plain version.
 * Configuration values outside the ported slice raise ``ValueError``
   naming their ROADMAP item, and values the reference does not take (the
-  retired ``compaction_backend='packed'``) raise naming the accepted ones;
-  the compaction backends ``'numpy'`` and ``'jax'`` build the same tree as
-  ``'jax_packed'``, and the ported filter backends ``'jax_packed'`` and
-  ``'jax'`` build the same tree as ``'fused'``.
+  retired ``compaction_backend='packed'``, ``filter_backend='pallas'``)
+  raise naming the accepted ones; the compaction backends ``'numpy'`` and
+  ``'jax'`` build the same tree as ``'jax_packed'``, and the filter
+  backends ``'jax_packed'``, ``'jax'`` and ``'numpy'`` build the same tree
+  as ``'fused'``.
 * ``chip_smoke.py`` gives no result without a card or outside the repo.
 """
 
@@ -30,8 +31,9 @@ import torch
 
 import repro_torch.core as T
 from repro_torch.core.lsm import SUPPORTED
-from repro_torch.kernels import (_build, agg_scan, bitpack, fused_scan,
-                                 merge_remap, multi_filter, opd_filter, ops)
+from repro_torch.kernels import (_build, agg_scan, bitpack, bloom_probe,
+                                 fused_scan, merge_remap, multi_filter,
+                                 opd_filter, ops, packed_filter, ssm_scan)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -64,6 +66,8 @@ def test_port_sources_import_neither_jax_nor_repro():
     "repro_torch, repro_torch.core, repro_torch.kernels.ops, repro_torch.query",
     "repro_torch.serving.scan_server",
     "repro_torch.core.iterator",
+    "repro_torch.kernels.packed_filter, repro_torch.kernels.bloom_probe, "
+    "repro_torch.kernels.ssm_scan",
 ])
 def test_importing_the_port_loads_neither_jax_nor_repro(modules):
     code = (f"import sys, {modules}\n"
@@ -85,7 +89,7 @@ def test_default_device_is_the_card_and_missing_card_raises(monkeypatch):
     assert T.LSMTree(T.LSMConfig(), device="cpu").device.type == "cpu"
 
 
-OTHER_VALUES = {"codec": "plain", "filter_backend": "numpy",
+OTHER_VALUES = {"codec": "plain", "filter_backend": "pallas",
                 "compaction_backend": "packed", "compaction_policy": "tiered",
                 "policy_autotune": True, "maintenance": "background",
                 "wal_sync": "group", "blob_compress": True,
@@ -104,18 +108,18 @@ def test_unsupported_config_value_raises(field):
 
 
 @pytest.mark.parametrize("value,item", [
-    (("filter_backend", "numpy"), "read path, rest"),
+    (("codec", "plain"), "competitor codecs"),
 ])
 def test_rejected_backend_names_its_kernel(value, item):
-    """A backend that is not ported yet names its ROADMAP item."""
+    """A codec that is not ported yet names its ROADMAP item."""
     with pytest.raises(ValueError, match=item):
         T.LSMConfig(**dict([value]))
 
 
-@pytest.mark.parametrize("backend", ["jax_packed", "jax"])
+@pytest.mark.parametrize("backend", ["jax_packed", "jax", "numpy"])
 def test_ported_filter_backend_builds_the_fused_tree(backend):
-    """The filter backend touches only reads: a tree configured with a
-    ported staged backend writes the same SCTs as under 'fused' and
+    """The filter backend touches only reads: a tree configured with
+    another ported backend writes the same SCTs as under 'fused' and
     answers the same filter."""
     kw = dict(value_width=16, file_bytes=8 * 1024, l0_limit=2, size_ratio=3)
     trees = [T.LSMTree(T.LSMConfig(filter_backend=name, **kw), device="cpu")
@@ -191,7 +195,10 @@ def pretend_card(monkeypatch):
                       (agg_scan, "fused_zone_agg_plain"),
                       (agg_scan, "zone_histogram_plain"),
                       (multi_filter, "multi_range_filter_plain"),
-                      (opd_filter, "code_range_filter_plain")):
+                      (opd_filter, "code_range_filter_plain"),
+                      (packed_filter, "packed_range_filter_plain"),
+                      (bloom_probe, "bloom_probe_plain"),
+                      (ssm_scan, "ssm_scan_plain")):
         monkeypatch.setattr(mod, name, _no_plain)
     monkeypatch.setattr(_build, "_lib", None)
     monkeypatch.setattr(_build, "find_nvcc", lambda: (_ for _ in ()).throw(
@@ -203,6 +210,7 @@ def test_card_requests_raise_instead_of_falling_back(pretend_card, tmp_path,
                                                     monkeypatch):
     monkeypatch.setattr(_build, "library_path", lambda: tmp_path / "missing.so")
     i32 = torch.zeros(64, dtype=torch.int32)
+    f32 = torch.zeros((1, 32, 128))
     calls = [
         lambda: ops.pack_codes(i32, 8),
         lambda: ops.unpack_codes(i32, 8, 64),
@@ -219,6 +227,10 @@ def test_card_requests_raise_instead_of_falling_back(pretend_card, tmp_path,
             torch.zeros((1, 5), dtype=torch.int32), 8, 4),
         lambda: ops.multi_range_filter_packed(i32, 8, [(0, 3), (1, 0)]),
         lambda: ops.range_filter_codes(i32, 0, 3),
+        lambda: ops.range_filter_packed(i32, 8, 0, 3),
+        lambda: ops.bloom_probe(i32, 2048, i32),
+        lambda: ops.ssm_scan(f32, f32, torch.zeros((128, 16)),
+                             torch.zeros((1, 32, 16)), torch.zeros((1, 32, 16))),
     ]
     before = dict(ops.LAUNCHES)
     for call in calls:
