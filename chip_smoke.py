@@ -82,6 +82,13 @@ Phases, each printing JSON lines:
             the larger of the bytes over the card's data-sheet bandwidth
             and, for range_filter_packed, bloom_probe and ssm_scan, the
             operations over the card's integer, float32 or exp rate.
+            unpack_codes has one row per pack width the main path
+            unpacked, with that width's launches, and at width 32 the time
+            of words[:n].clone() (the same function there); remap_codes
+            carries its gathers' L2 sector bytes and the device time of
+            torch.take over the same table slots.  The two rows carry the
+            registers, shared memory and spills of every instantiation of
+            their kernel, from the build's -Xptxas=-v log.
 
 The last three lines are the card (nvidia-smi name, power limit), the
 kernel table ``{"kernels": [...]}`` and ``{"ok": true, "device": ...}``.
@@ -304,9 +311,11 @@ def run_get_check(tree, ref: Reference, keys: np.ndarray, label: str) -> dict:
             "get_us": (time.perf_counter() - t0) / max(1, keys.shape[0]) * 1e6}
 
 
-def main_phase(args, device: str):
-    """Uniform phase then clustered phase; returns the launch counts and
-    the trees with their host models for the analytics phases."""
+def main_phase(args, device: str, unpack):
+    """Uniform phase then clustered phase; returns the launch counts (and
+    ``unpack_codes`` launches per pack width, split by the Recorder
+    ``unpack``) and the trees with their host models for the analytics
+    phases."""
     import torch
     from repro_torch import LSMConfig, LSMTree, Predicate
     from repro_torch.kernels import ops
@@ -327,6 +336,7 @@ def main_phase(args, device: str):
     stream = (keys, vocab, vidx, dels)
 
     ops.reset_launches()
+    unpack.launches.clear()
     tree = LSMTree(cfg, device=device)
     ingest_s = ingest(tree, stream)
     ref = Reference(vocab)
@@ -379,9 +389,15 @@ def main_phase(args, device: str):
           "levels": ctree.shape_report()["levels"], **cres})
 
     launches = dict(ops.LAUNCHES)
-    emit({"phase": "main.launches", **launches})
+    by_width = {w: c for w, c in sorted(unpack.launches.items()) if c}
+    emit({"phase": "main.launches", **launches,
+          "unpack_codes_by_width": by_width})
     for name in MAIN_KERNELS:
         check(launches[name] > 0, f"kernel {name} never launched on the main path")
+    check(sum(by_width.values()) == launches["unpack_codes"],
+          f"unpack_codes launches by width {by_width} do not sum to "
+          f"{launches['unpack_codes']}")
+    launches["unpack_codes_by_width"] = by_width
     return launches, {"cfg": cfg, "tree": tree, "ref": ref, "vocab": vocab,
                       "preds": preds, "ctree": ctree, "cref": cref,
                       "cpreds": cpreds, "stream": stream}
@@ -1275,11 +1291,15 @@ def bench_phase(args) -> tuple:
 # --------------------------------------------------------------------------- #
 class Recorder:
     """Wraps an ops entry point; keeps the operands of its largest call
-    (per key) so the kernel phase can replay the main path's shapes."""
+    (per key) so the kernel phase can replay the main path's shapes.  With
+    ``kernel``, it also splits that kernel's launch count (``counts``, the
+    wrappers' ``ops.LAUNCHES``) by key, in ``launches``."""
 
-    def __init__(self, fn, size, key=lambda *a, **k: 0, active=True):
+    def __init__(self, fn, size, key=lambda *a, **k: 0, active=True,
+                 kernel=None, counts=None):
         self.fn, self.size, self.key, self.calls = fn, size, key, {}
-        self.active = active
+        self.active, self.kernel, self.counts = active, kernel, counts
+        self.launches = {}
 
     def __call__(self, *args, **kw):
         if not self.active:
@@ -1288,7 +1308,13 @@ class Recorder:
         old = self.calls.get(key)
         if old is None or self.size(*args, **kw) > self.size(*old[0], **old[1]):
             self.calls[key] = (args, kw)
-        return self.fn(*args, **kw)
+        if self.kernel is None:
+            return self.fn(*args, **kw)
+        before = self.counts[self.kernel]
+        out = self.fn(*args, **kw)
+        self.launches[key] = (self.launches.get(key, 0)
+                              + self.counts[self.kernel] - before)
+        return out
 
 
 def event_median_ms(fn, inner: int, reps: int = 21, warmup: int = 2) -> float:
@@ -1356,6 +1382,65 @@ def profiled_device_ms(fn, symbol: str, reps: int = 20, tries: int = 3):
     return None
 
 
+def graph_ms(fn, calls: int = 20, reps: int = 21) -> float:
+    """Device time per call of ``fn`` without its host launch cost:
+    ``calls`` calls captured in one CUDA graph, the graph replayed (median
+    of ``reps`` CUDA-event-timed replays), per call.  A kernel and the one
+    PyTorch call set beside it (a copy, a gather) are timed the same way."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = event_median_ms(graph.replay, inner=1, reps=reps) / calls
+    del graph
+    return ms
+
+
+def ptxas_resources(log: str, symbol: str) -> list:
+    """Registers, static shared memory, stack and spills of every compiled
+    instantiation of the kernel ``symbol``, from the ``-Xptxas=-v`` output
+    that the build keeps; names demangled where ``c++filt`` is found."""
+    import shutil
+
+    funcs, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = funcs.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            cur = funcs.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers(?:, (\d+) bytes smem)?", ln)
+        if m and cur is not None:
+            cur.update(registers=int(m.group(1)),
+                       static_smem_bytes=int(m.group(2) or 0))
+    names = [f for f in funcs if re.search(r"(?<![A-Za-z_])" + symbol, f)]
+    shown = names
+    filt = shutil.which("c++filt")
+    if filt and names:
+        out = subprocess.run([filt], input="\n".join(names), text=True,
+                             capture_output=True)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            shown = out.stdout.splitlines()
+    return [{"function": d, **funcs[f]} for f, d in zip(names, shown)]
+
+
 def compare(name: str, kernel, plain, nbytes: int, bw: float, launches: int,
             shape: str, tol=None, op_bound_ms: float = 0.0,
             plain_reps: int = 21) -> dict:
@@ -1413,7 +1498,7 @@ def compare(name: str, kernel, plain, nbytes: int, bw: float, launches: int,
 
 
 def kernel_phase(recs, launches: dict, bw: float, bench: dict,
-                 rates: dict) -> list:
+                 rates: dict, log: str) -> list:
     import torch
     from repro_torch.kernels import (agg_scan, bitpack, bloom_probe,
                                      fused_scan, merge_remap, multi_filter,
@@ -1428,12 +1513,39 @@ def kernel_phase(recs, launches: dict, bw: float, bench: dict,
         lambda: bitpack.pack_codes_plain(codes, width), 4 * n + 4 * m, bw,
         launches["pack_codes"], f"n={n} width={width}"))
 
-    (words, width, n), _ = recs["unpack"].calls[0]
-    rows.append(compare(
-        "unpack_codes", lambda: bitpack.unpack_codes(words, width, n),
-        lambda: bitpack.unpack_codes_plain(words, width, n),
-        4 * words.shape[0] + 4 * n, bw, launches["unpack_codes"],
-        f"n={n} width={width}"))
+    # one row per pack width the main path unpacked, at its largest call;
+    # then width 16 at the width-32 row's n (the main path's width-16 SCTs
+    # are flushes, a tenth of that size): the same codes repacked
+    cases = [(width, words, n, launches["unpack_codes_by_width"][width], "")
+             for width, ((words, _w, n), _) in sorted(
+                 recs["unpack"].calls.items())]
+    if 32 in recs["unpack"].calls:
+        (w32, _w, n32), _ = recs["unpack"].calls[32]
+        cases.append((16, bitpack.pack_codes_plain(w32[:n32] & 0xFFFF, 16),
+                      n32, 0, " (the width-32 row's codes, low 16 bits, "
+                      "repacked at width 16)"))
+    for width, words, n, count, note in cases:
+        rows.append(compare(
+            "unpack_codes", lambda: bitpack.unpack_codes(words, width, n),
+            lambda: bitpack.unpack_codes_plain(words, width, n),
+            4 * bitpack.n_words_for(n, width) + 4 * n, bw, count,
+            f"n={n} width={width}{note}"))
+        res = ptxas_resources(log, SYMBOLS["unpack_codes"])
+        rows[-1]["ptxas"] = [r for r in res if f"<{width}," in r["function"]
+                             ] or res
+        rows[-1]["main_path"] = not note
+        if width == 32:
+            # at width 32 the unpack is a copy; the port never calls it
+            clone = lambda: words[:n].clone()  # noqa: E731
+            check(torch.equal(clone(), bitpack.unpack_codes(words, width, n)),
+                  "unpack_codes at width 32 differs from words[:n].clone()")
+            rows[-1].update({
+                "library_ms": event_median_ms(clone, inner=10),
+                "graph_ms": graph_ms(
+                    lambda: bitpack.unpack_codes(words, width, n)),
+                "library_graph_ms": graph_ms(clone),
+                "library_why": "words[:n].clone(): the same function only "
+                               "at width 32, where the unpack is a copy"})
 
     calls = recs["fused"].calls
     biggest = max(calls.values(), key=lambda c: c[0][0].shape[0])
@@ -1523,7 +1635,10 @@ def kernel_phase(recs, launches: dict, bw: float, bench: dict,
         5 * cc.shape[0] + 4 * n_tiles, bw, launches["range_filter_codes"],
         f"codes={cc.shape[0]} tiles={n_tiles} lo={lo} hi={hi}"))
 
-    # the plain remap at compact.jax's largest merge output
+    # the plain remap at compact.jax's largest merge output; each live entry
+    # gathers one table slot, a 32-byte L2 sector, and torch.take over the
+    # same slots times one PyTorch gather pass (no ev/src streams, no -1),
+    # both in CUDA graphs
     (evs, srcs, table, offsets), _ = recs["remap_codes"].calls[0]
     n = evs.shape[0]
     dead = int((evs < 0).sum())
@@ -1535,6 +1650,16 @@ def kernel_phase(recs, launches: dict, bw: float, bench: dict,
         launches["remap_codes"],
         f"n={n} dead={dead} table={table.shape[0]} "
         f"sources={offsets.shape[0]}"))
+    live = evs >= 0
+    slots = (evs.to(torch.int64) + offsets.to(torch.int64)[
+        srcs.to(torch.int64)])[live]
+    take = lambda: torch.take(table, slots)  # noqa: E731
+    rows[-1].update({"ptxas": ptxas_resources(log, SYMBOLS["remap_codes"]),
+                     "gathers": int(slots.shape[0]),
+                     "gather_sector_bytes": 32 * int(slots.shape[0]),
+                     "graph_ms": graph_ms(lambda: merge_remap.remap_codes(
+                         evs, srcs, table, offsets)),
+                     "take_graph_ms": graph_ms(take)})
 
     # the Figure-5 kernel at fig5's largest SCT of the main tree, then at
     # the micro-bench's 2^20 codes
@@ -1635,7 +1760,8 @@ def main() -> int:
     lib = _build.build()
     build_s = time.perf_counter() - t0
     _build.library()
-    ptxas = [ln.strip() for ln in Path(str(lib) + ".log").read_text().splitlines()
+    log = Path(str(lib) + ".log").read_text()
+    ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": build_s, "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1644,7 +1770,10 @@ def main() -> int:
 
     recs = {
         "pack": Recorder(ops.pack_codes, lambda c, w: c.shape[0]),
-        "unpack": Recorder(ops.unpack_codes, lambda w, wd, n: n),
+        # keyed by pack width, with the launches per width
+        "unpack": Recorder(ops.unpack_codes, lambda w, wd, n: n,
+                           lambda w, wd, n: wd, kernel="unpack_codes",
+                           counts=ops.LAUNCHES),
         "fused": Recorder(ops.fused_zone_filter,
                           lambda w, *a: w.shape[0], lambda w, m, r, wd, *a: wd),
         "remap": Recorder(ops.remap_pack_codes, lambda e, *a: e.shape[0]),
@@ -1673,14 +1802,16 @@ def main() -> int:
     ops.multi_range_filter, ops.code_range_filter = recs["multi"], recs["codes"]
     ops.remap_codes, ops.packed_range_filter = (recs["remap_codes"],
                                                 recs["packed"])
-    launches, state = main_phase(args, "cuda")
+    launches, state = main_phase(args, "cuda", recs["unpack"])
+    # the unpack rows replay the main path's own calls, one per width
+    recs["unpack"].active = False
     launches.update(serve_phase(state, {k: recs[k]
                                         for k in ("multi", "codes")}))
     fast_launches = agg_phase(args, state,
                               {k: recs[k] for k in ("agg", "hist")}, "cuda")
     launches.update({k: fast_launches[k] for k in AGG_KERNELS})
     # the main path's operands stay those of the main tree's own ingest
-    for key in ("pack", "unpack", "fused", "remap"):
+    for key in ("pack", "fused", "remap"):
         recs[key].active = False
     recs["remap_codes"].active = True
     launches["remap_codes"] = compact_phase(state, "jax",
@@ -1692,16 +1823,17 @@ def main() -> int:
     fig5_example("cuda")
     bench_launches, bench = bench_phase(args)
     launches.update({k: bench_launches[k] for k in ("bloom_probe", "ssm_scan")})
-    rows = kernel_phase(recs, launches, bw, bench, rates)
+    rows = kernel_phase(recs, launches, bw, bench, rates, log)
     for r in rows:
         emit({"phase": "kernel", **r})
 
     print(card, flush=True)
     keep = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # one row per kernel: for the filter the largest level of the main path,
-    # for the aggregate kernel its SUM launch of agg.fast, for the packed
-    # range filter fig5's largest SCT, for the bloom probe the micro-bench's
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    # one row per kernel, and for the unpack one per pack width of the main
+    # path: for the filter the largest level of the main path, for the
+    # aggregate kernel its SUM launch of agg.fast, for the packed range
+    # filter fig5's largest SCT, for the bloom probe the micro-bench's
     table = [{k: r[k] for k in keep} for r in rows if r.get("main_path", True)]
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -47,7 +47,7 @@ _INT = ctypes.c_int
 _U32 = ctypes.c_uint32
 _SIGNATURES = {
     "repro_pack_codes": [_P, _P, _I64, _I64, _INT, _P],
-    "repro_unpack_codes": [_P, _P, _I64, _I64, _INT, _P],
+    "repro_unpack_codes": [_P, _P, _I64, _INT, _P],
     "repro_fused_zone_filter": [_P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _P],
     "repro_remap_pack_codes": [_P, _P, _P, _P, _P, _I64, _I64, _INT, _P],
     "repro_fused_zone_agg": [_P] * 9 + [_I64, _INT, _INT, _INT, _INT, _P],
@@ -93,7 +93,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"

@@ -82,7 +82,9 @@ def pack_codes(codes: torch.Tensor, width: int) -> torch.Tensor:
 
 
 def unpack_codes(words: torch.Tensor, width: int, n: int) -> torch.Tensor:
-    """Unpack the first n codes of int32 words into int32 codes [n]."""
+    """Unpack the first n codes of int32 words into int32 codes [n].  On the
+    card ``words`` may be any contiguous view (the kernel reads with the
+    widest loads its alignment allows)."""
     if not _build.on_card(words):
         return unpack_codes_plain(words, width, n)
     per = check_width(width)
@@ -93,5 +95,5 @@ def unpack_codes(words: torch.Tensor, width: int, n: int) -> torch.Tensor:
     codes = torch.empty(n, dtype=torch.int32, device=words.device)
     if n:
         _build.launch("unpack_codes", "repro_unpack_codes", words.device,
-                      words.data_ptr(), codes.data_ptr(), n, m, width)
+                      words.data_ptr(), codes.data_ptr(), n, width)
     return codes

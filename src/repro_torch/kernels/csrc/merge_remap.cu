@@ -21,6 +21,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch_grid.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -80,58 +82,122 @@ extern "C" int repro_remap_pack_codes(const void* evs, const void* srcs,
 // every entry dead is fine.
 //
 // Bound: memory, 12 bytes per entry (ev and src in, the code out) plus the
-// table, which is read through __ldg and stays in the 50 MB L2 at the sizes
-// compaction produces.  One thread per 4 entries: 16-byte loads of ev and
-// src and a 16-byte store (the wrapper checks the alignment); a scalar tail
-// for an n that 4 does not divide.  The per-source bases go to shared
-// memory as int64 when there are at most kSmemSources sources (a merge
-// reads a handful of files), and are read through __ldg otherwise.
+// table once.  What the card spends, though, is the gathers: each live entry
+// reads one 4-byte slot of a table that is too large for shared memory (1.6
+// MB at the main path's merges) and lives in the 50 MB L2, at the cost of a
+// 32-byte L2 sector per gather, more than twice the bytes of the streams.
+// The design keeps enough of them in flight and keeps the streams out of
+// their way:
+//
+// - a grid of at most the blocks the card holds resident (launch_grid.cuh),
+//   the work split evenly over them, each block a grid-stride loop over
+//   tiles of kRemapGroups * kThreads groups of 4 entries;
+// - per thread, the 16-byte loads of ev and src for kRemapGroups groups
+//   first, then all 4 * kRemapGroups gathers, then the 16-byte stores; 2
+//   groups were as fast as 1 and faster than 4 and 8 when timed on the card
+//   at the main path's merge.  A TMA ring for the streams was not built:
+//   torch.take over the same table slots, with no ev/src stream at all,
+//   takes as long as this kernel (chip_smoke.py's remap_codes row), so the
+//   streams already hide under the gathers;
+// - ev and src loaded evict-first (__ldcs): they are read once and should
+//   not push the table out of L2; the output is stored plainly, as the pack
+//   kernel reads it next;
+// - the per-source bases in dynamic shared memory as int32, filled once per
+//   block, up to kSmemSources sources (a merge reads a handful of files),
+//   and read through __ldg above; a table slot is ev + base in 32 bits
+//   (both are non-negative int32);
+// - 32-bit entry indices while n < 2^31, 64-bit above; the last n % 4
+//   entries one by one.  The wrapper checks that ev and src are 16-byte
+//   aligned; the output comes from torch.empty.
 
 namespace {
 
 constexpr int kSmemSources = 1024;
+constexpr int kRemapGroups = 2;
+constexpr int kRemapTile = kThreads * kRemapGroups;
 
+template <bool kSmem>
 __device__ __forceinline__ int32_t remap_one(int32_t ev, int32_t src,
                                              const int32_t* __restrict__ table,
                                              const int32_t* __restrict__ offsets,
-                                             const int64_t* s_off,
-                                             bool in_smem) {
+                                             const int32_t* s_base) {
   if (ev < 0) return -1;
-  const int64_t base = in_smem ? s_off[src] : int64_t(__ldg(offsets + src));
-  return __ldg(table + base + ev);
+  const int32_t base = kSmem ? s_base[src] : __ldg(offsets + src);
+  return __ldg(table + (uint32_t(ev) + uint32_t(base)));
 }
 
-__global__ void remap_codes_kernel(const int32_t* __restrict__ evs,
-                                   const int32_t* __restrict__ srcs,
-                                   const int32_t* __restrict__ table,
-                                   const int32_t* __restrict__ offsets,
-                                   int32_t* __restrict__ out, int64_t n,
-                                   int n_src) {
-  __shared__ int64_t s_off[kSmemSources];
-  const bool in_smem = n_src <= kSmemSources;
-  if (in_smem) {
-    for (int i = threadIdx.x; i < n_src; i += blockDim.x) s_off[i] = offsets[i];
+template <bool kSmem, typename I>
+__global__ void __launch_bounds__(kThreads)
+    remap_codes_kernel(const int32_t* __restrict__ evs,
+                       const int32_t* __restrict__ srcs,
+                       const int32_t* __restrict__ table,
+                       const int32_t* __restrict__ offsets,
+                       int32_t* __restrict__ out, I n, int n_src) {
+  extern __shared__ int32_t s_base[];
+  if constexpr (kSmem) {
+    for (int i = threadIdx.x; i < n_src; i += kThreads) s_base[i] = offsets[i];
+    __syncthreads();
   }
-  __syncthreads();
-  const int64_t n_vec = n / 4;
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  for (int64_t v = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; v <= n_vec;
-       v += stride) {
-    if (v < n_vec) {
-      const int4 e = reinterpret_cast<const int4*>(evs)[v];
-      const int4 s = reinterpret_cast<const int4*>(srcs)[v];
-      int4 r;
-      r.x = remap_one(e.x, s.x, table, offsets, s_off, in_smem);
-      r.y = remap_one(e.y, s.y, table, offsets, s_off, in_smem);
-      r.z = remap_one(e.z, s.z, table, offsets, s_off, in_smem);
-      r.w = remap_one(e.w, s.w, table, offsets, s_off, in_smem);
-      reinterpret_cast<int4*>(out)[v] = r;
-    } else {
-      for (int64_t i = 4 * n_vec; i < n; ++i) {
-        out[i] = remap_one(evs[i], srcs[i], table, offsets, s_off, in_smem);
+  const I groups = n / 4;
+  const int4* e4 = reinterpret_cast<const int4*>(evs);
+  const int4* s4 = reinterpret_cast<const int4*>(srcs);
+  int4* o4 = reinterpret_cast<int4*>(out);
+  for (I base = I(blockIdx.x) * kRemapTile; base < groups;
+       base += I(gridDim.x) * kRemapTile) {
+    int4 e[kRemapGroups], s[kRemapGroups];
+#pragma unroll
+    for (int v = 0; v < kRemapGroups; ++v) {
+      const I g = base + v * kThreads + threadIdx.x;
+      e[v] = make_int4(-1, -1, -1, -1);  // dead: no gather
+      s[v] = make_int4(0, 0, 0, 0);
+      if (g < groups) {
+        e[v] = __ldcs(e4 + g);
+        s[v] = __ldcs(s4 + g);
       }
     }
+    int4 r[kRemapGroups];
+#pragma unroll
+    for (int v = 0; v < kRemapGroups; ++v) {
+      r[v].x = remap_one<kSmem>(e[v].x, s[v].x, table, offsets, s_base);
+      r[v].y = remap_one<kSmem>(e[v].y, s[v].y, table, offsets, s_base);
+      r[v].z = remap_one<kSmem>(e[v].z, s[v].z, table, offsets, s_base);
+      r[v].w = remap_one<kSmem>(e[v].w, s[v].w, table, offsets, s_base);
+    }
+#pragma unroll
+    for (int v = 0; v < kRemapGroups; ++v) {
+      const I g = base + v * kThreads + threadIdx.x;
+      if (g < groups) o4[g] = r[v];
+    }
   }
+  const I i = 4 * groups + threadIdx.x;
+  if (blockIdx.x == 0 && i < n) {
+    out[i] = remap_one<kSmem>(evs[i], srcs[i], table, offsets, s_base);
+  }
+}
+
+template <bool kSmem, typename I>
+cudaError_t launch_remap(const int32_t* evs, const int32_t* srcs,
+                         const int32_t* table, const int32_t* offsets,
+                         int32_t* out, I n, int n_src, cudaStream_t stream) {
+  constexpr size_t kMaxSmem = kSmem ? kSmemSources * sizeof(int32_t) : 0;
+  static const repro::Resident res = repro::resident_blocks(
+      remap_codes_kernel<kSmem, I>, kThreads, kMaxSmem);
+  if (res.err != cudaSuccess) return res.err;
+  const uint64_t tiles = (uint64_t(n) / 4 + kRemapTile - 1) / kRemapTile;
+  const size_t smem = kSmem ? n_src * sizeof(int32_t) : 0;
+  remap_codes_kernel<kSmem, I>
+      <<<repro::balanced_grid(tiles, res.blocks), kThreads, smem, stream>>>(
+          evs, srcs, table, offsets, out, n, n_src);
+  return cudaGetLastError();
+}
+
+template <typename I>
+cudaError_t remap_sources(const int32_t* evs, const int32_t* srcs,
+                          const int32_t* table, const int32_t* offsets,
+                          int32_t* out, I n, int n_src, cudaStream_t stream) {
+  if (n_src <= kSmemSources)
+    return launch_remap<true>(evs, srcs, table, offsets, out, n, n_src, stream);
+  return launch_remap<false>(evs, srcs, table, offsets, out, n, n_src, stream);
 }
 
 }  // namespace
@@ -140,13 +206,19 @@ extern "C" int repro_remap_codes(const void* evs, const void* srcs,
                                  const void* table, const void* offsets,
                                  void* out, int64_t n, int n_src,
                                  void* stream) {
-  const int64_t threads = n / 4 + 1;
-  int64_t blocks = (threads + kThreads - 1) / kThreads;
-  const int64_t cap = int64_t(1) << 20;
-  remap_codes_kernel<<<static_cast<unsigned>(blocks < cap ? blocks : cap),
-                       kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(evs), static_cast<const int32_t*>(srcs),
-      static_cast<const int32_t*>(table), static_cast<const int32_t*>(offsets),
-      static_cast<int32_t*>(out), n, n_src);
-  return static_cast<int>(cudaGetLastError());
+  if (reinterpret_cast<uintptr_t>(out) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const auto* e = static_cast<const int32_t*>(evs);
+  const auto* s = static_cast<const int32_t*>(srcs);
+  const auto* t = static_cast<const int32_t*>(table);
+  const auto* o = static_cast<const int32_t*>(offsets);
+  auto* r = static_cast<int32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      n < (int64_t(1) << 31)
+          ? remap_sources<uint32_t>(e, s, t, o, r, static_cast<uint32_t>(n),
+                                    n_src, st)
+          : remap_sources<uint64_t>(e, s, t, o, r, static_cast<uint64_t>(n),
+                                    n_src, st);
+  return static_cast<int>(err);
 }

@@ -67,6 +67,78 @@ def test_pack_unpack_match_plain(card, width):
         assert torch.equal(bitpack.unpack_codes(words, width, n).cpu(), codes.cpu())
 
 
+# groups of 4 entries per thread in the unpack and remap kernels, 256 threads
+# per block (csrc/bitpack.cu, csrc/merge_remap.cu)
+UNPACK_GROUPS = REMAP_GROUPS = 2
+BLOCK = 256
+
+
+def _resident_threads(card):
+    p = torch.cuda.get_device_properties(card)
+    return p.multi_processor_count * getattr(
+        p, "max_threads_per_multi_processor", 2048)
+
+
+def _words(m, rng):
+    return torch.from_numpy(rng.integers(-2**31, 2**31, m).astype(np.int32))
+
+
+def _unpack_launches_once(card, words, width, n, want):
+    before = ops.LAUNCHES["unpack_codes"]
+    got = bitpack.unpack_codes(words, width, n)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["unpack_codes"] == before + (n > 0)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_unpack_codes_edges_match_plain(card, width):
+    """n at the edges of a group of 4 codes and of a word, and over three
+    grid-stride rounds of the card's resident threads; each call with
+    n > 0 launches the kernel once."""
+    rng = np.random.default_rng(100 + width)
+    per = 32 // width
+    rounds = 3 * _resident_threads(card) * UNPACK_GROUPS * 4
+    for n in (0, 1, 4 * per - 1, 4 * per, 4 * per + 1, rounds + 3):
+        words = _words(bitpack.n_words_for(n, width), rng)
+        _unpack_launches_once(card, words.to(card), width, n,
+                              bitpack.unpack_codes_plain(words, width, n))
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_unpack_codes_on_a_word_view_at_an_offset(card, width, offset):
+    """A view of the words 4, 8 or 12 bytes into a 16-byte line takes the
+    kernel with narrower loads, not the plain version."""
+    rng = np.random.default_rng(10 * width + offset)
+    per = 32 // width
+    n = 3 * 4 * UNPACK_GROUPS * BLOCK + 4 * per + 1
+    words = _words(bitpack.n_words_for(n, width) + offset, rng)
+    view = words.to(card)[offset:]
+    assert view.data_ptr() % 16 == 4 * offset
+    _unpack_launches_once(card, view, width, n,
+                          bitpack.unpack_codes_plain(words[offset:], width, n))
+
+
+def test_unpack_codes_past_2_31_codes(card):
+    """n >= 2^31 takes the kernel's 64-bit indices; held against the plain
+    version on windows at the start, across 2^31 and at the ragged end."""
+    n, width = 2**31 + 6, 1
+    m = bitpack.n_words_for(n, width)
+    words = torch.randint(-2**31, 2**31 - 1, (m,), dtype=torch.int32,
+                          device=card)
+    before = ops.LAUNCHES["unpack_codes"]
+    got = bitpack.unpack_codes(words, width, n)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["unpack_codes"] == before + 1
+    for w0 in (0, 2**31 // 32 - 64, m - 64):
+        k = min(32 * 128, n - 32 * w0)
+        want = bitpack.unpack_codes_plain(words[w0:w0 + 128].cpu(), width, k)
+        assert torch.equal(got[32 * w0:32 * w0 + k].cpu(), want)
+    del got, words
+    torch.cuda.empty_cache()
+
+
 @pytest.mark.parametrize("width,k", [(1, 1), (4, 4), (8, 16), (16, 16),
                                      (32, 16), (32, 4)])
 def test_fused_level_filter_matches_plain(card, width, k):
@@ -140,6 +212,56 @@ def test_remap_codes_matches_plain(card, n, n_src):
         with pytest.raises(ValueError, match="aligned"):
             merge_remap.remap_codes(e[:-1], s[1:], table.to(card),
                                     offsets.to(card))
+
+
+@pytest.mark.parametrize("n_src", [1, 1024, 1025])
+@pytest.mark.parametrize("n", [1, 5, 4 * REMAP_GROUPS * BLOCK - 1,
+                               4 * REMAP_GROUPS * BLOCK + 1, 1_200_000])
+def test_remap_codes_edges_match_plain(card, n, n_src):
+    """n at the edges of a thread's groups and of a block's tile, the
+    per-source bases in shared memory (1 and 1,024 sources) and read from
+    device memory (1,025), a third of the entries dead, -1 table slots;
+    then every entry dead."""
+    rng = np.random.default_rng(n * 7 + n_src)
+    per_src = 300
+    table = torch.from_numpy(rng.integers(-1, 2 ** 20, n_src * per_src)
+                             .astype(np.int32))
+    offsets = torch.from_numpy((np.arange(n_src) * per_src).astype(np.int32))
+    srcs = torch.from_numpy(rng.integers(0, n_src, n).astype(np.int32))
+    evs = rng.integers(0, per_src, n).astype(np.int32)
+    evs[rng.random(n) < 1 / 3] = -1
+    evs = torch.from_numpy(evs)
+    dev = [t.to(card) for t in (evs, srcs, table, offsets)]
+    for e in (evs, torch.full_like(evs, -1)):
+        want = merge_remap.remap_codes_plain(e, srcs, table, offsets)
+        before = ops.LAUNCHES["remap_codes"]
+        got = merge_remap.remap_codes(e.to(card), *dev[1:])
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["remap_codes"] == before + 1
+        assert torch.equal(got.cpu(), want)
+
+
+def test_remap_codes_past_2_31_entries(card):
+    """n >= 2^31 takes the kernel's 64-bit indices; held against the plain
+    version on windows at the start, across 2^31 and at the ragged end."""
+    n, per_src = 2**31 + 7, 1000
+    table = torch.randint(-1, 2**20, (3 * per_src,), dtype=torch.int32,
+                          device=card)
+    offsets = torch.tensor([0, per_src, 2 * per_src], dtype=torch.int32,
+                           device=card)
+    evs = torch.randint(-1, per_src, (n,), dtype=torch.int32, device=card)
+    srcs = torch.randint(0, 3, (n,), dtype=torch.int32, device=card)
+    before = ops.LAUNCHES["remap_codes"]
+    got = merge_remap.remap_codes(evs, srcs, table, offsets)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["remap_codes"] == before + 1
+    for i in (0, 2**31 - 4096, n - 4096):
+        want = merge_remap.remap_codes_plain(
+            evs[i:i + 8192].cpu(), srcs[i:i + 8192].cpu(), table.cpu(),
+            offsets.cpu())
+        assert torch.equal(got[i:i + 8192].cpu(), want)
+    del got, evs, srcs
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.parametrize("backend,kernel", [("jax", "remap_codes"),

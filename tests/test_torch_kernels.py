@@ -92,6 +92,49 @@ def test_pack_unpack_empty(width):
     assert np_bitpack(np.zeros(0, np.int32), width).shape == (0,)
 
 
+# the CUDA unpack writes groups of 4 codes, 2 groups per thread, 256
+# threads per block: a tile of 2,048 codes
+UNPACK_TILE_CODES = 4 * 2 * 256
+
+
+def _unpack_ns(width):
+    per = 32 // width
+    return [0, 1, 4 * per - 1, 4 * per, 4 * per + 1, 3 * UNPACK_TILE_CODES + 3]
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("edge", range(6))
+def test_unpack_plain_matches_jax_at_group_edges(width, edge):
+    """n at the edges of a group of 4 codes and of a word, and over three
+    of the CUDA kernel's tiles with a ragged tail: the inputs the card test
+    holds the kernel to.  The reference takes at least one word."""
+    n = _unpack_ns(width)[edge]
+    rng = np.random.default_rng(10 * width + edge)
+    words = rng.integers(0, 2**32, max(1, bitpack.n_words_for(n, width)),
+                         dtype=np.uint64).astype(np.uint32)
+    got = bitpack.unpack_codes(_t(words), width, n)
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    assert np.array_equal(got.numpy(),
+                          np.asarray(jops.unpack_codes(words, width, n)))
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_unpack_plain_matches_jax_on_a_word_view(width, offset):
+    """Words that are a view starting 4, 8 or 12 bytes into the storage
+    (the card's kernel takes narrower loads there)."""
+    per = 32 // width
+    n = 2 * UNPACK_TILE_CODES + 4 * per + 1
+    rng = np.random.default_rng(100 * width + offset)
+    words = rng.integers(0, 2**32, bitpack.n_words_for(n, width) + offset,
+                         dtype=np.uint64).astype(np.uint32)
+    view = _t(words)[offset:]
+    assert view.storage_offset() == offset and view.is_contiguous()
+    got = bitpack.unpack_codes(view, width, n)
+    assert np.array_equal(got.numpy(),
+                          np.asarray(jops.unpack_codes(words[offset:], width, n)))
+
+
 def test_bad_width_raises():
     with pytest.raises(ValueError):
         bitpack.pack_codes(torch.zeros(4, dtype=torch.int32), 3)
