@@ -85,10 +85,14 @@ Phases, each printing JSON lines:
             unpack_codes has one row per pack width the main path
             unpacked, with that width's launches, and at width 32 the time
             of words[:n].clone() (the same function there); remap_codes
-            carries its gathers' L2 sector bytes and the device time of
-            torch.take over the same table slots.  The two rows carry the
-            registers, shared memory and spills of every instantiation of
-            their kernel, from the build's -Xptxas=-v log.
+            carries its gathers' L2 sector bytes.  Both kernels are also
+            timed in CUDA graphs with their operands in L2 (graph_ms) and
+            from device memory (cold_graph_ms), and the remap with every
+            entry dead (streams_only_cold_graph_ms: no gather), and the
+            width-32 unpack and clone at 8 times its n (cold_graph_ms_8n,
+            library_cold_graph_ms_8n).  The two
+            rows carry the registers, shared memory and spills of every
+            instantiation of their kernel, from the build's -Xptxas=-v log.
 
 The last three lines are the card (nvidia-smi name, power limit), the
 kernel table ``{"kernels": [...]}`` and ``{"ok": true, "device": ...}``.
@@ -311,11 +315,9 @@ def run_get_check(tree, ref: Reference, keys: np.ndarray, label: str) -> dict:
             "get_us": (time.perf_counter() - t0) / max(1, keys.shape[0]) * 1e6}
 
 
-def main_phase(args, device: str, unpack):
-    """Uniform phase then clustered phase; returns the launch counts (and
-    ``unpack_codes`` launches per pack width, split by the Recorder
-    ``unpack``) and the trees with their host models for the analytics
-    phases."""
+def main_phase(args, device: str):
+    """Uniform phase then clustered phase; returns the launch counts and
+    the trees with their host models for the analytics phases."""
     import torch
     from repro_torch import LSMConfig, LSMTree, Predicate
     from repro_torch.kernels import ops
@@ -336,7 +338,6 @@ def main_phase(args, device: str, unpack):
     stream = (keys, vocab, vidx, dels)
 
     ops.reset_launches()
-    unpack.launches.clear()
     tree = LSMTree(cfg, device=device)
     ingest_s = ingest(tree, stream)
     ref = Reference(vocab)
@@ -389,15 +390,9 @@ def main_phase(args, device: str, unpack):
           "levels": ctree.shape_report()["levels"], **cres})
 
     launches = dict(ops.LAUNCHES)
-    by_width = {w: c for w, c in sorted(unpack.launches.items()) if c}
-    emit({"phase": "main.launches", **launches,
-          "unpack_codes_by_width": by_width})
+    emit({"phase": "main.launches", **launches})
     for name in MAIN_KERNELS:
         check(launches[name] > 0, f"kernel {name} never launched on the main path")
-    check(sum(by_width.values()) == launches["unpack_codes"],
-          f"unpack_codes launches by width {by_width} do not sum to "
-          f"{launches['unpack_codes']}")
-    launches["unpack_codes_by_width"] = by_width
     return launches, {"cfg": cfg, "tree": tree, "ref": ref, "vocab": vocab,
                       "preds": preds, "ctree": ctree, "cref": cref,
                       "cpreds": cpreds, "stream": stream}
@@ -1291,30 +1286,24 @@ def bench_phase(args) -> tuple:
 # --------------------------------------------------------------------------- #
 class Recorder:
     """Wraps an ops entry point; keeps the operands of its largest call
-    (per key) so the kernel phase can replay the main path's shapes.  With
-    ``kernel``, it also splits that kernel's launch count (``counts``, the
-    wrappers' ``ops.LAUNCHES``) by key, in ``launches``."""
+    (per key) so the kernel phase can replay the main path's shapes, and
+    counts the calls of size > 0 per key in ``launches`` (on the card a
+    wrapper launches its kernel once for each such call)."""
 
-    def __init__(self, fn, size, key=lambda *a, **k: 0, active=True,
-                 kernel=None, counts=None):
+    def __init__(self, fn, size, key=lambda *a, **k: 0, active=True):
         self.fn, self.size, self.key, self.calls = fn, size, key, {}
-        self.active, self.kernel, self.counts = active, kernel, counts
-        self.launches = {}
+        self.active, self.launches = active, {}
 
     def __call__(self, *args, **kw):
         if not self.active:
             return self.fn(*args, **kw)
-        key = self.key(*args, **kw)
+        key, size = self.key(*args, **kw), self.size(*args, **kw)
         old = self.calls.get(key)
-        if old is None or self.size(*args, **kw) > self.size(*old[0], **old[1]):
+        if old is None or size > self.size(*old[0], **old[1]):
             self.calls[key] = (args, kw)
-        if self.kernel is None:
-            return self.fn(*args, **kw)
-        before = self.counts[self.kernel]
-        out = self.fn(*args, **kw)
-        self.launches[key] = (self.launches.get(key, 0)
-                              + self.counts[self.kernel] - before)
-        return out
+        if size > 0:
+            self.launches[key] = self.launches.get(key, 0) + 1
+        return self.fn(*args, **kw)
 
 
 def event_median_ms(fn, inner: int, reps: int = 21, warmup: int = 2) -> float:
@@ -1382,25 +1371,49 @@ def profiled_device_ms(fn, symbol: str, reps: int = 20, tries: int = 3):
     return None
 
 
-def graph_ms(fn, calls: int = 20, reps: int = 21) -> float:
-    """Device time per call of ``fn`` without its host launch cost:
-    ``calls`` calls captured in one CUDA graph, the graph replayed (median
-    of ``reps`` CUDA-event-timed replays), per call.  A kernel and the one
-    PyTorch call set beside it (a copy, a gather) are timed the same way."""
+def graph_ms(fns, reps: int = 21) -> float:
+    """Device time per call of the calls ``fns`` without their host launch
+    cost: captured in one CUDA graph, the graph replayed (median of
+    ``reps`` CUDA-event-timed replays), per call.  A kernel and the one
+    PyTorch call set beside it (a copy) are timed the same way."""
     import torch
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        fns[0]()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(calls):
+        for fn in fns:
             fn()
-    ms = event_median_ms(graph.replay, inner=1, reps=reps) / calls
+    ms = event_median_ms(graph.replay, inner=1, reps=reps) / len(fns)
     del graph
     return ms
+
+
+# bytes of other calls' traffic between two calls on one copy of the
+# operands in cold_graph_ms: 2.5x the 50 MB L2 of an H100
+COLD_BYTES = 128 << 20
+
+
+def hot_graph_ms(fn, *operands) -> float:
+    """``graph_ms`` of 20 calls of ``fn`` on the same operands, which stay
+    in L2 from one call to the next when they fit there."""
+    return graph_ms([lambda: fn(*operands)] * 20)
+
+
+def cold_graph_ms(fn, nbytes: int, *operands) -> float:
+    """``graph_ms`` of one call of ``fn`` on each of enough copies of the
+    operands that ``COLD_BYTES`` of the other calls' traffic (``nbytes``
+    per call) pass between two calls on one copy: every call reads its
+    operands from device memory, as a kernel does whose inputs were written
+    long before (a flushed SCT's words, a merge's streams)."""
+    import functools
+
+    copies = 1 + -(-COLD_BYTES // nbytes)
+    return graph_ms([functools.partial(fn, *(t.clone() for t in operands))
+                     for _ in range(copies)])
 
 
 def ptxas_resources(log: str, symbol: str) -> list:
@@ -1516,7 +1529,7 @@ def kernel_phase(recs, launches: dict, bw: float, bench: dict,
     # one row per pack width the main path unpacked, at its largest call;
     # then width 16 at the width-32 row's n (the main path's width-16 SCTs
     # are flushes, a tenth of that size): the same codes repacked
-    cases = [(width, words, n, launches["unpack_codes_by_width"][width], "")
+    cases = [(width, words, n, recs["unpack"].launches[width], "")
              for width, ((words, _w, n), _) in sorted(
                  recs["unpack"].calls.items())]
     if 32 in recs["unpack"].calls:
@@ -1525,27 +1538,40 @@ def kernel_phase(recs, launches: dict, bw: float, bench: dict,
                       n32, 0, " (the width-32 row's codes, low 16 bits, "
                       "repacked at width 16)"))
     for width, words, n, count, note in cases:
+        nbytes = 4 * bitpack.n_words_for(n, width) + 4 * n
+        unpack = lambda w: bitpack.unpack_codes(w, width, n)  # noqa: E731
         rows.append(compare(
-            "unpack_codes", lambda: bitpack.unpack_codes(words, width, n),
-            lambda: bitpack.unpack_codes_plain(words, width, n),
-            4 * bitpack.n_words_for(n, width) + 4 * n, bw, count,
-            f"n={n} width={width}{note}"))
+            "unpack_codes", lambda: unpack(words),
+            lambda: bitpack.unpack_codes_plain(words, width, n), nbytes, bw,
+            count, f"n={n} width={width}{note}"))
         res = ptxas_resources(log, SYMBOLS["unpack_codes"])
-        rows[-1]["ptxas"] = [r for r in res if f"<{width}," in r["function"]
-                             ] or res
-        rows[-1]["main_path"] = not note
+        rows[-1].update({
+            "ptxas": [r for r in res if f"<{width}," in r["function"]] or res,
+            "main_path": not note,
+            # in CUDA graphs, no host launch cost: the same words every call
+            # (in L2), and a fresh copy of them every call (device memory)
+            "graph_ms": hot_graph_ms(unpack, words),
+            "cold_graph_ms": cold_graph_ms(unpack, nbytes, words)})
         if width == 32:
             # at width 32 the unpack is a copy; the port never calls it
-            clone = lambda: words[:n].clone()  # noqa: E731
-            check(torch.equal(clone(), bitpack.unpack_codes(words, width, n)),
+            clone = lambda w: w[:n].clone()  # noqa: E731
+            check(torch.equal(clone(words), unpack(words)),
                   "unpack_codes at width 32 differs from words[:n].clone()")
+            # the same words 8 times over: a launch's fixed cost against
+            # the rate the kernel streams at
+            big = words[:n].repeat(8)
             rows[-1].update({
-                "library_ms": event_median_ms(clone, inner=10),
-                "graph_ms": graph_ms(
-                    lambda: bitpack.unpack_codes(words, width, n)),
-                "library_graph_ms": graph_ms(clone),
+                "library_ms": event_median_ms(lambda: clone(words), inner=10),
+                "library_graph_ms": hot_graph_ms(clone, words),
+                "library_cold_graph_ms": cold_graph_ms(clone, nbytes, words),
                 "library_why": "words[:n].clone(): the same function only "
-                               "at width 32, where the unpack is a copy"})
+                               "at width 32, where the unpack is a copy",
+                "cold_graph_ms_8n": cold_graph_ms(
+                    lambda w: bitpack.unpack_codes(w, width, 8 * n),
+                    8 * nbytes, big),
+                "library_cold_graph_ms_8n": cold_graph_ms(
+                    torch.clone, 8 * nbytes, big),
+                "bound_ms_8n": 8 * nbytes / bw * 1e3})
 
     calls = recs["fused"].calls
     biggest = max(calls.values(), key=lambda c: c[0][0].shape[0])
@@ -1636,30 +1662,31 @@ def kernel_phase(recs, launches: dict, bw: float, bench: dict,
         f"codes={cc.shape[0]} tiles={n_tiles} lo={lo} hi={hi}"))
 
     # the plain remap at compact.jax's largest merge output; each live entry
-    # gathers one table slot, a 32-byte L2 sector, and torch.take over the
-    # same slots times one PyTorch gather pass (no ev/src streams, no -1),
-    # both in CUDA graphs
+    # gathers one table slot, a 32-byte L2 sector.  In CUDA graphs: the same
+    # operands every call (in L2), a fresh copy every call (device memory),
+    # and a fresh copy with every entry dead: the same ev/src streams and
+    # stores with no gather, which splits the streams from the gathers
     (evs, srcs, table, offsets), _ = recs["remap_codes"].calls[0]
     n = evs.shape[0]
     dead = int((evs < 0).sum())
+    nbytes = 12 * n + 4 * table.shape[0] + 4 * offsets.shape[0]
     rows.append(compare(
         "remap_codes",
         lambda: merge_remap.remap_codes(evs, srcs, table, offsets),
         lambda: merge_remap.remap_codes_plain(evs, srcs, table, offsets),
-        12 * n + 4 * table.shape[0] + 4 * offsets.shape[0], bw,
-        launches["remap_codes"],
+        nbytes, bw, launches["remap_codes"],
         f"n={n} dead={dead} table={table.shape[0]} "
         f"sources={offsets.shape[0]}"))
-    live = evs >= 0
-    slots = (evs.to(torch.int64) + offsets.to(torch.int64)[
-        srcs.to(torch.int64)])[live]
-    take = lambda: torch.take(table, slots)  # noqa: E731
-    rows[-1].update({"ptxas": ptxas_resources(log, SYMBOLS["remap_codes"]),
-                     "gathers": int(slots.shape[0]),
-                     "gather_sector_bytes": 32 * int(slots.shape[0]),
-                     "graph_ms": graph_ms(lambda: merge_remap.remap_codes(
-                         evs, srcs, table, offsets)),
-                     "take_graph_ms": graph_ms(take)})
+    gathers = n - dead
+    remap = merge_remap.remap_codes
+    rows[-1].update({
+        "ptxas": ptxas_resources(log, SYMBOLS["remap_codes"]),
+        "gathers": gathers, "gather_sector_bytes": 32 * gathers,
+        "graph_ms": hot_graph_ms(remap, evs, srcs, table, offsets),
+        "cold_graph_ms": cold_graph_ms(remap, nbytes, evs, srcs, table,
+                                       offsets),
+        "streams_only_cold_graph_ms": cold_graph_ms(
+            remap, nbytes, torch.full_like(evs, -1), srcs, table, offsets)})
 
     # the Figure-5 kernel at fig5's largest SCT of the main tree, then at
     # the micro-bench's 2^20 codes
@@ -1772,8 +1799,7 @@ def main() -> int:
         "pack": Recorder(ops.pack_codes, lambda c, w: c.shape[0]),
         # keyed by pack width, with the launches per width
         "unpack": Recorder(ops.unpack_codes, lambda w, wd, n: n,
-                           lambda w, wd, n: wd, kernel="unpack_codes",
-                           counts=ops.LAUNCHES),
+                           lambda w, wd, n: wd),
         "fused": Recorder(ops.fused_zone_filter,
                           lambda w, *a: w.shape[0], lambda w, m, r, wd, *a: wd),
         "remap": Recorder(ops.remap_pack_codes, lambda e, *a: e.shape[0]),
@@ -1802,9 +1828,15 @@ def main() -> int:
     ops.multi_range_filter, ops.code_range_filter = recs["multi"], recs["codes"]
     ops.remap_codes, ops.packed_range_filter = (recs["remap_codes"],
                                                 recs["packed"])
-    launches, state = main_phase(args, "cuda", recs["unpack"])
+    recs["unpack"].launches.clear()
+    launches, state = main_phase(args, "cuda")
     # the unpack rows replay the main path's own calls, one per width
     recs["unpack"].active = False
+    by_width = dict(sorted(recs["unpack"].launches.items()))
+    emit({"phase": "main.unpack_by_width", "unpack_codes": by_width})
+    check(sum(by_width.values()) == launches["unpack_codes"],
+          f"unpack_codes launches by width {by_width} do not sum to "
+          f"{launches['unpack_codes']}")
     launches.update(serve_phase(state, {k: recs[k]
                                         for k in ("multi", "codes")}))
     fast_launches = agg_phase(args, state,

@@ -91,8 +91,19 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def _flags() -> list:
+    """``NVCC_FLAGS`` and the tile constants that the kernel modules own."""
+    from repro_torch.kernels import bitpack, merge_remap
+
+    return NVCC_FLAGS + [
+        f"-DREPRO_UNPACK_THREADS={bitpack.UNPACK_THREADS}",
+        f"-DREPRO_UNPACK_GROUPS={bitpack.UNPACK_GROUPS}",
+        f"-DREPRO_REMAP_THREADS={merge_remap.REMAP_THREADS}",
+        f"-DREPRO_REMAP_GROUPS={merge_remap.REMAP_GROUPS}"]
+
+
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags()).encode())
     for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -113,7 +124,7 @@ def build() -> Path:
     procs = []
     for src in _sources():
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        cmd = [nvcc, *_flags(), "-c", str(src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     log, failed = [], []

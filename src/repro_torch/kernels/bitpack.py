@@ -17,6 +17,12 @@ from repro_torch.kernels import _build
 
 WIDTHS = (1, 2, 4, 8, 16, 32)
 
+# the CUDA unpack's tile (passed to nvcc by _build): each of UNPACK_THREADS
+# threads of a block writes UNPACK_GROUPS groups of 4 codes per round
+UNPACK_THREADS = 256
+UNPACK_GROUPS = 2
+UNPACK_TILE_CODES = 4 * UNPACK_GROUPS * UNPACK_THREADS
+
 
 def check_width(width: int) -> int:
     if width not in WIDTHS:
@@ -83,8 +89,8 @@ def pack_codes(codes: torch.Tensor, width: int) -> torch.Tensor:
 
 def unpack_codes(words: torch.Tensor, width: int, n: int) -> torch.Tensor:
     """Unpack the first n codes of int32 words into int32 codes [n].  On the
-    card ``words`` may be any contiguous view (the kernel reads with the
-    widest loads its alignment allows)."""
+    card ``words`` may be any contiguous view (words that do not start on a
+    16-byte line are read with 4-byte loads)."""
     if not _build.on_card(words):
         return unpack_codes_plain(words, width, n)
     per = check_width(width)

@@ -19,12 +19,17 @@
 // one 16-byte store, neighbouring lanes on neighbouring groups.  A group
 // reads 4 words at width 32 (one 16-byte load: a vector copy), 2 at width 16
 // (one 8-byte load) and one word, shared by neighbouring lanes, at width 8
-// or less.  Each thread issues the loads of kUnpackGroups groups before its
-// first store.  The grid is at most the blocks the card holds resident
-// (launch_grid.cuh), with a grid-stride loop over tiles.  A view of the
-// words at a 4- or 8-byte offset takes an instantiation with narrower loads;
-// the last n % 4 codes are written one by one.  32-bit indices while
-// n < 2^31, 64-bit above.  No cache hints: the caller reads the codes next.
+// or less.  Each thread issues the loads of REPRO_UNPACK_GROUPS groups
+// before its first store.  The grid is at most the blocks the card holds
+// resident (launch_grid.cuh), with a grid-stride loop over tiles.  Words
+// that do not start on a 16-byte line (a view into them) take one
+// instantiation with 4-byte loads; the last n % 4 codes are written one by
+// one.  32-bit indices while n < 2^31, 64-bit above.  No cache hints: the
+// caller reads the codes next.
+//
+// The unpack's block size and groups per thread are set by the build
+// (-DREPRO_UNPACK_THREADS, -DREPRO_UNPACK_GROUPS) from the constants of
+// kernels/bitpack.py, which its tests read too.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -58,10 +63,11 @@ __global__ void pack_codes_kernel(const int32_t* __restrict__ codes,
 }
 
 // Unpack: groups of 4 codes per thread in flight before the first store.  Of
-// 1, 2, 4 and 8, timed on the card at the main path's widths (16 and 32), 2
-// was the fastest or tied with the fastest.
-constexpr int kUnpackGroups = 2;
-constexpr int kUnpackTile = kThreads * kUnpackGroups;
+// 1, 2, 4 and 8 groups, timed on the card at the main path's widths (16 and
+// 32), 2 was the fastest or tied with the fastest.
+constexpr int kUnpackThreads = REPRO_UNPACK_THREADS;
+constexpr int kUnpackGroups = REPRO_UNPACK_GROUPS;
+constexpr int kUnpackTile = kUnpackThreads * kUnpackGroups;
 
 // Field k of word x at width W.
 template <int W>
@@ -70,29 +76,20 @@ __device__ __forceinline__ int32_t field(uint32_t x, int k) {
   return static_cast<int32_t>((x >> (k * W)) & kMask);
 }
 
-// Codes 4g .. 4g+3, read with loads of at most LOAD bytes (the alignment
-// of `words`).
-template <int W, int LOAD, typename I>
+// Codes 4g .. 4g+3; kWide: `words` starts on a 16-byte line, so a group's
+// words are read with one 16-byte (width 32) or 8-byte (width 16) load.
+template <int W, bool kWide, typename I>
 __device__ __forceinline__ int4 unpack_group(const uint32_t* __restrict__ words,
                                              I g) {
-  if constexpr (W == 32 && LOAD == 16) {
+  if constexpr (W == 32 && kWide) {
     return reinterpret_cast<const int4*>(words)[g];
-  } else if constexpr (W == 32 && LOAD == 8) {
-    const uint2 a = reinterpret_cast<const uint2*>(words)[2 * g];
-    const uint2 b = reinterpret_cast<const uint2*>(words)[2 * g + 1];
-    return make_int4(static_cast<int32_t>(a.x), static_cast<int32_t>(a.y),
-                     static_cast<int32_t>(b.x), static_cast<int32_t>(b.y));
   } else if constexpr (W == 32) {
     const uint32_t* p = words + 4 * g;
     return make_int4(static_cast<int32_t>(p[0]), static_cast<int32_t>(p[1]),
                      static_cast<int32_t>(p[2]), static_cast<int32_t>(p[3]));
   } else if constexpr (W == 16) {
-    uint2 x;
-    if constexpr (LOAD >= 8) {
-      x = reinterpret_cast<const uint2*>(words)[g];
-    } else {
-      x = make_uint2(words[2 * g], words[2 * g + 1]);
-    }
+    const uint2 x = kWide ? reinterpret_cast<const uint2*>(words)[g]
+                          : make_uint2(words[2 * g], words[2 * g + 1]);
     return make_int4(field<16>(x.x, 0), field<16>(x.x, 1), field<16>(x.y, 0),
                      field<16>(x.y, 1));
   } else {
@@ -104,8 +101,8 @@ __device__ __forceinline__ int4 unpack_group(const uint32_t* __restrict__ words,
   }
 }
 
-template <int W, int LOAD, typename I>
-__global__ void __launch_bounds__(kThreads)
+template <int W, bool kWide, typename I>
+__global__ void __launch_bounds__(kUnpackThreads)
     unpack_codes_kernel(const uint32_t* __restrict__ words,
                         int32_t* __restrict__ codes, I n) {
   constexpr int kPer = 32 / W;
@@ -116,12 +113,12 @@ __global__ void __launch_bounds__(kThreads)
     int4 r[kUnpackGroups];
 #pragma unroll
     for (int v = 0; v < kUnpackGroups; ++v) {
-      const I g = base + v * kThreads + threadIdx.x;
-      if (g < groups) r[v] = unpack_group<W, LOAD>(words, g);
+      const I g = base + v * kUnpackThreads + threadIdx.x;
+      if (g < groups) r[v] = unpack_group<W, kWide>(words, g);
     }
 #pragma unroll
     for (int v = 0; v < kUnpackGroups; ++v) {
-      const I g = base + v * kThreads + threadIdx.x;
+      const I g = base + v * kUnpackThreads + threadIdx.x;
       if (g < groups) out[g] = r[v];
     }
   }
@@ -129,32 +126,30 @@ __global__ void __launch_bounds__(kThreads)
   if (blockIdx.x == 0 && i < n) codes[i] = field<W>(words[i / kPer], i % kPer);
 }
 
-template <int W, int LOAD, typename I>
+template <int W, bool kWide, typename I>
 cudaError_t launch_unpack(const uint32_t* words, int32_t* codes, I n,
                           cudaStream_t stream) {
   static const repro::Resident res = repro::resident_blocks(
-      unpack_codes_kernel<W, LOAD, I>, kThreads, 0);
+      unpack_codes_kernel<W, kWide, I>, kUnpackThreads, 0);
   if (res.err != cudaSuccess) return res.err;
   const uint64_t tiles = (uint64_t(n) / 4 + kUnpackTile - 1) / kUnpackTile;
-  unpack_codes_kernel<W, LOAD, I>
-      <<<repro::balanced_grid(tiles, res.blocks), kThreads, 0, stream>>>(
+  unpack_codes_kernel<W, kWide, I>
+      <<<repro::balanced_grid(tiles, res.blocks), kUnpackThreads, 0, stream>>>(
           words, codes, n);
   return cudaGetLastError();
 }
 
-// The widest loads the alignment of `words` allows (a view of the engine's
-// words may start 4, 8 or 12 bytes into a 16-byte line).
+// Width 16 and 32 read a group with one wide load where `words` starts on a
+// 16-byte line, and with 4-byte loads elsewhere; below 16 a group is one
+// word.
 template <int W, typename I>
 cudaError_t unpack_aligned(const uint32_t* words, int32_t* codes, I n,
                            cudaStream_t stream) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(words);
-  if constexpr (W == 32) {
-    if (a % 16 == 0) return launch_unpack<W, 16>(words, codes, n, stream);
-    if (a % 8 == 0) return launch_unpack<W, 8>(words, codes, n, stream);
-  } else if constexpr (W == 16) {
-    if (a % 8 == 0) return launch_unpack<W, 8>(words, codes, n, stream);
+  if constexpr (W >= 16) {
+    if (reinterpret_cast<uintptr_t>(words) % 16)
+      return launch_unpack<W, false>(words, codes, n, stream);
   }
-  return launch_unpack<W, 4>(words, codes, n, stream);
+  return launch_unpack<W, true>(words, codes, n, stream);
 }
 
 template <typename I>

@@ -82,23 +82,24 @@ extern "C" int repro_remap_pack_codes(const void* evs, const void* srcs,
 // every entry dead is fine.
 //
 // Bound: memory, 12 bytes per entry (ev and src in, the code out) plus the
-// table once.  What the card spends, though, is the gathers: each live entry
-// reads one 4-byte slot of a table that is too large for shared memory (1.6
-// MB at the main path's merges) and lives in the 50 MB L2, at the cost of a
-// 32-byte L2 sector per gather, more than twice the bytes of the streams.
+// table once.  More than half of what the card spends, though, goes to the
+// gathers: each live entry reads one 4-byte slot of a table that is too large
+// for shared memory (1.6 MB at the main path's merges) and lives in the 50 MB
+// L2, at the cost of a 32-byte L2 sector per gather, more than twice the
+// bytes of the streams.
 // The design keeps enough of them in flight and keeps the streams out of
 // their way:
 //
 // - a grid of at most the blocks the card holds resident (launch_grid.cuh),
 //   the work split evenly over them, each block a grid-stride loop over
-//   tiles of kRemapGroups * kThreads groups of 4 entries;
+//   tiles of kRemapGroups * kRemapThreads groups of 4 entries;
 // - per thread, the 16-byte loads of ev and src for kRemapGroups groups
 //   first, then all 4 * kRemapGroups gathers, then the 16-byte stores; 2
 //   groups were as fast as 1 and faster than 4 and 8 when timed on the card
-//   at the main path's merge.  A TMA ring for the streams was not built:
-//   torch.take over the same table slots, with no ev/src stream at all,
-//   takes as long as this kernel (chip_smoke.py's remap_codes row), so the
-//   streams already hide under the gathers;
+//   at the main path's merge.  A TMA ring for the streams was not tried;
+//   chip_smoke.py's remap_codes row times the streams alone (the same
+//   kernel with every entry dead, so no gather) beside the live merge,
+//   both with every operand from device memory;
 // - ev and src loaded evict-first (__ldcs): they are read once and should
 //   not push the table out of L2; the output is stored plainly, as the pack
 //   kernel reads it next;
@@ -112,9 +113,13 @@ extern "C" int repro_remap_pack_codes(const void* evs, const void* srcs,
 
 namespace {
 
+// Block size and groups per thread are set by the build
+// (-DREPRO_REMAP_THREADS, -DREPRO_REMAP_GROUPS) from the constants of
+// kernels/merge_remap.py, which its tests read too.
 constexpr int kSmemSources = 1024;
-constexpr int kRemapGroups = 2;
-constexpr int kRemapTile = kThreads * kRemapGroups;
+constexpr int kRemapThreads = REPRO_REMAP_THREADS;
+constexpr int kRemapGroups = REPRO_REMAP_GROUPS;
+constexpr int kRemapTile = kRemapThreads * kRemapGroups;
 
 template <bool kSmem>
 __device__ __forceinline__ int32_t remap_one(int32_t ev, int32_t src,
@@ -127,7 +132,7 @@ __device__ __forceinline__ int32_t remap_one(int32_t ev, int32_t src,
 }
 
 template <bool kSmem, typename I>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRemapThreads)
     remap_codes_kernel(const int32_t* __restrict__ evs,
                        const int32_t* __restrict__ srcs,
                        const int32_t* __restrict__ table,
@@ -135,7 +140,8 @@ __global__ void __launch_bounds__(kThreads)
                        int32_t* __restrict__ out, I n, int n_src) {
   extern __shared__ int32_t s_base[];
   if constexpr (kSmem) {
-    for (int i = threadIdx.x; i < n_src; i += kThreads) s_base[i] = offsets[i];
+    for (int i = threadIdx.x; i < n_src; i += kRemapThreads)
+      s_base[i] = offsets[i];
     __syncthreads();
   }
   const I groups = n / 4;
@@ -147,7 +153,7 @@ __global__ void __launch_bounds__(kThreads)
     int4 e[kRemapGroups], s[kRemapGroups];
 #pragma unroll
     for (int v = 0; v < kRemapGroups; ++v) {
-      const I g = base + v * kThreads + threadIdx.x;
+      const I g = base + v * kRemapThreads + threadIdx.x;
       e[v] = make_int4(-1, -1, -1, -1);  // dead: no gather
       s[v] = make_int4(0, 0, 0, 0);
       if (g < groups) {
@@ -165,7 +171,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 #pragma unroll
     for (int v = 0; v < kRemapGroups; ++v) {
-      const I g = base + v * kThreads + threadIdx.x;
+      const I g = base + v * kRemapThreads + threadIdx.x;
       if (g < groups) o4[g] = r[v];
     }
   }
@@ -181,13 +187,13 @@ cudaError_t launch_remap(const int32_t* evs, const int32_t* srcs,
                          int32_t* out, I n, int n_src, cudaStream_t stream) {
   constexpr size_t kMaxSmem = kSmem ? kSmemSources * sizeof(int32_t) : 0;
   static const repro::Resident res = repro::resident_blocks(
-      remap_codes_kernel<kSmem, I>, kThreads, kMaxSmem);
+      remap_codes_kernel<kSmem, I>, kRemapThreads, kMaxSmem);
   if (res.err != cudaSuccess) return res.err;
   const uint64_t tiles = (uint64_t(n) / 4 + kRemapTile - 1) / kRemapTile;
   const size_t smem = kSmem ? n_src * sizeof(int32_t) : 0;
   remap_codes_kernel<kSmem, I>
-      <<<repro::balanced_grid(tiles, res.blocks), kThreads, smem, stream>>>(
-          evs, srcs, table, offsets, out, n, n_src);
+      <<<repro::balanced_grid(tiles, res.blocks), kRemapThreads, smem,
+         stream>>>(evs, srcs, table, offsets, out, n, n_src);
   return cudaGetLastError();
 }
 

@@ -25,6 +25,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.bitpack import n_words_for, pack_codes_plain
 
+# the CUDA remap's tile (passed to nvcc by _build): each of REMAP_THREADS
+# threads of a block remaps REMAP_GROUPS groups of 4 entries per round
+REMAP_THREADS = 256
+REMAP_GROUPS = 2
+
 
 def remap_codes_plain(evs: torch.Tensor, srcs: torch.Tensor,
                       table: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:

@@ -67,11 +67,6 @@ def test_pack_unpack_match_plain(card, width):
         assert torch.equal(bitpack.unpack_codes(words, width, n).cpu(), codes.cpu())
 
 
-# groups of 4 entries per thread in the unpack and remap kernels, 256 threads
-# per block (csrc/bitpack.cu, csrc/merge_remap.cu)
-UNPACK_GROUPS = REMAP_GROUPS = 2
-BLOCK = 256
-
 
 def _resident_threads(card):
     p = torch.cuda.get_device_properties(card)
@@ -98,7 +93,7 @@ def test_unpack_codes_edges_match_plain(card, width):
     n > 0 launches the kernel once."""
     rng = np.random.default_rng(100 + width)
     per = 32 // width
-    rounds = 3 * _resident_threads(card) * UNPACK_GROUPS * 4
+    rounds = 3 * _resident_threads(card) * bitpack.UNPACK_GROUPS * 4
     for n in (0, 1, 4 * per - 1, 4 * per, 4 * per + 1, rounds + 3):
         words = _words(bitpack.n_words_for(n, width), rng)
         _unpack_launches_once(card, words.to(card), width, n,
@@ -109,10 +104,10 @@ def test_unpack_codes_edges_match_plain(card, width):
 @pytest.mark.parametrize("offset", [1, 2, 3])
 def test_unpack_codes_on_a_word_view_at_an_offset(card, width, offset):
     """A view of the words 4, 8 or 12 bytes into a 16-byte line takes the
-    kernel with narrower loads, not the plain version."""
+    kernel's 4-byte loads, not the plain version."""
     rng = np.random.default_rng(10 * width + offset)
     per = 32 // width
-    n = 3 * 4 * UNPACK_GROUPS * BLOCK + 4 * per + 1
+    n = 3 * bitpack.UNPACK_TILE_CODES + 4 * per + 1
     words = _words(bitpack.n_words_for(n, width) + offset, rng)
     view = words.to(card)[offset:]
     assert view.data_ptr() % 16 == 4 * offset
@@ -214,9 +209,13 @@ def test_remap_codes_matches_plain(card, n, n_src):
                                     offsets.to(card))
 
 
+# entries one round of a block of the CUDA remap covers
+REMAP_TILE = 4 * merge_remap.REMAP_GROUPS * merge_remap.REMAP_THREADS
+
+
 @pytest.mark.parametrize("n_src", [1, 1024, 1025])
-@pytest.mark.parametrize("n", [1, 5, 4 * REMAP_GROUPS * BLOCK - 1,
-                               4 * REMAP_GROUPS * BLOCK + 1, 1_200_000])
+@pytest.mark.parametrize("n", [1, 5, REMAP_TILE - 1, REMAP_TILE + 1,
+                               1_200_000])
 def test_remap_codes_edges_match_plain(card, n, n_src):
     """n at the edges of a thread's groups and of a block's tile, the
     per-source bases in shared memory (1 and 1,024 sources) and read from

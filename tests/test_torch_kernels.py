@@ -92,14 +92,10 @@ def test_pack_unpack_empty(width):
     assert np_bitpack(np.zeros(0, np.int32), width).shape == (0,)
 
 
-# the CUDA unpack writes groups of 4 codes, 2 groups per thread, 256
-# threads per block: a tile of 2,048 codes
-UNPACK_TILE_CODES = 4 * 2 * 256
-
-
 def _unpack_ns(width):
     per = 32 // width
-    return [0, 1, 4 * per - 1, 4 * per, 4 * per + 1, 3 * UNPACK_TILE_CODES + 3]
+    return [0, 1, 4 * per - 1, 4 * per, 4 * per + 1,
+            3 * bitpack.UNPACK_TILE_CODES + 3]
 
 
 @pytest.mark.parametrize("width", WIDTHS)
@@ -122,9 +118,9 @@ def test_unpack_plain_matches_jax_at_group_edges(width, edge):
 @pytest.mark.parametrize("offset", [1, 2, 3])
 def test_unpack_plain_matches_jax_on_a_word_view(width, offset):
     """Words that are a view starting 4, 8 or 12 bytes into the storage
-    (the card's kernel takes narrower loads there)."""
+    (the card's kernel takes 4-byte loads there)."""
     per = 32 // width
-    n = 2 * UNPACK_TILE_CODES + 4 * per + 1
+    n = 2 * bitpack.UNPACK_TILE_CODES + 4 * per + 1
     rng = np.random.default_rng(100 * width + offset)
     words = rng.integers(0, 2**32, bitpack.n_words_for(n, width) + offset,
                          dtype=np.uint64).astype(np.uint32)
