@@ -160,7 +160,8 @@ AGG_KERNELS = ("fused_zone_agg", "zone_histogram")
 SYMBOLS = {"pack_codes": "pack_codes_kernel",
            "unpack_codes": "unpack_codes_kernel",
            "fused_zone_filter": "fused_zone_filter_kernel",
-           "remap_pack_codes": "remap_pack_kernel",
+           # route (a), route (b)
+           "remap_pack_codes": "remap_pack_(?:codes|cluster)_kernel",
            "fused_zone_agg": "fused_zone_agg_kernel",
            "zone_histogram": "zone_histogram_kernel",
            "multi_range_filter_packed": "multi_range_filter_kernel",
@@ -1510,6 +1511,37 @@ def compare(name: str, kernel, plain, nbytes: int, bw: float, launches: int,
     return row
 
 
+# remap_pack_codes' routes timed at the main path's largest merge: route
+# (a) (cluster 0) and route (b) at clusters of 8 and 16 blocks
+REMAP_ROUTES = (0, 8, 16)
+
+
+def route_name(cluster: int) -> str:
+    return f"cluster{cluster}" if cluster else "stream"
+
+
+def pack_row(codes, width: int, bw: float, launches: int, log: str,
+             where: str) -> dict:
+    """pack_codes against its plain version at one shape, with the CUDA
+    graph times (hot: the same codes every call; cold: a fresh copy every
+    call) and the registers of its instantiations at that width."""
+    from repro_torch.kernels import bitpack
+
+    n = codes.shape[0]
+    nbytes = 4 * n + 4 * bitpack.n_words_for(n, width)
+    pack = lambda c: bitpack.pack_codes(c, width)  # noqa: E731
+    row = compare("pack_codes", lambda: pack(codes),
+                  lambda: bitpack.pack_codes_plain(codes, width), nbytes, bw,
+                  launches, f"n={n} width={width}{where}")
+    row.update({
+        "main_path": not where,
+        "ptxas": [r for r in ptxas_resources(log, SYMBOLS["pack_codes"])
+                  if f"<{width}," in r["function"]],
+        "graph_ms": hot_graph_ms(pack, codes),
+        "cold_graph_ms": cold_graph_ms(pack, nbytes, codes)})
+    return row
+
+
 def kernel_phase(recs, launches: dict, bw: float, bench: dict,
                  rates: dict, log: str) -> list:
     import torch
@@ -1518,13 +1550,45 @@ def kernel_phase(recs, launches: dict, bw: float, bench: dict,
                                      opd_filter, packed_filter, ssm_scan)
 
     rows = []
-    (codes, width), _ = recs["pack"].calls[0]
+    # one row per pack width the main path packed (its flushes), then
+    # compact.jax's largest pack (a merge output) beside codes.clone(), the
+    # same codes at width 16, and below 8 both layouts of a word
+    for width, ((codes, _w), _) in sorted(recs["pack"].calls.items()):
+        rows.append(pack_row(codes, width, bw, recs["pack"].launches[width],
+                             log, ""))
+    (codes, width), _ = max(recs["pack_compact"].calls.values(),
+                            key=lambda c: c[0][0].shape[0])
     n = codes.shape[0]
-    m = bitpack.n_words_for(n, width)
-    rows.append(compare(
-        "pack_codes", lambda: bitpack.pack_codes(codes, width),
-        lambda: bitpack.pack_codes_plain(codes, width), 4 * n + 4 * m, bw,
-        launches["pack_codes"], f"n={n} width={width}"))
+    where = " (compact.jax's largest pack: a merge output)"
+    rows.append(pack_row(codes, width, bw,
+                         recs["pack_compact"].launches[width], log, where))
+    if width == 32:
+        clone = lambda c: c.clone()  # noqa: E731
+        check(torch.equal(clone(codes), bitpack.pack_codes(codes, 32)),
+              "pack_codes at width 32 differs from codes.clone()")
+        rows[-1].update({
+            "library_ms": event_median_ms(lambda: clone(codes), inner=10),
+            "library_graph_ms": hot_graph_ms(clone, codes),
+            "library_cold_graph_ms": cold_graph_ms(clone, 8 * n, codes),
+            "library_why": "codes.clone(): the same function only at width "
+                           "32, where the pack is a copy"})
+    for w in (16, 4, 2, 1):
+        low = codes & ((1 << w) - 1)
+        rows.append(pack_row(low, w, bw, 0, log,
+                             f"{where}, low {w} bits"))
+        if w < 8:
+            # the other layout of a word: a thread owns it
+            bitpack.PACK_OWN_WORDS = True
+            try:
+                rows[-1]["own_words_cold_graph_ms"] = cold_graph_ms(
+                    lambda c: bitpack.pack_codes(c, w),
+                    4 * n + 4 * bitpack.n_words_for(n, w), low)
+                check(torch.equal(bitpack.pack_codes(low, w),
+                                  bitpack.pack_codes_plain(low, w)),
+                      f"pack_codes width {w}, words owned by a thread, "
+                      "differs from plain")
+            finally:
+                bitpack.PACK_OWN_WORDS = False
 
     # one row per pack width the main path unpacked, at its largest call;
     # then width 16 at the width-32 row's n (the main path's width-16 SCTs
@@ -1596,17 +1660,59 @@ def kernel_phase(recs, launches: dict, bw: float, bench: dict,
                                       f" (words of a width-{w0} level)")))
         rows[-1]["main_path"] = w0 == width and fw is biggest[0][0]
 
-    (evs, srcs, table, offsets, width), _ = recs["remap"].calls[0]
+    # remap_pack_codes at the main path's largest merge, on route (a) and
+    # on route (b) at each cluster size, in one call: device time, CUDA
+    # graphs hot and cold, and cold with every entry dead (the streams and,
+    # on route (b), the table's fill, without a gather)
+    (evs, srcs, table, offsets, width), _ = max(
+        recs["remap"].calls.values(), key=lambda c: c[0][0].shape[0])
     n = evs.shape[0]
     m = bitpack.n_words_for(n, width)
-    rows.append(compare(
-        "remap_pack_codes",
-        lambda: merge_remap.remap_pack_codes(evs, srcs, table, offsets, width),
-        lambda: merge_remap.remap_pack_codes_plain(evs, srcs, table, offsets,
-                                                   width),
-        8 * n + 4 * m + 4 * table.shape[0] + 4 * offsets.shape[0], bw,
-        launches["remap_pack_codes"],
-        f"n={n} width={width} table={table.shape[0]} sources={offsets.shape[0]}"))
+    nbytes = 8 * n + 4 * m + 4 * table.shape[0] + 4 * offsets.shape[0]
+    main_route = merge_remap.remap_route(table.shape[0], offsets.shape[0])
+    by_route = {}
+    for (_w, route), count in recs["remap"].launches.items():
+        by_route[route] = by_route.get(route, 0) + count
+    remap_pack = merge_remap.remap_pack_codes
+    streams_only = {}
+    for cluster in REMAP_ROUTES:
+        saved = merge_remap.REMAP_CLUSTER
+        merge_remap.REMAP_CLUSTER = cluster
+        try:
+            route = merge_remap.remap_route(table.shape[0], offsets.shape[0])
+            check(route == cluster, f"remap_pack_codes: table of "
+                  f"{table.shape[0]} slots does not take cluster {cluster}")
+            name = route_name(route)
+            rows.append(compare(
+                "remap_pack_codes",
+                lambda: remap_pack(evs, srcs, table, offsets, width),
+                lambda: merge_remap.remap_pack_codes_plain(
+                    evs, srcs, table, offsets, width),
+                nbytes, bw, by_route.get(name, 0),
+                f"n={n} width={width} table={table.shape[0]} "
+                f"sources={offsets.shape[0]} route={name}"))
+            symbol = ("remap_pack_cluster_kernel" if cluster
+                      else "remap_pack_codes_kernel")
+            streams_only[cluster] = cold_graph_ms(
+                lambda *a: remap_pack(*a, width), nbytes,
+                torch.full_like(evs, -1), srcs, table, offsets)
+            rows[-1].update({
+                "remap_route": name,
+                "main_path": cluster == main_route,
+                "ptxas": [r for r in ptxas_resources(log, symbol)
+                          if f"<{width}," in r["function"]],
+                "graph_ms": hot_graph_ms(lambda *a: remap_pack(*a, width),
+                                         evs, srcs, table, offsets),
+                "cold_graph_ms": cold_graph_ms(
+                    lambda *a: remap_pack(*a, width), nbytes, evs, srcs,
+                    table, offsets),
+                "streams_only_cold_graph_ms": streams_only[cluster],
+                "gathers": int((evs >= 0).sum())})
+            if cluster:
+                rows[-1]["fill_cold_graph_ms"] = (streams_only[cluster]
+                                                  - streams_only[0])
+        finally:
+            merge_remap.REMAP_CLUSTER = saved
 
     # fused_zone_agg at agg.fast's scalar launch, with and without SUM
     (aw, am, ar, awt, width, k, _ws, tw), _ = recs["agg"].calls[0]
@@ -1795,14 +1901,24 @@ def main() -> int:
           "bandwidth_Bps": bw, "sm_count": sms, "max_sm_clock_mhz": max_mhz,
           **rates, "ptxas": ptxas})
 
+    from repro_torch.kernels import merge_remap
+
+    def remap_key(e, s, table, offsets, width):
+        return width, route_name(merge_remap.remap_route(table.shape[0],
+                                                         offsets.shape[0]))
+
     recs = {
-        "pack": Recorder(ops.pack_codes, lambda c, w: c.shape[0]),
+        # keyed by pack width, with the launches per width
+        "pack": Recorder(ops.pack_codes, lambda c, w: c.shape[0],
+                         lambda c, w: w),
         # keyed by pack width, with the launches per width
         "unpack": Recorder(ops.unpack_codes, lambda w, wd, n: n,
                            lambda w, wd, n: wd),
         "fused": Recorder(ops.fused_zone_filter,
                           lambda w, *a: w.shape[0], lambda w, m, r, wd, *a: wd),
-        "remap": Recorder(ops.remap_pack_codes, lambda e, *a: e.shape[0]),
+        # keyed by (pack width, route)
+        "remap": Recorder(ops.remap_pack_codes, lambda e, *a: e.shape[0],
+                          remap_key),
         # recorded during agg.fast only
         "agg": Recorder(ops.fused_zone_agg, lambda w, *a: w.shape[0],
                         active=False),
@@ -1822,33 +1938,42 @@ def main() -> int:
         "packed": Recorder(ops.packed_range_filter, lambda w, *a: w.shape[0],
                            active=False),
     }
-    ops.pack_codes, ops.unpack_codes = recs["pack"], recs["unpack"]
+    # compact.jax's packs (merge outputs among them), keyed by width
+    recs["pack_compact"] = Recorder(recs["pack"], lambda c, w: c.shape[0],
+                                    lambda c, w: w, active=False)
+    ops.pack_codes, ops.unpack_codes = recs["pack_compact"], recs["unpack"]
     ops.fused_zone_filter, ops.remap_pack_codes = recs["fused"], recs["remap"]
     ops.fused_zone_agg, ops.zone_histogram = recs["agg"], recs["hist"]
     ops.multi_range_filter, ops.code_range_filter = recs["multi"], recs["codes"]
     ops.remap_codes, ops.packed_range_filter = (recs["remap_codes"],
                                                 recs["packed"])
-    recs["unpack"].launches.clear()
     launches, state = main_phase(args, "cuda")
-    # the unpack rows replay the main path's own calls, one per width
-    recs["unpack"].active = False
-    by_width = dict(sorted(recs["unpack"].launches.items()))
-    emit({"phase": "main.unpack_by_width", "unpack_codes": by_width})
-    check(sum(by_width.values()) == launches["unpack_codes"],
-          f"unpack_codes launches by width {by_width} do not sum to "
-          f"{launches['unpack_codes']}")
+    # the pack, unpack and remap rows replay the main path's own calls
+    for key in ("pack", "unpack", "remap"):
+        recs[key].active = False
+    for kind, name in (("unpack", "unpack_codes"), ("pack", "pack_codes"),
+                       ("remap", "remap_pack_codes")):
+        by_width = {}
+        for key, count in sorted(recs[kind].launches.items()):
+            if kind == "remap":  # per width, then per route
+                by_width.setdefault(key[0], {})[key[1]] = count
+            else:
+                by_width[key] = count
+        emit({"phase": f"main.{kind}_by_width", name: by_width})
+        total = sum(c for c in recs[kind].launches.values())
+        check(total == launches[name], f"{name} launches by width "
+              f"{by_width} do not sum to {launches[name]}")
     launches.update(serve_phase(state, {k: recs[k]
                                         for k in ("multi", "codes")}))
     fast_launches = agg_phase(args, state,
                               {k: recs[k] for k in ("agg", "hist")}, "cuda")
     launches.update({k: fast_launches[k] for k in AGG_KERNELS})
     # the main path's operands stay those of the main tree's own ingest
-    for key in ("pack", "fused", "remap"):
-        recs[key].active = False
-    recs["remap_codes"].active = True
+    recs["fused"].active = False
+    recs["remap_codes"].active = recs["pack_compact"].active = True
     launches["remap_codes"] = compact_phase(state, "jax",
                                             "cuda")["remap_codes"]
-    recs["remap_codes"].active = False
+    recs["remap_codes"].active = recs["pack_compact"].active = False
     compact_phase(state, "numpy", "cuda")
     range_phase(args, state)
     launches["range_filter_packed"] = fig5_phase(state, recs)

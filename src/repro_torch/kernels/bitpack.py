@@ -17,11 +17,18 @@ from repro_torch.kernels import _build
 
 WIDTHS = (1, 2, 4, 8, 16, 32)
 
-# the CUDA unpack's tile (passed to nvcc by _build): each of UNPACK_THREADS
-# threads of a block writes UNPACK_GROUPS groups of 4 codes per round
+# the CUDA unpack's and pack's tiles (passed to nvcc by _build): each of
+# UNPACK_THREADS threads of a block writes UNPACK_GROUPS groups of 4 codes
+# per round, each of PACK_THREADS reads PACK_GROUPS groups of 4 codes
 UNPACK_THREADS = 256
 UNPACK_GROUPS = 2
 UNPACK_TILE_CODES = 4 * UNPACK_GROUPS * UNPACK_THREADS
+PACK_THREADS = 256
+PACK_GROUPS = 2
+PACK_TILE_CODES = 4 * PACK_GROUPS * PACK_THREADS
+# below width 8: True, a thread owns whole words and reads their 8 / width
+# groups; False, the 8 / width lanes that share a word OR their fields
+PACK_OWN_WORDS = False
 
 
 def check_width(width: int) -> int:
@@ -74,7 +81,9 @@ def unpack_codes_plain(words: torch.Tensor, width: int, n: int) -> torch.Tensor:
 # dispatching wrappers
 # --------------------------------------------------------------------------- #
 def pack_codes(codes: torch.Tensor, width: int) -> torch.Tensor:
-    """Pack int32 codes [n] into int32 words [ceil(n / (32/width))]."""
+    """Pack int32 codes [n] into int32 words [ceil(n / (32/width))].  On the
+    card ``codes`` may be any contiguous view (codes that do not start on a
+    16-byte line are read with 4-byte loads)."""
     if not _build.on_card(codes):
         return pack_codes_plain(codes, width)
     m = n_words_for(codes.shape[0], width)
@@ -82,8 +91,8 @@ def pack_codes(codes: torch.Tensor, width: int) -> torch.Tensor:
     words = torch.empty(m, dtype=torch.int32, device=codes.device)
     if m:
         _build.launch("pack_codes", "repro_pack_codes", codes.device,
-                      codes.data_ptr(), words.data_ptr(), codes.shape[0], m,
-                      width)
+                      codes.data_ptr(), words.data_ptr(), codes.shape[0],
+                      width, int(PACK_OWN_WORDS))
     return words
 
 

@@ -10,8 +10,18 @@
 // Bound: memory.  Pack reads 4*per bytes and writes 4 bytes per word; unpack
 // reads 4 and writes 4*per.
 //
-// Pack: each thread owns one word, so the word side is coalesced; the code
-// side is a run of per consecutive int32 per thread.  No vector loads.
+// Pack is laid out on its input, the mirror of the unpack: the width is a
+// template parameter, each thread reads whole groups of 4 consecutive codes
+// with one 16-byte load, neighbouring lanes on neighbouring groups, and
+// packs them with pack_group.cuh (one 16-, 8- or 4-byte store at width 32,
+// 16 and 8; below 8 the 8 / W lanes that share a word OR their fields
+// together).  Each thread issues the loads of REPRO_PACK_GROUPS groups
+// before its first store, on a grid sized to the card (launch_grid.cuh).
+// Codes that do not start on a 16-byte line (a view into them) take one
+// instantiation with 4-byte loads; the last words the groups do not fill
+// (at most 3) are packed code by code.  32-bit indices while n < 2^31,
+// 64-bit above.  No cache hints: the caller reads the codes again (the zone
+// maps of build_sct).
 //
 // Unpack is laid out on its output, which is per times larger than its
 // input.  The width is a template parameter (shifts, mask and loops are
@@ -27,38 +37,113 @@
 // one.  32-bit indices while n < 2^31, 64-bit above.  No cache hints: the
 // caller reads the codes next.
 //
-// The unpack's block size and groups per thread are set by the build
-// (-DREPRO_UNPACK_THREADS, -DREPRO_UNPACK_GROUPS) from the constants of
-// kernels/bitpack.py, which its tests read too.
+// Block sizes and groups per thread of both are set by the build
+// (-DREPRO_PACK_THREADS, -DREPRO_PACK_GROUPS, -DREPRO_UNPACK_THREADS,
+// -DREPRO_UNPACK_GROUPS) from the constants of kernels/bitpack.py, which its
+// tests read too.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "launch_grid.cuh"
+#include "pack_group.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kPackThreads = REPRO_PACK_THREADS;
+constexpr int kPackGroups = REPRO_PACK_GROUPS;
+constexpr int kPackTile = kPackThreads * kPackGroups;
 
-inline unsigned grid_for(int64_t items) {
-  int64_t blocks = (items + kThreads - 1) / kThreads;
-  const int64_t cap = int64_t(1) << 20;  // grid-stride loops cover the rest
-  return static_cast<unsigned>(blocks < cap ? blocks : cap);
+// Codes 4g .. 4g+3; kWide: `codes` starts on a 16-byte line.
+template <bool kWide, typename I>
+__device__ __forceinline__ int4 load_group(const int32_t* __restrict__ codes,
+                                           I g) {
+  if constexpr (kWide) return reinterpret_cast<const int4*>(codes)[g];
+  const int32_t* p = codes + 4 * g;
+  return make_int4(p[0], p[1], p[2], p[3]);
 }
 
-__global__ void pack_codes_kernel(const int32_t* __restrict__ codes,
-                                  uint32_t* __restrict__ words, int64_t n,
-                                  int64_t n_words, int width) {
-  const int per = 32 / width;
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  for (int64_t w = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; w < n_words;
-       w += stride) {
-    const int64_t base = w * per;
-    uint32_t acc = 0;
-    for (int k = 0; k < per; ++k) {
-      const int64_t i = base + k;
-      if (i < n) acc |= static_cast<uint32_t>(codes[i]) << (k * width);
+// kOwn (widths below 8): each thread owns whole words and reads the 8 / W
+// groups of each, instead of sharing a word among 8 / W lanes.
+template <int W, bool kWide, bool kOwn, typename I>
+__global__ void __launch_bounds__(kPackThreads)
+    pack_codes_kernel(const int32_t* __restrict__ codes,
+                      uint32_t* __restrict__ words, I n) {
+  constexpr int kPer = 32 / W;
+  constexpr int kUnit = kOwn ? repro::groups_per_word<W>() : 1;
+  const I groups = repro::packed_groups<W>(n);
+  const I units = groups / kUnit;
+  for (I base = I(blockIdx.x) * kPackTile; base < units;
+       base += I(gridDim.x) * kPackTile) {
+    int4 c[kPackGroups][kUnit];
+#pragma unroll
+    for (int v = 0; v < kPackGroups; ++v) {
+      const I u = base + v * kPackThreads + threadIdx.x;
+#pragma unroll
+      for (int j = 0; j < kUnit; ++j)
+        c[v][j] = u < units ? load_group<kWide>(codes, u * kUnit + j)
+                            : make_int4(0, 0, 0, 0);
     }
+#pragma unroll
+    for (int v = 0; v < kPackGroups; ++v) {
+      const I u = base + v * kPackThreads + threadIdx.x;
+      if constexpr (kOwn) {
+        uint32_t bits = 0;
+#pragma unroll
+        for (int j = 0; j < kUnit; ++j)
+          bits |= repro::pack4<W>(c[v][j]) << (j * 4 * W);
+        if (u < units) words[u] = bits;
+      } else {
+        repro::store_group<W>(words, u, c[v][0], u < units);
+      }
+    }
+  }
+  // the words the groups leave (at most 3), code by code
+  const I w = repro::tail_word<W>(groups) + threadIdx.x;
+  if (blockIdx.x == 0 && w * kPer < n) {
+    uint32_t acc = 0;
+    for (int k = 0; k < kPer && w * kPer + k < n; ++k)
+      acc |= uint32_t(codes[w * kPer + k]) << (k * W);
     words[w] = acc;
+  }
+}
+
+template <int W, bool kWide, bool kOwn, typename I>
+cudaError_t launch_pack(const int32_t* codes, uint32_t* words, I n,
+                        cudaStream_t stream) {
+  static const repro::Resident res = repro::resident_blocks(
+      pack_codes_kernel<W, kWide, kOwn, I>, kPackThreads, 0);
+  if (res.err != cudaSuccess) return res.err;
+  constexpr int kUnit = kOwn ? repro::groups_per_word<W>() : 1;
+  const uint64_t units = uint64_t(repro::packed_groups<W>(n)) / kUnit;
+  const uint64_t tiles = (units + kPackTile - 1) / kPackTile;
+  pack_codes_kernel<W, kWide, kOwn, I>
+      <<<repro::balanced_grid(tiles, res.blocks), kPackThreads, 0, stream>>>(
+          codes, words, n);
+  return cudaGetLastError();
+}
+
+template <int W, typename I>
+cudaError_t pack_aligned(const int32_t* codes, uint32_t* words, I n, bool own,
+                         cudaStream_t stream) {
+  if (reinterpret_cast<uintptr_t>(codes) % 16)
+    return launch_pack<W, false, false>(codes, words, n, stream);
+  if constexpr (W < 8) {
+    if (own) return launch_pack<W, true, true>(codes, words, n, stream);
+  }
+  return launch_pack<W, true, false>(codes, words, n, stream);
+}
+
+template <typename I>
+cudaError_t pack_width(const int32_t* codes, uint32_t* words, I n, int width,
+                       bool own, cudaStream_t stream) {
+  switch (width) {
+    case 1: return pack_aligned<1>(codes, words, n, own, stream);
+    case 2: return pack_aligned<2>(codes, words, n, own, stream);
+    case 4: return pack_aligned<4>(codes, words, n, own, stream);
+    case 8: return pack_aligned<8>(codes, words, n, own, stream);
+    case 16: return pack_aligned<16>(codes, words, n, own, stream);
+    case 32: return pack_aligned<32>(codes, words, n, own, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -168,13 +253,22 @@ cudaError_t unpack_width(const uint32_t* words, int32_t* codes, I n, int width,
 
 }  // namespace
 
+// words: 16-byte aligned (torch.empty's are); codes: any 4-byte alignment.
+// own_words: widths below 8 only, the layout where a thread owns a word.
 extern "C" int repro_pack_codes(const void* codes, void* words, int64_t n,
-                                int64_t n_words, int width, void* stream) {
-  pack_codes_kernel<<<grid_for(n_words), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(codes), static_cast<uint32_t*>(words), n,
-      n_words, width);
-  return static_cast<int>(cudaGetLastError());
+                                int width, int own_words, void* stream) {
+  if (reinterpret_cast<uintptr_t>(words) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const auto* c = static_cast<const int32_t*>(codes);
+  auto* w = static_cast<uint32_t*>(words);
+  auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      n < (int64_t(1) << 31)
+          ? pack_width<uint32_t>(c, w, static_cast<uint32_t>(n), width,
+                                 own_words != 0, s)
+          : pack_width<uint64_t>(c, w, static_cast<uint64_t>(n), width,
+                                 own_words != 0, s);
+  return static_cast<int>(err);
 }
 
 // codes: 16-byte aligned (torch.empty's are); words: any 4-byte alignment.

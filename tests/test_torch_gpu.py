@@ -68,6 +68,68 @@ def test_pack_unpack_match_plain(card, width):
 
 
 
+def _pack_launches_once(card, codes, width, want):
+    before = ops.LAUNCHES["pack_codes"]
+    got = bitpack.pack_codes(codes, width)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["pack_codes"] == before + (codes.shape[0] > 0)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("own", [False, True])
+def test_pack_codes_edges_match_plain(card, width, own, monkeypatch):
+    """n at the edges of a group of 4 codes and of a word, and over three
+    grid-stride rounds of the card's resident threads; below width 8 both
+    layouts of a word (shared by lanes, owned by a thread)."""
+    monkeypatch.setattr(bitpack, "PACK_OWN_WORDS", own)
+    rng = np.random.default_rng(200 + width)
+    per = 32 // width
+    rounds = 3 * _resident_threads(card) * bitpack.PACK_GROUPS * 4
+    for n in [0, 1] + [4 * per + d for d in range(-1, 6)] + [rounds + 3]:
+        codes = _codes(n, width, rng)
+        _pack_launches_once(card, codes.to(card), width,
+                            bitpack.pack_codes_plain(codes, width))
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_pack_codes_on_a_code_view_at_an_offset(card, width, offset):
+    """A view of the codes 4, 8 or 12 bytes into a 16-byte line takes the
+    kernel's 4-byte loads, not the plain version."""
+    rng = np.random.default_rng(20 * width + offset)
+    per = 32 // width
+    n = 3 * bitpack.PACK_TILE_CODES + 4 * per + 1
+    codes = _codes(n + offset, width, rng)
+    view = codes.to(card)[offset:]
+    assert view.data_ptr() % 16 == 4 * offset
+    _pack_launches_once(card, view, width,
+                        bitpack.pack_codes_plain(codes[offset:], width))
+
+
+@pytest.mark.parametrize("width", [1, 32])
+def test_pack_codes_past_2_31_codes(card, width):
+    """n >= 2^31 takes the kernel's 64-bit indices; held against the plain
+    version on windows at the start, across 2^31 and at the ragged end."""
+    n = 2**31 + 7
+    per = 32 // width
+    codes = torch.randint(0, 2**min(width, 30), (n,), dtype=torch.int32,
+                          device=card)
+    before = ops.LAUNCHES["pack_codes"]
+    got = bitpack.pack_codes(codes, width)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["pack_codes"] == before + 1
+    m = got.shape[0]
+    assert m == bitpack.n_words_for(n, width)
+    for w0 in (0, 2**31 // per - 64, m - 64):
+        k = min(per * 128, n - per * w0)
+        want = bitpack.pack_codes_plain(codes[per * w0:per * w0 + k].cpu(),
+                                        width)
+        assert torch.equal(got[w0:w0 + want.shape[0]].cpu(), want)
+    del got, codes
+    torch.cuda.empty_cache()
+
+
 def _resident_threads(card):
     p = torch.cuda.get_device_properties(card)
     return p.multi_processor_count * getattr(
@@ -163,7 +225,7 @@ def test_fused_kernel_skips_tiles_and_zeroes_them(card):
         assert torch.equal(g.cpu(), w)
 
 
-@pytest.mark.parametrize("width", [1, 8, 32])
+@pytest.mark.parametrize("width", WIDTHS)
 def test_remap_pack_matches_plain(card, width):
     rng = np.random.default_rng(width)
     n, t = 100_003, 70_000
@@ -238,6 +300,92 @@ def test_remap_codes_edges_match_plain(card, n, n_src):
         torch.cuda.synchronize()
         assert ops.LAUNCHES["remap_codes"] == before + 1
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("side", ["under", "over"])
+@pytest.mark.parametrize("n_src", [1, 1024, 1025])
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_remap_pack_routes_match_plain(card, width, side, n_src, cluster,
+                                       monkeypatch):
+    """A table of as many slots as a cluster holds (route (b)) and one
+    more (route (a)), with the bases in shared memory (1 and 1,024
+    sources) and past it on route (a) (1,025), n at the edges of a
+    thread's groups and of the route's tile, a third of the entries dead
+    and -1 table slots; then every entry dead."""
+    monkeypatch.setattr(merge_remap, "REMAP_CLUSTER", cluster)
+    t = merge_remap.remap_cluster_capacity(n_src) + (side == "over")
+    assert merge_remap.remap_route(t, n_src) == (cluster if side == "under"
+                                                 else 0)
+    threads = (merge_remap.REMAP_CLUSTER_THREADS if side == "under"
+               else merge_remap.REMAP_THREADS)
+    tile = 4 * merge_remap.REMAP_GROUPS * threads
+    rng = np.random.default_rng(width * 31 + n_src + (side == "over"))
+    per_src = t // n_src
+    table = torch.from_numpy(rng.integers(-1, 2 ** min(width, 20), t)
+                             .astype(np.int32))
+    offsets = torch.from_numpy((np.arange(n_src) * per_src).astype(np.int32))
+    # the last source's codes reach the table's last slot
+    offsets[-1] = t - per_src
+    dev = [x.to(card) for x in (table, offsets)]
+    for n in (0, 3, tile - 1, tile + 1, 1_200_000):
+        srcs = torch.from_numpy(rng.integers(0, n_src, n).astype(np.int32))
+        evs = rng.integers(0, per_src, n).astype(np.int32)
+        evs[rng.random(n) < 1 / 3] = -1
+        if n:
+            srcs[-1], evs[-1] = n_src - 1, per_src - 1
+        for e in (torch.from_numpy(evs), torch.full((n,), -1, dtype=torch.int32)):
+            want = merge_remap.remap_pack_codes_plain(e, srcs, table, offsets,
+                                                      width)
+            before = ops.LAUNCHES["remap_pack_codes"]
+            got = merge_remap.remap_pack_codes(e.to(card), srcs.to(card),
+                                               *dev, width)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["remap_pack_codes"] == before + (n > 0)
+            assert torch.equal(got.cpu(), want), (n, side)
+
+
+@pytest.mark.parametrize("cluster", [0, 8])
+def test_remap_pack_on_views_off_a_16_byte_line(card, cluster, monkeypatch):
+    """ev and src views 4 bytes into a line, and on route (b) a table view
+    too, are copied onto a line first, not refused."""
+    monkeypatch.setattr(merge_remap, "REMAP_CLUSTER", cluster)
+    rng = np.random.default_rng(7 + cluster)
+    n, t = 100_001, 50_001
+    table = torch.from_numpy(rng.integers(-1, 2**16, t).astype(np.int32))
+    offsets = torch.tensor([0, 20_000], dtype=torch.int32)
+    srcs = torch.from_numpy(rng.integers(0, 2, n).astype(np.int32))
+    evs = torch.from_numpy(rng.integers(-1, 30_000, n).astype(np.int32))
+    want = merge_remap.remap_pack_codes_plain(evs[1:], srcs[1:], table[1:],
+                                              offsets, 16)
+    assert merge_remap.remap_route(t - 1, 2) == cluster
+    got = merge_remap.remap_pack_codes(evs.to(card)[1:], srcs.to(card)[1:],
+                                       table.to(card)[1:], offsets.to(card),
+                                       16)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_remap_pack_past_2_31_entries(card, monkeypatch):
+    """n >= 2^31 takes the kernels' 64-bit indices, on both routes."""
+    n, per_src = 2**31 + 7, 1000
+    table = torch.randint(-1, 2**16, (3 * per_src,), dtype=torch.int32,
+                          device=card)
+    offsets = torch.tensor([0, per_src, 2 * per_src], dtype=torch.int32,
+                           device=card)
+    evs = torch.randint(-1, per_src, (n,), dtype=torch.int32, device=card)
+    srcs = torch.randint(0, 3, (n,), dtype=torch.int32, device=card)
+    for cluster in (merge_remap.REMAP_CLUSTER, 0):
+        monkeypatch.setattr(merge_remap, "REMAP_CLUSTER", cluster)
+        got = merge_remap.remap_pack_codes(evs, srcs, table, offsets, 16)
+        torch.cuda.synchronize()
+        for i in (0, 2**31 - 4096, n - 4095):
+            want = merge_remap.remap_pack_codes_plain(
+                evs[i:i + 8192].cpu(), srcs[i:i + 8192].cpu(), table.cpu(),
+                offsets.cpu(), 16)
+            assert torch.equal(got[i // 2:i // 2 + want.shape[0]].cpu(), want)
+        del got
+    del evs, srcs
+    torch.cuda.empty_cache()
 
 
 def test_remap_codes_past_2_31_entries(card):

@@ -131,6 +131,44 @@ def test_unpack_plain_matches_jax_on_a_word_view(width, offset):
                           np.asarray(jops.unpack_codes(words[offset:], width, n)))
 
 
+def _pack_edge_ns(width):
+    """n around the first word boundary past one group of 4 codes: 4 * per
+    - 1 .. 4 * per + 5, so n mod 4 takes every value and the last word is
+    whole, short by one, or holds one code."""
+    per = 32 // width
+    return [4 * per + d for d in range(-1, 6)]
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("edge", range(7))
+def test_pack_plain_matches_jax_at_group_edges(width, edge):
+    """The inputs the card test holds the pack kernel to: n at the edges of
+    a group of 4 codes and of a word, past one of the kernel's tiles."""
+    n = _pack_edge_ns(width)[edge] + bitpack.PACK_TILE_CODES
+    rng = np.random.default_rng(20 * width + edge)
+    codes = _codes(n, width, rng)
+    got = bitpack.pack_codes(_t(codes), width)
+    assert got.dtype == torch.int32
+    assert got.shape == (bitpack.n_words_for(n, width),)
+    assert np.array_equal(_u32(got), np.asarray(jops.pack_codes(codes, width)))
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_pack_plain_matches_jax_on_a_code_view(width, offset):
+    """Codes that are a view starting 4, 8 or 12 bytes into the storage
+    (the card's kernel takes 4-byte loads there)."""
+    per = 32 // width
+    n = 2 * bitpack.PACK_TILE_CODES + 4 * per + 1
+    rng = np.random.default_rng(200 * width + offset)
+    codes = _codes(n + offset, width, rng)
+    view = _t(codes)[offset:]
+    assert view.storage_offset() == offset and view.is_contiguous()
+    got = bitpack.pack_codes(view, width)
+    assert np.array_equal(_u32(got),
+                          np.asarray(jops.pack_codes(codes[offset:], width)))
+
+
 def test_bad_width_raises():
     with pytest.raises(ValueError):
         bitpack.pack_codes(torch.zeros(4, dtype=torch.int32), 3)
@@ -263,7 +301,7 @@ def test_tile_zones_blocks_wider_than_tiles():
 # --------------------------------------------------------------------------- #
 # remap + pack
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("width", [1, 8, 32])
+@pytest.mark.parametrize("width", WIDTHS)
 def test_remap_pack_plain_matches_jax(width):
     """Dead (-1) entries and unused-code (-1) table slots pack as 0."""
     rng = np.random.default_rng(50 + width)
@@ -299,6 +337,78 @@ def test_remap_pack_empty_and_all_dead():
     got = merge_remap.remap_pack_codes(dead, torch.zeros(5, dtype=torch.int32),
                                        empty, torch.zeros(1, dtype=torch.int32), 1)
     assert got.tolist() == [0]
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("edge", range(7))
+def test_remap_pack_plain_matches_jax_at_group_edges(width, edge):
+    """n at the edges of a group of 4 entries and of a word (the card
+    kernels' vector path and their tail of at most 3 words)."""
+    n = _pack_edge_ns(width)[edge]
+    rng = np.random.default_rng(30 * width + edge)
+    evs, srcs, table, offsets = _remap_case(n, [37, 0, 120, 9], 0.3, rng)
+    table = table % 2 ** min(width, 16)
+    table[rng.random(table.shape[0]) < 0.2] = -1
+    want = np.asarray(jops.remap_pack_codes(evs, srcs, table, offsets, width))
+    got = merge_remap.remap_pack_codes(
+        _t(evs), _t(srcs), _t(table), _t(offsets[:-1].astype(np.int32)),
+        width)
+    assert got.shape == (bitpack.n_words_for(n, width),)
+    assert np.array_equal(_u32(got), want)
+
+
+@pytest.mark.parametrize("width", [1, 8, 32])
+@pytest.mark.parametrize("dead", [0.3, 1.0])
+def test_remap_pack_plain_matches_jax_with_1025_sources(width, dead):
+    """1,025 sources (one past the card kernels' bases in shared memory),
+    unused (-1) table slots, a share or all of the entries dead; held
+    against the reference's oracle (its Pallas kernel unrolls one select
+    per source)."""
+    rng = np.random.default_rng(1025 + width + int(10 * dead))
+    sizes = list(rng.integers(0, 6, 1025))
+    n = 4000
+    evs, srcs, table, offsets = _remap_case(n, sizes, dead, rng)
+    table = table % 2 ** min(width, 16)
+    table[rng.random(table.shape[0]) < 0.2] = -1
+    got = merge_remap.remap_pack_codes(
+        _t(evs), _t(srcs), _t(table), _t(offsets[:-1].astype(np.int32)),
+        width)
+    per = 32 // width
+    pad = -(-n // per) * per - n
+    oracle = jref.merge_remap_pack(
+        jnp.asarray(np.concatenate([evs, np.full(pad, -1, np.int32)])),
+        jnp.asarray(np.concatenate([srcs, np.zeros(pad, np.int32)])),
+        jnp.asarray(table), jnp.asarray(offsets[:-1].astype(np.int32)), width)
+    assert np.array_equal(_u32(got), np.asarray(oracle))
+    if dead == 1.0:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("n_src", [1, 6, 1024, 1025])
+def test_remap_route_at_the_cluster_capacity(cluster, n_src):
+    """Route (b) takes a table up to what a cluster holds beside the
+    bases (16 bytes of mbarrier, slots per block rounded up to 4, n_src
+    bases, at most REMAP_CLUSTER_SMEM bytes a block); one slot more, an
+    empty table or no cluster takes route (a)."""
+    cap = merge_remap.remap_cluster_capacity(n_src, cluster)
+    per_block = cap // cluster
+    assert per_block % 4 == 0
+    assert 16 + 4 * per_block + 4 * n_src <= merge_remap.REMAP_CLUSTER_SMEM
+    assert 16 + 4 * (per_block + 4) + 4 * n_src > merge_remap.REMAP_CLUSTER_SMEM
+    route = merge_remap.remap_route
+    assert route(cap, n_src, cluster) == cluster
+    assert route(cap - 1, n_src, cluster) == cluster
+    assert route(cap - per_block, n_src, cluster) == cluster
+    assert route(1, n_src, cluster) == cluster
+    assert route(cap + 1, n_src, cluster) == 0
+    assert route(0, n_src, cluster) == 0
+    assert route(cap, n_src, 0) == 0
+    # the module's cluster size is the default, and the main path's
+    # largest merge (403,041 slots, 6 sources) fits it
+    if cluster == merge_remap.REMAP_CLUSTER:
+        assert route(cap, n_src) == cluster
+    assert route(403_041, 6) == merge_remap.REMAP_CLUSTER
 
 
 # --------------------------------------------------------------------------- #
