@@ -82,17 +82,21 @@ Phases, each printing JSON lines:
             the larger of the bytes over the card's data-sheet bandwidth
             and, for range_filter_packed, bloom_probe and ssm_scan, the
             operations over the card's integer, float32 or exp rate.
-            unpack_codes has one row per pack width the main path
-            unpacked, with that width's launches, and at width 32 the time
-            of words[:n].clone() (the same function there); remap_codes
-            carries its gathers' L2 sector bytes.  Both kernels are also
-            timed in CUDA graphs with their operands in L2 (graph_ms) and
-            from device memory (cold_graph_ms), and the remap with every
-            entry dead (streams_only_cold_graph_ms: no gather), and the
-            width-32 unpack and clone at 8 times its n (cold_graph_ms_8n,
-            library_cold_graph_ms_8n).  The two
-            rows carry the registers, shared memory and spills of every
-            instantiation of their kernel, from the build's -Xptxas=-v log.
+            pack_codes and unpack_codes have one row per pack width the
+            main path packed (unpacked), with that width's launches
+            (main.pack_by_width, main.unpack_by_width; remap_pack_codes'
+            in main.remap_by_width), and pack_codes one at compact.jax's
+            largest pack (a width-32 merge output) and at width 16 on the
+            same codes; at width 32 the pack and the unpack sit beside
+            codes.clone() and words[:n].clone() (the same functions there);
+            remap_codes carries its gathers' L2 sector bytes.  These four
+            kernels are also timed in CUDA graphs with their operands in L2
+            (graph_ms) and from device memory (cold_graph_ms), both remaps
+            with every entry dead (streams_only_cold_graph_ms: no gather),
+            and the width-32 unpack and clone at 8 times its n
+            (cold_graph_ms_8n, library_cold_graph_ms_8n).  Their rows carry
+            the registers, shared memory and spills of every instantiation
+            of their kernel at that width, from the build's -Xptxas=-v log.
 
 The last three lines are the card (nvidia-smi name, power limit), the
 kernel table ``{"kernels": [...]}`` and ``{"ok": true, "device": ...}``.
@@ -160,8 +164,7 @@ AGG_KERNELS = ("fused_zone_agg", "zone_histogram")
 SYMBOLS = {"pack_codes": "pack_codes_kernel",
            "unpack_codes": "unpack_codes_kernel",
            "fused_zone_filter": "fused_zone_filter_kernel",
-           # route (a), route (b)
-           "remap_pack_codes": "remap_pack_(?:codes|cluster)_kernel",
+           "remap_pack_codes": "remap_pack_codes_kernel",
            "fused_zone_agg": "fused_zone_agg_kernel",
            "zone_histogram": "zone_histogram_kernel",
            "multi_range_filter_packed": "multi_range_filter_kernel",
@@ -1511,15 +1514,6 @@ def compare(name: str, kernel, plain, nbytes: int, bw: float, launches: int,
     return row
 
 
-# remap_pack_codes' routes timed at the main path's largest merge: route
-# (a) (cluster 0) and route (b) at clusters of 8 and 16 blocks
-REMAP_ROUTES = (0, 8, 16)
-
-
-def route_name(cluster: int) -> str:
-    return f"cluster{cluster}" if cluster else "stream"
-
-
 def pack_row(codes, width: int, bw: float, launches: int, log: str,
              where: str) -> dict:
     """pack_codes against its plain version at one shape, with the CUDA
@@ -1551,8 +1545,8 @@ def kernel_phase(recs, launches: dict, bw: float, bench: dict,
 
     rows = []
     # one row per pack width the main path packed (its flushes), then
-    # compact.jax's largest pack (a merge output) beside codes.clone(), the
-    # same codes at width 16, and below 8 both layouts of a word
+    # compact.jax's largest pack (a merge output) beside codes.clone(), and
+    # the same codes at width 16
     for width, ((codes, _w), _) in sorted(recs["pack"].calls.items()):
         rows.append(pack_row(codes, width, bw, recs["pack"].launches[width],
                              log, ""))
@@ -1572,23 +1566,8 @@ def kernel_phase(recs, launches: dict, bw: float, bench: dict,
             "library_cold_graph_ms": cold_graph_ms(clone, 8 * n, codes),
             "library_why": "codes.clone(): the same function only at width "
                            "32, where the pack is a copy"})
-    for w in (16, 4, 2, 1):
-        low = codes & ((1 << w) - 1)
-        rows.append(pack_row(low, w, bw, 0, log,
-                             f"{where}, low {w} bits"))
-        if w < 8:
-            # the other layout of a word: a thread owns it
-            bitpack.PACK_OWN_WORDS = True
-            try:
-                rows[-1]["own_words_cold_graph_ms"] = cold_graph_ms(
-                    lambda c: bitpack.pack_codes(c, w),
-                    4 * n + 4 * bitpack.n_words_for(n, w), low)
-                check(torch.equal(bitpack.pack_codes(low, w),
-                                  bitpack.pack_codes_plain(low, w)),
-                      f"pack_codes width {w}, words owned by a thread, "
-                      "differs from plain")
-            finally:
-                bitpack.PACK_OWN_WORDS = False
+    rows.append(pack_row(codes & 0xFFFF, 16, bw, 0, log,
+                         f"{where}, low 16 bits"))
 
     # one row per pack width the main path unpacked, at its largest call;
     # then width 16 at the width-32 row's n (the main path's width-16 SCTs
@@ -1660,59 +1639,32 @@ def kernel_phase(recs, launches: dict, bw: float, bench: dict,
                                       f" (words of a width-{w0} level)")))
         rows[-1]["main_path"] = w0 == width and fw is biggest[0][0]
 
-    # remap_pack_codes at the main path's largest merge, on route (a) and
-    # on route (b) at each cluster size, in one call: device time, CUDA
-    # graphs hot and cold, and cold with every entry dead (the streams and,
-    # on route (b), the table's fill, without a gather)
+    # remap_pack_codes at the main path's largest merge: device time, CUDA
+    # graphs hot and cold, and cold with every entry dead (the streams
+    # without a gather)
     (evs, srcs, table, offsets, width), _ = max(
         recs["remap"].calls.values(), key=lambda c: c[0][0].shape[0])
     n = evs.shape[0]
     m = bitpack.n_words_for(n, width)
     nbytes = 8 * n + 4 * m + 4 * table.shape[0] + 4 * offsets.shape[0]
-    main_route = merge_remap.remap_route(table.shape[0], offsets.shape[0])
-    by_route = {}
-    for (_w, route), count in recs["remap"].launches.items():
-        by_route[route] = by_route.get(route, 0) + count
-    remap_pack = merge_remap.remap_pack_codes
-    streams_only = {}
-    for cluster in REMAP_ROUTES:
-        saved = merge_remap.REMAP_CLUSTER
-        merge_remap.REMAP_CLUSTER = cluster
-        try:
-            route = merge_remap.remap_route(table.shape[0], offsets.shape[0])
-            check(route == cluster, f"remap_pack_codes: table of "
-                  f"{table.shape[0]} slots does not take cluster {cluster}")
-            name = route_name(route)
-            rows.append(compare(
-                "remap_pack_codes",
-                lambda: remap_pack(evs, srcs, table, offsets, width),
-                lambda: merge_remap.remap_pack_codes_plain(
-                    evs, srcs, table, offsets, width),
-                nbytes, bw, by_route.get(name, 0),
-                f"n={n} width={width} table={table.shape[0]} "
-                f"sources={offsets.shape[0]} route={name}"))
-            symbol = ("remap_pack_cluster_kernel" if cluster
-                      else "remap_pack_codes_kernel")
-            streams_only[cluster] = cold_graph_ms(
-                lambda *a: remap_pack(*a, width), nbytes,
-                torch.full_like(evs, -1), srcs, table, offsets)
-            rows[-1].update({
-                "remap_route": name,
-                "main_path": cluster == main_route,
-                "ptxas": [r for r in ptxas_resources(log, symbol)
-                          if f"<{width}," in r["function"]],
-                "graph_ms": hot_graph_ms(lambda *a: remap_pack(*a, width),
-                                         evs, srcs, table, offsets),
-                "cold_graph_ms": cold_graph_ms(
-                    lambda *a: remap_pack(*a, width), nbytes, evs, srcs,
-                    table, offsets),
-                "streams_only_cold_graph_ms": streams_only[cluster],
-                "gathers": int((evs >= 0).sum())})
-            if cluster:
-                rows[-1]["fill_cold_graph_ms"] = (streams_only[cluster]
-                                                  - streams_only[0])
-        finally:
-            merge_remap.REMAP_CLUSTER = saved
+    remap_pack = lambda *a: merge_remap.remap_pack_codes(*a, width)  # noqa: E731
+    rows.append(compare(
+        "remap_pack_codes", lambda: remap_pack(evs, srcs, table, offsets),
+        lambda: merge_remap.remap_pack_codes_plain(evs, srcs, table, offsets,
+                                                   width),
+        nbytes, bw, recs["remap"].launches[width],
+        f"n={n} width={width} table={table.shape[0]} "
+        f"sources={offsets.shape[0]}"))
+    rows[-1].update({
+        "ptxas": [r for r in ptxas_resources(log, SYMBOLS["remap_pack_codes"])
+                  if f"<{width}," in r["function"]],
+        "gathers": int((evs >= 0).sum()),
+        "graph_ms": hot_graph_ms(remap_pack, evs, srcs, table, offsets),
+        "cold_graph_ms": cold_graph_ms(remap_pack, nbytes, evs, srcs, table,
+                                       offsets),
+        "streams_only_cold_graph_ms": cold_graph_ms(
+            remap_pack, nbytes, torch.full_like(evs, -1), srcs, table,
+            offsets)})
 
     # fused_zone_agg at agg.fast's scalar launch, with and without SUM
     (aw, am, ar, awt, width, k, _ws, tw), _ = recs["agg"].calls[0]
@@ -1878,8 +1830,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    name = torch.cuda.get_device_name(0)
-    bw = next(rate for key, rate in BANDWIDTH if key in name)
+    device_name = torch.cuda.get_device_name(0)
+    bw = next(rate for key, rate in BANDWIDTH if key in device_name)
     max_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
@@ -1887,7 +1839,7 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rates = {"exp_per_s": EXP_PER_CLOCK_PER_SM * sms * max_mhz * 1e6,
              "int32_ops": INT32_PER_CLOCK_PER_SM * sms * max_mhz * 1e6,
-             "fp32_flops": next(r for key, r in FP32_RATE if key in name)}
+             "fp32_flops": next(r for key, r in FP32_RATE if key in device_name)}
 
     t0 = time.perf_counter()
     lib = _build.build()
@@ -1901,12 +1853,6 @@ def main() -> int:
           "bandwidth_Bps": bw, "sm_count": sms, "max_sm_clock_mhz": max_mhz,
           **rates, "ptxas": ptxas})
 
-    from repro_torch.kernels import merge_remap
-
-    def remap_key(e, s, table, offsets, width):
-        return width, route_name(merge_remap.remap_route(table.shape[0],
-                                                         offsets.shape[0]))
-
     recs = {
         # keyed by pack width, with the launches per width
         "pack": Recorder(ops.pack_codes, lambda c, w: c.shape[0],
@@ -1916,9 +1862,8 @@ def main() -> int:
                            lambda w, wd, n: wd),
         "fused": Recorder(ops.fused_zone_filter,
                           lambda w, *a: w.shape[0], lambda w, m, r, wd, *a: wd),
-        # keyed by (pack width, route)
         "remap": Recorder(ops.remap_pack_codes, lambda e, *a: e.shape[0],
-                          remap_key),
+                          lambda e, s, t, o, w: w),
         # recorded during agg.fast only
         "agg": Recorder(ops.fused_zone_agg, lambda w, *a: w.shape[0],
                         active=False),
@@ -1951,18 +1896,12 @@ def main() -> int:
     # the pack, unpack and remap rows replay the main path's own calls
     for key in ("pack", "unpack", "remap"):
         recs[key].active = False
-    for kind, name in (("unpack", "unpack_codes"), ("pack", "pack_codes"),
-                       ("remap", "remap_pack_codes")):
-        by_width = {}
-        for key, count in sorted(recs[kind].launches.items()):
-            if kind == "remap":  # per width, then per route
-                by_width.setdefault(key[0], {})[key[1]] = count
-            else:
-                by_width[key] = count
-        emit({"phase": f"main.{kind}_by_width", name: by_width})
-        total = sum(c for c in recs[kind].launches.values())
-        check(total == launches[name], f"{name} launches by width "
-              f"{by_width} do not sum to {launches[name]}")
+    for key, kernel in (("unpack", "unpack_codes"), ("pack", "pack_codes"),
+                        ("remap", "remap_pack_codes")):
+        by_width = dict(sorted(recs[key].launches.items()))
+        emit({"phase": f"main.{key}_by_width", kernel: by_width})
+        check(sum(by_width.values()) == launches[kernel], f"{kernel} launches "
+              f"by width {by_width} do not sum to {launches[kernel]}")
     launches.update(serve_phase(state, {k: recs[k]
                                         for k in ("multi", "codes")}))
     fast_launches = agg_phase(args, state,
@@ -1993,7 +1932,7 @@ def main() -> int:
     # filter fig5's largest SCT, for the bloom probe the micro-bench's
     table = [{k: r[k] for k in keep} for r in rows if r.get("main_path", True)]
     emit({"kernels": table})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                  "count": torch.cuda.device_count()}})
     return 0
 

@@ -46,10 +46,10 @@ _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 _U32 = ctypes.c_uint32
 _SIGNATURES = {
-    "repro_pack_codes": [_P, _P, _I64, _INT, _INT, _P],
+    "repro_pack_codes": [_P, _P, _I64, _INT, _P],
     "repro_unpack_codes": [_P, _P, _I64, _INT, _P],
     "repro_fused_zone_filter": [_P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _P],
-    "repro_remap_pack_codes": [_P] * 5 + [_I64, _INT, _I64, _INT, _INT, _P],
+    "repro_remap_pack_codes": [_P] * 5 + [_I64, _INT, _INT, _P],
     "repro_fused_zone_agg": [_P] * 9 + [_I64, _INT, _INT, _INT, _INT, _P],
     "repro_zone_histogram": [_P] * 5 + [_I64, _INT, _INT, _INT, _P],
     "repro_multi_range_filter": [_P] * 4 + [_I64, _INT, _INT, _INT, _P],
@@ -101,8 +101,7 @@ def _flags() -> list:
         f"-DREPRO_PACK_THREADS={bitpack.PACK_THREADS}",
         f"-DREPRO_PACK_GROUPS={bitpack.PACK_GROUPS}",
         f"-DREPRO_REMAP_THREADS={merge_remap.REMAP_THREADS}",
-        f"-DREPRO_REMAP_GROUPS={merge_remap.REMAP_GROUPS}",
-        f"-DREPRO_REMAP_CLUSTER_THREADS={merge_remap.REMAP_CLUSTER_THREADS}"]
+        f"-DREPRO_REMAP_GROUPS={merge_remap.REMAP_GROUPS}"]
 
 
 def library_path() -> Path:

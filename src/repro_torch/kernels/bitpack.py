@@ -26,9 +26,6 @@ UNPACK_TILE_CODES = 4 * UNPACK_GROUPS * UNPACK_THREADS
 PACK_THREADS = 256
 PACK_GROUPS = 2
 PACK_TILE_CODES = 4 * PACK_GROUPS * PACK_THREADS
-# below width 8: True, a thread owns whole words and reads their 8 / width
-# groups; False, the 8 / width lanes that share a word OR their fields
-PACK_OWN_WORDS = False
 
 
 def check_width(width: int) -> int:
@@ -92,7 +89,7 @@ def pack_codes(codes: torch.Tensor, width: int) -> torch.Tensor:
     if m:
         _build.launch("pack_codes", "repro_pack_codes", codes.device,
                       codes.data_ptr(), words.data_ptr(), codes.shape[0],
-                      width, int(PACK_OWN_WORDS))
+                      width)
     return words
 
 

@@ -62,39 +62,24 @@ __device__ __forceinline__ int4 load_group(const int32_t* __restrict__ codes,
   return make_int4(p[0], p[1], p[2], p[3]);
 }
 
-// kOwn (widths below 8): each thread owns whole words and reads the 8 / W
-// groups of each, instead of sharing a word among 8 / W lanes.
-template <int W, bool kWide, bool kOwn, typename I>
+template <int W, bool kWide, typename I>
 __global__ void __launch_bounds__(kPackThreads)
     pack_codes_kernel(const int32_t* __restrict__ codes,
                       uint32_t* __restrict__ words, I n) {
   constexpr int kPer = 32 / W;
-  constexpr int kUnit = kOwn ? repro::groups_per_word<W>() : 1;
   const I groups = repro::packed_groups<W>(n);
-  const I units = groups / kUnit;
-  for (I base = I(blockIdx.x) * kPackTile; base < units;
+  for (I base = I(blockIdx.x) * kPackTile; base < groups;
        base += I(gridDim.x) * kPackTile) {
-    int4 c[kPackGroups][kUnit];
+    int4 c[kPackGroups];
 #pragma unroll
     for (int v = 0; v < kPackGroups; ++v) {
-      const I u = base + v * kPackThreads + threadIdx.x;
-#pragma unroll
-      for (int j = 0; j < kUnit; ++j)
-        c[v][j] = u < units ? load_group<kWide>(codes, u * kUnit + j)
-                            : make_int4(0, 0, 0, 0);
+      const I g = base + v * kPackThreads + threadIdx.x;
+      c[v] = g < groups ? load_group<kWide>(codes, g) : make_int4(0, 0, 0, 0);
     }
 #pragma unroll
     for (int v = 0; v < kPackGroups; ++v) {
-      const I u = base + v * kPackThreads + threadIdx.x;
-      if constexpr (kOwn) {
-        uint32_t bits = 0;
-#pragma unroll
-        for (int j = 0; j < kUnit; ++j)
-          bits |= repro::pack4<W>(c[v][j]) << (j * 4 * W);
-        if (u < units) words[u] = bits;
-      } else {
-        repro::store_group<W>(words, u, c[v][0], u < units);
-      }
+      const I g = base + v * kPackThreads + threadIdx.x;
+      repro::store_group<W>(words, g, c[v], g < groups);
     }
   }
   // the words the groups leave (at most 3), code by code
@@ -107,42 +92,40 @@ __global__ void __launch_bounds__(kPackThreads)
   }
 }
 
-template <int W, bool kWide, bool kOwn, typename I>
+template <int W, bool kWide, typename I>
 cudaError_t launch_pack(const int32_t* codes, uint32_t* words, I n,
                         cudaStream_t stream) {
   static const repro::Resident res = repro::resident_blocks(
-      pack_codes_kernel<W, kWide, kOwn, I>, kPackThreads, 0);
+      pack_codes_kernel<W, kWide, I>, kPackThreads, 0);
   if (res.err != cudaSuccess) return res.err;
-  constexpr int kUnit = kOwn ? repro::groups_per_word<W>() : 1;
-  const uint64_t units = uint64_t(repro::packed_groups<W>(n)) / kUnit;
-  const uint64_t tiles = (units + kPackTile - 1) / kPackTile;
-  pack_codes_kernel<W, kWide, kOwn, I>
+  const uint64_t groups = repro::packed_groups<W>(n);
+  const uint64_t tiles = (groups + kPackTile - 1) / kPackTile;
+  pack_codes_kernel<W, kWide, I>
       <<<repro::balanced_grid(tiles, res.blocks), kPackThreads, 0, stream>>>(
           codes, words, n);
   return cudaGetLastError();
 }
 
+// Groups are read with one 16-byte load where `codes` starts on a 16-byte
+// line, and with 4-byte loads elsewhere.
 template <int W, typename I>
-cudaError_t pack_aligned(const int32_t* codes, uint32_t* words, I n, bool own,
+cudaError_t pack_aligned(const int32_t* codes, uint32_t* words, I n,
                          cudaStream_t stream) {
   if (reinterpret_cast<uintptr_t>(codes) % 16)
-    return launch_pack<W, false, false>(codes, words, n, stream);
-  if constexpr (W < 8) {
-    if (own) return launch_pack<W, true, true>(codes, words, n, stream);
-  }
-  return launch_pack<W, true, false>(codes, words, n, stream);
+    return launch_pack<W, false>(codes, words, n, stream);
+  return launch_pack<W, true>(codes, words, n, stream);
 }
 
 template <typename I>
 cudaError_t pack_width(const int32_t* codes, uint32_t* words, I n, int width,
-                       bool own, cudaStream_t stream) {
+                       cudaStream_t stream) {
   switch (width) {
-    case 1: return pack_aligned<1>(codes, words, n, own, stream);
-    case 2: return pack_aligned<2>(codes, words, n, own, stream);
-    case 4: return pack_aligned<4>(codes, words, n, own, stream);
-    case 8: return pack_aligned<8>(codes, words, n, own, stream);
-    case 16: return pack_aligned<16>(codes, words, n, own, stream);
-    case 32: return pack_aligned<32>(codes, words, n, own, stream);
+    case 1: return pack_aligned<1>(codes, words, n, stream);
+    case 2: return pack_aligned<2>(codes, words, n, stream);
+    case 4: return pack_aligned<4>(codes, words, n, stream);
+    case 8: return pack_aligned<8>(codes, words, n, stream);
+    case 16: return pack_aligned<16>(codes, words, n, stream);
+    case 32: return pack_aligned<32>(codes, words, n, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -254,9 +237,8 @@ cudaError_t unpack_width(const uint32_t* words, int32_t* codes, I n, int width,
 }  // namespace
 
 // words: 16-byte aligned (torch.empty's are); codes: any 4-byte alignment.
-// own_words: widths below 8 only, the layout where a thread owns a word.
 extern "C" int repro_pack_codes(const void* codes, void* words, int64_t n,
-                                int width, int own_words, void* stream) {
+                                int width, void* stream) {
   if (reinterpret_cast<uintptr_t>(words) % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);
   const auto* c = static_cast<const int32_t*>(codes);
@@ -264,10 +246,8 @@ extern "C" int repro_pack_codes(const void* codes, void* words, int64_t n,
   auto s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       n < (int64_t(1) << 31)
-          ? pack_width<uint32_t>(c, w, static_cast<uint32_t>(n), width,
-                                 own_words != 0, s)
-          : pack_width<uint64_t>(c, w, static_cast<uint64_t>(n), width,
-                                 own_words != 0, s);
+          ? pack_width<uint32_t>(c, w, static_cast<uint32_t>(n), width, s)
+          : pack_width<uint64_t>(c, w, static_cast<uint64_t>(n), width, s);
   return static_cast<int>(err);
 }
 

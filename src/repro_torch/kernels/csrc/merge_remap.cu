@@ -1,10 +1,11 @@
 // Compaction-time code remap on Hopper (sm_90a): fused with k-bit packing
-// (remap_pack_codes_kernel and remap_pack_cluster_kernel, the 'jax_packed'
-// compaction backend), and plain (remap_codes_kernel, the 'jax' backend).
+// (remap_pack_codes_kernel, the 'jax_packed' compaction backend), and plain
+// (remap_codes_kernel, the 'jax' backend).
 //
-// remap_pack_* replace src/repro/kernels/merge_remap.py::remap_pack_codes_3d
-// (Pallas, TPU); remap_codes_kernel replaces ::remap_codes_2d.  After the
-// dictionary merge, entry i of an output SCT gets
+// remap_pack_codes_kernel replaces
+// src/repro/kernels/merge_remap.py::remap_pack_codes_3d (Pallas, TPU);
+// remap_codes_kernel replaces ::remap_codes_2d.  After the dictionary merge,
+// entry i of an output SCT gets
 //
 //     remap_codes:       out[i] = table[ev[i] + offsets[src[i]]], -1 where
 //                        ev[i] < 0 (an unused-code slot, -1, comes through)
@@ -18,105 +19,72 @@
 // dead is fine.
 //
 // Bound: memory, 8 bytes per entry of ev and src in, the codes out (4 bytes
-// an entry, or 4 / per packed), plus the table once.  What the card spends
-// beyond that goes to the gathers: each live entry reads one 4-byte slot of
-// a table (1.6 MB at the main path's merges) that is too large for one
-// block's shared memory, at the cost of a 32-byte L2 sector per gather, more
-// than twice the bytes of the streams.
+// an entry, or 4 / per packed), plus the table once.  More than half of
+// what the card spends, though, goes to the gathers: each live entry reads
+// one 4-byte slot of a table that is too large for shared memory (1.6 MB at
+// the main path's merges) and lives in the 50 MB L2, at the cost of a
+// 32-byte L2 sector per gather, more than twice the bytes of the streams.
+// Holding the table on chip instead, spread over the shared memory of a
+// thread-block cluster and gathered through distributed shared memory, was
+// 3.6 times slower at the main path's largest merge on an H100 (PERF.md,
+// row 4): filling each cluster's copy from L2 cost about as much as the
+// gathers it replaced, and the scattered 4-byte reads of other blocks'
+// shared memory cost five times the L2 gathers.
 //
-// The stream side (struct RemapRound, shared by all three kernels):
+// Both kernels share the stream side (struct RemapRound):
 //
-// - a grid-stride loop over tiles of kGroups * threads groups of 4 entries,
-//   the grid at most the blocks (clusters) the card holds resident;
-// - per thread, the 16-byte loads of ev and src for kGroups groups first,
-//   then all 4 * kGroups gathers, then the stores; ev and src loaded
-//   evict-first (__ldcs): they are read once and should not push the table
-//   out of L2;
-// - the per-source bases in dynamic shared memory as int32, up to
-//   kSmemSources sources (a merge reads a handful of files), and read
-//   through __ldg above (route (a)); a table slot is ev + base in 32 bits
+// - a grid of at most the blocks the card holds resident (launch_grid.cuh),
+//   the work split evenly over them, each block a grid-stride loop over
+//   tiles of kRemapGroups * kRemapThreads groups of 4 entries;
+// - per thread, the 16-byte loads of ev and src for kRemapGroups groups
+//   first, then all 4 * kRemapGroups gathers, then the stores; 2 groups
+//   were as fast as 1 and faster than 4 and 8 when timed on the card at the
+//   main path's merge.  chip_smoke.py times the streams alone (the same
+//   kernel with every entry dead, so no gather) beside the live merge, both
+//   with every operand from device memory;
+// - ev and src loaded evict-first (__ldcs): they are read once and should
+//   not push the table out of L2; the output is stored plainly, as the
+//   next reader (the unpack of build_sct, or the pack) reads it next;
+// - the per-source bases in dynamic shared memory as int32, filled once per
+//   block, up to kSmemSources sources (a merge reads a handful of files),
+//   and read through __ldg above; a table slot is ev + base in 32 bits
 //   (both are non-negative int32);
-// - the output through pack_group.cuh, or as 16-byte stores of the codes;
-// - 32-bit entry indices while n < 2^31, 64-bit above; the words (codes)
-//   past the last whole group one by one.  The wrappers pass ev and src on
-//   16-byte lines; the output comes from torch.empty.
-//
-// The gathers, two routes picked by the wrapper from the table's length
-// (merge_remap.remap_route):
-//
-// (a) remap_pack_codes_kernel: the table stays in device memory and each
-//     gather goes through __ldg (L2), as remap_codes_kernel does.
-// (b) remap_pack_cluster_kernel: the table held on chip.  In a cluster of
-//     C blocks (a runtime launch attribute), rank r holds table slots
-//     [r*chunk, (r+1)*chunk), chunk = ceil(T / C) rounded up to 4, in its
-//     shared memory: filled once per cluster with bulk asynchronous copies
-//     (cp.async.bulk, completion on an mbarrier), while the first round of
-//     ev/src loads is in flight; then a cluster barrier, and every gather
-//     reads its slot from the owning rank through distributed shared memory
-//     (rank = slot / chunk by a multiply-shift).  A rank holds up to ~227 KB,
-//     so one block of kClusterThreads threads per SM; the grid is sized with
-//     cudaOccupancyMaxActiveClusters.  Each cluster reads the whole table
-//     once, so fewer, larger clusters read less of it.
+// - the codes out as 16-byte stores, or packed through pack_group.cuh;
+// - 32-bit entry indices while n < 2^31, 64-bit above; the codes (words)
+//   past the last whole group one by one.  ev and src come on 16-byte lines
+//   (remap_codes' wrapper checks it, remap_pack_codes' copies a view that is
+//   not); the output comes from torch.empty.
 
-#include <atomic>
-#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "launch_grid.cuh"
 #include "pack_group.cuh"
 
-namespace cg = cooperative_groups;
-
 namespace {
 
 // Block size and groups per thread are set by the build
-// (-DREPRO_REMAP_THREADS, -DREPRO_REMAP_GROUPS,
-// -DREPRO_REMAP_CLUSTER_THREADS) from the constants of
+// (-DREPRO_REMAP_THREADS, -DREPRO_REMAP_GROUPS) from the constants of
 // kernels/merge_remap.py, which its tests read too.
 constexpr int kSmemSources = 1024;
 constexpr int kRemapThreads = REPRO_REMAP_THREADS;
 constexpr int kRemapGroups = REPRO_REMAP_GROUPS;
-constexpr int kClusterThreads = REPRO_REMAP_CLUSTER_THREADS;
-// shared memory of route (b) ahead of the table chunk: the mbarrier
-constexpr int kClusterHead = 16;
+constexpr int kRemapTile = kRemapThreads * kRemapGroups;
 
-// A table slot in device memory (route (a)).
-struct GlobalTable {
-  const int32_t* __restrict__ t;
-  __device__ __forceinline__ int32_t operator()(uint32_t slot) const {
-    return __ldg(t + slot);
-  }
-};
-
-// A table slot in the shared memory of the cluster rank that holds it
-// (route (b)): rank = slot / chunk, exact for slot < 2^20 and chunk < 2^16
-// with magic = ceil(2^40 / chunk).
-struct ClusterTable {
-  int32_t* local;  // this block's chunk
-  uint32_t chunk;
-  uint64_t magic;
-  __device__ __forceinline__ int32_t operator()(uint32_t slot) const {
-    const uint32_t rank = static_cast<uint32_t>((slot * magic) >> 40);
-    const int32_t* chunk_of_rank =
-        cg::this_cluster().map_shared_rank(local, rank);
-    return chunk_of_rank[slot - rank * chunk];
-  }
-};
-
-template <bool kSmem, typename Table>
+template <bool kSmem>
 __device__ __forceinline__ int32_t remap_one(int32_t ev, int32_t src,
-                                             const Table& table,
+                                             const int32_t* __restrict__ table,
                                              const int32_t* __restrict__ offsets,
                                              const int32_t* s_base) {
   if (ev < 0) return -1;
   const int32_t base = kSmem ? s_base[src] : __ldg(offsets + src);
-  return table(uint32_t(ev) + uint32_t(base));
+  return __ldg(table + (uint32_t(ev) + uint32_t(base)));
 }
 
 // One round of a thread: kRemapGroups groups of 4 entries, groups
-// base + v * kThreads + threadIdx.x; a group at or past `groups` is dead.
-template <int kThreads, typename I>
+// base + v * kRemapThreads + threadIdx.x; a group at or past `groups` is
+// dead.  Loads first, then the gathers.
+template <bool kSmem, typename I>
 struct RemapRound {
   int4 e[kRemapGroups], s[kRemapGroups];
 
@@ -125,7 +93,7 @@ struct RemapRound {
                                       I groups) {
 #pragma unroll
     for (int v = 0; v < kRemapGroups; ++v) {
-      const I g = base + v * kThreads + threadIdx.x;
+      const I g = base + v * kRemapThreads + threadIdx.x;
       e[v] = make_int4(-1, -1, -1, -1);
       s[v] = make_int4(0, 0, 0, 0);
       if (g < groups) {
@@ -135,8 +103,7 @@ struct RemapRound {
     }
   }
 
-  template <bool kSmem, typename Table>
-  __device__ __forceinline__ void gather(const Table& table,
+  __device__ __forceinline__ void gather(const int32_t* __restrict__ table,
                                         const int32_t* __restrict__ offsets,
                                         const int32_t* s_base,
                                         int4 (&r)[kRemapGroups]) const {
@@ -150,55 +117,16 @@ struct RemapRound {
   }
 };
 
-__device__ __forceinline__ int4 clamp0(int4 r) {
-  return make_int4(max(r.x, 0), max(r.y, 0), max(r.z, 0), max(r.w, 0));
-}
-
-// Pack the remapped groups of one round: every lane calls it together.
-template <int W, int kThreads, typename I>
-__device__ __forceinline__ void store_round(uint32_t* __restrict__ words,
-                                            const int4 (&r)[kRemapGroups],
-                                            I base, I groups) {
-#pragma unroll
-  for (int v = 0; v < kRemapGroups; ++v) {
-    const I g = base + v * kThreads + threadIdx.x;
-    repro::store_group<W>(words, g, clamp0(r[v]), g < groups);
-  }
-}
-
-// The words past the last whole group (at most 3), entry by entry: thread
-// t of block 0 packs word tail_word + t.
-template <int W, bool kSmem, typename I, typename Table>
-__device__ __forceinline__ void remap_pack_tail(
-    const int32_t* __restrict__ evs, const int32_t* __restrict__ srcs,
-    const Table& table, const int32_t* __restrict__ offsets,
-    const int32_t* s_base, uint32_t* __restrict__ words, I n, I groups) {
-  constexpr int kPer = 32 / W;
-  const I w = repro::tail_word<W>(groups) + threadIdx.x;
-  if (blockIdx.x != 0 || w * kPer >= n) return;
-  uint32_t acc = 0;
-  for (int k = 0; k < kPer && w * kPer + k < n; ++k) {
-    const int32_t code =
-        remap_one<kSmem>(evs[w * kPer + k], srcs[w * kPer + k], table,
-                         offsets, s_base);
-    acc |= uint32_t(max(code, 0)) << (k * W);
-  }
-  words[w] = acc;
-}
-
+// The per-source bases into dynamic shared memory, once per block.
 template <bool kSmem>
 __device__ __forceinline__ void load_bases(const int32_t* __restrict__ offsets,
-                                           int32_t* s_base, int n_src,
-                                           int threads) {
+                                           int32_t* s_base, int n_src) {
   if constexpr (kSmem) {
-    for (int i = threadIdx.x; i < n_src; i += threads) s_base[i] = offsets[i];
+    for (int i = threadIdx.x; i < n_src; i += kRemapThreads)
+      s_base[i] = offsets[i];
+    __syncthreads();
   }
 }
-
-// ---------------------------------------------------------------------------
-// remap_codes ('jax' backend) and route (a) of remap_pack_codes
-// ---------------------------------------------------------------------------
-constexpr int kRemapTile = kRemapThreads * kRemapGroups;
 
 template <bool kSmem, typename I>
 __global__ void __launch_bounds__(kRemapThreads)
@@ -208,16 +136,14 @@ __global__ void __launch_bounds__(kRemapThreads)
                        const int32_t* __restrict__ offsets,
                        int32_t* __restrict__ out, I n, int n_src) {
   extern __shared__ int32_t s_base[];
-  load_bases<kSmem>(offsets, s_base, n_src, kRemapThreads);
-  if constexpr (kSmem) __syncthreads();
-  const GlobalTable tab{table};
+  load_bases<kSmem>(offsets, s_base, n_src);
   const I groups = n / 4;
   for (I base = I(blockIdx.x) * kRemapTile; base < groups;
        base += I(gridDim.x) * kRemapTile) {
-    RemapRound<kRemapThreads, I> round;
+    RemapRound<kSmem, I> round;
     round.load(evs, srcs, base, groups);
     int4 r[kRemapGroups];
-    round.template gather<kSmem>(tab, offsets, s_base, r);
+    round.gather(table, offsets, s_base, r);
 #pragma unroll
     for (int v = 0; v < kRemapGroups; ++v) {
       const I g = base + v * kRemapThreads + threadIdx.x;
@@ -226,7 +152,12 @@ __global__ void __launch_bounds__(kRemapThreads)
   }
   const I i = 4 * groups + threadIdx.x;
   if (blockIdx.x == 0 && i < n)
-    out[i] = remap_one<kSmem>(evs[i], srcs[i], tab, offsets, s_base);
+    out[i] = remap_one<kSmem>(evs[i], srcs[i], table, offsets, s_base);
+}
+
+// Dead entries and unused-code slots (-1) pack as 0.
+__device__ __forceinline__ int4 clamp0(int4 r) {
+  return make_int4(max(r.x, 0), max(r.y, 0), max(r.z, 0), max(r.w, 0));
 }
 
 template <int W, bool kSmem, typename I>
@@ -236,256 +167,91 @@ __global__ void __launch_bounds__(kRemapThreads)
                             const int32_t* __restrict__ table,
                             const int32_t* __restrict__ offsets,
                             uint32_t* __restrict__ words, I n, int n_src) {
+  constexpr int kPer = 32 / W;
   extern __shared__ int32_t s_base[];
-  load_bases<kSmem>(offsets, s_base, n_src, kRemapThreads);
-  if constexpr (kSmem) __syncthreads();
-  const GlobalTable tab{table};
+  load_bases<kSmem>(offsets, s_base, n_src);
   const I groups = repro::packed_groups<W>(n);
   for (I base = I(blockIdx.x) * kRemapTile; base < groups;
        base += I(gridDim.x) * kRemapTile) {
-    RemapRound<kRemapThreads, I> round;
+    RemapRound<kSmem, I> round;
     round.load(evs, srcs, base, groups);
     int4 r[kRemapGroups];
-    round.template gather<kSmem>(tab, offsets, s_base, r);
-    store_round<W, kRemapThreads>(words, r, base, groups);
+    round.gather(table, offsets, s_base, r);
+#pragma unroll
+    for (int v = 0; v < kRemapGroups; ++v) {
+      const I g = base + v * kRemapThreads + threadIdx.x;
+      repro::store_group<W>(words, g, clamp0(r[v]), g < groups);
+    }
   }
-  remap_pack_tail<W, kSmem>(evs, srcs, tab, offsets, s_base, words, n,
-                            groups);
+  // the words the groups leave (at most 3), entry by entry
+  const I w = repro::tail_word<W>(groups) + threadIdx.x;
+  if (blockIdx.x == 0 && w * kPer < n) {
+    uint32_t acc = 0;
+    for (int k = 0; k < kPer && w * kPer + k < n; ++k) {
+      const int32_t code = remap_one<kSmem>(evs[w * kPer + k],
+                                            srcs[w * kPer + k], table,
+                                            offsets, s_base);
+      acc |= uint32_t(max(code, 0)) << (k * W);
+    }
+    words[w] = acc;
+  }
 }
 
-// Tiles for `groups` groups of a kernel whose tile is `tile` groups.
-inline uint64_t tiles_for(uint64_t groups, int tile) {
-  return (groups + tile - 1) / tile;
-}
-
-// Route (a) and remap_codes: kKernel(args..., n_src) on a card-sized grid.
+// kKernel(args..., n_src) on a card-sized grid for `groups` groups of 4
+// entries, the bases in shared memory where kSmem.
 template <bool kSmem, auto kKernel, typename... Args>
-cudaError_t launch_stream(uint64_t groups, int n_src, cudaStream_t stream,
-                          Args... args) {
+cudaError_t launch_remap(uint64_t groups, int n_src, cudaStream_t stream,
+                         Args... args) {
   constexpr size_t kMaxSmem = kSmem ? kSmemSources * sizeof(int32_t) : 0;
   static const repro::Resident res =
       repro::resident_blocks(kKernel, kRemapThreads, kMaxSmem);
   if (res.err != cudaSuccess) return res.err;
+  const uint64_t tiles = (groups + kRemapTile - 1) / kRemapTile;
   const size_t smem = kSmem ? n_src * sizeof(int32_t) : 0;
-  kKernel<<<repro::balanced_grid(tiles_for(groups, kRemapTile), res.blocks),
-            kRemapThreads, smem, stream>>>(args..., n_src);
+  kKernel<<<repro::balanced_grid(tiles, res.blocks), kRemapThreads, smem,
+            stream>>>(args..., n_src);
   return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// route (b): the table in the cluster's distributed shared memory
-// ---------------------------------------------------------------------------
-constexpr int kClusterTile = kClusterThreads * kRemapGroups;
-// bytes per bulk copy (the mbarrier's transaction count stays below 2^20)
-constexpr uint32_t kBulkPiece = 32768;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// Shared memory of route (b): the mbarrier, the chunk, the bases.
-__host__ __device__ inline uint32_t cluster_chunk(uint32_t t, int cluster) {
-  const uint32_t per = (t + cluster - 1) / cluster;
-  return (per + 3) & ~3u;
-}
-
-inline size_t cluster_smem(uint32_t chunk, int n_src) {
-  return kClusterHead + 4 * size_t(chunk) + 4 * size_t(n_src);
-}
-
-template <int W, typename I>
-__global__ void __launch_bounds__(kClusterThreads)
-    remap_pack_cluster_kernel(const int32_t* __restrict__ evs,
-                              const int32_t* __restrict__ srcs,
-                              const int32_t* __restrict__ table,
-                              const int32_t* __restrict__ offsets,
-                              uint32_t* __restrict__ words, I n, int n_src,
-                              uint32_t t, uint32_t chunk, uint64_t magic) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto* bar = reinterpret_cast<uint64_t*>(smem);
-  auto* s_table = reinterpret_cast<int32_t*>(smem + kClusterHead);
-  int32_t* s_base = s_table + chunk;
-  cg::cluster_group cluster = cg::this_cluster();
-
-  // fill: this rank's slots [lo, lo + len); the whole 16-byte lines by bulk
-  // copies, the last 0-3 slots by plain loads
-  const uint32_t lo = cluster.block_rank() * chunk;
-  const uint32_t len = lo < t ? min(chunk, t - lo) : 0;
-  const uint32_t bulk = len & ~3u;
-  if (threadIdx.x == 0) {
-    mbar_init(bar, 1);
-    mbar_expect_tx(bar, 4 * bulk);
-    for (uint32_t off = 0; off < bulk; off += kBulkPiece / 4)
-      bulk_copy(s_table + off, table + lo + off,
-                4 * min(kBulkPiece / 4, bulk - off), bar);
-  }
-  for (uint32_t i = bulk + threadIdx.x; i < len; i += kClusterThreads)
-    s_table[i] = table[lo + i];
-  load_bases<true>(offsets, s_base, n_src, kClusterThreads);
-
-  // the first round's streams go out while the table arrives
-  const I groups = repro::packed_groups<W>(n);
-  I base = I(blockIdx.x) * kClusterTile;
-  RemapRound<kClusterThreads, I> round;
-  round.load(evs, srcs, base, groups);
-  __syncthreads();  // the mbarrier is initialised
-  mbar_wait(bar, 0);
-  cluster.sync();  // every rank's chunk is in place
-
-  const ClusterTable tab{s_table, chunk, magic};
-  while (base < groups) {
-    int4 r[kRemapGroups];
-    round.template gather<true>(tab, offsets, s_base, r);
-    store_round<W, kClusterThreads>(words, r, base, groups);
-    base += I(gridDim.x) * kClusterTile;
-    if (base < groups) round.load(evs, srcs, base, groups);
-  }
-  remap_pack_tail<W, true>(evs, srcs, tab, offsets, s_base, words, n, groups);
-  cluster.sync();  // no rank leaves while another may read its chunk
-}
-
-template <int W, typename I>
-cudaError_t launch_cluster(const int32_t* evs, const int32_t* srcs,
-                           const int32_t* table, const int32_t* offsets,
-                           uint32_t* words, I n, int n_src, uint32_t t,
-                           int cluster, cudaStream_t stream) {
-  auto kernel = remap_pack_cluster_kernel<W, I>;
-  // the attributes once; the largest clusters resident, once per size
-  static const cudaError_t attr_err = [&] {
-    int dev = 0, optin = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(
-          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    return err;
-  }();
-  if (attr_err != cudaSuccess) return attr_err;
-  if (cluster < 1 || cluster > 16 || t == 0 || t >= (1u << 20))
-    return cudaErrorInvalidValue;
-  const uint32_t chunk = cluster_chunk(t, cluster);
-  const size_t smem = cluster_smem(chunk, n_src);
-
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(kClusterThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-
-  static std::atomic<int> resident[17] = {};
-  int clusters_max = resident[cluster].load();
-  if (clusters_max == 0) {
-    // at the largest chunk: one block of kClusterThreads per SM either way
-    cudaLaunchConfig_t q = cfg;
-    q.gridDim = dim3(cluster);
-    int optin = 0, dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(
-          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    q.dynamicSmemBytes = optin;
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveClusters(&clusters_max, kernel, &q);
-    if (err != cudaSuccess) return err;
-    if (clusters_max < 1) return cudaErrorInvalidConfiguration;
-    resident[cluster].store(clusters_max);
-  }
-  // the fewest rounds, then the fewest clusters for them (each cluster
-  // reads the whole table)
-  const uint64_t tiles =
-      tiles_for(uint64_t(repro::packed_groups<W>(n)), kClusterTile);
-  const uint64_t slots = uint64_t(clusters_max) * cluster;
-  const uint64_t rounds = tiles ? (tiles + slots - 1) / slots : 1;
-  const uint64_t per_cluster = rounds * cluster;
-  const uint64_t clusters = tiles ? (tiles + per_cluster - 1) / per_cluster : 1;
-  cfg.gridDim = dim3(static_cast<unsigned>(clusters * cluster));
-  const uint64_t magic = ((uint64_t(1) << 40) + chunk - 1) / chunk;
-  return cudaLaunchKernelEx(&cfg, kernel, evs, srcs, table, offsets, words, n,
-                            n_src, t, chunk, magic);
 }
 
 template <int W, typename I>
 cudaError_t remap_pack_at(const int32_t* evs, const int32_t* srcs,
-                                   const int32_t* table,
-                                   const int32_t* offsets, uint32_t* words,
-                                   I n, int n_src, uint32_t t, int cluster,
-                                   cudaStream_t stream) {
-  if (cluster)
-    return launch_cluster<W>(evs, srcs, table, offsets, words, n, n_src, t,
-                             cluster, stream);
+                          const int32_t* table, const int32_t* offsets,
+                          uint32_t* words, I n, int n_src,
+                          cudaStream_t stream) {
   const uint64_t groups = repro::packed_groups<W>(n);
   if (n_src <= kSmemSources)
-    return launch_stream<true, remap_pack_codes_kernel<W, true, I>>(
+    return launch_remap<true, remap_pack_codes_kernel<W, true, I>>(
         groups, n_src, stream, evs, srcs, table, offsets, words, n);
-  return launch_stream<false, remap_pack_codes_kernel<W, false, I>>(
+  return launch_remap<false, remap_pack_codes_kernel<W, false, I>>(
       groups, n_src, stream, evs, srcs, table, offsets, words, n);
 }
 
 template <typename I>
 cudaError_t remap_pack_width(const int32_t* evs, const int32_t* srcs,
                              const int32_t* table, const int32_t* offsets,
-                             uint32_t* words, I n, int n_src, uint32_t t,
-                             int width, int cluster, cudaStream_t stream) {
-#define REPRO_REMAP_PACK(W)                                                  \
-  remap_pack_at<W>(evs, srcs, table, offsets, words, n, n_src, t,  \
-                            cluster, stream)
+                             uint32_t* words, I n, int n_src, int width,
+                             cudaStream_t stream) {
   switch (width) {
-    case 1: return REPRO_REMAP_PACK(1);
-    case 2: return REPRO_REMAP_PACK(2);
-    case 4: return REPRO_REMAP_PACK(4);
-    case 8: return REPRO_REMAP_PACK(8);
-    case 16: return REPRO_REMAP_PACK(16);
-    case 32: return REPRO_REMAP_PACK(32);
+    case 1:
+      return remap_pack_at<1>(evs, srcs, table, offsets, words, n, n_src,
+                            stream);
+    case 2:
+      return remap_pack_at<2>(evs, srcs, table, offsets, words, n, n_src,
+                            stream);
+    case 4:
+      return remap_pack_at<4>(evs, srcs, table, offsets, words, n, n_src,
+                            stream);
+    case 8:
+      return remap_pack_at<8>(evs, srcs, table, offsets, words, n, n_src,
+                            stream);
+    case 16:
+      return remap_pack_at<16>(evs, srcs, table, offsets, words, n, n_src,
+                            stream);
+    case 32:
+      return remap_pack_at<32>(evs, srcs, table, offsets, words, n, n_src,
+                            stream);
     default: return cudaErrorInvalidValue;
   }
-#undef REPRO_REMAP_PACK
 }
 
 template <typename I>
@@ -494,9 +260,9 @@ cudaError_t remap_sources(const int32_t* evs, const int32_t* srcs,
                           int32_t* out, I n, int n_src, cudaStream_t stream) {
   const uint64_t groups = uint64_t(n) / 4;
   if (n_src <= kSmemSources)
-    return launch_stream<true, remap_codes_kernel<true, I>>(
+    return launch_remap<true, remap_codes_kernel<true, I>>(
         groups, n_src, stream, evs, srcs, table, offsets, out, n);
-  return launch_stream<false, remap_codes_kernel<false, I>>(
+  return launch_remap<false, remap_codes_kernel<false, I>>(
       groups, n_src, stream, evs, srcs, table, offsets, out, n);
 }
 
@@ -506,15 +272,12 @@ bool misaligned(const void* p) {
 
 }  // namespace
 
-// evs, srcs, words: 16-byte aligned; for cluster > 0 (route (b)) the table
-// too.  cluster: 0 for route (a), else the cluster size of route (b).
+// evs, srcs, words: 16-byte aligned.
 extern "C" int repro_remap_pack_codes(const void* evs, const void* srcs,
                                       const void* table, const void* offsets,
                                       void* words, int64_t n, int n_src,
-                                      int64_t table_len, int width,
-                                      int cluster, void* stream) {
-  if (misaligned(evs) || misaligned(srcs) || misaligned(words) ||
-      (cluster && misaligned(table)))
+                                      int width, void* stream) {
+  if (misaligned(evs) || misaligned(srcs) || misaligned(words))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const auto* e = static_cast<const int32_t*>(evs);
   const auto* s = static_cast<const int32_t*>(srcs);
@@ -522,18 +285,16 @@ extern "C" int repro_remap_pack_codes(const void* evs, const void* srcs,
   const auto* o = static_cast<const int32_t*>(offsets);
   auto* w = static_cast<uint32_t*>(words);
   auto st = static_cast<cudaStream_t>(stream);
-  if (table_len < 0 || table_len > INT32_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto tl = static_cast<uint32_t>(table_len);
   const cudaError_t err =
       n < (int64_t(1) << 31)
           ? remap_pack_width<uint32_t>(e, s, t, o, w, static_cast<uint32_t>(n),
-                                       n_src, tl, width, cluster, st)
+                                       n_src, width, st)
           : remap_pack_width<uint64_t>(e, s, t, o, w, static_cast<uint64_t>(n),
-                                       n_src, tl, width, cluster, st);
+                                       n_src, width, st);
   return static_cast<int>(err);
 }
 
+// evs, srcs: 16-byte aligned (the wrapper checks); out: 16-byte aligned.
 extern "C" int repro_remap_codes(const void* evs, const void* srcs,
                                  const void* table, const void* offsets,
                                  void* out, int64_t n, int n_src,

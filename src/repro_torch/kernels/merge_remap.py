@@ -16,11 +16,6 @@ so dead entries (tombstones, padding) and unused-code slots (-1) pack as 0,
 bit-identical to ``bitpack(clip(remapped, 0))``.  The output uses the
 engine's linear word layout.  Both launch ``csrc/merge_remap.cu`` for
 tensors on the card and run their plain versions for tensors on the CPU.
-
-``remap_pack_codes`` takes one of two routes on the card, by the table's
-length (``remap_route``): a table that a cluster of ``REMAP_CLUSTER``
-blocks holds in its shared memory is gathered from there (route (b)); a
-larger one from device memory (route (a)).
 """
 
 from __future__ import annotations
@@ -31,35 +26,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.bitpack import n_words_for, pack_codes_plain
 
 # the CUDA remap's tile (passed to nvcc by _build): each of REMAP_THREADS
-# threads of a block (REMAP_CLUSTER_THREADS on route (b)) remaps
-# REMAP_GROUPS groups of 4 entries per round
+# threads of a block remaps REMAP_GROUPS groups of 4 entries per round
 REMAP_THREADS = 256
 REMAP_GROUPS = 2
-REMAP_CLUSTER_THREADS = 1024
-# route (b): blocks per cluster (0: route (a) only), and the shared memory
-# a block may take on the card (sm_90's opt-in maximum, 227 KB): 16 bytes
-# for the mbarrier, then the block's table slots, then the int32 bases
-REMAP_CLUSTER = 8
-REMAP_CLUSTER_SMEM = 232448
-
-
-def remap_route(table_len: int, n_src: int, cluster: int = None) -> int:
-    """The cluster size that ``remap_pack_codes`` launches route (b) with
-    for a table of ``table_len`` slots and ``n_src`` sources, or 0 for
-    route (a): a cluster of C blocks holds ceil(table_len / C) slots per
-    block, rounded up to 4, beside the bases."""
-    c = REMAP_CLUSTER if cluster is None else cluster
-    if not c or table_len <= 0:
-        return 0
-    per_block = -(-table_len // c)
-    chunk = -(-per_block // 4) * 4
-    return c if 16 + 4 * chunk + 4 * n_src <= REMAP_CLUSTER_SMEM else 0
-
-
-def remap_cluster_capacity(n_src: int, cluster: int = None) -> int:
-    """The longest table that route (b) takes for ``n_src`` sources."""
-    c = REMAP_CLUSTER if cluster is None else cluster
-    return c * ((REMAP_CLUSTER_SMEM - 16 - 4 * n_src) // 16 * 4) if c else 0
 
 
 def remap_codes_plain(evs: torch.Tensor, srcs: torch.Tensor,
@@ -124,18 +93,15 @@ def remap_pack_codes(evs: torch.Tensor, srcs: torch.Tensor,
         return remap_pack_codes_plain(evs, srcs, table, offsets, width)
     n = _check_pairs(evs, srcs, table, offsets)
     m = n_words_for(n, width)
-    cluster = remap_route(table.shape[0], offsets.shape[0])
-    # the kernels read ev and src (and route (b) the table) in 16-byte
-    # lines: a view off such a line is copied first (the engine's never are)
+    # the kernel reads ev and src in 16-byte lines: a view off such a line
+    # is copied first (the engine's never are)
     evs, srcs = _on_a_line(evs), _on_a_line(srcs)
-    if cluster:
-        table = _on_a_line(table)
     words = torch.empty(m, dtype=torch.int32, device=evs.device)
     if m:
         _build.launch("remap_pack_codes", "repro_remap_pack_codes", evs.device,
                       evs.data_ptr(), srcs.data_ptr(), table.data_ptr(),
                       offsets.data_ptr(), words.data_ptr(), n,
-                      offsets.shape[0], table.shape[0], width, cluster)
+                      offsets.shape[0], width)
     return words
 
 

@@ -77,12 +77,10 @@ def _pack_launches_once(card, codes, width, want):
 
 
 @pytest.mark.parametrize("width", WIDTHS)
-@pytest.mark.parametrize("own", [False, True])
-def test_pack_codes_edges_match_plain(card, width, own, monkeypatch):
+def test_pack_codes_edges_match_plain(card, width):
     """n at the edges of a group of 4 codes and of a word, and over three
-    grid-stride rounds of the card's resident threads; below width 8 both
-    layouts of a word (shared by lanes, owned by a thread)."""
-    monkeypatch.setattr(bitpack, "PACK_OWN_WORDS", own)
+    grid-stride rounds of the card's resident threads; each call with
+    n > 0 launches the kernel once."""
     rng = np.random.default_rng(200 + width)
     per = 32 // width
     rounds = 3 * _resident_threads(card) * bitpack.PACK_GROUPS * 4
@@ -303,38 +301,30 @@ def test_remap_codes_edges_match_plain(card, n, n_src):
 
 
 @pytest.mark.parametrize("width", WIDTHS)
-@pytest.mark.parametrize("side", ["under", "over"])
 @pytest.mark.parametrize("n_src", [1, 1024, 1025])
-@pytest.mark.parametrize("cluster", [8, 16])
-def test_remap_pack_routes_match_plain(card, width, side, n_src, cluster,
-                                       monkeypatch):
-    """A table of as many slots as a cluster holds (route (b)) and one
-    more (route (a)), with the bases in shared memory (1 and 1,024
-    sources) and past it on route (a) (1,025), n at the edges of a
-    thread's groups and of the route's tile, a third of the entries dead
-    and -1 table slots; then every entry dead."""
-    monkeypatch.setattr(merge_remap, "REMAP_CLUSTER", cluster)
-    t = merge_remap.remap_cluster_capacity(n_src) + (side == "over")
-    assert merge_remap.remap_route(t, n_src) == (cluster if side == "under"
-                                                 else 0)
-    threads = (merge_remap.REMAP_CLUSTER_THREADS if side == "under"
-               else merge_remap.REMAP_THREADS)
-    tile = 4 * merge_remap.REMAP_GROUPS * threads
-    rng = np.random.default_rng(width * 31 + n_src + (side == "over"))
+@pytest.mark.parametrize("t", [403_041, 929_601])
+def test_remap_pack_edges_match_plain(card, width, n_src, t):
+    """The main path's largest merge table (403,041 slots) and one over
+    twice its size (3.7 MB), the bases in shared memory (1 and 1,024
+    sources) and read from device memory
+    (1,025), n at the edges of a thread's groups and of a block's tile, a
+    third of the entries dead and -1 table slots, the last source's codes
+    reaching the table's last slot; then every entry dead."""
+    rng = np.random.default_rng(width * 31 + n_src + t)
     per_src = t // n_src
     table = torch.from_numpy(rng.integers(-1, 2 ** min(width, 20), t)
                              .astype(np.int32))
     offsets = torch.from_numpy((np.arange(n_src) * per_src).astype(np.int32))
-    # the last source's codes reach the table's last slot
     offsets[-1] = t - per_src
     dev = [x.to(card) for x in (table, offsets)]
-    for n in (0, 3, tile - 1, tile + 1, 1_200_000):
+    for n in (0, 3, REMAP_TILE - 1, REMAP_TILE + 1, 1_200_000):
         srcs = torch.from_numpy(rng.integers(0, n_src, n).astype(np.int32))
         evs = rng.integers(0, per_src, n).astype(np.int32)
         evs[rng.random(n) < 1 / 3] = -1
         if n:
             srcs[-1], evs[-1] = n_src - 1, per_src - 1
-        for e in (torch.from_numpy(evs), torch.full((n,), -1, dtype=torch.int32)):
+        for e in (torch.from_numpy(evs),
+                  torch.full((n,), -1, dtype=torch.int32)):
             want = merge_remap.remap_pack_codes_plain(e, srcs, table, offsets,
                                                       width)
             before = ops.LAUNCHES["remap_pack_codes"]
@@ -342,15 +332,13 @@ def test_remap_pack_routes_match_plain(card, width, side, n_src, cluster,
                                                *dev, width)
             torch.cuda.synchronize()
             assert ops.LAUNCHES["remap_pack_codes"] == before + (n > 0)
-            assert torch.equal(got.cpu(), want), (n, side)
+            assert torch.equal(got.cpu(), want), n
 
 
-@pytest.mark.parametrize("cluster", [0, 8])
-def test_remap_pack_on_views_off_a_16_byte_line(card, cluster, monkeypatch):
-    """ev and src views 4 bytes into a line, and on route (b) a table view
-    too, are copied onto a line first, not refused."""
-    monkeypatch.setattr(merge_remap, "REMAP_CLUSTER", cluster)
-    rng = np.random.default_rng(7 + cluster)
+def test_remap_pack_on_views_off_a_16_byte_line(card):
+    """ev and src views 4 bytes into a line are copied onto a line first,
+    not refused; a table view is read where it lies."""
+    rng = np.random.default_rng(7)
     n, t = 100_001, 50_001
     table = torch.from_numpy(rng.integers(-1, 2**16, t).astype(np.int32))
     offsets = torch.tensor([0, 20_000], dtype=torch.int32)
@@ -358,15 +346,15 @@ def test_remap_pack_on_views_off_a_16_byte_line(card, cluster, monkeypatch):
     evs = torch.from_numpy(rng.integers(-1, 30_000, n).astype(np.int32))
     want = merge_remap.remap_pack_codes_plain(evs[1:], srcs[1:], table[1:],
                                               offsets, 16)
-    assert merge_remap.remap_route(t - 1, 2) == cluster
     got = merge_remap.remap_pack_codes(evs.to(card)[1:], srcs.to(card)[1:],
                                        table.to(card)[1:], offsets.to(card),
                                        16)
     assert torch.equal(got.cpu(), want)
 
 
-def test_remap_pack_past_2_31_entries(card, monkeypatch):
-    """n >= 2^31 takes the kernels' 64-bit indices, on both routes."""
+def test_remap_pack_past_2_31_entries(card):
+    """n >= 2^31 takes the kernel's 64-bit indices; held against the plain
+    version on windows at the start, across 2^31 and at the ragged end."""
     n, per_src = 2**31 + 7, 1000
     table = torch.randint(-1, 2**16, (3 * per_src,), dtype=torch.int32,
                           device=card)
@@ -374,17 +362,16 @@ def test_remap_pack_past_2_31_entries(card, monkeypatch):
                            device=card)
     evs = torch.randint(-1, per_src, (n,), dtype=torch.int32, device=card)
     srcs = torch.randint(0, 3, (n,), dtype=torch.int32, device=card)
-    for cluster in (merge_remap.REMAP_CLUSTER, 0):
-        monkeypatch.setattr(merge_remap, "REMAP_CLUSTER", cluster)
-        got = merge_remap.remap_pack_codes(evs, srcs, table, offsets, 16)
-        torch.cuda.synchronize()
-        for i in (0, 2**31 - 4096, n - 4095):
-            want = merge_remap.remap_pack_codes_plain(
-                evs[i:i + 8192].cpu(), srcs[i:i + 8192].cpu(), table.cpu(),
-                offsets.cpu(), 16)
-            assert torch.equal(got[i // 2:i // 2 + want.shape[0]].cpu(), want)
-        del got
-    del evs, srcs
+    before = ops.LAUNCHES["remap_pack_codes"]
+    got = merge_remap.remap_pack_codes(evs, srcs, table, offsets, 16)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["remap_pack_codes"] == before + 1
+    for i in (0, 2**31 - 4096, n - 4095):
+        want = merge_remap.remap_pack_codes_plain(
+            evs[i:i + 8192].cpu(), srcs[i:i + 8192].cpu(), table.cpu(),
+            offsets.cpu(), 16)
+        assert torch.equal(got[i // 2:i // 2 + want.shape[0]].cpu(), want)
+    del got, evs, srcs
     torch.cuda.empty_cache()
 
 

@@ -384,33 +384,6 @@ def test_remap_pack_plain_matches_jax_with_1025_sources(width, dead):
         assert not got.any()
 
 
-@pytest.mark.parametrize("cluster", [8, 16])
-@pytest.mark.parametrize("n_src", [1, 6, 1024, 1025])
-def test_remap_route_at_the_cluster_capacity(cluster, n_src):
-    """Route (b) takes a table up to what a cluster holds beside the
-    bases (16 bytes of mbarrier, slots per block rounded up to 4, n_src
-    bases, at most REMAP_CLUSTER_SMEM bytes a block); one slot more, an
-    empty table or no cluster takes route (a)."""
-    cap = merge_remap.remap_cluster_capacity(n_src, cluster)
-    per_block = cap // cluster
-    assert per_block % 4 == 0
-    assert 16 + 4 * per_block + 4 * n_src <= merge_remap.REMAP_CLUSTER_SMEM
-    assert 16 + 4 * (per_block + 4) + 4 * n_src > merge_remap.REMAP_CLUSTER_SMEM
-    route = merge_remap.remap_route
-    assert route(cap, n_src, cluster) == cluster
-    assert route(cap - 1, n_src, cluster) == cluster
-    assert route(cap - per_block, n_src, cluster) == cluster
-    assert route(1, n_src, cluster) == cluster
-    assert route(cap + 1, n_src, cluster) == 0
-    assert route(0, n_src, cluster) == 0
-    assert route(cap, n_src, 0) == 0
-    # the module's cluster size is the default, and the main path's
-    # largest merge (403,041 slots, 6 sources) fits it
-    if cluster == merge_remap.REMAP_CLUSTER:
-        assert route(cap, n_src) == cluster
-    assert route(403_041, 6) == merge_remap.REMAP_CLUSTER
-
-
 # --------------------------------------------------------------------------- #
 # plain remap ('jax' compaction backend)
 # --------------------------------------------------------------------------- #
