@@ -89,14 +89,19 @@ Phases, each printing JSON lines:
             largest pack (a width-32 merge output) and at width 16 on the
             same codes; at width 32 the pack and the unpack sit beside
             codes.clone() and words[:n].clone() (the same functions there);
-            remap_codes carries its gathers' L2 sector bytes.  These four
-            kernels are also timed in CUDA graphs with their operands in L2
+            remap_codes and fused_zone_agg with SUM carry their gathers' L2
+            sector bytes.  These four kernels, fused_zone_agg and ssm_scan
+            are also timed in CUDA graphs with their operands in L2
             (graph_ms) and from device memory (cold_graph_ms), both remaps
             with every entry dead (streams_only_cold_graph_ms: no gather),
             and the width-32 unpack and clone at 8 times its n
-            (cold_graph_ms_8n, library_cold_graph_ms_8n).  Their rows carry
-            the registers, shared memory and spills of every instantiation
-            of their kernel at that width, from the build's -Xptxas=-v log.
+            (cold_graph_ms_8n, library_cold_graph_ms_8n).  ssm_scan is also
+            timed cold with 1, 2, 4 and 8 lanes along L set by hand
+            (time_lanes_cold_graph_ms) and at state dimensions 1, 8 and 32
+            on the same u and delta (state_dim_cold_graph_ms).  Their rows
+            carry the registers, shared memory and spills of every
+            instantiation of their kernel at that width, from the build's
+            -Xptxas=-v log.
 
 The last three lines are the card (nvidia-smi name, power limit), the
 kernel table ``{"kernels": [...]}`` and ``{"ok": true, "device": ...}``.
@@ -108,6 +113,7 @@ CUDA card is available or when it stands outside the repository.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import re
 import statistics
@@ -1413,8 +1419,6 @@ def cold_graph_ms(fn, nbytes: int, *operands) -> float:
     per call) pass between two calls on one copy: every call reads its
     operands from device memory, as a kernel does whose inputs were written
     long before (a flushed SCT's words, a merge's streams)."""
-    import functools
-
     copies = 1 + -(-COLD_BYTES // nbytes)
     return graph_ms([functools.partial(fn, *(t.clone() for t in operands))
                      for _ in range(copies)])
@@ -1534,6 +1538,28 @@ def pack_row(codes, width: int, bw: float, launches: int, log: str,
         "graph_ms": hot_graph_ms(pack, codes),
         "cold_graph_ms": cold_graph_ms(pack, nbytes, codes)})
     return row
+
+
+def agg_gathers(words, meta, ranges, width: int, k: int, tile_words: int,
+                flags) -> int:
+    """Weight gathers of fused_zone_agg with SUM: the valid entries of the
+    evaluated tiles (flag 1) that fall in any of their tile's K ranges."""
+    import torch
+    from repro_torch.kernels import agg_scan, bitpack
+
+    ev = torch.nonzero(flags == agg_scan.FLAG_EVALUATED).reshape(-1)
+    m = bitpack.from_u32_bits(meta)[ev]
+    r = bitpack.from_u32_bits(ranges)
+    per = 32 // width
+    w = bitpack.from_u32_bits(words).reshape(-1, tile_words)[ev]
+    shifts = torch.arange(per, dtype=torch.int64, device=words.device) * width
+    f = ((w[:, :, None] >> shifts) & ((1 << width) - 1)).reshape(w.shape[0], -1)
+    hit = torch.arange(f.shape[1], device=f.device) < m[:, 3:4]
+    any_range = torch.zeros_like(hit)
+    for j in range(k):
+        lo, hi = r[m[:, 2] + j, 0:1], r[m[:, 2] + j, 1:2]
+        any_range |= (f >= lo) & (f <= hi)
+    return int((hit & any_range).sum())
 
 
 def kernel_phase(recs, launches: dict, bw: float, bench: dict,
@@ -1666,25 +1692,39 @@ def kernel_phase(recs, launches: dict, bw: float, bench: dict,
             remap_pack, nbytes, torch.full_like(evs, -1), srcs, table,
             offsets)})
 
-    # fused_zone_agg at agg.fast's scalar launch, with and without SUM
+    # fused_zone_agg at agg.fast's scalar launch, with and without SUM; in
+    # CUDA graphs hot (the same operands, in L2) and cold (a fresh copy per
+    # call); with SUM each valid entry of an evaluated tile that matches one
+    # of its ranges gathers one weight, a 32-byte L2 sector
     (aw, am, ar, awt, width, k, _ws, tw), _ = recs["agg"].calls[0]
     n_tiles = am.shape[0]
     for with_sum in (True, False):
-        evaluated = int((agg_scan.fused_zone_agg(
-            aw, am, ar, awt, width, k, with_sum, tw)[4] == 1).sum())
+        flags = agg_scan.fused_zone_agg(aw, am, ar, awt, width, k, with_sum,
+                                        tw)[4]
+        evaluated = int((flags == 1).sum())
         nbytes = (4 * tw * evaluated + 24 * n_tiles + 8 * ar.shape[0]
                   + 20 * n_tiles * k + 4 * n_tiles
                   + (4 * awt.shape[0] if with_sum else 0))
+        agg = functools.partial(agg_scan.fused_zone_agg, width=width,
+                                n_preds=k, with_sum=with_sum, tile_words=tw)
         rows.append(compare(
-            "fused_zone_agg",
-            lambda: agg_scan.fused_zone_agg(aw, am, ar, awt, width, k,
-                                            with_sum, tw),
+            "fused_zone_agg", lambda: agg(aw, am, ar, awt),
             lambda: agg_scan.fused_zone_agg_plain(aw, am, ar, awt, width, k,
                                                   with_sum, tw),
             nbytes, bw, launches["fused_zone_agg"],
             f"words={aw.shape[0]} tiles={n_tiles} evaluated={evaluated} "
             f"K={k} width={width} sum={with_sum} weights={awt.shape[0]}"))
-        rows[-1]["main_path"] = with_sum
+        slots, vec = agg_scan.agg_route(aw, k, tw)
+        rows[-1].update({
+            "main_path": with_sum, "slots": slots, "vector_loads": vec,
+            "ptxas": [r for r in ptxas_resources(log, SYMBOLS["fused_zone_agg"])
+                      if f"<{width}," in r["function"]],
+            "graph_ms": hot_graph_ms(agg, aw, am, ar, awt),
+            "cold_graph_ms": cold_graph_ms(agg, nbytes, aw, am, ar, awt)})
+        if with_sum:
+            gathers = agg_gathers(aw, am, ar, width, k, tw, flags)
+            rows[-1].update({"gathers": gathers,
+                             "gather_sector_bytes": 32 * gathers})
 
     # zone_histogram at agg.fast's largest GROUP BY launch
     (hw, hm, he, width, n_bins, tw), _ = recs["hist"].calls[0]
@@ -1800,8 +1840,32 @@ def kernel_phase(recs, launches: dict, bw: float, bench: dict,
         launches["ssm_scan"],
         f"B={B} L={L} D={D} N={N} (falcon-mamba-7b's d_inner and d_state)",
         tol=SSM_TOL, op_bound_ms=max(exp_ms, flop_ms), plain_reps=5))
+    scan = ssm_scan.ssm_scan
+    nbytes = rows[-1]["bytes"]
+    g, p = ssm_scan.scan_layout(B, D, N, L, rates["sm_count"])
     rows[-1].update({"exps": elems, "exp_ms": exp_ms, "flops": 6 * elems,
-                     "flop_ms": flop_ms})
+                     "flop_ms": flop_ms, "state_lanes": g, "time_lanes": p,
+                     "ptxas": ptxas_resources(log, SYMBOLS["ssm_scan"]),
+                     "graph_ms": hot_graph_ms(scan, u, dt, A, Bm, Cm),
+                     "cold_graph_ms": cold_graph_ms(
+                         scan, nbytes, u, dt, A, Bm, Cm)})
+    # the same scan with P lanes along L set by hand, cold: what the
+    # layout's choice of P is judged by
+    rows[-1]["time_lanes_cold_graph_ms"] = {
+        tl: cold_graph_ms(functools.partial(scan, time_lanes=tl), nbytes, u,
+                          dt, A, Bm, Cm)
+        for tl in (1, 2, 4, 8)}
+    # the same u and delta with other state dimensions, cold, each in its
+    # default layout: the streams and y stay while the lanes' groups of 8
+    # states grow with N (N = 1 and N = 8 both fill one group a channel)
+    gen = torch.Generator(device=u.device).manual_seed(1)
+    sweep = {}
+    for n in (1, 8, 32):
+        a_n = -torch.rand((D, n), generator=gen, device=u.device)
+        b_n, c_n = (torch.randn((B, L, n), generator=gen, device=u.device)
+                    for _ in range(2))
+        sweep[n] = cold_graph_ms(scan, nbytes, u, dt, a_n, b_n, c_n)
+    rows[-1]["state_dim_cold_graph_ms"] = sweep
     return rows
 
 
@@ -1837,7 +1901,8 @@ def main() -> int:
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    rates = {"exp_per_s": EXP_PER_CLOCK_PER_SM * sms * max_mhz * 1e6,
+    rates = {"sm_count": sms,
+             "exp_per_s": EXP_PER_CLOCK_PER_SM * sms * max_mhz * 1e6,
              "int32_ops": INT32_PER_CLOCK_PER_SM * sms * max_mhz * 1e6,
              "fp32_flops": next(r for key, r in FP32_RATE if key in device_name)}
 

@@ -50,14 +50,14 @@ _SIGNATURES = {
     "repro_unpack_codes": [_P, _P, _I64, _INT, _P],
     "repro_fused_zone_filter": [_P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _P],
     "repro_remap_pack_codes": [_P] * 5 + [_I64, _INT, _INT, _P],
-    "repro_fused_zone_agg": [_P] * 9 + [_I64, _INT, _INT, _INT, _INT, _P],
+    "repro_fused_zone_agg": [_P] * 9 + [_I64] + [_INT] * 6 + [_P],
     "repro_zone_histogram": [_P] * 5 + [_I64, _INT, _INT, _INT, _P],
     "repro_multi_range_filter": [_P] * 4 + [_I64, _INT, _INT, _INT, _P],
     "repro_range_filter_codes": [_P, _INT, _INT, _P, _P, _I64, _INT, _P],
     "repro_remap_codes": [_P] * 5 + [_I64, _INT, _P],
     "repro_range_filter_packed": [_P, _U32, _U32, _P, _P, _I64, _INT, _INT, _P],
     "repro_bloom_probe": [_P, _I64, _U32, _P, _I64, _INT, _P, _P],
-    "repro_ssm_scan": [_P] * 7 + [_I64, _INT, _INT, _INT, _P],
+    "repro_ssm_scan": [_P] * 7 + [_I64] + [_INT] * 5 + [_P],
 }
 
 
@@ -164,6 +164,13 @@ def library() -> ctypes.CDLL:
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def sm_count(device: torch.device) -> int:
+    """SMs of the card ``device``, for a wrapper that sizes its kernel's
+    layout to the card; the library is loaded first, as for a launch."""
+    library()
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:

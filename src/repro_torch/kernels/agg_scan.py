@@ -25,7 +25,8 @@ that holds no entry is skipped; a tile whose zone no edge crosses (and
 Entries at or past a tile's ``n_valid`` never count (a padding field can
 alias the code ``2**width - 1``).  Words, meta, ranges and edges are
 ``int32`` tensors holding ``uint32`` bits.  For tensors on the card the
-wrappers launch ``csrc/agg_scan.cu``; for tensors on the CPU they run the
+wrappers launch ``csrc/agg_scan.cu`` (``fused_zone_agg`` in the
+instantiation ``agg_route`` picks); for tensors on the CPU they run the
 plain versions beside them.  SUM is int64 on both (the TPU kernel summed in
 int32; the executor keeps its int32 routing guard, so results agree).
 """
@@ -46,14 +47,16 @@ WSUM_SENTINEL = 0xFFFFFFFF   # unknown or >= 2**31 total: no SUM closed form
 MIN_SENTINEL = 0xFFFFFFFF    # per-tile min when no entry matched
 MAX_BINS = 64
 
+AGG_SLOTS = (1, 2, 4, 8)   # the kernel's register slots for ranges
+
 FLAG_SKIPPED = 0       # zone meets nothing: words never read
 FLAG_EVALUATED = 1     # fields extracted and compared
 FLAG_SHORTCIRCUIT = 2  # closed form from the zone alone
 
 __all__ = ["AGG_META_COLS", "WSUM_COL", "WSUM_SENTINEL", "MIN_SENTINEL",
-           "MAX_BINS", "FLAG_SKIPPED", "FLAG_EVALUATED", "FLAG_SHORTCIRCUIT",
-           "fused_zone_agg", "fused_zone_agg_plain", "zone_histogram",
-           "zone_histogram_plain"]
+           "MAX_BINS", "AGG_SLOTS", "agg_route", "FLAG_SKIPPED",
+           "FLAG_EVALUATED", "FLAG_SHORTCIRCUIT", "fused_zone_agg",
+           "fused_zone_agg_plain", "zone_histogram", "zone_histogram_plain"]
 
 
 def _check_tiles(words, meta, tile_words: int) -> int:
@@ -95,6 +98,19 @@ def _fields(words: torch.Tensor, width: int, tile_words: int) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 # fused_zone_agg
 # --------------------------------------------------------------------------- #
+def agg_route(words: torch.Tensor, n_preds: int,
+              tile_words: int) -> Tuple[int, bool]:
+    """The kernel's instantiation for a launch: ``(slots, vec)``.  ``vec``:
+    the words are read as 16-byte groups, which needs ``tile_words % 4 ==
+    0`` and words on a 16-byte line; ``slots``: the fewest register slots
+    of ``AGG_SLOTS`` that hold the K ranges (8 above 8, in chunks), and 8
+    always for 4-byte loads."""
+    vec = tile_words % 4 == 0 and words.data_ptr() % 16 == 0
+    if not vec:
+        return AGG_SLOTS[-1], False
+    return next((s for s in AGG_SLOTS if n_preds <= s), AGG_SLOTS[-1]), True
+
+
 def fused_zone_agg_plain(
     words: torch.Tensor, meta: torch.Tensor, ranges: torch.Tensor,
     weights: torch.Tensor, width: int, n_preds: int, with_sum: bool,
@@ -171,11 +187,13 @@ def fused_zone_agg(
     sums = torch.empty((n_tiles, n_preds), dtype=torch.int64, device=dev)
     flags = torch.empty(n_tiles, dtype=torch.int32, device=dev)
     if n_tiles:
+        slots, vec = agg_route(words, n_preds, tile_words)
         _build.launch("fused_zone_agg", "repro_fused_zone_agg", dev,
                       words.data_ptr(), meta.data_ptr(), ranges.data_ptr(),
                       weights.data_ptr(), counts.data_ptr(), mins.data_ptr(),
                       maxs.data_ptr(), sums.data_ptr(), flags.data_ptr(),
-                      n_tiles, tile_words, n_preds, width, int(with_sum))
+                      n_tiles, tile_words, n_preds, width, int(with_sum),
+                      slots, int(vec))
     return counts, mins, maxs, sums, flags
 
 

@@ -6,114 +6,447 @@
 // Inputs, float32 and contiguous: u, delta [Bt, L, D], A [D, N], B, C
 // [Bt, L, N].  Outputs: y [Bt, L, D] and the final state [Bt, D, N].
 //
-// The TPU kernel keeps a (128 channels, N) state tile in VMEM and walks the
-// chunks of L along its sequential grid axis.  Here one thread holds one
-// state element x[b, d, n] in a register for the whole sequence: a group of
-// G lanes (N rounded up to a power of two, at most a warp) carries one
-// channel d, and its lanes reduce y_t with __shfl_xor_sync.  A block of
-// 256 threads takes 256 / G channels of one batch row and walks L in stages
-// of up to 32 steps: each stage's u and delta for its channels, and B_t and
-// C_t, are staged in shared memory with coalesced loads, and the stage's
-// y is written back from shared memory the same way.  Lanes past N carry
-// A = B = C = 0, so their x stays 0 and adds nothing to y.
+// What bounds it on this card: one exp per (b, t, d, n) at the SFU rate of
+// 16 per clock per SM, and about as much time for the bytes of u, delta
+// and y (12 per (b, t, d)).  At falcon-mamba-7b's mixer width the two are
+// 0.064 and 0.061 ms, so the design streams u and delta behind the
+// arithmetic and keeps every instruction it can off the element path:
 //
-// Bound: memory, 12 bytes per (t, d) for u, delta and y (B, C, A and the
-// state are small at mamba widths), against the card's exp rate: one expf
-// per (t, d, n).  expf, not __expf: the fast intrinsic would give up the
-// tolerance the plain version is held to.
+// - States in registers.  A thread owns one channel d and kS = 8 of its
+//   states; G lanes (a power of two, ceil(N / 8) rounded up, at most 32)
+//   cover the states of a channel, and y_t's partial is summed in
+//   registers, then over the G lanes with log2(G) shuffles per step.  A
+//   state dimension above 8 * 32 runs in passes of 256 states, each pass
+//   adding its part of y.  Per element: the exponent dt * a, its expf,
+//   dt * u * B and two fused multiply-adds.
+// - The exp is expf, the function the plain version's torch.exp runs (a
+//   range reduction around one MUFU.EX2, 8 instructions).  A bare
+//   ex2.approx of dt * a * log2(e), one instruction, was tried: at
+//   falcon-mamba-7b's width its y left rtol = atol = 1e-4 of the plain
+//   version (chip_smoke.py: max |err| 0.00134), so it is not used.  With
+//   expf the FP32 pipes, which run its range reduction beside the
+//   recurrence (about 12 instructions an element), and not the SFU bound
+//   the kernel.
+// - Parallelism along L where channels x state groups do not fill the
+//   card (the host picks P, the lanes along L).  With P > 1 the P lanes
+//   of a channel each hold kT consecutive steps' affine maps (exp(dt A),
+//   dt u B) per state,
+//   compose them, combine the P compositions with a Kogge-Stone warp scan
+//   of (a1, b1) o (a2, b2) = (a1 a2, a2 b1 + b2), carry the state from one
+//   group of P * kT steps to the next, and walk their steps again from the
+//   scanned state to form y: still one exp per element, as the public
+//   mamba selective-scan kernel does it.
+// - Overlapped staging.  A block of 128 threads takes 128 / (G P) channels
+//   of one batch row (and one pass of states); it stages CH steps of u and
+//   delta for its channels (rows of 16-byte cp.async.cg copies) and of B
+//   and C for the pass's states (cp.async.ca: every block of the row reads
+//   them, so they stay in L1) into a ring of kStages buffers in shared
+//   memory, kStages - 1 chunks ahead of the one it computes, with one
+//   __syncthreads per chunk.  B and C are read as broadcast 16-byte loads;
+//   steps past L are zero-filled (dt = 0: the identity map).  y goes out
+//   as runs of a warp's channels (32 bytes or more) with streaming stores.
+// - G and P are template parameters (21 pairs, G * P <= 32), so the chunk
+//   length, the staged strides and every shuffle are constants and the
+//   steps carry no branch (y is stored under a predicate): with them as
+//   runtime values the lane reductions were loops and each step a chain
+//   of its own.
+//
+// The grid is one block per (batch row, channel block): the batch and the
+// channels are one flat grid dimension, so neither has a limit of its own
+// (the grid takes up to 2^31 - 1 blocks).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+constexpr int kS = 8;            // states a thread holds
+constexpr int kT = 4;            // steps of a lane's round
+constexpr int kStages = 4;       // chunks in the shared-memory ring
+constexpr int kPad = 4;          // floats past each staged row
+constexpr int kMaxChunk = 64;    // steps a chunk stages at most
+constexpr int kStageFloats = 4096;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
-template <int G>
-__global__ void __launch_bounds__(kThreads)
-    ssm_scan_kernel(const float* __restrict__ u, const float* __restrict__ delta,
-                    const float* __restrict__ A, const float* __restrict__ Bm,
-                    const float* __restrict__ Cm, float* __restrict__ y,
-                    float* __restrict__ state, int L, int D, int N) {
-  constexpr int DB = kThreads / G;                         // channels a block
-  constexpr int STAGE = 2048 / DB < 32 ? 2048 / DB : 32;   // steps a stage
-  __shared__ float s_u[STAGE][DB], s_dt[STAGE][DB], s_y[STAGE][DB];
-  __shared__ float s_b[STAGE][G], s_c[STAGE][G];
+// the most steps (a power of two, at most kMaxChunk) whose staged rows of
+// `row` floats fit kStageFloats
+__host__ __device__ constexpr int chunk_fit(int row) {
+  int ch = 1;
+  while (ch * 2 <= kMaxChunk && ch * 2 * row <= kStageFloats) ch *= 2;
+  return ch;
+}
 
-  const int64_t b = blockIdx.y;
-  const int d0 = blockIdx.x * DB;
-  const int dl = threadIdx.x / G;
-  const int n = threadIdx.x % G;
-  const int d = d0 + dl;
-  const bool active = d < D && n < N;
-  const float a = active ? A[int64_t(d) * N + n] : 0.f;
-  float x = 0.f;
+// The block's layout for G state lanes and P time lanes a channel.
+template <int G, int P>
+struct Shape {
+  static constexpr int kCb = kThreads / (G * P);   // channels a block
+  static constexpr int kSd = kCb + kPad;           // staged dt / u row
+  static constexpr int kSb = kS * G + kPad;        // staged B / C row
+  static constexpr int kRow = 2 * (kSd + kSb);     // floats a step
+  static constexpr int kSpan = P * kT;             // steps of one round
+  // steps a chunk: at least one round of the P time lanes
+  static constexpr int kCh =
+      chunk_fit(kRow) < kSpan ? kSpan : chunk_fit(kRow);
+  static constexpr int kStage = kCh * kRow;        // floats a stage
+  static constexpr size_t kSmem = sizeof(float) * kStages * kStage;
+};
 
-  for (int t0 = 0; t0 < L; t0 += STAGE) {
-    const int steps = L - t0 < STAGE ? L - t0 : STAGE;
-    for (int i = threadIdx.x; i < steps * DB; i += kThreads) {
-      const int t = i / DB, j = i % DB;
-      const int64_t off = (b * L + t0 + t) * D + d0 + j;
-      const bool in = d0 + j < D;
-      s_u[t][j] = in ? u[off] : 0.f;
-      s_dt[t][j] = in ? delta[off] : 0.f;
-    }
-    for (int i = threadIdx.x; i < steps * G; i += kThreads) {
-      const int t = i / G, j = i % G;
-      const int64_t off = (b * L + t0 + t) * N + j;
-      s_b[t][j] = j < N ? Bm[off] : 0.f;
-      s_c[t][j] = j < N ? Cm[off] : 0.f;
-    }
-    __syncthreads();
-    for (int t = 0; t < steps; ++t) {
-      const float dt = s_dt[t][dl];
-      x = expf(dt * a) * x + (dt * s_u[t][dl]) * s_b[t][n];
-      float p = x * s_c[t][n];
+struct Params {
+  const float* u;
+  const float* dt;
+  const float* A;
+  const float* B;
+  const float* C;
+  float* y;
+  float* state;
+  int L, D, N;
+  int d_blocks;       // D / channels a block
+  int passes;         // of 8 * G states
+  bool vec_bc;        // B and C rows on 16-byte lines (N % 4 == 0)
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes into shared memory, L2 only; zero-filled when !valid
+__device__ __forceinline__ void cp16_cg(float* dst, const float* src,
+                                        bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 16 or 4 bytes into shared memory through L1; zero-filled when !valid
+__device__ __forceinline__ void cp16_ca(float* dst, const float* src,
+                                        bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp4_ca(float* dst, const float* src,
+                                       bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// Stage chunk k (steps k*CH .. k*CH+CH-1) of batch row b, channels d0 ..
+// d0+Cb-1 and states n0 .. n0+8G-1 into `buf`: dt [CH][Sd], u [CH][Sd],
+// B [CH][Sb], C [CH][Sb].
+template <int G, int P>
+__device__ __forceinline__ void stage_chunk(const Params& p, float* buf,
+                                            int64_t b, int d0, int n0,
+                                            int k) {
+  using S = Shape<G, P>;
+  const int t0 = k * S::kCh;
+  float* s_dt = buf;
+  float* s_u = buf + S::kCh * S::kSd;
+  float* s_b = buf + 2 * S::kCh * S::kSd;
+  float* s_c = s_b + S::kCh * S::kSb;
+  constexpr int q = S::kCb / 4;                // 16-byte pieces a row
 #pragma unroll
-      for (int off = G / 2; off > 0; off >>= 1)
-        p += __shfl_xor_sync(0xFFFFFFFFu, p, off);
-      if (n == 0) s_y[t][dl] = p;
+  for (int i = threadIdx.x; i < S::kCh * q; i += kThreads) {
+    const int r = i / q, j = (i % q) * 4;
+    const bool ok = t0 + r < p.L;
+    const int64_t off = (b * p.L + (ok ? t0 + r : 0)) * p.D + d0 + j;
+    cp16_cg(s_dt + r * S::kSd + j, p.dt + off, ok);
+    cp16_cg(s_u + r * S::kSd + j, p.u + off, ok);
+  }
+  constexpr int w = kS * G;                    // states a row
+  if (p.vec_bc) {
+    constexpr int qb = w / 4;
+#pragma unroll
+    for (int i = threadIdx.x; i < S::kCh * qb; i += kThreads) {
+      const int r = i / qb, j = (i % qb) * 4;
+      const bool ok = t0 + r < p.L && n0 + j < p.N;
+      const int64_t off = ok ? (b * p.L + t0 + r) * p.N + n0 + j : 0;
+      cp16_ca(s_b + r * S::kSb + j, p.B + off, ok);
+      cp16_ca(s_c + r * S::kSb + j, p.C + off, ok);
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < steps * DB; i += kThreads) {
-      const int t = i / DB, j = i % DB;
-      if (d0 + j < D) y[(b * L + t0 + t) * D + d0 + j] = s_y[t][j];
+  } else {
+    for (int i = threadIdx.x; i < S::kCh * w; i += kThreads) {
+      const int r = i / w, j = i % w;
+      const bool ok = t0 + r < p.L && n0 + j < p.N;
+      const int64_t off = ok ? (b * p.L + t0 + r) * p.N + n0 + j : 0;
+      cp4_ca(s_b + r * S::kSb + j, p.B + off, ok);
+      cp4_ca(s_c + r * S::kSb + j, p.C + off, ok);
     }
   }
-  if (active) state[(b * D + d) * N + n] = x;
+}
+
+__device__ __forceinline__ void load8(const float* s, float (&v)[kS]) {
+  const float4 a = *reinterpret_cast<const float4*>(s);
+  const float4 c = *reinterpret_cast<const float4*>(s + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = c.x; v[5] = c.y; v[6] = c.z; v[7] = c.w;
+}
+
+// y's partial of a step over the G lanes of a channel
+template <int G>
+__device__ __forceinline__ float sum_groups(float v) {
+#pragma unroll
+  for (int off = 1; off < G; off <<= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// y of one (step, channel) when the step is real.  Every lane of the
+// channel holds the sum and the first pass stores it from all of them (one
+// address, one transaction), so no lane branches off; a later pass of
+// states adds its part from lane 0 alone (one adder an address, after the
+// same thread's store: the same sums in the same order, and no load).
+__device__ __forceinline__ void put_y(float* y, float v, bool real, int pass,
+                                      int g) {
+  if (real && pass == 0) __stcs(y, v);
+  if (real && pass != 0 && g == 0) atomicAdd(y, v);
+}
+
+template <int G, int P>
+__global__ void __launch_bounds__(kThreads) ssm_scan_kernel(Params p) {
+  using S = Shape<G, P>;
+  constexpr int Cb = S::kCb, Sd = S::kSd, Sb = S::kSb, CH = S::kCh;
+  extern __shared__ __align__(16) float smem[];
+  const int64_t b = blockIdx.x / p.d_blocks;
+  const int d0 = static_cast<int>(blockIdx.x % p.d_blocks) * Cb;
+  const int g = threadIdx.x % G;
+  const int lp = (threadIdx.x / G) % P;
+  const int c = threadIdx.x / (G * P);
+  const int d = d0 + c;
+  const int lane = threadIdx.x & 31;
+  const int last = lane + (P - 1 - lp) * G;    // lane of time lane P-1
+  const int n_chunks = (p.L + CH - 1) / CH;
+
+  for (int pass = 0; pass < p.passes; ++pass) {
+    const int n0 = pass * kS * G;
+    float a[kS], x[kS];
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      const int n = n0 + g * kS + s;
+      a[s] = n < p.N ? p.A[int64_t(d) * p.N + n] : 0.f;
+      x[s] = 0.f;
+    }
+    for (int k = 0; k < kStages - 1; ++k) {
+      if (k < n_chunks)
+        stage_chunk<G, P>(p, smem + k * S::kStage, b, d0, n0, k);
+      cp_commit();
+    }
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      cp_wait<kStages - 2>();
+      __syncthreads();
+      const int nk = ch + kStages - 1;
+      if (nk < n_chunks)
+        stage_chunk<G, P>(p, smem + (nk % kStages) * S::kStage, b, d0, n0,
+                          nk);
+      cp_commit();
+
+      const float* s_dt = smem + (ch % kStages) * S::kStage;
+      const float* s_u = s_dt + CH * Sd;
+      const float* s_b = s_dt + 2 * CH * Sd + g * kS;
+      const float* s_c = s_b + CH * Sb;
+      const int t0 = ch * CH;
+      float* yc = p.y + (b * p.L + t0) * p.D + d;   // y at step t0
+      if constexpr (P == 1) {
+        // one lane per (channel, state group): the recurrence in rounds of
+        // kT steps, each round's exps and dt u B first (independent of x),
+        // then its state updates, then its kT y sums and stores together,
+        // so no step's tail of dependent instructions holds up the next
+        // step's loads and exps.  Steps past L are the identity and store
+        // nothing.
+#pragma unroll 1
+        for (int r0 = 0; r0 < CH; r0 += kT) {
+          float ea[kT][kS], eb[kT][kS], py[kT];
+#pragma unroll
+          for (int i = 0; i < kT; ++i) {
+            const float dtv = s_dt[(r0 + i) * Sd + c];
+            const float dtu = dtv * s_u[(r0 + i) * Sd + c];
+            float bv[kS];
+            load8(s_b + (r0 + i) * Sb, bv);
+#pragma unroll
+            for (int s = 0; s < kS; ++s) {
+              ea[i][s] = expf(dtv * a[s]);
+              eb[i][s] = dtu * bv[s];
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kT; ++i) {
+            float cv[kS];
+            load8(s_c + (r0 + i) * Sb, cv);
+            py[i] = 0.f;
+#pragma unroll
+            for (int s = 0; s < kS; ++s) {
+              x[s] = fmaf(ea[i][s], x[s], eb[i][s]);
+              py[i] = fmaf(cv[s], x[s], py[i]);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kT; ++i) py[i] = sum_groups<G>(py[i]);
+#pragma unroll
+          for (int i = 0; i < kT; ++i)
+            put_y(yc + int64_t(r0 + i) * p.D, py[i], t0 + r0 + i < p.L, pass,
+                  g);
+        }
+      } else {
+        // P lanes per (channel, state group), kT steps each
+#pragma unroll 1
+        for (int j0 = 0; j0 < CH; j0 += S::kSpan) {
+          const int r0 = j0 + lp * kT;
+          float ea[kT][kS], eb[kT][kS], ca[kS], cb[kS];
+#pragma unroll
+          for (int i = 0; i < kT; ++i) {
+            const float dtv = s_dt[(r0 + i) * Sd + c];
+            const float dtu = dtv * s_u[(r0 + i) * Sd + c];
+            float bv[kS];
+            load8(s_b + (r0 + i) * Sb, bv);
+#pragma unroll
+            for (int s = 0; s < kS; ++s) {
+              ea[i][s] = expf(dtv * a[s]);
+              eb[i][s] = dtu * bv[s];
+              if (i == 0) {
+                ca[s] = ea[0][s];
+                cb[s] = eb[0][s];
+              } else {
+                cb[s] = fmaf(ea[i][s], cb[s], eb[i][s]);
+                ca[s] *= ea[i][s];
+              }
+            }
+          }
+          // the P lanes' maps in order: lane lp ends up with lanes 0..lp
+#pragma unroll
+          for (int s = 0; s < kS; ++s) {
+            float am = ca[s], bm = cb[s];
+#pragma unroll
+            for (int off = 1; off < P; off <<= 1) {
+              const float ua = __shfl_up_sync(kFull, am, off * G);
+              const float ub = __shfl_up_sync(kFull, bm, off * G);
+              if (lp >= off) {
+                bm = fmaf(am, ub, bm);
+                am *= ua;
+              }
+            }
+            const float xe = fmaf(am, x[s], bm);      // after lane lp's steps
+            const float prev = __shfl_up_sync(kFull, xe, G);
+            ca[s] = lp == 0 ? x[s] : prev;            // before lane lp's steps
+            x[s] = __shfl_sync(kFull, xe, last);
+          }
+          float py[kT];
+#pragma unroll
+          for (int i = 0; i < kT; ++i) {
+            float cv[kS];
+            load8(s_c + (r0 + i) * Sb, cv);
+            py[i] = 0.f;
+#pragma unroll
+            for (int s = 0; s < kS; ++s) {
+              ca[s] = fmaf(ea[i][s], ca[s], eb[i][s]);
+              py[i] = fmaf(cv[s], ca[s], py[i]);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kT; ++i) py[i] = sum_groups<G>(py[i]);
+#pragma unroll
+          for (int i = 0; i < kT; ++i)
+            put_y(yc + int64_t(r0 + i) * p.D, py[i], t0 + r0 + i < p.L, pass,
+                  g);
+        }
+      }
+    }
+    cp_wait<0>();
+    __syncthreads();   // the next pass refills the ring
+    if (lp == 0) {
+#pragma unroll
+      for (int s = 0; s < kS; ++s) {
+        const int n = n0 + g * kS + s;
+        if (n < p.N) p.state[(b * p.D + d) * int64_t(p.N) + n] = x[s];
+      }
+    }
+  }
+}
+
+// One launch at (G, P); raises the kernel's dynamic shared-memory limit
+// once where its ring needs more than the default 48 KB (the first call of
+// a shape runs outside any CUDA graph capture).
+template <int G, int P>
+int launch(Params p, int64_t bt, cudaStream_t s) {
+  using S = Shape<G, P>;
+  static bool raised = false;
+  if (S::kSmem > (48 << 10) && !raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ssm_scan_kernel<G, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(S::kSmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    raised = true;
+  }
+  if (p.D % S::kCb) return static_cast<int>(cudaErrorInvalidValue);
+  p.d_blocks = p.D / S::kCb;
+  p.passes = (p.N + kS * G - 1) / (kS * G);
+  const int64_t blocks = bt * p.d_blocks;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  ssm_scan_kernel<G, P><<<static_cast<unsigned>(blocks), kThreads, S::kSmem,
+                          s>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int G>
-int launch(const float* u, const float* delta, const float* A, const float* Bm,
-           const float* Cm, float* y, float* state, int64_t bt, int L, int D,
-           int N, cudaStream_t stream) {
-  constexpr int DB = kThreads / G;
-  const dim3 grid(static_cast<unsigned>((D + DB - 1) / DB),
-                  static_cast<unsigned>(bt));
-  ssm_scan_kernel<G><<<grid, kThreads, 0, stream>>>(u, delta, A, Bm, Cm, y,
-                                                    state, L, D, N);
-  return static_cast<int>(cudaGetLastError());
+int launch_g(const Params& p, int P, int64_t bt, cudaStream_t s) {
+  switch (P) {
+    case 1: return launch<G, 1>(p, bt, s);
+    case 2: if constexpr (G * 2 <= 32) return launch<G, 2>(p, bt, s); break;
+    case 4: if constexpr (G * 4 <= 32) return launch<G, 4>(p, bt, s); break;
+    case 8: if constexpr (G * 8 <= 32) return launch<G, 8>(p, bt, s); break;
+    case 16: if constexpr (G * 16 <= 32) return launch<G, 16>(p, bt, s); break;
+    case 32: if constexpr (G == 1) return launch<G, 32>(p, bt, s); break;
+    default: break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
+// G: lanes per channel over its states (a power of two, 8 states a lane
+// per pass); P: lanes per channel along L (a power of two, G * P <= 32).
+// The host chooses both (kernels/ssm_scan.py::scan_layout).
 extern "C" int repro_ssm_scan(const void* u, const void* delta, const void* A,
                               const void* Bm, const void* Cm, void* y,
                               void* state, int64_t bt, int L, int D, int N,
-                              void* stream) {
+                              int G, int P, void* stream) {
+  if (N < 1 || reinterpret_cast<uintptr_t>(u) % 16 ||
+      reinterpret_cast<uintptr_t>(delta) % 16 ||
+      reinterpret_cast<uintptr_t>(Bm) % 16 ||
+      reinterpret_cast<uintptr_t>(Cm) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p;
+  p.u = static_cast<const float*>(u);
+  p.dt = static_cast<const float*>(delta);
+  p.A = static_cast<const float*>(A);
+  p.B = static_cast<const float*>(Bm);
+  p.C = static_cast<const float*>(Cm);
+  p.y = static_cast<float*>(y);
+  p.state = static_cast<float*>(state);
+  p.L = L;
+  p.D = D;
+  p.N = N;
+  p.d_blocks = 0;
+  p.passes = 0;
+  p.vec_bc = N % 4 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* pu = static_cast<const float*>(u);
-  const auto* pd = static_cast<const float*>(delta);
-  const auto* pa = static_cast<const float*>(A);
-  const auto* pb = static_cast<const float*>(Bm);
-  const auto* pc = static_cast<const float*>(Cm);
-  auto* py = static_cast<float*>(y);
-  auto* ps = static_cast<float*>(state);
-  if (N <= 1) return launch<1>(pu, pd, pa, pb, pc, py, ps, bt, L, D, N, s);
-  if (N <= 2) return launch<2>(pu, pd, pa, pb, pc, py, ps, bt, L, D, N, s);
-  if (N <= 4) return launch<4>(pu, pd, pa, pb, pc, py, ps, bt, L, D, N, s);
-  if (N <= 8) return launch<8>(pu, pd, pa, pb, pc, py, ps, bt, L, D, N, s);
-  if (N <= 16) return launch<16>(pu, pd, pa, pb, pc, py, ps, bt, L, D, N, s);
-  if (N <= 32) return launch<32>(pu, pd, pa, pb, pc, py, ps, bt, L, D, N, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (G) {
+    case 1: return launch_g<1>(p, P, bt, s);
+    case 2: return launch_g<2>(p, P, bt, s);
+    case 4: return launch_g<4>(p, P, bt, s);
+    case 8: return launch_g<8>(p, P, bt, s);
+    case 16: return launch_g<16>(p, P, bt, s);
+    case 32: return launch_g<32>(p, P, bt, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -564,6 +564,95 @@ def test_fused_zone_agg_tiles_match_plain(card, width, with_sum):
         assert torch.equal(g.cpu(), r)
 
 
+def _agg_case(n_tiles, tile_words, width, k, rng):
+    """Raw operands of ``n_tiles`` tiles of random codes below 2^12, each
+    tile at random skipped (empty zone), closed (zone inside group 0's
+    ranges), closed without SUM only (unknown weight total), evaluated
+    (group 1's narrow ranges) or evaluated with a padding tail."""
+    per = 32 // width
+    maxv = 2 ** min(width, 12)
+    full = tile_words * per
+    codes = rng.integers(0, maxv, n_tiles * full).astype(np.int32)
+    words = bitpack.pack_codes_plain(torch.from_numpy(codes), width)
+    wide = [(0, maxv - 1), (1, 0), (1, maxv - 1)]
+    group0 = [wide[i % 3] for i in range(k)]
+    group1 = [tuple(sorted(rng.integers(0, maxv, 2).tolist()))
+              for _ in range(k)]
+    group1[4::5] = [(1, 0)] * len(group1[4::5])
+    ranges = torch.tensor(group0 + group1, dtype=torch.int64)
+    kind = rng.integers(0, 5, n_tiles)
+    wb = rng.integers(0, 64, n_tiles)
+    rows = {0: lambda i: (0xFFFFFFFF, 0, 0, full, 0, 0),
+            1: lambda i: (1, maxv - 1, 0, full, wb[i], 4242),
+            2: lambda i: (1, maxv - 1, 0, full, wb[i], 0xFFFFFFFF),
+            3: lambda i: (0, maxv - 1, k, full, wb[i], 7),
+            4: lambda i: (0, maxv - 1, k, int(rng.integers(1, full)), wb[i],
+                          0xFFFFFFFF)}
+    meta = torch.tensor([rows[int(c)](i) for i, c in enumerate(kind)],
+                        dtype=torch.int64)
+    weights = torch.from_numpy(rng.integers(-2**31, 2**31, maxv + 64)
+                               .astype(np.int32))
+    return (words, bitpack.to_u32_bits(meta), bitpack.to_u32_bits(ranges),
+            weights)
+
+
+def _check_agg_on_card(card, words, meta, ranges, weights, width, k,
+                       with_sum, tile_words, offset=0):
+    """The kernel against the plain version, both on the card, with the
+    words ``offset`` int32 into their buffer (off a 16-byte line unless 0
+    or 4)."""
+    buf = torch.empty(words.shape[0] + offset, dtype=torch.int32,
+                      device=card)
+    w = buf[offset:]
+    w.copy_(words.to(card))
+    ops_ = (meta.to(card), ranges.to(card), weights.to(card))
+    want = agg_scan.fused_zone_agg_plain(w, *ops_, width, k, with_sum,
+                                         tile_words)
+    before = ops.LAUNCHES["fused_zone_agg"]
+    got = agg_scan.fused_zone_agg(w, *ops_, width, k, with_sum, tile_words)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_zone_agg"] == before + 1
+    for g, r in zip(got, want):
+        assert torch.equal(g, r)
+    return got[4]
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 8, 9, 66])
+@pytest.mark.parametrize("tile_words", [1024, 256, 1000, 1022])
+@pytest.mark.parametrize("with_sum", [False, True])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_fused_zone_agg_instantiations_match_plain(card, k, tile_words,
+                                                   with_sum, offset):
+    """Every register-slot count, 16-byte and 4-byte loads (1022 words a
+    tile, or words one int32 off a 16-byte line), partial rounds (1000 and
+    256 words), padding tails and closed tiles, bit for bit."""
+    width = WIDTHS[(k + tile_words // 8) % len(WIDTHS)]
+    rng = np.random.default_rng(k * 7 + tile_words + 2 * with_sum + offset)
+    words, meta, ranges, weights = _agg_case(40, tile_words, width, k, rng)
+    slots, vec = agg_scan.agg_route(words.to(card)[offset:], k, tile_words)
+    assert vec == (tile_words % 4 == 0 and offset % 4 == 0)
+    flags = _check_agg_on_card(card, words, meta, ranges, weights, width, k,
+                               with_sum, tile_words, offset)
+    assert set(flags.tolist()) == {0, 1, 2}
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("with_sum", [False, True])
+def test_fused_zone_agg_more_tiles_than_the_grid(card, width, with_sum):
+    """More tiles than the grid has warps (each warp walks several tiles of
+    its block's share, with the next tile's words loaded ahead), at K=4,
+    the analytics path's launch."""
+    tile_words = 64
+    # twice the warps of a grid of 2,048 threads on every SM
+    n_tiles = 2 * torch.cuda.get_device_properties(card).multi_processor_count \
+        * 64
+    rng = np.random.default_rng(90 + width + with_sum)
+    words, meta, ranges, weights = _agg_case(n_tiles, tile_words, width, 4,
+                                             rng)
+    _check_agg_on_card(card, words, meta, ranges, weights, width, 4,
+                       with_sum, tile_words)
+
+
 @pytest.mark.parametrize("width", WIDTHS)
 def test_level_histogram_matches_plain(card, width):
     rng = np.random.default_rng(40 + width)
@@ -762,19 +851,55 @@ def test_bloom_probe_has_no_false_negatives(card):
     assert bool(got.all())
 
 
-@pytest.mark.parametrize("shape", [(1, 32, 128, 8), (2, 64, 256, 16),
-                                   (1, 64, 128, 5), (1, 32, 256, 32),
-                                   (1, 32, 128, 1)])
-def test_ssm_scan_matches_plain(card, shape):
+def _ssm_operands(shape, seed):
     B, L, D, N = shape
-    rng = np.random.default_rng(sum(shape))
+    rng = np.random.default_rng(seed)
     u = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32))
     dt = torch.from_numpy(np.abs(rng.normal(size=(B, L, D))).astype(
         np.float32) * 0.1)
     A = torch.from_numpy(-np.abs(rng.normal(size=(D, N))).astype(np.float32))
     Bm = torch.from_numpy(rng.normal(size=(B, L, N)).astype(np.float32))
     Cm = torch.from_numpy(rng.normal(size=(B, L, N)).astype(np.float32))
+    return u, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("shape", [(1, 32, 128, 8), (2, 64, 256, 16),
+                                   (1, 64, 128, 5), (1, 32, 256, 32),
+                                   (1, 32, 128, 1)])
+def test_ssm_scan_matches_plain(card, shape):
+    u, dt, A, Bm, Cm = _ssm_operands(shape, sum(shape))
     want = ssm_scan.ssm_scan_plain(u, dt, A, Bm, Cm)
     got = ssm_scan.ssm_scan(*(t.to(card) for t in (u, dt, A, Bm, Cm)))
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape,time_lanes", [
+    ((1, 64, 128, 48), None), ((1, 64, 128, 64), None),
+    ((1, 512, 1024, 16), None), ((1, 512, 1024, 16), 1),
+    ((1, 512, 1024, 16), 2), ((1, 512, 1024, 16), 16),
+    ((2, 96, 384, 64), None), ((2, 96, 384, 64), 1), ((2, 96, 384, 64), 2),
+    ((1, 64, 128, 300), None), ((3, 160, 256, 13), 8),
+    ((1, 96, 128, 7), 32)])
+def test_ssm_scan_layouts_match_plain_on_the_card(card, shape, time_lanes):
+    """State dimensions past the old limit of 32 (48, 64 and 300: two
+    passes of 256 states), L over several staged chunks and time-lane
+    groups, the lanes along L from 1 to 32, B and C rows off a 16-byte
+    line (N = 13, 7), against the plain version on the card."""
+    ops_ = [t.to(card) for t in _ssm_operands(shape, sum(shape) + 3)]
+    want = ssm_scan.ssm_scan_plain(*ops_)
+    before = ops.LAUNCHES["ssm_scan"]
+    got = ssm_scan.ssm_scan(*ops_, time_lanes=time_lanes)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssm_scan"] == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_ssm_scan_takes_more_batch_rows_than_a_grid_dimension(card):
+    """65,543 batch rows (the old kernel's grid.y held 65,535)."""
+    ops_ = [t.to(card) for t in _ssm_operands((65543, 4, 128, 2), 11)]
+    want = ssm_scan.ssm_scan_plain(*ops_, chunk=4)
+    got = ssm_scan.ssm_scan(*ops_, chunk=4)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)

@@ -541,6 +541,26 @@ def test_zone_histogram_plain_matches_jax_kernel_and_oracle(width):
         assert np.array_equal(got[1].numpy(), np.asarray(want[1]).reshape(-1))
 
 
+@pytest.mark.parametrize("k,slots", [(1, 1), (2, 2), (3, 4), (4, 4),
+                                     (5, 8), (8, 8), (9, 8), (66, 8),
+                                     (4096, 8)])
+def test_agg_route_picks_the_fewest_slots(k, slots):
+    words = torch.zeros(4 * 1024 + 4, dtype=torch.int32)
+    for tile_words in (1024, 256, 1000):
+        assert agg_scan.agg_route(words, k, tile_words) == (slots, True)
+
+
+@pytest.mark.parametrize("tile_words,offset", [(1001, 0), (1022, 0),
+                                               (1024, 1), (256, 2), (1, 0)])
+def test_agg_route_loads_4_bytes_off_a_16_byte_group(tile_words, offset):
+    """A tile_words that is not a multiple of 4, or words that do not start
+    on a 16-byte line, take the 4-byte loads, always with 8 slots."""
+    words = torch.zeros(4 * 1024 + 4, dtype=torch.int32)[offset:]
+    assert words.data_ptr() % 16 == 4 * offset % 16
+    for k in (1, 4, 66):
+        assert agg_scan.agg_route(words, k, tile_words) == (8, False)
+
+
 def test_agg_kernels_reject_bad_operands():
     words = torch.zeros(TILE, dtype=torch.int32)
     meta = torch.zeros((1, 6), dtype=torch.int32)

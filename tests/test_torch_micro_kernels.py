@@ -17,7 +17,9 @@ Pallas kernel in interpret mode at its (256, 128) tile and against its
   where ``ref.bloom_probe`` clamps the index and hits), and no false
   negative for keys inserted by mix32;
 * ``ssm_scan``: y and the final state within the reference test's own
-  tolerance (rtol = atol = 3e-5) at its shapes, chunk 16 and 32.
+  tolerance (rtol = atol = 3e-5) at its shapes and at state dimensions 48
+  and 64, chunk 16 and 32; and the kernel's lane layout (``scan_layout``),
+  which the CPU never launches but chooses from shapes alone.
 
 The CUDA kernels are held against these plain versions on the card in
 ``test_torch_gpu.py``.
@@ -229,7 +231,8 @@ def _ssm_inputs(shape, seed):
 
 
 @pytest.mark.parametrize("shape", [(1, 32, 128, 8), (2, 64, 256, 16),
-                                   (3, 96, 384, 16)])
+                                   (3, 96, 384, 16), (1, 32, 128, 48),
+                                   (1, 32, 128, 64)])
 @pytest.mark.parametrize("chunk", [16, 32])
 def test_ssm_scan_plain_matches_pallas(shape, chunk):
     arrays = _ssm_inputs(shape, sum(shape) + chunk)
@@ -271,3 +274,33 @@ def test_ssm_scan_keeps_the_reference_shape_contract(bad):
         Cm = Cm[:, :, :8]
     with pytest.raises(ValueError):
         ops.ssm_scan(u, dt, A, Bm, Cm, chunk=32)
+
+
+@pytest.mark.parametrize("bt,d,n,length,sms,want", [
+    (1, 8192, 16, 2048, 132, (2, 2)),     # falcon-mamba-7b: P = 2
+    (8, 8192, 16, 2048, 132, (2, 1)),     # a batch of 8 fills the card
+    (1, 2048, 16, 2048, 132, (2, 8)),     # a quarter of falcon: P = 8
+    (1, 128, 1, 32, 132, (1, 8)),         # P at most a lane per 4 steps
+    (1, 128, 8, 4096, 132, (1, 32)),      # P at most a warp
+    (1, 1024, 48, 512, 132, (8, 4)),      # 6 groups of 8 states round to 8
+    (2, 384, 64, 96, 132, (8, 4)),
+    (1, 128, 300, 64, 132, (32, 1)),      # past 256 states: passes
+    (70000, 128, 2, 4, 132, (1, 1)),      # batch rows past 65,535
+    (1, 128, 16, 1, 132, (2, 1)),
+])
+def test_ssm_scan_layout_fills_the_card(bt, d, n, length, sms, want):
+    g, p = ssm_scan.scan_layout(bt, d, n, length, sms)
+    assert (g, p) == want
+    assert g * p <= ssm_scan.WARP and g & (g - 1) == 0 and p & (p - 1) == 0
+    assert g * ssm_scan.STATES_PER_LANE >= min(n, 256)
+    lanes = bt * d * g * p
+    assert lanes >= sms * ssm_scan.FILL_LANES_PER_SM or \
+        p == min(ssm_scan.WARP // g, max(1, 1 << ((length + 3) // 4).bit_length() - 1))
+
+
+def test_ssm_scan_layout_takes_time_lanes():
+    assert ssm_scan.scan_layout(1, 8192, 16, 2048, 132, time_lanes=4) == (2, 4)
+    assert ssm_scan.scan_layout(1, 8192, 16, 2048, 132, time_lanes=1) == (2, 1)
+    for bad in (0, 3, 32):
+        with pytest.raises(ValueError):
+            ssm_scan.scan_layout(1, 8192, 16, 2048, 132, time_lanes=bad)
