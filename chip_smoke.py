@@ -96,9 +96,11 @@ Phases, each printing JSON lines:
             with every entry dead (streams_only_cold_graph_ms: no gather),
             and the width-32 unpack and clone at 8 times its n
             (cold_graph_ms_8n, library_cold_graph_ms_8n).  ssm_scan is also
-            timed cold with 1, 2, 4 and 8 lanes along L set by hand
-            (time_lanes_cold_graph_ms) and at state dimensions 1, 8 and 32
-            on the same u and delta (state_dim_cold_graph_ms).  Their rows
+            timed cold at state dimensions 1, 8 and 32 on the same u and
+            delta (state_dim_cold_graph_ms), and fused_zone_agg cold at K
+            = 1 and 2 on the same tiles in its 1- and 2-slot
+            instantiations and in its 8-slot one (slots_cold_graph_ms).
+            Their rows
             carry the registers, shared memory and spills of every
             instantiation of their kernel at that width, from the build's
             -Xptxas=-v log.
@@ -1721,6 +1723,16 @@ def kernel_phase(recs, launches: dict, bw: float, bench: dict,
                       if f"<{width}," in r["function"]],
             "graph_ms": hot_graph_ms(agg, aw, am, ar, awt),
             "cold_graph_ms": cold_graph_ms(agg, nbytes, aw, am, ar, awt)})
+        # K = 1 and 2 on the same tiles (each tile's first ranges), cold, in
+        # the instantiation agg_route picks and in the 8-slot one: what the
+        # 1- and 2-slot instantiations are judged by
+        if vec:
+            rows[-1]["slots_cold_graph_ms"] = {
+                f"K={kk} slots={sl}": cold_graph_ms(functools.partial(
+                    agg_scan._launch_agg, width=width, n_preds=kk,
+                    with_sum=with_sum, tile_words=tw, slots=sl, vec=True),
+                    nbytes, aw, am, ar, awt)
+                for kk in (1, 2) for sl in (kk, 8)}
         if with_sum:
             gathers = agg_gathers(aw, am, ar, width, k, tw, flags)
             rows[-1].update({"gathers": gathers,
@@ -1842,22 +1854,17 @@ def kernel_phase(recs, launches: dict, bw: float, bench: dict,
         tol=SSM_TOL, op_bound_ms=max(exp_ms, flop_ms), plain_reps=5))
     scan = ssm_scan.ssm_scan
     nbytes = rows[-1]["bytes"]
-    g, p = ssm_scan.scan_layout(B, D, N, L, rates["sm_count"])
     rows[-1].update({"exps": elems, "exp_ms": exp_ms, "flops": 6 * elems,
-                     "flop_ms": flop_ms, "state_lanes": g, "time_lanes": p,
+                     "flop_ms": flop_ms,
+                     "state_lanes": ssm_scan.scan_layout(N),
+                     "states_per_lane": ssm_scan.STATES_PER_LANE,
+                     "steps_per_round": ssm_scan.STEPS_PER_ROUND,
                      "ptxas": ptxas_resources(log, SYMBOLS["ssm_scan"]),
                      "graph_ms": hot_graph_ms(scan, u, dt, A, Bm, Cm),
                      "cold_graph_ms": cold_graph_ms(
                          scan, nbytes, u, dt, A, Bm, Cm)})
-    # the same scan with P lanes along L set by hand, cold: what the
-    # layout's choice of P is judged by
-    rows[-1]["time_lanes_cold_graph_ms"] = {
-        tl: cold_graph_ms(functools.partial(scan, time_lanes=tl), nbytes, u,
-                          dt, A, Bm, Cm)
-        for tl in (1, 2, 4, 8)}
-    # the same u and delta with other state dimensions, cold, each in its
-    # default layout: the streams and y stay while the lanes' groups of 8
-    # states grow with N (N = 1 and N = 8 both fill one group a channel)
+    # the same u and delta with other state dimensions, cold: the streams
+    # and y stay while a channel's lanes grow with N
     gen = torch.Generator(device=u.device).manual_seed(1)
     sweep = {}
     for n in (1, 8, 32):

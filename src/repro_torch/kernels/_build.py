@@ -57,7 +57,7 @@ _SIGNATURES = {
     "repro_remap_codes": [_P] * 5 + [_I64, _INT, _P],
     "repro_range_filter_packed": [_P, _U32, _U32, _P, _P, _I64, _INT, _INT, _P],
     "repro_bloom_probe": [_P, _I64, _U32, _P, _I64, _INT, _P, _P],
-    "repro_ssm_scan": [_P] * 7 + [_I64] + [_INT] * 5 + [_P],
+    "repro_ssm_scan": [_P] * 7 + [_I64] + [_INT] * 4 + [_P],
 }
 
 
@@ -93,7 +93,7 @@ def _sources():
 
 def _flags() -> list:
     """``NVCC_FLAGS`` and the tile constants that the kernel modules own."""
-    from repro_torch.kernels import bitpack, merge_remap
+    from repro_torch.kernels import bitpack, merge_remap, ssm_scan
 
     return NVCC_FLAGS + [
         f"-DREPRO_UNPACK_THREADS={bitpack.UNPACK_THREADS}",
@@ -101,7 +101,9 @@ def _flags() -> list:
         f"-DREPRO_PACK_THREADS={bitpack.PACK_THREADS}",
         f"-DREPRO_PACK_GROUPS={bitpack.PACK_GROUPS}",
         f"-DREPRO_REMAP_THREADS={merge_remap.REMAP_THREADS}",
-        f"-DREPRO_REMAP_GROUPS={merge_remap.REMAP_GROUPS}"]
+        f"-DREPRO_REMAP_GROUPS={merge_remap.REMAP_GROUPS}",
+        f"-DREPRO_SSM_STATES={ssm_scan.STATES_PER_LANE}",
+        f"-DREPRO_SSM_ROUND={ssm_scan.STEPS_PER_ROUND}"]
 
 
 def library_path() -> Path:
@@ -164,13 +166,6 @@ def library() -> ctypes.CDLL:
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
-
-
-def sm_count(device: torch.device) -> int:
-    """SMs of the card ``device``, for a wrapper that sizes its kernel's
-    layout to the card; the library is loaded first, as for a launch."""
-    library()
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:

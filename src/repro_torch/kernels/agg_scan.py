@@ -173,6 +173,19 @@ def fused_zone_agg(
     if not _build.on_card(words, meta, ranges, weights):
         return fused_zone_agg_plain(words, meta, ranges, weights, width,
                                     n_preds, with_sum, tile_words)
+    return _launch_agg(words, meta, ranges, weights, width, n_preds,
+                       with_sum, tile_words,
+                       *agg_route(words, n_preds, tile_words))
+
+
+def _launch_agg(words, meta, ranges, weights, width: int, n_preds: int,
+                with_sum: bool, tile_words: int, slots: int,
+                vec: bool) -> Tuple[torch.Tensor, ...]:
+    """``fused_zone_agg`` on the card at the instantiation ``(slots,
+    vec)``.  With 16-byte loads any of ``AGG_SLOTS`` takes any K (slots
+    past K hold empty ranges; 8 slots run K above 8 in chunks); 4-byte
+    loads take 8 slots only.  ``vec`` needs what ``agg_route`` asks of
+    it."""
     check_width(width)
     n_tiles = _check_agg(words, meta, ranges, weights, n_preds, with_sum,
                          tile_words)
@@ -187,7 +200,6 @@ def fused_zone_agg(
     sums = torch.empty((n_tiles, n_preds), dtype=torch.int64, device=dev)
     flags = torch.empty(n_tiles, dtype=torch.int32, device=dev)
     if n_tiles:
-        slots, vec = agg_route(words, n_preds, tile_words)
         _build.launch("fused_zone_agg", "repro_fused_zone_agg", dev,
                       words.data_ptr(), meta.data_ptr(), ranges.data_ptr(),
                       weights.data_ptr(), counts.data_ptr(), mins.data_ptr(),

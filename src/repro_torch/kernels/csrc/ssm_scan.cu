@@ -6,50 +6,63 @@
 // Inputs, float32 and contiguous: u, delta [Bt, L, D], A [D, N], B, C
 // [Bt, L, N].  Outputs: y [Bt, L, D] and the final state [Bt, D, N].
 //
-// What bounds it on this card: one exp per (b, t, d, n) at the SFU rate of
-// 16 per clock per SM, and about as much time for the bytes of u, delta
-// and y (12 per (b, t, d)).  At falcon-mamba-7b's mixer width the two are
-// 0.064 and 0.061 ms, so the design streams u and delta behind the
-// arithmetic and keeps every instruction it can off the element path:
+// What bounds it on this card: one exp per (b, t, d, n), and about as much
+// time for the bytes of u, delta and y (12 per (b, t, d)).  The exp is
+// expf, the function the plain version's torch.exp runs: a range reduction
+// of 7 instructions around one MUFU.EX2.  With the recurrence an
+// element takes 15.75 instructions in the round loop (FFMA 5, FMUL 4.25,
+// FADD 2.2, LDS, SHF, MUFU 1 each), so instruction issue, not the SFU,
+// sets the arithmetic's floor; at falcon-mamba-7b's mixer (B 1, D 8,192,
+// N 16) the kernel also has only 8 warps an SM to hide latency with
+// (tools/ssm_scan_probe.py measures both, PERF.md section 6).  A bare
+// ex2.approx of dt * a * log2(e), one instruction, left rtol = atol =
+// 1e-4 of the plain version at that width, so it is not used.
 //
-// - States in registers.  A thread owns one channel d and kS = 8 of its
-//   states; G lanes (a power of two, ceil(N / 8) rounded up, at most 32)
-//   cover the states of a channel, and y_t's partial is summed in
-//   registers, then over the G lanes with log2(G) shuffles per step.  A
-//   state dimension above 8 * 32 runs in passes of 256 states, each pass
-//   adding its part of y.  Per element: the exponent dt * a, its expf,
-//   dt * u * B and two fused multiply-adds.
-// - The exp is expf, the function the plain version's torch.exp runs (a
-//   range reduction around one MUFU.EX2, 8 instructions).  A bare
-//   ex2.approx of dt * a * log2(e), one instruction, was tried: at
-//   falcon-mamba-7b's width its y left rtol = atol = 1e-4 of the plain
-//   version (chip_smoke.py: max |err| 0.00134), so it is not used.  With
-//   expf the FP32 pipes, which run its range reduction beside the
-//   recurrence (about 12 instructions an element), and not the SFU bound
-//   the kernel.
-// - Parallelism along L where channels x state groups do not fill the
-//   card (the host picks P, the lanes along L).  With P > 1 the P lanes
-//   of a channel each hold kT consecutive steps' affine maps (exp(dt A),
-//   dt u B) per state,
-//   compose them, combine the P compositions with a Kogge-Stone warp scan
-//   of (a1, b1) o (a2, b2) = (a1 a2, a2 b1 + b2), carry the state from one
-//   group of P * kT steps to the next, and walk their steps again from the
-//   scanned state to form y: still one exp per element, as the public
-//   mamba selective-scan kernel does it.
-// - Overlapped staging.  A block of 128 threads takes 128 / (G P) channels
-//   of one batch row (and one pass of states); it stages CH steps of u and
+// The design:
+//
+// - The recurrence rounds as the plain version does.  x_t = e * x + b is
+//   a multiply and an add, each rounded (no fused multiply-add), with
+//   e = expf(dt * a) and b = (dt * u) * B rounded as the plain version
+//   rounds them, so the state walks the plain version's float32 values
+//   step by step and only y's short sum over the states is ordered
+//   differently.  Over thousands of steps with decays near 1 (small
+//   |A| dt, a trained mamba's regime) any other order drifts: a scan of
+//   the steps' affine maps along L (lanes composing (exp(dt A), dt u B)
+//   and combining them by shuffles) left 1e-4 of plain there, and was
+//   removed.
+// - States in registers.  A thread owns one channel d and kS of its
+//   states (kS = REPRO_SSM_STATES, set by kernels/ssm_scan.py); G lanes (a
+//   power of two, ceil(N / kS) rounded up, at most 32) cover a channel's
+//   states.  A state dimension above kS * 32 runs in passes, each pass
+//   adding its part of y.  The parallelism is channels x state groups: kS
+//   sets how many lanes a channel takes, so it trades warps on the card
+//   against the per-step work a lane repeats (dt, u, dt * u, the y sums).
+// - Rounds of kT steps (REPRO_SSM_ROUND, set by kernels/ssm_scan.py): a
+//   round's exps and (dt u) B first (independent of x), then its state
+//   updates and y partials, so no step's chain of dependent instructions
+//   holds up the next step's loads and exps.  The round's kT partials are
+//   then summed over the G lanes by halving: at each shuffle level a lane
+//   keeps half the steps and sends the other half to its partner, so the
+//   G lanes end with kT / G steps' sums each and every y is stored once
+//   (kT - 1 shuffles a round where G <= kT, against kT log2(G)).
+// - Overlapped staging.  A block of 128 threads takes 128 / G channels of
+//   one batch row (and one pass of states); it stages CH steps of u and
 //   delta for its channels (rows of 16-byte cp.async.cg copies) and of B
 //   and C for the pass's states (cp.async.ca: every block of the row reads
 //   them, so they stay in L1) into a ring of kStages buffers in shared
 //   memory, kStages - 1 chunks ahead of the one it computes, with one
-//   __syncthreads per chunk.  B and C are read as broadcast 16-byte loads;
-//   steps past L are zero-filled (dt = 0: the identity map).  y goes out
-//   as runs of a warp's channels (32 bytes or more) with streaming stores.
-// - G and P are template parameters (21 pairs, G * P <= 32), so the chunk
-//   length, the staged strides and every shuffle are constants and the
-//   steps carry no branch (y is stored under a predicate): with them as
-//   runtime values the lane reductions were loops and each step a chain
-//   of its own.
+//   __syncthreads per chunk.  B and C are read as broadcast vector loads;
+//   steps past L are zero-filled (dt = 0: the identity map) and store
+//   nothing.  y goes out with streaming stores.
+// - G is a template parameter (6 instantiations), and so are the first
+//   pass (stores; later passes add) and a chunk that runs past L (stores
+//   under a bound), so the chunk length, the staged strides and every
+//   shuffle are constants and a full chunk's rounds carry no branch.
+//
+// REPRO_SSM_SPLIT (diagnostics, tools/ssm_scan_probe.py; 0 in the
+// library): 1 drops the recurrence (y_t = dt * u, staging and stores
+// stay), 2 drops the staging (the recurrence runs on the ring as it
+// stands), so the probe can say which share of the time each part takes.
 //
 // The grid is one block per (batch row, channel block): the batch and the
 // channels are one flat grid dimension, so neither has a limit of its own
@@ -58,16 +71,31 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#ifndef REPRO_SSM_STATES
+#define REPRO_SSM_STATES 4
+#endif
+#ifndef REPRO_SSM_SPLIT
+#define REPRO_SSM_SPLIT 0
+#endif
+#ifndef REPRO_SSM_ROUND
+#define REPRO_SSM_ROUND 8
+#endif
+
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kS = 8;            // states a thread holds
-constexpr int kT = 4;            // steps of a lane's round
-constexpr int kStages = 4;       // chunks in the shared-memory ring
-constexpr int kPad = 4;          // floats past each staged row
-constexpr int kMaxChunk = 64;    // steps a chunk stages at most
+constexpr int kS = REPRO_SSM_STATES;   // states a thread holds
+constexpr int kSplit = REPRO_SSM_SPLIT;
+constexpr int kT = REPRO_SSM_ROUND;    // steps of a round
+constexpr int kStages = 4;             // chunks in the shared-memory ring
+constexpr int kPad = 4;                // floats past each staged row
+constexpr int kMaxChunk = 64;          // steps a chunk stages at most
 constexpr int kStageFloats = 4096;
 constexpr unsigned kFull = 0xFFFFFFFFu;
+static_assert(kS == 1 || kS == 2 || kS == 4 || kS == 8,
+              "REPRO_SSM_STATES must be 1, 2, 4 or 8");
+static_assert(kT == 2 || kT == 4 || kT == 8 || kT == 16,
+              "REPRO_SSM_ROUND must be 2, 4, 8 or 16");
 
 // the most steps (a power of two, at most kMaxChunk) whose staged rows of
 // `row` floats fit kStageFloats
@@ -77,19 +105,19 @@ __host__ __device__ constexpr int chunk_fit(int row) {
   return ch;
 }
 
-// The block's layout for G state lanes and P time lanes a channel.
-template <int G, int P>
+// The block's layout for G state lanes a channel.
+template <int G>
 struct Shape {
-  static constexpr int kCb = kThreads / (G * P);   // channels a block
+  static constexpr int kCb = kThreads / G;         // channels a block
   static constexpr int kSd = kCb + kPad;           // staged dt / u row
-  static constexpr int kSb = kS * G + kPad;        // staged B / C row
+  static constexpr int kW = kS * G;                // states a pass
+  static constexpr int kSb = kW + kPad;            // staged B / C row
   static constexpr int kRow = 2 * (kSd + kSb);     // floats a step
-  static constexpr int kSpan = P * kT;             // steps of one round
-  // steps a chunk: at least one round of the P time lanes
-  static constexpr int kCh =
-      chunk_fit(kRow) < kSpan ? kSpan : chunk_fit(kRow);
+  // steps a chunk, at least a round
+  static constexpr int kCh = chunk_fit(kRow) < kT ? kT : chunk_fit(kRow);
   static constexpr int kStage = kCh * kRow;        // floats a stage
   static constexpr size_t kSmem = sizeof(float) * kStages * kStage;
+  static_assert(kCh % kT == 0, "a chunk holds whole rounds");
 };
 
 struct Params {
@@ -102,7 +130,7 @@ struct Params {
   float* state;
   int L, D, N;
   int d_blocks;       // D / channels a block
-  int passes;         // of 8 * G states
+  int passes;         // of kS * G states
   bool vec_bc;        // B and C rows on 16-byte lines (N % 4 == 0)
 };
 
@@ -143,13 +171,14 @@ __device__ __forceinline__ void cp_wait() {
 }
 
 // Stage chunk k (steps k*CH .. k*CH+CH-1) of batch row b, channels d0 ..
-// d0+Cb-1 and states n0 .. n0+8G-1 into `buf`: dt [CH][Sd], u [CH][Sd],
+// d0+Cb-1 and states n0 .. n0+kW-1 into `buf`: dt [CH][Sd], u [CH][Sd],
 // B [CH][Sb], C [CH][Sb].
-template <int G, int P>
+template <int G>
 __device__ __forceinline__ void stage_chunk(const Params& p, float* buf,
                                             int64_t b, int d0, int n0,
                                             int k) {
-  using S = Shape<G, P>;
+  using S = Shape<G>;
+  if constexpr (kSplit == 2) return;
   const int t0 = k * S::kCh;
   float* s_dt = buf;
   float* s_u = buf + S::kCh * S::kSd;
@@ -164,71 +193,171 @@ __device__ __forceinline__ void stage_chunk(const Params& p, float* buf,
     cp16_cg(s_dt + r * S::kSd + j, p.dt + off, ok);
     cp16_cg(s_u + r * S::kSd + j, p.u + off, ok);
   }
-  constexpr int w = kS * G;                    // states a row
-  if (p.vec_bc) {
-    constexpr int qb = w / 4;
+  constexpr int w = S::kW;
+  if constexpr (w % 4 == 0) {
+    if (p.vec_bc) {
+      constexpr int qb = w / 4;
 #pragma unroll
-    for (int i = threadIdx.x; i < S::kCh * qb; i += kThreads) {
-      const int r = i / qb, j = (i % qb) * 4;
-      const bool ok = t0 + r < p.L && n0 + j < p.N;
-      const int64_t off = ok ? (b * p.L + t0 + r) * p.N + n0 + j : 0;
-      cp16_ca(s_b + r * S::kSb + j, p.B + off, ok);
-      cp16_ca(s_c + r * S::kSb + j, p.C + off, ok);
+      for (int i = threadIdx.x; i < S::kCh * qb; i += kThreads) {
+        const int r = i / qb, j = (i % qb) * 4;
+        const bool ok = t0 + r < p.L && n0 + j < p.N;
+        const int64_t off = ok ? (b * p.L + t0 + r) * p.N + n0 + j : 0;
+        cp16_ca(s_b + r * S::kSb + j, p.B + off, ok);
+        cp16_ca(s_c + r * S::kSb + j, p.C + off, ok);
+      }
+      return;
     }
+  }
+  for (int i = threadIdx.x; i < S::kCh * w; i += kThreads) {
+    const int r = i / w, j = i % w;
+    const bool ok = t0 + r < p.L && n0 + j < p.N;
+    const int64_t off = ok ? (b * p.L + t0 + r) * p.N + n0 + j : 0;
+    cp4_ca(s_b + r * S::kSb + j, p.B + off, ok);
+    cp4_ca(s_c + r * S::kSb + j, p.C + off, ok);
+  }
+}
+
+// a lane's kS staged states of one step, as one or two vector loads
+__device__ __forceinline__ void load_states(const float* s, float (&v)[kS]) {
+  if constexpr (kS == 8) {
+    const float4 a = *reinterpret_cast<const float4*>(s);
+    const float4 c = *reinterpret_cast<const float4*>(s + 4);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = c.x; v[5] = c.y; v[6] = c.z; v[7] = c.w;
+  } else if constexpr (kS == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(s);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  } else if constexpr (kS == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(s);
+    v[0] = a.x; v[1] = a.y;
   } else {
-    for (int i = threadIdx.x; i < S::kCh * w; i += kThreads) {
-      const int r = i / w, j = i % w;
-      const bool ok = t0 + r < p.L && n0 + j < p.N;
-      const int64_t off = ok ? (b * p.L + t0 + r) * p.N + n0 + j : 0;
-      cp4_ca(s_b + r * S::kSb + j, p.B + off, ok);
-      cp4_ca(s_c + r * S::kSb + j, p.C + off, ok);
+    v[0] = *s;
+  }
+}
+
+// The lanes along a channel's states that hold a step's y sum after
+// reduce_steps: kT / G steps a lane where G <= kT, else one step a group
+// of G / kT lanes, of which the lowest stores it.
+template <int G>
+struct Own {
+  static constexpr int kSteps = G >= kT ? 1 : kT / G;
+};
+
+// the first of the steps a lane holds after reduce_steps
+template <int G>
+__device__ __forceinline__ int own_first(int g) {
+  int off = 0;
+#pragma unroll
+  for (int m = 1; m < G && m < kT; m <<= 1)
+    if (g & m) off += kT / (2 * m);
+  return off;
+}
+
+// Sums the round's kT partials of y over the G lanes of a channel,
+// halving the steps a lane keeps at each level (it sends the other half
+// to its partner lane): lane g ends with the sums of steps own_first(g) ..
+// own_first(g) + Own<G>::kSteps - 1 in v[0 ..], after log2(G) shuffle
+// levels of kT / 2, kT / 4, ... shuffles (then 1 a level past kT lanes).
+template <int M, int G, int HAVE>
+__device__ __forceinline__ void reduce_steps(float (&v)[kT], int g) {
+  if constexpr (M < G) {
+    if constexpr (HAVE > 1) {
+      constexpr int n = HAVE / 2;
+      const bool upper = (g & M) != 0;
+#pragma unroll
+      for (int j = 0; j < n; ++j) {
+        const float send = upper ? v[j] : v[j + n];
+        const float keep = upper ? v[j + n] : v[j];
+        v[j] = keep + __shfl_xor_sync(kFull, send, M);
+      }
+      reduce_steps<M * 2, G, n>(v, g);
+    } else {
+      v[0] += __shfl_xor_sync(kFull, v[0], M);
+      reduce_steps<M * 2, G, 1>(v, g);
     }
   }
 }
 
-__device__ __forceinline__ void load8(const float* s, float (&v)[kS]) {
-  const float4 a = *reinterpret_cast<const float4*>(s);
-  const float4 c = *reinterpret_cast<const float4*>(s + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = c.x; v[5] = c.y; v[6] = c.z; v[7] = c.w;
-}
-
-// y's partial of a step over the G lanes of a channel
-template <int G>
-__device__ __forceinline__ float sum_groups(float v) {
+// One staged chunk's rounds for a lane.  FIRST: the first pass of states,
+// which stores y (later passes add theirs with one atomicAdd an address,
+// after the block barrier that ends the pass before); TAIL: the chunk
+// runs past L, so a step at or past `left` (steps from the lane's first
+// own step to L) stores nothing.  yp: y at the lane's first own step of
+// the chunk; `step`: D, y's stride from one step to the next.
+template <int G, bool FIRST, bool TAIL>
+__device__ __forceinline__ void run_chunk(
+    const float* s_dt, const float* s_u, const float* s_b, const float* s_c,
+    const float (&a)[kS], float (&x)[kS], float* yp, int64_t step,
+    int left, int c, int g) {
+  using S = Shape<G>;
+  constexpr int Sd = S::kSd, Sb = S::kSb, CH = S::kCh;
+  const bool lead = G <= kT || g < kT;
+#pragma unroll 1
+  for (int r0 = 0; r0 < CH; r0 += kT) {
+    float py[kT];
+    if constexpr (kSplit == 1) {
 #pragma unroll
-  for (int off = 1; off < G; off <<= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
+      for (int i = 0; i < kT; ++i)
+        py[i] = s_dt[(r0 + i) * Sd + c] * s_u[(r0 + i) * Sd + c];
+    } else {
+      // the round's exps and (dt u) B first (independent of x), then its
+      // state updates and y partials
+      float ea[kT][kS], eb[kT][kS];
+#pragma unroll
+      for (int i = 0; i < kT; ++i) {
+        const float dtv = s_dt[(r0 + i) * Sd + c];
+        const float dtu = dtv * s_u[(r0 + i) * Sd + c];
+        float bv[kS];
+        load_states(s_b + (r0 + i) * Sb, bv);
+#pragma unroll
+        for (int s = 0; s < kS; ++s) {
+          ea[i][s] = expf(dtv * a[s]);
+          eb[i][s] = dtu * bv[s];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kT; ++i) {
+        float cv[kS];
+        load_states(s_c + (r0 + i) * Sb, cv);
+        py[i] = 0.f;
+#pragma unroll
+        for (int s = 0; s < kS; ++s) {
+          // rounded as the plain version rounds: no fused multiply-add
+          x[s] = __fadd_rn(__fmul_rn(ea[i][s], x[s]), eb[i][s]);
+          py[i] = fmaf(cv[s], x[s], py[i]);
+        }
+      }
+    }
+    reduce_steps<1, G, kT>(py, g);
+#pragma unroll
+    for (int j = 0; j < Own<G>::kSteps; ++j) {
+      float* dst = yp + j * step;
+      if (lead && (!TAIL || r0 + j < left)) {
+        if constexpr (FIRST)
+          __stcs(dst, py[j]);
+        else
+          atomicAdd(dst, py[j]);
+      }
+    }
+    yp += kT * step;
+  }
 }
 
-// y of one (step, channel) when the step is real.  Every lane of the
-// channel holds the sum and the first pass stores it from all of them (one
-// address, one transaction), so no lane branches off; a later pass of
-// states adds its part from lane 0 alone (one adder an address, after the
-// same thread's store: the same sums in the same order, and no load).
-__device__ __forceinline__ void put_y(float* y, float v, bool real, int pass,
-                                      int g) {
-  if (real && pass == 0) __stcs(y, v);
-  if (real && pass != 0 && g == 0) atomicAdd(y, v);
-}
-
-template <int G, int P>
+template <int G>
 __global__ void __launch_bounds__(kThreads) ssm_scan_kernel(Params p) {
-  using S = Shape<G, P>;
-  constexpr int Cb = S::kCb, Sd = S::kSd, Sb = S::kSb, CH = S::kCh;
+  using S = Shape<G>;
+  constexpr int Sd = S::kSd, Sb = S::kSb, CH = S::kCh;
   extern __shared__ __align__(16) float smem[];
   const int64_t b = blockIdx.x / p.d_blocks;
-  const int d0 = static_cast<int>(blockIdx.x % p.d_blocks) * Cb;
+  const int d0 = static_cast<int>(blockIdx.x % p.d_blocks) * S::kCb;
   const int g = threadIdx.x % G;
-  const int lp = (threadIdx.x / G) % P;
-  const int c = threadIdx.x / (G * P);
+  const int c = threadIdx.x / G;
   const int d = d0 + c;
-  const int lane = threadIdx.x & 31;
-  const int last = lane + (P - 1 - lp) * G;    // lane of time lane P-1
+  const int off = own_first<G>(g);
   const int n_chunks = (p.L + CH - 1) / CH;
 
   for (int pass = 0; pass < p.passes; ++pass) {
-    const int n0 = pass * kS * G;
+    const int n0 = pass * S::kW;
     float a[kS], x[kS];
 #pragma unroll
     for (int s = 0; s < kS; ++s) {
@@ -237,8 +366,7 @@ __global__ void __launch_bounds__(kThreads) ssm_scan_kernel(Params p) {
       x[s] = 0.f;
     }
     for (int k = 0; k < kStages - 1; ++k) {
-      if (k < n_chunks)
-        stage_chunk<G, P>(p, smem + k * S::kStage, b, d0, n0, k);
+      if (k < n_chunks) stage_chunk<G>(p, smem + k * S::kStage, b, d0, n0, k);
       cp_commit();
     }
     for (int ch = 0; ch < n_chunks; ++ch) {
@@ -246,8 +374,7 @@ __global__ void __launch_bounds__(kThreads) ssm_scan_kernel(Params p) {
       __syncthreads();
       const int nk = ch + kStages - 1;
       if (nk < n_chunks)
-        stage_chunk<G, P>(p, smem + (nk % kStages) * S::kStage, b, d0, n0,
-                          nk);
+        stage_chunk<G>(p, smem + (nk % kStages) * S::kStage, b, d0, n0, nk);
       cp_commit();
 
       const float* s_dt = smem + (ch % kStages) * S::kStage;
@@ -255,171 +382,69 @@ __global__ void __launch_bounds__(kThreads) ssm_scan_kernel(Params p) {
       const float* s_b = s_dt + 2 * CH * Sd + g * kS;
       const float* s_c = s_b + CH * Sb;
       const int t0 = ch * CH;
-      float* yc = p.y + (b * p.L + t0) * p.D + d;   // y at step t0
-      if constexpr (P == 1) {
-        // one lane per (channel, state group): the recurrence in rounds of
-        // kT steps, each round's exps and dt u B first (independent of x),
-        // then its state updates, then its kT y sums and stores together,
-        // so no step's tail of dependent instructions holds up the next
-        // step's loads and exps.  Steps past L are the identity and store
-        // nothing.
-#pragma unroll 1
-        for (int r0 = 0; r0 < CH; r0 += kT) {
-          float ea[kT][kS], eb[kT][kS], py[kT];
-#pragma unroll
-          for (int i = 0; i < kT; ++i) {
-            const float dtv = s_dt[(r0 + i) * Sd + c];
-            const float dtu = dtv * s_u[(r0 + i) * Sd + c];
-            float bv[kS];
-            load8(s_b + (r0 + i) * Sb, bv);
-#pragma unroll
-            for (int s = 0; s < kS; ++s) {
-              ea[i][s] = expf(dtv * a[s]);
-              eb[i][s] = dtu * bv[s];
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < kT; ++i) {
-            float cv[kS];
-            load8(s_c + (r0 + i) * Sb, cv);
-            py[i] = 0.f;
-#pragma unroll
-            for (int s = 0; s < kS; ++s) {
-              x[s] = fmaf(ea[i][s], x[s], eb[i][s]);
-              py[i] = fmaf(cv[s], x[s], py[i]);
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < kT; ++i) py[i] = sum_groups<G>(py[i]);
-#pragma unroll
-          for (int i = 0; i < kT; ++i)
-            put_y(yc + int64_t(r0 + i) * p.D, py[i], t0 + r0 + i < p.L, pass,
-                  g);
-        }
+      float* yp = p.y + (b * p.L + t0 + off) * p.D + d;
+      const int left = p.L - t0 - off;
+      const int64_t step = p.D;
+      if (pass == 0) {
+        if (t0 + CH > p.L)
+          run_chunk<G, true, true>(s_dt, s_u, s_b, s_c, a, x, yp, step, left,
+                                   c, g);
+        else
+          run_chunk<G, true, false>(s_dt, s_u, s_b, s_c, a, x, yp, step,
+                                    left, c, g);
       } else {
-        // P lanes per (channel, state group), kT steps each
-#pragma unroll 1
-        for (int j0 = 0; j0 < CH; j0 += S::kSpan) {
-          const int r0 = j0 + lp * kT;
-          float ea[kT][kS], eb[kT][kS], ca[kS], cb[kS];
-#pragma unroll
-          for (int i = 0; i < kT; ++i) {
-            const float dtv = s_dt[(r0 + i) * Sd + c];
-            const float dtu = dtv * s_u[(r0 + i) * Sd + c];
-            float bv[kS];
-            load8(s_b + (r0 + i) * Sb, bv);
-#pragma unroll
-            for (int s = 0; s < kS; ++s) {
-              ea[i][s] = expf(dtv * a[s]);
-              eb[i][s] = dtu * bv[s];
-              if (i == 0) {
-                ca[s] = ea[0][s];
-                cb[s] = eb[0][s];
-              } else {
-                cb[s] = fmaf(ea[i][s], cb[s], eb[i][s]);
-                ca[s] *= ea[i][s];
-              }
-            }
-          }
-          // the P lanes' maps in order: lane lp ends up with lanes 0..lp
-#pragma unroll
-          for (int s = 0; s < kS; ++s) {
-            float am = ca[s], bm = cb[s];
-#pragma unroll
-            for (int off = 1; off < P; off <<= 1) {
-              const float ua = __shfl_up_sync(kFull, am, off * G);
-              const float ub = __shfl_up_sync(kFull, bm, off * G);
-              if (lp >= off) {
-                bm = fmaf(am, ub, bm);
-                am *= ua;
-              }
-            }
-            const float xe = fmaf(am, x[s], bm);      // after lane lp's steps
-            const float prev = __shfl_up_sync(kFull, xe, G);
-            ca[s] = lp == 0 ? x[s] : prev;            // before lane lp's steps
-            x[s] = __shfl_sync(kFull, xe, last);
-          }
-          float py[kT];
-#pragma unroll
-          for (int i = 0; i < kT; ++i) {
-            float cv[kS];
-            load8(s_c + (r0 + i) * Sb, cv);
-            py[i] = 0.f;
-#pragma unroll
-            for (int s = 0; s < kS; ++s) {
-              ca[s] = fmaf(ea[i][s], ca[s], eb[i][s]);
-              py[i] = fmaf(cv[s], ca[s], py[i]);
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < kT; ++i) py[i] = sum_groups<G>(py[i]);
-#pragma unroll
-          for (int i = 0; i < kT; ++i)
-            put_y(yc + int64_t(r0 + i) * p.D, py[i], t0 + r0 + i < p.L, pass,
-                  g);
-        }
+        if (t0 + CH > p.L)
+          run_chunk<G, false, true>(s_dt, s_u, s_b, s_c, a, x, yp, step,
+                                    left, c, g);
+        else
+          run_chunk<G, false, false>(s_dt, s_u, s_b, s_c, a, x, yp, step,
+                                     left, c, g);
       }
     }
     cp_wait<0>();
     __syncthreads();   // the next pass refills the ring
-    if (lp == 0) {
 #pragma unroll
-      for (int s = 0; s < kS; ++s) {
-        const int n = n0 + g * kS + s;
-        if (n < p.N) p.state[(b * p.D + d) * int64_t(p.N) + n] = x[s];
-      }
+    for (int s = 0; s < kS; ++s) {
+      const int n = n0 + g * kS + s;
+      if (n < p.N) p.state[(b * p.D + d) * int64_t(p.N) + n] = x[s];
     }
   }
 }
 
-// One launch at (G, P); raises the kernel's dynamic shared-memory limit
-// once where its ring needs more than the default 48 KB (the first call of
-// a shape runs outside any CUDA graph capture).
-template <int G, int P>
+// One launch at G; raises the kernel's dynamic shared-memory limit once
+// where its ring needs more than the default 48 KB (the first call of a
+// shape runs outside any CUDA graph capture).
+template <int G>
 int launch(Params p, int64_t bt, cudaStream_t s) {
-  using S = Shape<G, P>;
+  using S = Shape<G>;
   static bool raised = false;
   if (S::kSmem > (48 << 10) && !raised) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ssm_scan_kernel<G, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ssm_scan_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(S::kSmem));
     if (err != cudaSuccess) return static_cast<int>(err);
     raised = true;
   }
   if (p.D % S::kCb) return static_cast<int>(cudaErrorInvalidValue);
   p.d_blocks = p.D / S::kCb;
-  p.passes = (p.N + kS * G - 1) / (kS * G);
+  p.passes = (p.N + S::kW - 1) / S::kW;
   const int64_t blocks = bt * p.d_blocks;
   if (blocks == 0) return 0;
   if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
-  ssm_scan_kernel<G, P><<<static_cast<unsigned>(blocks), kThreads, S::kSmem,
-                          s>>>(p);
+  ssm_scan_kernel<G><<<static_cast<unsigned>(blocks), kThreads, S::kSmem,
+                       s>>>(p);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <int G>
-int launch_g(const Params& p, int P, int64_t bt, cudaStream_t s) {
-  switch (P) {
-    case 1: return launch<G, 1>(p, bt, s);
-    case 2: if constexpr (G * 2 <= 32) return launch<G, 2>(p, bt, s); break;
-    case 4: if constexpr (G * 4 <= 32) return launch<G, 4>(p, bt, s); break;
-    case 8: if constexpr (G * 8 <= 32) return launch<G, 8>(p, bt, s); break;
-    case 16: if constexpr (G * 16 <= 32) return launch<G, 16>(p, bt, s); break;
-    case 32: if constexpr (G == 1) return launch<G, 32>(p, bt, s); break;
-    default: break;
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// G: lanes per channel over its states (a power of two, 8 states a lane
-// per pass); P: lanes per channel along L (a power of two, G * P <= 32).
-// The host chooses both (kernels/ssm_scan.py::scan_layout).
+// G: lanes per channel over its states (a power of two, kS states a lane
+// per pass, at most 32).  The host chooses it
+// (kernels/ssm_scan.py::scan_layout).
 extern "C" int repro_ssm_scan(const void* u, const void* delta, const void* A,
                               const void* Bm, const void* Cm, void* y,
                               void* state, int64_t bt, int L, int D, int N,
-                              int G, int P, void* stream) {
+                              int G, void* stream) {
   if (N < 1 || reinterpret_cast<uintptr_t>(u) % 16 ||
       reinterpret_cast<uintptr_t>(delta) % 16 ||
       reinterpret_cast<uintptr_t>(Bm) % 16 ||
@@ -441,12 +466,12 @@ extern "C" int repro_ssm_scan(const void* u, const void* delta, const void* A,
   p.vec_bc = N % 4 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (G) {
-    case 1: return launch_g<1>(p, P, bt, s);
-    case 2: return launch_g<2>(p, P, bt, s);
-    case 4: return launch_g<4>(p, P, bt, s);
-    case 8: return launch_g<8>(p, P, bt, s);
-    case 16: return launch_g<16>(p, P, bt, s);
-    case 32: return launch_g<32>(p, P, bt, s);
+    case 1: return launch<1>(p, bt, s);
+    case 2: return launch<2>(p, bt, s);
+    case 4: return launch<4>(p, bt, s);
+    case 8: return launch<8>(p, bt, s);
+    case 16: return launch<16>(p, bt, s);
+    case 32: return launch<32>(p, bt, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -16,14 +16,15 @@ neither has the port.
 ``ssm_scan`` launches ``csrc/ssm_scan.cu`` for tensors on the card and runs
 ``ssm_scan_plain`` for tensors on the CPU.  The kernel takes any state
 dimension N >= 1 and any number of batch rows (earlier it took N <= 32 and
-at most 65,535 rows); ``scan_layout`` spreads a channel's states over G
-lanes of 8 states each, and its steps over P lanes along L where the
-channels and state groups alone would not fill the card.
+at most 65,535 rows).  A lane holds ``STATES_PER_LANE`` states of one
+channel and ``scan_layout`` gives a channel the lanes its states need; the
+kernel walks L step by step, rounding the state as ``ssm_scan_plain``
+does.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -31,38 +32,22 @@ from repro_torch.kernels import _build
 
 LANES = 128               # the reference's D tile
 DEFAULT_CHUNK = 32
-STATES_PER_LANE = 8       # the kernel's states in one lane's registers
+# states in one lane's registers and steps of a lane's round (the
+# kernel's build flags REPRO_SSM_STATES and REPRO_SSM_ROUND): at
+# falcon-mamba-7b's mixer (batch 1, 8,192 channels, N 16) 4 and 8 were the
+# fastest of states 2, 4, 8 x rounds 4, 8, 16 on an H100, and within 5 %
+# of the fastest at batch 8 (tools/ssm_scan_probe.py, PERF.md section 6)
+STATES_PER_LANE = 4
+STEPS_PER_ROUND = 8
 WARP = 32
-# lanes the kernel should have per SM before it stops spreading a channel's
-# steps over more lanes (P): below this, P doubles.  At falcon-mamba-7b's
-# width this gives P = 2, the fastest of P = 1, 2, 4, 8 on an H100
-# (chip_smoke.py's time_lanes_cold_graph_ms, PERF.md section 6)
-FILL_LANES_PER_SM = 4 * WARP
 
 
-def _pow2_at_least(v: int) -> int:
-    return 1 << max(0, v - 1).bit_length()
-
-
-def scan_layout(bt: int, d: int, n: int, length: int, sms: int,
-                time_lanes: Optional[int] = None) -> Tuple[int, int]:
-    """Lanes ``(G, P)`` of one channel in the kernel: G over its states
-    (``STATES_PER_LANE`` each; at most a warp, past 256 states the kernel
-    runs passes), P along L (``time_lanes`` when given).  P is the
-    smallest power of two that gives the card ``FILL_LANES_PER_SM`` lanes
-    per SM, at most ``WARP // G`` and at most a lane per 4 steps."""
-    g = min(WARP, _pow2_at_least(-(-n // STATES_PER_LANE)))
-    cap = max(1, min(WARP // g, _pow2_at_least(-(-length // 4) + 1) // 2))
-    if time_lanes is not None:
-        if time_lanes < 1 or time_lanes & (time_lanes - 1) or \
-                time_lanes > WARP // g:
-            raise ValueError(f"time_lanes must be a power of two in [1, "
-                             f"{WARP // g}], got {time_lanes}")
-        return g, time_lanes
-    p = 1
-    while p < cap and bt * d * g * p < sms * FILL_LANES_PER_SM:
-        p *= 2
-    return g, p
+def scan_layout(n: int) -> int:
+    """Lanes G of one channel in the kernel: ``STATES_PER_LANE`` states
+    each, a power of two, at most a warp (past ``WARP * STATES_PER_LANE``
+    states the kernel runs passes)."""
+    groups = -(-n // STATES_PER_LANE)
+    return min(WARP, 1 << max(0, groups - 1).bit_length())
 
 
 def _check(u, delta, A, B, C, chunk: int) -> Tuple[int, int, int, int]:
@@ -99,14 +84,9 @@ def ssm_scan_plain(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
 
 
 def ssm_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
-             B: torch.Tensor, C: torch.Tensor, chunk: int = DEFAULT_CHUNK,
-             time_lanes: Optional[int] = None
+             B: torch.Tensor, C: torch.Tensor, chunk: int = DEFAULT_CHUNK
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """y [Bt, L, D] and the final state [Bt, D, N], float32.
-
-    ``time_lanes`` sets the kernel's lanes along L (``scan_layout``'s P);
-    by default the layout fills the card.  It changes no result beyond
-    float32 rounding, and nothing on the CPU."""
+    """y [Bt, L, D] and the final state [Bt, D, N], float32."""
     if not _build.on_card(u, delta, A, B, C):
         return ssm_scan_plain(u, delta, A, B, C, chunk)
     bt, length, d, n = _check(u, delta, A, B, C, chunk)
@@ -121,9 +101,7 @@ def ssm_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     state = torch.empty((bt, d, n), dtype=torch.float32, device=u.device)
     if not state.numel():          # no state: y is an empty sum
         return y.zero_(), state
-    g, p = scan_layout(bt, d, n, length, _build.sm_count(u.device),
-                       time_lanes)
     _build.launch("ssm_scan", "repro_ssm_scan", u.device,
                   *(t.data_ptr() for t in ops), y.data_ptr(),
-                  state.data_ptr(), bt, length, d, n, g, p)
+                  state.data_ptr(), bt, length, d, n, scan_layout(n))
     return y, state

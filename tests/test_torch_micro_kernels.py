@@ -276,31 +276,27 @@ def test_ssm_scan_keeps_the_reference_shape_contract(bad):
         ops.ssm_scan(u, dt, A, Bm, Cm, chunk=32)
 
 
-@pytest.mark.parametrize("bt,d,n,length,sms,want", [
-    (1, 8192, 16, 2048, 132, (2, 2)),     # falcon-mamba-7b: P = 2
-    (8, 8192, 16, 2048, 132, (2, 1)),     # a batch of 8 fills the card
-    (1, 2048, 16, 2048, 132, (2, 8)),     # a quarter of falcon: P = 8
-    (1, 128, 1, 32, 132, (1, 8)),         # P at most a lane per 4 steps
-    (1, 128, 8, 4096, 132, (1, 32)),      # P at most a warp
-    (1, 1024, 48, 512, 132, (8, 4)),      # 6 groups of 8 states round to 8
-    (2, 384, 64, 96, 132, (8, 4)),
-    (1, 128, 300, 64, 132, (32, 1)),      # past 256 states: passes
-    (70000, 128, 2, 4, 132, (1, 1)),      # batch rows past 65,535
-    (1, 128, 16, 1, 132, (2, 1)),
+@pytest.mark.parametrize("n,want", [
+    (16, 4),      # falcon-mamba-7b: 4 lanes of 4 states a channel
+    (1, 1), (4, 1), (5, 2), (8, 2), (13, 4), (30, 8), (48, 16), (64, 16),
+    (300, 32),    # past 128 states the kernel runs passes
 ])
-def test_ssm_scan_layout_fills_the_card(bt, d, n, length, sms, want):
-    g, p = ssm_scan.scan_layout(bt, d, n, length, sms)
-    assert (g, p) == want
-    assert g * p <= ssm_scan.WARP and g & (g - 1) == 0 and p & (p - 1) == 0
-    assert g * ssm_scan.STATES_PER_LANE >= min(n, 256)
-    lanes = bt * d * g * p
-    assert lanes >= sms * ssm_scan.FILL_LANES_PER_SM or \
-        p == min(ssm_scan.WARP // g, max(1, 1 << ((length + 3) // 4).bit_length() - 1))
+def test_ssm_scan_layout_fills_the_card(n, want):
+    """A channel takes the lanes its states need, a power of two of
+    ``STATES_PER_LANE`` states each, at most a warp (the kernel runs
+    passes past that)."""
+    g = ssm_scan.scan_layout(n)
+    assert g == want
+    assert g & (g - 1) == 0 and g <= ssm_scan.WARP
+    per_pass = g * ssm_scan.STATES_PER_LANE
+    assert per_pass >= min(n, ssm_scan.WARP * ssm_scan.STATES_PER_LANE)
+    assert g == 1 or per_pass // 2 < n
 
 
-def test_ssm_scan_layout_takes_time_lanes():
-    assert ssm_scan.scan_layout(1, 8192, 16, 2048, 132, time_lanes=4) == (2, 4)
-    assert ssm_scan.scan_layout(1, 8192, 16, 2048, 132, time_lanes=1) == (2, 1)
-    for bad in (0, 3, 32):
-        with pytest.raises(ValueError):
-            ssm_scan.scan_layout(1, 8192, 16, 2048, 132, time_lanes=bad)
+def test_ssm_scan_build_takes_the_states_per_lane():
+    """The kernel is built with the wrapper's states per lane, so the
+    layout the host computes is the one the kernel runs."""
+    from repro_torch.kernels import _build
+
+    flag = f"-DREPRO_SSM_STATES={ssm_scan.STATES_PER_LANE}"
+    assert _build._flags().count(flag) == 1
