@@ -90,7 +90,8 @@ Phases, each printing JSON lines:
             same codes; at width 32 the pack and the unpack sit beside
             codes.clone() and words[:n].clone() (the same functions there);
             remap_codes and fused_zone_agg with SUM carry their gathers' L2
-            sector bytes.  These four kernels, fused_zone_agg and ssm_scan
+            sector bytes.  These four kernels, fused_zone_agg,
+            zone_histogram, the four filters, bloom_probe and ssm_scan
             are also timed in CUDA graphs with their operands in L2
             (graph_ms) and from device memory (cold_graph_ms), both remaps
             with every entry dead (streams_only_cold_graph_ms: no gather),
@@ -99,8 +100,12 @@ Phases, each printing JSON lines:
             timed cold at state dimensions 1, 8 and 32 on the same u and
             delta (state_dim_cold_graph_ms), and fused_zone_agg cold at K
             = 1 and 2 on the same tiles in its 1- and 2-slot
-            instantiations and in its 8-slot one (slots_cold_graph_ms).
-            Their rows
+            instantiations and in its 8-slot one (slots_cold_graph_ms);
+            zone_histogram cold in both bin buckets at 16 and 64 bins
+            (buckets_cold_graph_ms), bloom_probe cold at the largest
+            prime below its nbits (odd_nbits_cold_graph_ms), both with
+            the SASS instructions per code or key of their hot loop
+            (cuobjdump -sass).  Their rows
             carry the registers, shared memory and spills of every
             instantiation of their kernel at that width, from the build's
             -Xptxas=-v log.
@@ -115,6 +120,7 @@ CUDA card is available or when it stands outside the repository.
 from __future__ import annotations
 
 import argparse
+import collections
 import functools
 import json
 import re
@@ -1464,6 +1470,52 @@ def ptxas_resources(log: str, symbol: str) -> list:
     return [{"function": d, **funcs[f]} for f, d in zip(names, shown)]
 
 
+def sass_functions(lib: Path) -> dict:
+    """Mangled name -> [(address, opcode, operands)] of every kernel in the
+    library's SASS (``cuobjdump -sass``, beside nvcc)."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True).stdout
+    funcs = {}
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        funcs[chunk.split("\n", 1)[0].strip()] = [
+            (int(m.group(1), 16), m.group(3), m.group(4))
+            for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                                 r"([A-Z][A-Z0-9_.]*)([^;]*);", chunk)]
+    return funcs
+
+
+def sass_per_element(funcs: dict, name: str, marker: str,
+                     per_marker: int) -> dict:
+    """Static SASS instructions per element of the kernel whose mangled
+    name contains ``name``: the smallest loop that holds an instruction
+    matching ``marker`` (a regex on the opcode, an instruction issued once
+    for every ``per_marker`` elements, such as a 16-byte load of 4 keys),
+    over the elements of one of its iterations."""
+    fn = next((k for k in funcs if name in k), None)
+    if fn is None:
+        return {"error": f"no kernel {name} in the SASS"}
+    ins = funcs[fn]
+    loops = []
+    for addr, op, args in ins:
+        t = re.search(r"0x([0-9a-f]+)", args) if op.startswith("BRA") else None
+        if t and int(t.group(1), 16) <= addr:
+            loops.append([o for a, o, _ in ins
+                          if int(t.group(1), 16) <= a <= addr])
+    held = [lp for lp in loops if any(re.search(marker, o) for o in lp)]
+    if not held:
+        return {"error": f"no loop of {fn} holds {marker}"}
+    body = min(held, key=len)
+    elements = per_marker * sum(bool(re.search(marker, o)) for o in body)
+    return {"function": fn, "loop_instructions": len(body),
+            "elements_per_iteration": elements,
+            "per_element": len(body) / elements,
+            "loop_by_opcode": dict(collections.Counter(
+                o.split(".")[0] for o in body).most_common())}
+
+
 def compare(name: str, kernel, plain, nbytes: int, bw: float, launches: int,
             shape: str, tol=None, op_bound_ms: float = 0.0,
             plain_reps: int = 21) -> dict:
@@ -1564,8 +1616,25 @@ def agg_gathers(words, meta, ranges, width: int, k: int, tile_words: int,
     return int((hit & any_range).sum())
 
 
+def hist_sass(sass: dict, width: int, bins: int) -> dict:
+    """SASS instructions per code of zone_histogram's 16-byte-load
+    instantiation at ``(width, bins)``: its loop over a tile's whole
+    rounds without the padding guard (the smallest that counts), one
+    shared atomic a code."""
+    return sass_per_element(
+        sass, f"zone_histogram_kernelILi{width}ELi{bins}ELb1E", r"^ATOMS", 1)
+
+
+def bloom_sass(sass: dict) -> dict:
+    """SASS instructions per key of bloom_probe at a power-of-two nbits,
+    16-byte key loads and the bloom in shared memory: its loop over a
+    thread's steps, 4 keys a 16-byte load."""
+    return sass_per_element(sass, "bloom_probe_kernelILb1ELb1ELb1E",
+                            r"^LDG.*\.128", 4)
+
+
 def kernel_phase(recs, launches: dict, bw: float, bench: dict,
-                 rates: dict, log: str) -> list:
+                 rates: dict, log: str, sass: dict) -> list:
     import torch
     from repro_torch.kernels import (agg_scan, bitpack, bloom_probe,
                                      fused_scan, merge_remap, multi_filter,
@@ -1665,7 +1734,12 @@ def kernel_phase(recs, launches: dict, bw: float, bench: dict,
             f"words={fw.shape[0]} tiles={n_tiles} evaluated={evaluated} "
             f"K={k} width={width}" + ("" if w0 == width else
                                       f" (words of a width-{w0} level)")))
-        rows[-1]["main_path"] = w0 == width and fw is biggest[0][0]
+        filt = functools.partial(fused_scan.fused_zone_filter, width=width,
+                                 n_preds=k, tile_words=tw)
+        rows[-1].update({"main_path": w0 == width and fw is biggest[0][0],
+                         "graph_ms": hot_graph_ms(filt, fw, meta, rng),
+                         "cold_graph_ms": cold_graph_ms(filt, nbytes, fw,
+                                                        meta, rng)})
 
     # remap_pack_codes at the main path's largest merge: device time, CUDA
     # graphs hot and cold, and cold with every entry dead (the streams
@@ -1738,19 +1812,56 @@ def kernel_phase(recs, launches: dict, bw: float, bench: dict,
             rows[-1].update({"gathers": gathers,
                              "gather_sector_bytes": 32 * gathers})
 
-    # zone_histogram at agg.fast's largest GROUP BY launch
+    # zone_histogram at agg.fast's largest GROUP BY launch; in CUDA graphs
+    # hot and cold, with the registers and the SASS instructions per code
+    # of its instantiations at that width
     (hw, hm, he, width, n_bins, tw), _ = recs["hist"].calls[0]
     n_tiles = hm.shape[0]
     evaluated = int((agg_scan.zone_histogram(hw, hm, he, width, n_bins,
                                              tw)[1] == 1).sum())
+    nbytes = (4 * tw * evaluated + 24 * n_tiles + 4 * he.numel()
+              + 4 * n_tiles * n_bins + 4 * n_tiles)
     rows.append(compare(
         "zone_histogram",
         lambda: agg_scan.zone_histogram(hw, hm, he, width, n_bins, tw),
         lambda: agg_scan.zone_histogram_plain(hw, hm, he, width, n_bins, tw),
-        4 * tw * evaluated + 24 * n_tiles + 4 * he.numel()
-        + 4 * n_tiles * n_bins + 4 * n_tiles, bw, launches["zone_histogram"],
+        nbytes, bw, launches["zone_histogram"],
         f"words={hw.shape[0]} tiles={n_tiles} evaluated={evaluated} "
         f"bins={n_bins} width={width}"))
+    hist = functools.partial(agg_scan.zone_histogram, width=width,
+                             n_bins=n_bins, tile_words=tw)
+    bins, vec = agg_scan.hist_route(hw, n_bins, tw)
+    rows[-1].update({
+        "bins": bins, "vector_loads": vec,
+        "ptxas": [r for r in ptxas_resources(log, SYMBOLS["zone_histogram"])
+                  if re.search(f"<{width}[,>]", r["function"])],
+        "sass": {f"bins={b}": hist_sass(sass, width, b)
+                 for b in agg_scan.HIST_BINS},
+        "graph_ms": hot_graph_ms(hist, hw, hm, he),
+        "cold_graph_ms": cold_graph_ms(hist, nbytes, hw, hm, he)})
+    # both buckets of the 16-byte loads on the same tiles, cold, at
+    # agg.fast's edges and at 64 bins (each of its bins cut in 4), each
+    # equal to the plain version
+    e16 = bitpack.from_u32_bits(he)
+    steps = torch.arange(4, device=he.device)
+    e64 = torch.cat([(e16[:, :-1, None] + (e16[:, 1:, None] - e16[:, :-1, None])
+                      * steps // 4).reshape(e16.shape[0], -1),
+                     e16[:, -1:]], dim=1)
+    rows[-1]["buckets_cold_graph_ms"] = {}
+    for nb, edges in ((n_bins, he), (64, bitpack.to_u32_bits(e64))):
+        want = agg_scan.zone_histogram_plain(hw, hm, edges, width, nb, tw)
+        for b in agg_scan.HIST_BINS:
+            if nb > b:
+                continue
+            launch = functools.partial(
+                agg_scan._launch_hist, width=width, n_bins=nb, tile_words=tw,
+                bins=b, vec=True)
+            got = launch(hw, hm, edges)
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"zone_histogram ({b} bins) differs from plain at {nb} "
+                  f"bins")
+            rows[-1]["buckets_cold_graph_ms"][f"n_bins={nb} bins={b}"] = \
+                cold_graph_ms(launch, nbytes, hw, hm, edges)
 
     # the staged backends at serve's shapes: the largest SCT of the tree
     (mw, mr, width, tw), _ = recs["multi"].calls[0]
@@ -1762,6 +1873,11 @@ def kernel_phase(recs, launches: dict, bw: float, bench: dict,
         4 * mw.shape[0] + 4 * k * mw.shape[0] + 4 * k * n_tiles + 8 * k, bw,
         launches["multi_range_filter_packed"],
         f"words={mw.shape[0]} tiles={n_tiles} K={k} width={width}"))
+    multi = functools.partial(multi_filter.multi_range_filter, width=width,
+                              tile_words=tw)
+    rows[-1].update({
+        "graph_ms": hot_graph_ms(multi, mw, mr),
+        "cold_graph_ms": cold_graph_ms(multi, rows[-1]["bytes"], mw, mr)})
     (cc, lo, hi, tc), _ = recs["codes"].calls[0]
     n_tiles = cc.shape[0] // tc
     rows.append(compare(
@@ -1770,6 +1886,11 @@ def kernel_phase(recs, launches: dict, bw: float, bench: dict,
         lambda: opd_filter.code_range_filter_plain(cc, lo, hi, tc),
         5 * cc.shape[0] + 4 * n_tiles, bw, launches["range_filter_codes"],
         f"codes={cc.shape[0]} tiles={n_tiles} lo={lo} hi={hi}"))
+    codes_filter = functools.partial(opd_filter.code_range_filter, lo=lo,
+                                     hi=hi, tile_codes=tc)
+    rows[-1].update({
+        "graph_ms": hot_graph_ms(codes_filter, cc),
+        "cold_graph_ms": cold_graph_ms(codes_filter, rows[-1]["bytes"], cc)})
 
     # the plain remap at compact.jax's largest merge output; each live entry
     # gathers one table slot, a 32-byte L2 sector.  In CUDA graphs: the same
@@ -1818,24 +1939,51 @@ def kernel_phase(recs, launches: dict, bw: float, bench: dict,
             f"words={pw.shape[0]} tiles={n_tiles} width={width} lo={lo} "
             f"hi={hi} ({where})",
             op_bound_ms=n_ops / rates["int32_ops"] * 1e3))
-        rows[-1].update({"main_path": i == 0, "int_ops": n_ops})
+        packed = functools.partial(packed_filter.packed_range_filter, lo=lo,
+                                   hi=hi, width=width, tile_words=tw)
+        rows[-1].update({
+            "main_path": i == 0, "int_ops": n_ops,
+            "graph_ms": hot_graph_ms(packed, pw),
+            "cold_graph_ms": cold_graph_ms(packed, rows[-1]["bytes"], pw)})
 
-    # the bloom probe at the micro-bench's bloom, then the largest one
+    # the bloom probe at the micro-bench's bloom, then the largest one; in
+    # CUDA graphs hot and cold, with the registers and the SASS
+    # instructions per key of its instantiations
     for key, where in (("bloom", "micro-bench"),
                        ("big", "the largest documented bloom")):
         words, nbits, keys = bench[key]
         # per hash: mix32 (9), the modulo, word and bit index, the bit test
         # and the AND into the hit (6)
         n_ops = keys.shape[0] * 6 * 15
+        nbytes = 5 * keys.shape[0] + 4 * words.shape[0]
         rows.append(compare(
             "bloom_probe",
             lambda: bloom_probe.bloom_probe(words, nbits, keys),
             lambda: bloom_probe.bloom_probe_plain(words, nbits, keys),
-            5 * keys.shape[0] + 4 * words.shape[0], bw, launches["bloom_probe"],
+            nbytes, bw, launches["bloom_probe"],
             f"bloom={words.shape[0]} words ({nbits} bits) keys={keys.shape[0]} "
             f"hashes=6 ({where})",
             op_bound_ms=n_ops / rates["int32_ops"] * 1e3))
-        rows[-1].update({"main_path": key == "bloom", "int_ops": n_ops})
+
+        def probe(w, k, nbits=nbits):
+            return bloom_probe.bloom_probe(w, nbits, k)
+
+        # the same keys and words at an nbits that is not a power of two
+        # (the largest prime below it): the magic-number remainder
+        odd = next(p for p in range(nbits - 1, 1, -1)
+                   if all(p % d for d in range(2, int(p ** 0.5) + 1)))
+        check(torch.equal(bloom_probe.bloom_probe(words, odd, keys),
+                          bloom_probe.bloom_probe_plain(words, odd, keys)),
+              f"bloom_probe at nbits {odd} differs from plain")
+        rows[-1].update({
+            "main_path": key == "bloom", "int_ops": n_ops,
+            "ptxas": ptxas_resources(log, SYMBOLS["bloom_probe"]),
+            "sass": bloom_sass(sass),
+            "graph_ms": hot_graph_ms(probe, words, keys),
+            "cold_graph_ms": cold_graph_ms(probe, nbytes, words, keys),
+            "odd_nbits": odd,
+            "odd_nbits_cold_graph_ms": cold_graph_ms(
+                functools.partial(probe, nbits=odd), nbytes, words, keys)})
 
     # the selective scan at falcon-mamba-7b's width: bytes of u, delta and
     # y (plus B, C, A and the state) against one exp per (b, t, d, n) at
@@ -1991,7 +2139,8 @@ def main() -> int:
     fig5_example("cuda")
     bench_launches, bench = bench_phase(args)
     launches.update({k: bench_launches[k] for k in ("bloom_probe", "ssm_scan")})
-    rows = kernel_phase(recs, launches, bw, bench, rates, log)
+    rows = kernel_phase(recs, launches, bw, bench, rates, log,
+                        sass_functions(lib))
     for r in rows:
         emit({"phase": "kernel", **r})
 

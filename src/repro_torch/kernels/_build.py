@@ -51,12 +51,13 @@ _SIGNATURES = {
     "repro_fused_zone_filter": [_P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _P],
     "repro_remap_pack_codes": [_P] * 5 + [_I64, _INT, _INT, _P],
     "repro_fused_zone_agg": [_P] * 9 + [_I64] + [_INT] * 6 + [_P],
-    "repro_zone_histogram": [_P] * 5 + [_I64, _INT, _INT, _INT, _P],
+    "repro_zone_histogram": [_P] * 5 + [_I64] + [_INT] * 5 + [_P],
     "repro_multi_range_filter": [_P] * 4 + [_I64, _INT, _INT, _INT, _P],
     "repro_range_filter_codes": [_P, _INT, _INT, _P, _P, _I64, _INT, _P],
     "repro_remap_codes": [_P] * 5 + [_I64, _INT, _P],
     "repro_range_filter_packed": [_P, _U32, _U32, _P, _P, _I64, _INT, _INT, _P],
-    "repro_bloom_probe": [_P, _I64, _U32, _P, _I64, _INT, _P, _P],
+    "repro_bloom_probe": [_P, _I64, _U32, _U32, _INT, _INT, _P, _I64, _INT,
+                          _P, _P],
     "repro_ssm_scan": [_P] * 7 + [_I64] + [_INT] * 4 + [_P],
 }
 

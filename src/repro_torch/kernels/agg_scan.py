@@ -25,9 +25,10 @@ that holds no entry is skipped; a tile whose zone no edge crosses (and
 Entries at or past a tile's ``n_valid`` never count (a padding field can
 alias the code ``2**width - 1``).  Words, meta, ranges and edges are
 ``int32`` tensors holding ``uint32`` bits.  For tensors on the card the
-wrappers launch ``csrc/agg_scan.cu`` (``fused_zone_agg`` in the
-instantiation ``agg_route`` picks); for tensors on the CPU they run the
-plain versions beside them.  SUM is int64 on both (the TPU kernel summed in
+wrappers launch ``csrc/agg_scan.cu`` (``fused_zone_agg``, in the
+instantiation ``agg_route`` picks) and ``csrc/zone_histogram.cu`` (in the
+one ``hist_route`` picks); for tensors on the CPU they run the plain
+versions beside them.  SUM is int64 on both (the TPU kernel summed in
 int32; the executor keeps its int32 routing guard, so results agree).
 """
 
@@ -48,13 +49,15 @@ MIN_SENTINEL = 0xFFFFFFFF    # per-tile min when no entry matched
 MAX_BINS = 64
 
 AGG_SLOTS = (1, 2, 4, 8)   # the kernel's register slots for ranges
+HIST_BINS = (16, 64)       # zone_histogram's bin buckets
 
 FLAG_SKIPPED = 0       # zone meets nothing: words never read
 FLAG_EVALUATED = 1     # fields extracted and compared
 FLAG_SHORTCIRCUIT = 2  # closed form from the zone alone
 
 __all__ = ["AGG_META_COLS", "WSUM_COL", "WSUM_SENTINEL", "MIN_SENTINEL",
-           "MAX_BINS", "AGG_SLOTS", "agg_route", "FLAG_SKIPPED",
+           "MAX_BINS", "AGG_SLOTS", "agg_route", "HIST_BINS", "hist_route",
+           "FLAG_SKIPPED",
            "FLAG_EVALUATED", "FLAG_SHORTCIRCUIT", "fused_zone_agg",
            "fused_zone_agg_plain", "zone_histogram", "zone_histogram_plain"]
 
@@ -222,6 +225,17 @@ def _check_hist(words, meta, edges, n_bins: int, tile_words: int) -> int:
     return n_tiles
 
 
+def hist_route(words: torch.Tensor, n_bins: int,
+               tile_words: int) -> Tuple[int, bool]:
+    """The kernel's instantiation for a launch: ``(bins, vec)``.  ``vec``
+    as in ``agg_route``; ``bins``: the smallest bucket of ``HIST_BINS``
+    that holds ``n_bins``, and 64 always for 4-byte loads."""
+    vec = tile_words % 4 == 0 and words.data_ptr() % 16 == 0
+    if not vec:
+        return HIST_BINS[-1], False
+    return next(b for b in HIST_BINS if n_bins <= b), True
+
+
 def zone_histogram_plain(
     words: torch.Tensor, meta: torch.Tensor, edges: torch.Tensor,
     width: int, n_bins: int, tile_words: int = DEFAULT_TILE_WORDS,
@@ -270,6 +284,17 @@ def zone_histogram(
     if not _build.on_card(words, meta, edges):
         return zone_histogram_plain(words, meta, edges, width, n_bins,
                                     tile_words)
+    return _launch_hist(words, meta, edges, width, n_bins, tile_words,
+                        *hist_route(words, n_bins, tile_words))
+
+
+def _launch_hist(words, meta, edges, width: int, n_bins: int,
+                 tile_words: int, bins: int,
+                 vec: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``zone_histogram`` on the card at the instantiation ``(bins,
+    vec)``: with 16-byte loads either bucket of ``HIST_BINS`` that holds
+    ``n_bins``; 4-byte loads take 64 bins only.  ``vec`` needs what
+    ``hist_route`` asks of it."""
     check_width(width)
     n_tiles = _check_hist(words, meta, edges, n_bins, tile_words)
     _build.check_operand(words, "words", torch.int32, 1)
@@ -282,5 +307,5 @@ def zone_histogram(
         _build.launch("zone_histogram", "repro_zone_histogram", dev,
                       words.data_ptr(), meta.data_ptr(), edges.data_ptr(),
                       hist.data_ptr(), flags.data_ptr(), n_tiles, tile_words,
-                      n_bins, width)
+                      n_bins, width, bins, int(vec))
     return hist, flags

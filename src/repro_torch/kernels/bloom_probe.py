@@ -9,10 +9,15 @@ oracle clamps the word index instead.
 
 Bloom words and keys are ``int32`` tensors holding ``uint32`` bits; hits
 are ``int8``.  ``bloom_probe`` launches ``csrc/bloom_probe.cu`` for tensors
-on the card and runs ``bloom_probe_plain`` for tensors on the CPU.
+on the card and runs ``bloom_probe_plain`` for tensors on the CPU.  The
+kernel takes ``h % nbits`` without a divide: a mask for a power-of-two
+``nbits``, else the multiply and shifts of ``fastmod_constants``, which
+``fastmod_plain`` repeats in PyTorch for the tests.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -40,6 +45,36 @@ def mix32(x: torch.Tensor, seed: int) -> torch.Tensor:
     x = x ^ (x >> 13)
     x = _mul32(x, 0xC2B2AE35)
     return x ^ (x >> 16)
+
+
+def fastmod_constants(nbits: int) -> Tuple[int, int, int]:
+    """``(m, s1, s2)`` such that ``h % nbits == h - q * nbits`` with ``q =
+    (t + ((h - t) >> s1)) >> s2`` and ``t = (m * h) >> 32`` (``__umulhi``),
+    in uint32 arithmetic, for every ``h`` in ``[0, 2**32)`` and ``nbits`` in
+    ``[1, 2**32)``: Granlund and Montgomery's division by an invariant
+    integer (PLDI 1994, figure 4.1), with ``l = ceil(log2 nbits)`` and
+    ``m = floor(2**32 * (2**l - nbits) / nbits) + 1 < 2**32``."""
+    if not 1 <= nbits <= _U32:
+        raise ValueError(f"nbits must be in [1, 2**32), got {nbits}")
+    lg = (nbits - 1).bit_length()
+    m = (((1 << lg) - nbits) << 32) // nbits + 1
+    return m, min(lg, 1), max(lg - 1, 0)
+
+
+def _umulhi(h: torch.Tensor, m: int) -> torch.Tensor:
+    """(m * h) >> 32 for int64 h in [0, 2**32) and m < 2**32, without int64
+    overflow."""
+    return (((h & 0xFFFF) * m >> 16) + (h >> 16) * m) >> 16
+
+
+def fastmod_plain(h: torch.Tensor, nbits: int) -> torch.Tensor:
+    """``h % nbits`` for int64 ``h`` in ``[0, 2**32)`` by the kernel's
+    formula for a ``nbits`` that is not a power of two
+    (``fastmod_constants``)."""
+    m, s1, s2 = fastmod_constants(nbits)
+    t = _umulhi(h, m)
+    q = (t + ((h - t) >> s1)) >> s2
+    return h - q * nbits
 
 
 def _check(bloom_words: torch.Tensor, nbits: int, keys: torch.Tensor,
@@ -82,6 +117,6 @@ def bloom_probe(bloom_words: torch.Tensor, nbits: int, keys: torch.Tensor,
     if keys.shape[0]:
         _build.launch("bloom_probe", "repro_bloom_probe", keys.device,
                       bloom_words.data_ptr(), bloom_words.shape[0], nbits,
-                      keys.data_ptr(), keys.shape[0], n_hashes,
-                      hits.data_ptr())
+                      *fastmod_constants(nbits), keys.data_ptr(),
+                      keys.shape[0], n_hashes, hits.data_ptr())
     return hits

@@ -1,13 +1,12 @@
-// Zone-gated aggregation and GROUP BY histogram on packed OPD words on
-// Hopper (sm_90a).
+// Zone-gated aggregation on packed OPD words on Hopper (sm_90a).
 //
 // fused_zone_agg replaces src/repro/kernels/agg_scan.py::fused_zone_agg_2d
-// and zone_histogram replaces ::zone_histogram_2d (Pallas, TPU).  Both take
-// the engine's linear word layout (word j holds entries j*per .. j*per+per-1,
-// field f at bits f*width, per = 32 / width), padded per SCT to whole tiles
-// of `tile_words` words (default 1024, the reference's 8 x 128 tile, so the
-// tile telemetry compares exactly) with 0xFFFFFFFF.  Each tile has a meta
-// row
+// (Pallas, TPU); the GROUP BY histogram of the same file is
+// zone_histogram.cu.  It takes the engine's linear word layout (word j
+// holds entries j*per .. j*per+per-1, field f at bits f*width, per = 32 /
+// width), padded per SCT to whole tiles of `tile_words` words (default
+// 1024, the reference's 8 x 128 tile, so the tile telemetry compares
+// exactly) with 0xFFFFFFFF.  Each tile has a meta row (zone_tiles.cuh)
 //
 //   (zone_lo, zone_hi, range_base | seg, n_valid, weight_base, weight_total)
 //
@@ -54,51 +53,32 @@
 //   barrier;
 // - the next tile's meta row loaded while the current tile computes, and
 //   its words issued while the current tile reduces and stores.
-//
-// zone_histogram: per tile, bin b counts the valid codes in [e_b, e_{b+1})
-// of the tile's SCT's edge row (at most kMaxBins bins).  One CUDA block per
-// tile.  A tile whose zone lies outside [e_0, e_B) or that holds no entry is
-// skipped; one whose zone no edge crosses (zone_lo >= 1) puts n_valid into
-// that one bin.  Otherwise each valid code is placed by a binary search over
-// the edges in shared memory and counted with a shared-memory atomic (the TPU
-// kernel's rank differences avoided scatter; the card has cheap shared
-// atomics).  Bound: memory, 4 bytes per word of an evaluated tile once and 4
-// per (tile, bin) out.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "launch_grid.cuh"
+#include "zone_tiles.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;   // zone_histogram's block
-constexpr int kMetaCols = 6;
-constexpr int kMaxBins = 64;
+using repro::field;
+using repro::kFlagEvaluated;
+using repro::kFlagShortcircuit;
+using repro::kFlagSkipped;
+using repro::kFull;
+using repro::load_meta;
+using repro::load_round;
+using repro::round_groups;
+using repro::TileMeta;
+using repro::word_of;
+
 constexpr uint32_t kMinSentinel = 0xFFFFFFFFu;
 constexpr uint32_t kWsumSentinel = 0xFFFFFFFFu;
-constexpr int kFlagSkipped = 0;
-constexpr int kFlagEvaluated = 1;
-constexpr int kFlagShortcircuit = 2;
-constexpr unsigned kFull = 0xFFFFFFFFu;
 
 constexpr int kAggThreads = 256;             // fused_zone_agg's block
 constexpr int kAggWarps = kAggThreads / 32;
 constexpr int kGather = 8;                   // SUM gathers in flight a lane
-
-template <int WIDTH>
-__device__ __forceinline__ uint32_t field(uint32_t x, int f) {
-  constexpr uint32_t MASK = WIDTH == 32 ? 0xFFFFFFFFu : ((1u << WIDTH) - 1u);
-  return (x >> (f * WIDTH)) & MASK;
-}
-
-// 16-byte groups of 4 words a lane loads at once: 4 at widths 16 and 32
-// (a 1,024-word tile in two rounds), fewer below, so that a round unrolls
-// at most 32 fields (a word of 8 or more fields is walked in a loop)
-template <int WIDTH>
-__host__ __device__ constexpr int agg_groups() {
-  return WIDTH >= 16 ? 4 : WIDTH >= 4 ? 2 : 1;
-}
 
 // blocks an SM should hold: 4 without SUM (32 warps, 64 registers: about
 // one tile a warp at the analytics path's launch, so no warp walks a
@@ -108,17 +88,6 @@ __host__ __device__ constexpr int agg_groups() {
 template <bool WITH_SUM>
 __host__ __device__ constexpr int agg_min_blocks() {
   return WITH_SUM ? 2 : 4;
-}
-
-struct TileMeta {
-  uint32_t z_lo, z_hi, base, n_valid, w_base, wsum;
-};
-
-__device__ __forceinline__ TileMeta load_meta(const uint32_t* __restrict__ meta,
-                                              int64_t t) {
-  const uint32_t* m = meta + t * kMetaCols;
-  return {__ldg(m), __ldg(m + 1), __ldg(m + 2), __ldg(m + 3), __ldg(m + 4),
-          __ldg(m + 5)};
 }
 
 // kFlagSkipped (no range meets the zone), kFlagShortcircuit (the closed
@@ -143,35 +112,6 @@ __device__ __forceinline__ int classify(const TileMeta& m,
   const bool shortcut = any && !open && m.z_lo >= 1u &&
                         (!WITH_SUM || m.wsum != kWsumSentinel);
   return !any ? kFlagSkipped : shortcut ? kFlagShortcircuit : kFlagEvaluated;
-}
-
-// One round of a lane's groups: group g0 + v * 32 + lane for v < NG; a
-// group past the tile's is never read.
-template <int NG, bool VEC>
-__device__ __forceinline__ void load_round(uint4 (&q)[NG],
-                                           const uint32_t* __restrict__ tw,
-                                           int g0, int groups, int tile_words,
-                                           int lane) {
-#pragma unroll
-  for (int v = 0; v < NG; ++v) {
-    const int g = g0 + v * 32 + lane;
-    q[v] = make_uint4(0u, 0u, 0u, 0u);
-    if (g < groups) {
-      if constexpr (VEC) {
-        q[v] = __ldcs(reinterpret_cast<const uint4*>(tw) + g);
-      } else {
-        const int j = 4 * g;
-        q[v].x = __ldcs(tw + j);
-        if (j + 1 < tile_words) q[v].y = __ldcs(tw + j + 1);
-        if (j + 2 < tile_words) q[v].z = __ldcs(tw + j + 2);
-        if (j + 3 < tile_words) q[v].w = __ldcs(tw + j + 3);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ uint32_t word_of(const uint4& q, int w) {
-  return w == 0 ? q.x : w == 1 ? q.y : w == 2 ? q.z : q.w;
 }
 
 // a lane's partial aggregates of KS ranges
@@ -282,7 +222,7 @@ __global__ void __launch_bounds__(kAggThreads, agg_min_blocks<WITH_SUM>())
     int32_t* __restrict__ flags, int64_t n_tiles, int64_t tiles_per_block,
     int tile_words, int n_preds) {
   constexpr int PER = 32 / WIDTH;
-  constexpr int NG = agg_groups<WIDTH>();
+  constexpr int NG = round_groups<WIDTH>();
   const int lane = threadIdx.x & 31;
   const int64_t first = blockIdx.x * tiles_per_block;
   const int64_t end =
@@ -382,70 +322,6 @@ __global__ void __launch_bounds__(kAggThreads, agg_min_blocks<WITH_SUM>())
   }
 }
 
-template <int WIDTH>
-__global__ void __launch_bounds__(kThreads) zone_histogram_kernel(
-    const uint32_t* __restrict__ words, const uint32_t* __restrict__ meta,
-    const uint32_t* __restrict__ edges, int32_t* __restrict__ hist,
-    int32_t* __restrict__ flags, int tile_words, int n_bins) {
-  constexpr int PER = 32 / WIDTH;
-  __shared__ uint32_t s_edge[kMaxBins + 1];
-  __shared__ int s_hist[kMaxBins];
-
-  const int64_t t = blockIdx.x;
-  const uint32_t* m = meta + t * kMetaCols;
-  const uint32_t z_lo = m[0];
-  const uint32_t z_hi = m[1];
-  const int64_t seg = m[2];
-  const int64_t n_valid = m[3];
-  for (int i = threadIdx.x; i <= n_bins; i += blockDim.x)
-    s_edge[i] = edges[seg * (n_bins + 1) + i];
-  for (int i = threadIdx.x; i < n_bins; i += blockDim.x) s_hist[i] = 0;
-  __syncthreads();
-
-  // how many edges lie at or below each zone bound: equal counts mean no
-  // edge crosses the zone, so every entry falls in one bin
-  int n_le_lo = 0, n_le_hi = 0;
-  for (int e = 0; e <= n_bins; ++e) {
-    n_le_lo += s_edge[e] <= z_lo;
-    n_le_hi += s_edge[e] <= z_hi;
-  }
-  const bool empty =
-      z_hi < s_edge[0] || z_lo >= s_edge[n_bins] || n_valid == 0;
-  const bool closed = empty || (n_le_lo == n_le_hi && z_lo >= 1u);
-  const int64_t o = t * n_bins;
-  if (closed) {
-    for (int b = threadIdx.x; b < n_bins; b += blockDim.x)
-      hist[o + b] = (!empty && b == n_le_lo - 1)
-                        ? static_cast<int32_t>(n_valid) : 0;
-    if (threadIdx.x == 0)
-      flags[t] = empty ? kFlagSkipped : kFlagShortcircuit;
-    return;
-  }
-
-  const uint32_t e_first = s_edge[0];
-  const uint32_t e_last = s_edge[n_bins];
-  const uint32_t* tw = words + t * int64_t(tile_words);
-  for (int j = threadIdx.x; j < tile_words; j += blockDim.x) {
-    const uint32_t x = tw[j];
-#pragma unroll
-    for (int f = 0; f < PER; ++f) {
-      if (int64_t(j) * PER + f >= n_valid) break;  // padding guard
-      const uint32_t v = field<WIDTH>(x, f);
-      if (v < e_first || v >= e_last) continue;  // counts nowhere
-      // invariant: s_edge[lo] <= v < s_edge[hi]
-      int lo = 0, hi = n_bins;
-      while (hi - lo > 1) {
-        const int mid = (lo + hi) >> 1;
-        if (s_edge[mid] <= v) lo = mid; else hi = mid;
-      }
-      atomicAdd(&s_hist[lo], 1);
-    }
-  }
-  __syncthreads();
-  for (int b = threadIdx.x; b < n_bins; b += blockDim.x) hist[o + b] = s_hist[b];
-  if (threadIdx.x == 0) flags[t] = kFlagEvaluated;
-}
-
 template <int WIDTH, int KS, bool WITH_SUM, bool VEC>
 int launch_agg(const void* words, const void* meta, const void* ranges,
                const void* weights, void* counts, void* mins, void* maxs,
@@ -496,18 +372,6 @@ int launch_agg_width(const void* words, const void* meta, const void* ranges,
 #undef REPRO_AGG
 }
 
-template <int WIDTH>
-int launch_hist(const void* words, const void* meta, const void* edges,
-                void* hist, void* flags, int64_t n_tiles, int tile_words,
-                int n_bins, cudaStream_t stream) {
-  zone_histogram_kernel<WIDTH><<<static_cast<unsigned>(n_tiles), kThreads, 0,
-                                 stream>>>(
-      static_cast<const uint32_t*>(words), static_cast<const uint32_t*>(meta),
-      static_cast<const uint32_t*>(edges), static_cast<int32_t*>(hist),
-      static_cast<int32_t*>(flags), tile_words, n_bins);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // slots: the kernel's register slots for ranges (1, 2, 4 or 8; K above
@@ -539,26 +403,4 @@ extern "C" int repro_fused_zone_agg(const void* words, const void* meta,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_AGG
-}
-
-extern "C" int repro_zone_histogram(const void* words, const void* meta,
-                                    const void* edges, void* hist, void* flags,
-                                    int64_t n_tiles, int tile_words,
-                                    int n_bins, int width, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_bins < 1 || n_bins > kMaxBins)
-    return static_cast<int>(cudaErrorInvalidValue);
-#define REPRO_HIST(W)                                                        \
-  return launch_hist<W>(words, meta, edges, hist, flags, n_tiles, tile_words, \
-                        n_bins, s)
-  switch (width) {
-    case 1: REPRO_HIST(1);
-    case 2: REPRO_HIST(2);
-    case 4: REPRO_HIST(4);
-    case 8: REPRO_HIST(8);
-    case 16: REPRO_HIST(16);
-    case 32: REPRO_HIST(32);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef REPRO_HIST
 }

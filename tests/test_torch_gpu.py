@@ -695,6 +695,126 @@ def test_level_histogram_matches_plain(card, width):
         assert np.array_equal(g, r)
 
 
+def _hist_case(n_tiles, tile_words, width, n_bins, rng, n_segs=7):
+    """Raw operands of ``n_tiles`` tiles of random codes below 2^12 over
+    ``n_segs`` SCTs in runs of tiles (a block's share crosses SCTs), with
+    ascending edge rows full of repeated edges (row 0 padded by repeating an
+    edge, so its upper bins are empty); each tile at random skipped (empty
+    zone, or no entry), closed (its zone inside one bin), evaluated, or
+    evaluated with a padding tail that ends mid-word and mid-tile."""
+    per = 32 // width
+    maxv = 2 ** min(width, 12)
+    full = tile_words * per
+    codes = rng.integers(0, maxv, n_tiles * full).astype(np.int32)
+    words = bitpack.pack_codes_plain(torch.from_numpy(codes), width)
+    edges = np.sort(rng.integers(0, maxv + 1, (n_segs, n_bins + 1)), axis=1)
+    edges[0, (n_bins + 1) // 2:] = edges[0, (n_bins + 1) // 2]
+    seg = np.sort(rng.integers(0, n_segs, n_tiles))
+    rows = []
+    for s, kind in zip(seg, rng.integers(0, 6, n_tiles)):
+        e = edges[s]
+        wide = [b for b in range(n_bins) if max(e[b], 1) < e[b + 1]]
+        if kind == 0:
+            rows.append((0xFFFFFFFF, 0, s, full))
+        elif kind == 1:
+            rows.append((0, maxv - 1, s, 0))
+        elif kind == 2 and wide:
+            b = wide[int(rng.integers(0, len(wide)))]
+            lo = int(rng.integers(max(e[b], 1), e[b + 1]))
+            rows.append((lo, int(rng.integers(lo, e[b + 1])), s, full))
+        elif kind == 3:
+            rows.append((0, maxv - 1, s, int(rng.integers(1, full))))
+        else:
+            rows.append((0, maxv - 1, s, full))
+    meta = np.zeros((n_tiles, 6), np.int64)
+    meta[:, :4] = np.asarray(rows, np.int64)
+    return (words, bitpack.to_u32_bits(torch.from_numpy(meta)),
+            bitpack.to_u32_bits(torch.from_numpy(edges.astype(np.int64))))
+
+
+def _check_hist_on_card(card, words, meta, edges, width, n_bins, tile_words,
+                        offset=0, route=None):
+    """The kernel (at ``route``, else the one ``hist_route`` picks) against
+    the plain version, both on the card, with the words ``offset`` int32
+    into their buffer (off a 16-byte line unless 0 or 4)."""
+    buf = torch.empty(words.shape[0] + offset, dtype=torch.int32,
+                      device=card)
+    w = buf[offset:]
+    w.copy_(words.to(card))
+    meta, edges = meta.to(card), edges.to(card)
+    want = agg_scan.zone_histogram_plain(w, meta, edges, width, n_bins,
+                                         tile_words)
+    before = ops.LAUNCHES["zone_histogram"]
+    if route is None:
+        got = agg_scan.zone_histogram(w, meta, edges, width, n_bins,
+                                      tile_words)
+    else:
+        got = agg_scan._launch_hist(w, meta, edges, width, n_bins,
+                                    tile_words, *route)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["zone_histogram"] == before + 1
+    for g, r in zip(got, want):
+        assert torch.equal(g, r), route
+    return got[1]
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("n_bins", [1, 2, 16, 17, 64])
+def test_zone_histogram_every_instantiation_matches_plain(card, width,
+                                                          n_bins):
+    """Every (width, bins) instantiation of the 16-byte-load path that
+    holds n_bins, the 4-byte one (words one int32 off a 16-byte line) and
+    the route zone_histogram picks, bit for bit, flags included."""
+    tile_words = 256
+    rng = np.random.default_rng(2000 + 10 * width + n_bins)
+    words, meta, edges = _hist_case(60, tile_words, width, n_bins, rng)
+    for bins in agg_scan.HIST_BINS:
+        if n_bins <= bins:
+            flags = _check_hist_on_card(card, words, meta, edges, width,
+                                        n_bins, tile_words,
+                                        route=(bins, True))
+    assert {0, 1} <= set(flags.tolist())
+    _check_hist_on_card(card, words, meta, edges, width, n_bins, tile_words,
+                        route=(64, False), offset=1)
+    _check_hist_on_card(card, words, meta, edges, width, n_bins, tile_words)
+
+
+@pytest.mark.parametrize("tile_words", [1024, 1000, 1022, 7])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n_bins", [16, 64])
+def test_zone_histogram_tile_shapes_match_plain(card, tile_words, offset,
+                                                n_bins):
+    """Partial rounds (1000 words a tile), a tile_words that is not a
+    multiple of 4 (1022, 7) or words off a 16-byte line (4-byte loads),
+    padding tails and closed tiles, through the route zone_histogram
+    picks."""
+    width = WIDTHS[(tile_words + offset + n_bins) % len(WIDTHS)]
+    rng = np.random.default_rng(tile_words + 7 * offset + n_bins)
+    words, meta, edges = _hist_case(40, tile_words, width, n_bins, rng)
+    route = agg_scan.hist_route(words.to(card)[offset:], n_bins, tile_words)
+    assert route[1] == (tile_words % 4 == 0 and offset % 4 == 0)
+    flags = _check_hist_on_card(card, words, meta, edges, width, n_bins,
+                                tile_words, offset)
+    assert set(flags.tolist()) == {0, 1, 2}
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_zone_histogram_more_tiles_than_the_grid(card, width):
+    """More tiles than the grid has warps (each warp walks several tiles of
+    its block's share, the next tile's edges, class and words loaded
+    ahead), over SCTs that change inside the shares, at 16 bins (the
+    analytics path's buckets) in every instantiation."""
+    tile_words = 64
+    n_tiles = 2 * torch.cuda.get_device_properties(card).multi_processor_count \
+        * 64
+    rng = np.random.default_rng(300 + width)
+    words, meta, edges = _hist_case(n_tiles, tile_words, width, 16, rng,
+                                    n_segs=97)
+    for bins in agg_scan.HIST_BINS:
+        _check_hist_on_card(card, words, meta, edges, width, 16, tile_words,
+                            route=(bins, True))
+
+
 def test_tree_aggregates_on_the_card_match_the_cpu(card):
     """A compacted tree with sequential keys (the fast path) and the same
     tree with fresh writes (the general path) answer alike on the card and
@@ -860,6 +980,36 @@ def test_bloom_probe_matches_plain(card, n_words, nbits, n_keys, n_hashes):
     got = bloom_probe.bloom_probe(bloom.to(card), nbits, keys.to(card),
                                   n_hashes)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("n_words,nbits", [
+    (1, 1), (1, 3), (4, 3), (100, 1000), (2048, 1 << 16), (16384, 1 << 19),
+    (20000, 20000 * 32), (20000, 2**32 - 1), (3, 4096)])
+@pytest.mark.parametrize("view", [False, True])
+@pytest.mark.parametrize("n_hashes", [0, 1, 6])
+def test_bloom_probe_every_instantiation_matches_plain(card, n_words, nbits,
+                                                       view, n_hashes):
+    """Power-of-two nbits (a mask) and others (the magic-number remainder),
+    from 1 to 2^32 - 1; blooms in shared memory and above 48 KB (64 and 80
+    KB, read through __ldg); bits past the words (a miss, staged as zeros
+    or tested); 10,007 keys (not a multiple of 4) and a keys[1:] view off a
+    16-byte line (4-byte key loads)."""
+    rng = np.random.default_rng(n_words + nbits % 997 + 3 * n_hashes + view)
+    bloom = torch.from_numpy(rng.integers(-2**31, 2**31, n_words,
+                                          dtype=np.int64).astype(np.int32))
+    full = torch.from_numpy(rng.integers(-2**31, 2**31, 10_008,
+                                         dtype=np.int64).astype(np.int32))
+    keys = full[1:] if view else full[:-1]
+    want = bloom_probe.bloom_probe_plain(bloom, nbits, keys, n_hashes)
+    kc = full.to(card)[1:] if view else full.to(card)[:-1]
+    assert (kc.data_ptr() % 16 == 0) != view
+    before = ops.LAUNCHES["bloom_probe"]
+    got = bloom_probe.bloom_probe(bloom.to(card), nbits, kc, n_hashes)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["bloom_probe"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    if n_hashes == 1 and 1000 <= nbits <= 32 * n_words:
+        assert 0 < int(want.sum()) < keys.shape[0]
 
 
 def test_bloom_probe_has_no_false_negatives(card):

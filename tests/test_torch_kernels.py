@@ -561,6 +561,23 @@ def test_agg_route_loads_4_bytes_off_a_16_byte_group(tile_words, offset):
         assert agg_scan.agg_route(words, k, tile_words) == (8, False)
 
 
+@pytest.mark.parametrize("n_bins,bins", [(1, 16), (2, 16), (16, 16),
+                                         (17, 64), (64, 64)])
+def test_hist_route_picks_the_smallest_bucket(n_bins, bins):
+    words = torch.zeros(4 * 1024 + 4, dtype=torch.int32)
+    for tile_words in (1024, 256, 1000):
+        assert agg_scan.hist_route(words, n_bins, tile_words) == (bins, True)
+
+
+@pytest.mark.parametrize("tile_words,offset", [(1001, 0), (1022, 0),
+                                               (1024, 1), (256, 2), (1, 0)])
+def test_hist_route_loads_4_bytes_off_a_16_byte_group(tile_words, offset):
+    """As the aggregate's: 4-byte loads, always at 64 bins."""
+    words = torch.zeros(4 * 1024 + 4, dtype=torch.int32)[offset:]
+    for n_bins in (1, 16, 64):
+        assert agg_scan.hist_route(words, n_bins, tile_words) == (64, False)
+
+
 def test_agg_kernels_reject_bad_operands():
     words = torch.zeros(TILE, dtype=torch.int32)
     meta = torch.zeros((1, 6), dtype=torch.int32)

@@ -216,6 +216,45 @@ def test_bloom_probe_rejects_bad_operands():
     assert ops.bloom_probe(words, 256, keys[:0]).shape == (0,)
 
 
+# the kernel's remainder without a divide: the documented blooms' nbits
+# (powers of two), the card tests' other ones, and divisors at the edges of
+# the uint32 range and of the shifts
+FASTMOD_DIVISORS = [1, 2, 3, 7, 641, 1000, 1 << 14, 1 << 16, (1 << 16) + 1,
+                    20000 * 32, 6700417, (1 << 31) - 1, 1 << 31,
+                    (1 << 31) + 1, 2**32 - 2, 2**32 - 1]
+
+
+def _fastmod_check(nbits, rng):
+    """fastmod_plain against % over seeded random h and 0, d - 1, d and
+    2^32 - 1 (those below 2^32)."""
+    m, s1, s2 = bloom_probe.fastmod_constants(nbits)
+    assert 1 <= m < 2**32 and s1 in (0, 1) and 0 <= s2 <= 31
+    h = np.concatenate([rng.integers(0, 2**32, 4096, dtype=np.uint64),
+                        np.asarray([0, nbits - 1, nbits, 2**32 - 1],
+                                   np.uint64)])
+    h = torch.from_numpy(h[h < 2**32].astype(np.int64))
+    assert torch.equal(bloom_probe.fastmod_plain(h, nbits), h % nbits)
+
+
+@pytest.mark.parametrize("nbits", FASTMOD_DIVISORS)
+def test_fastmod_matches_the_modulo_at_edge_divisors(nbits):
+    _fastmod_check(nbits, np.random.default_rng(nbits % 1009))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_fastmod_matches_the_modulo_at_random_divisors(seed):
+    """100 seeded random divisors a seed, from every bit length."""
+    rng = np.random.default_rng(seed)
+    for bits in rng.integers(1, 33, 100):
+        _fastmod_check(int(rng.integers(1 << (bits - 1), 1 << bits)), rng)
+
+
+def test_fastmod_rejects_nbits_outside_uint32():
+    for nbits in (0, 2**32):
+        with pytest.raises(ValueError, match="nbits"):
+            bloom_probe.fastmod_constants(nbits)
+
+
 # --------------------------------------------------------------------------- #
 # ssm_scan
 # --------------------------------------------------------------------------- #
