@@ -105,7 +105,14 @@ Phases, each printing JSON lines:
             (buckets_cold_graph_ms), bloom_probe cold at the largest
             prime below its nbits (odd_nbits_cold_graph_ms), both with
             the SASS instructions per code or key of their hot loop
-            (cuobjdump -sass).  Their rows
+            (cuobjdump -sass).  range_filter_codes and
+            range_filter_packed are timed in CUDA graphs at each cluster
+            size the build instantiates (4 and 8 blocks a tile; their
+            grids are tiles x cluster), cold on the input padded to whole
+            tiles, beside a copy of the same traffic cold (codes.to(
+            torch.int8), words.clone()), and through their ops entry
+            point cold on the input as it is and with the pad copy that
+            entry point made before.  Their rows
             carry the registers, shared memory and spills of every
             instantiation of their kernel at that width, from the build's
             -Xptxas=-v log.
@@ -1455,7 +1462,8 @@ def ptxas_resources(log: str, symbol: str) -> list:
                        spill_store_bytes=int(m.group(2)),
                        spill_load_bytes=int(m.group(3)))
             continue
-        m = re.search(r"Used (\d+) registers(?:, (\d+) bytes smem)?", ln)
+        m = re.search(r"Used (\d+) registers(?:, used \d+ barriers)?"
+                      r"(?:, (\d+) bytes smem)?", ln)
         if m and cur is not None:
             cur.update(registers=int(m.group(1)),
                        static_smem_bytes=int(m.group(2) or 0))
@@ -1633,12 +1641,52 @@ def bloom_sass(sass: dict) -> dict:
                             r"^LDG.*\.128", 4)
 
 
+def single_filter_extras(kernel, launch, x, tile: int, fill: int,
+                         nbytes: int, ptxas: list, yardstick, ops_call,
+                         padded_call) -> dict:
+    """What a single-range filter row adds (``range_filter_codes``,
+    ``range_filter_packed``; ``kernel`` is the wrapper on its operands but
+    the column, ``launch`` its module's ``_launch`` the same way, which
+    takes the cluster size): the grid (tiles x cluster) and CUDA-graph
+    times hot and cold at every cluster size the build instantiates, the
+    wrapper's cluster size, the registers and spills of its
+    instantiations, a yardstick of the same traffic cold (a copy the
+    port never calls), the kernel cold on the input padded with ``fill``
+    to whole tiles, and the ``ops`` entry point cold on the input as it is
+    and with the pad copy that it made before (both answers equal)."""
+    import torch
+    from repro_torch.kernels import ops, packed_filter
+
+    n_tiles = -(-x.shape[0] // tile)
+    clusters = {}
+    for c in packed_filter.CLUSTER_SIZES:
+        fn = functools.partial(launch, cluster=c)
+        clusters[c] = {"grid": n_tiles * c,
+                       "graph_ms": hot_graph_ms(fn, x),
+                       "cold_graph_ms": cold_graph_ms(fn, nbytes, x)}
+    check(torch.equal(ops_call(x), padded_call(x)),
+          "the ops entry point differs with the pad copy")
+    whole = ops._pad_to_tiles(x, tile, fill)
+    name, yard = yardstick
+    mine = clusters[packed_filter.CLUSTER]
+    return {"cluster": packed_filter.CLUSTER, "grid": mine["grid"],
+            "graph_ms": mine["graph_ms"],
+            "cold_graph_ms": mine["cold_graph_ms"], "clusters": clusters,
+            "ptxas": ptxas, "yardstick": name,
+            "yardstick_cold_graph_ms": cold_graph_ms(yard, nbytes, x),
+            "whole_tiles": whole.shape[0],
+            "whole_tiles_cold_graph_ms": cold_graph_ms(kernel, nbytes, whole),
+            "ops_cold_graph_ms": cold_graph_ms(ops_call, nbytes, x),
+            "ops_pad_cold_graph_ms": cold_graph_ms(padded_call, nbytes, x)}
+
+
 def kernel_phase(recs, launches: dict, bw: float, bench: dict,
                  rates: dict, log: str, sass: dict) -> list:
     import torch
     from repro_torch.kernels import (agg_scan, bitpack, bloom_probe,
                                      fused_scan, merge_remap, multi_filter,
-                                     opd_filter, packed_filter, ssm_scan)
+                                     opd_filter, ops, packed_filter,
+                                     ssm_scan)
 
     rows = []
     # one row per pack width the main path packed (its flushes), then
@@ -1878,19 +1926,27 @@ def kernel_phase(recs, launches: dict, bw: float, bench: dict,
     rows[-1].update({
         "graph_ms": hot_graph_ms(multi, mw, mr),
         "cold_graph_ms": cold_graph_ms(multi, rows[-1]["bytes"], mw, mr)})
+    # range_filter_codes at serve.jax's largest call: the column as it is
     (cc, lo, hi, tc), _ = recs["codes"].calls[0]
-    n_tiles = cc.shape[0] // tc
+    n_tiles = -(-cc.shape[0] // tc)
+    nbytes = 5 * cc.shape[0] + 4 * n_tiles
     rows.append(compare(
         "range_filter_codes",
         lambda: opd_filter.code_range_filter(cc, lo, hi, tc),
         lambda: opd_filter.code_range_filter_plain(cc, lo, hi, tc),
-        5 * cc.shape[0] + 4 * n_tiles, bw, launches["range_filter_codes"],
+        nbytes, bw, launches["range_filter_codes"],
         f"codes={cc.shape[0]} tiles={n_tiles} lo={lo} hi={hi}"))
-    codes_filter = functools.partial(opd_filter.code_range_filter, lo=lo,
-                                     hi=hi, tile_codes=tc)
-    rows[-1].update({
-        "graph_ms": hot_graph_ms(codes_filter, cc),
-        "cold_graph_ms": cold_graph_ms(codes_filter, rows[-1]["bytes"], cc)})
+    rows[-1].update(single_filter_extras(
+        functools.partial(opd_filter.code_range_filter, lo=lo, hi=hi,
+                          tile_codes=tc),
+        functools.partial(opd_filter._launch, lo=lo, hi=hi, tile_codes=tc),
+        cc, tc, -1, nbytes,
+        ptxas_resources(log, SYMBOLS["range_filter_codes"]),
+        ("codes.to(torch.int8)", lambda c: c.to(torch.int8)),
+        lambda c: ops.range_filter_codes(c, lo, hi, tc),
+        lambda c: opd_filter.code_range_filter(
+            ops._pad_to_tiles(c, tc, -1), lo, hi, tc)[0][:c.shape[0]]
+        .view(torch.bool)))
 
     # the plain remap at compact.jax's largest merge output; each live entry
     # gathers one table slot, a 32-byte L2 sector.  In CUDA graphs: the same
@@ -1926,7 +1982,8 @@ def kernel_phase(recs, launches: dict, bw: float, bench: dict,
     cases += [(w, 1, 200, wd, packed_filter.DEFAULT_TILE_WORDS, "micro-bench")
               for wd, w in bench["words"].items()]
     for i, (pw, lo, hi, width, tw, where) in enumerate(cases):
-        n_tiles = pw.shape[0] // tw
+        n_tiles = -(-pw.shape[0] // tw)
+        nbytes = 8 * pw.shape[0] + 4 * n_tiles
         # per field: shift, mask, subtract, compare, shift-or; per word: a
         # popcount and the count's add
         n_ops = pw.shape[0] * (5 * (32 // width) + 2)
@@ -1935,16 +1992,24 @@ def kernel_phase(recs, launches: dict, bw: float, bench: dict,
             lambda: packed_filter.packed_range_filter(pw, lo, hi, width, tw),
             lambda: packed_filter.packed_range_filter_plain(pw, lo, hi, width,
                                                             tw),
-            8 * pw.shape[0] + 4 * n_tiles, bw, launches["range_filter_packed"],
+            nbytes, bw, launches["range_filter_packed"],
             f"words={pw.shape[0]} tiles={n_tiles} width={width} lo={lo} "
             f"hi={hi} ({where})",
             op_bound_ms=n_ops / rates["int32_ops"] * 1e3))
-        packed = functools.partial(packed_filter.packed_range_filter, lo=lo,
-                                   hi=hi, width=width, tile_words=tw)
-        rows[-1].update({
-            "main_path": i == 0, "int_ops": n_ops,
-            "graph_ms": hot_graph_ms(packed, pw),
-            "cold_graph_ms": cold_graph_ms(packed, rows[-1]["bytes"], pw)})
+        rows[-1].update({"main_path": i == 0, "int_ops": n_ops})
+        rows[-1].update(single_filter_extras(
+            functools.partial(packed_filter.packed_range_filter, lo=lo, hi=hi,
+                              width=width, tile_words=tw),
+            functools.partial(packed_filter._launch, lo=lo, hi=hi,
+                              width=width, tile_words=tw),
+            pw, tw, -1, nbytes,
+            [r for r in ptxas_resources(log, SYMBOLS["range_filter_packed"])
+             if f"<{width}," in r["function"]],
+            ("words.clone()", torch.clone),
+            lambda w: ops.range_filter_packed(w, width, lo, hi, tw),
+            lambda w: packed_filter.packed_range_filter(
+                ops._pad_to_tiles(w, tw, -1), lo, hi, width,
+                tw)[0][:w.shape[0]]))
 
     # the bloom probe at the micro-bench's bloom, then the largest one; in
     # CUDA graphs hot and cold, with the registers and the SASS

@@ -224,12 +224,13 @@ def _code_masks_many(s: SCT, ranges: Sequence[Tuple[int, int]],
         return (col >= lo[:, None]) & (col < hi[:, None]), col
     dev = s.packed.device
     if backend == "jax":
-        # padded to whole tiles once per run: each launch reads it in place
-        col = s.code_column(pad_to=ops.DEFAULT_TILE_CODES)
+        # unpacked once per run; each launch reads its partial last tile in
+        # place
+        col = s.code_column()
         masks = torch.zeros((len(ranges), s.n), dtype=torch.bool, device=dev)
         for q, (lo, hi) in enumerate(ranges):
             if lo < hi:
-                masks[q] = ops.range_filter_codes(col, lo, hi - 1)[:s.n]
+                masks[q] = ops.range_filter_codes(col, lo, hi - 1)
         return masks
     if backend == "jax_packed":
         # inclusive [lo, hi-1]; lo > hi encodes the empty range in-kernel

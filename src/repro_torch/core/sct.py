@@ -93,20 +93,13 @@ class SCT:
         words = self.packed[idx // per].to(torch.int64) & 0xFFFFFFFF
         return (words >> ((idx % per) * width)) & ((1 << width) - 1)
 
-    def code_column(self, pad_to: int = 1) -> torch.Tensor:
-        """int32 codes on the card, -1 at tombstones: the reference's
-        ``SCT.evs``, unpacked by the kernel on each call, and -1 past ``n``
-        up to a multiple of ``pad_to`` (so a tiled launch takes the column
-        as it is).  The reference caches it on the SCT; the port keeps no
-        unpacked column."""
+    def code_column(self) -> torch.Tensor:
+        """int32 codes [n] on the card, -1 at tombstones: the reference's
+        ``SCT.evs``, unpacked by the kernel on each call.  The reference
+        caches it on the SCT; the port keeps no unpacked column."""
         codes = ops.unpack_codes(self.packed, self.code_bits, self.n)
         codes.masked_fill_(~self.live, -1)
-        want = -(-self.n // pad_to) * pad_to
-        if want == self.n:
-            return codes
-        col = torch.full((want,), -1, dtype=torch.int32, device=codes.device)
-        col[:self.n] = codes
-        return col
+        return codes
 
     def host_codes(self) -> np.ndarray:
         """int32 codes on the host, -1 at tombstones: the packed words come

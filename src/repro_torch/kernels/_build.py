@@ -53,9 +53,11 @@ _SIGNATURES = {
     "repro_fused_zone_agg": [_P] * 9 + [_I64] + [_INT] * 6 + [_P],
     "repro_zone_histogram": [_P] * 5 + [_I64] + [_INT] * 5 + [_P],
     "repro_multi_range_filter": [_P] * 4 + [_I64, _INT, _INT, _INT, _P],
-    "repro_range_filter_codes": [_P, _INT, _INT, _P, _P, _I64, _INT, _P],
+    "repro_range_filter_codes": [_P, _INT, _INT, _P, _P, _I64, _INT, _INT,
+                                 _P],
     "repro_remap_codes": [_P] * 5 + [_I64, _INT, _P],
-    "repro_range_filter_packed": [_P, _U32, _U32, _P, _P, _I64, _INT, _INT, _P],
+    "repro_range_filter_packed": [_P, _U32, _U32, _P, _P, _I64, _INT, _INT,
+                                  _INT, _P],
     "repro_bloom_probe": [_P, _I64, _U32, _U32, _INT, _INT, _P, _I64, _INT,
                           _P, _P],
     "repro_ssm_scan": [_P] * 7 + [_I64] + [_INT] * 4 + [_P],
@@ -94,7 +96,8 @@ def _sources():
 
 def _flags() -> list:
     """``NVCC_FLAGS`` and the tile constants that the kernel modules own."""
-    from repro_torch.kernels import bitpack, merge_remap, ssm_scan
+    from repro_torch.kernels import (bitpack, merge_remap, packed_filter,
+                                     ssm_scan)
 
     return NVCC_FLAGS + [
         f"-DREPRO_UNPACK_THREADS={bitpack.UNPACK_THREADS}",
@@ -104,7 +107,9 @@ def _flags() -> list:
         f"-DREPRO_REMAP_THREADS={merge_remap.REMAP_THREADS}",
         f"-DREPRO_REMAP_GROUPS={merge_remap.REMAP_GROUPS}",
         f"-DREPRO_SSM_STATES={ssm_scan.STATES_PER_LANE}",
-        f"-DREPRO_SSM_ROUND={ssm_scan.STEPS_PER_ROUND}"]
+        f"-DREPRO_SSM_ROUND={ssm_scan.STEPS_PER_ROUND}",
+        f"-DREPRO_FILTER_THREADS={packed_filter.FILTER_THREADS}",
+        f"-DREPRO_FILTER_LOADS={packed_filter.FILTER_LOADS}"]
 
 
 def library_path() -> Path:

@@ -10,9 +10,10 @@ is the level-wide tile/meta construction of ``fused_level_filter``,
 ``fused_level_agg`` and ``level_histogram`` (the reference's per-tile
 Python loops, vectorised on the device, with per-SCT folds there and one
 transfer per launch), the reference's tile padding of
-``multi_range_filter_packed`` ('jax_packed') and ``range_filter_codes`` /
-``range_filter_count`` ('jax') and ``range_filter_packed``, and
-``bitmap_to_mask``.
+``multi_range_filter_packed`` ('jax_packed'), and ``bitmap_to_mask``.
+``range_filter_codes`` / ``range_filter_count`` ('jax') and
+``range_filter_packed`` pass the column as it is: their kernels read a
+partial last tile in place.
 """
 
 from __future__ import annotations
@@ -209,24 +210,26 @@ def multi_range_filter_packed(words: torch.Tensor, width: int, ranges,
     return bitmaps[:, :m]
 
 
-def _code_tiles(codes: torch.Tensor, lo: int, hi: int, tile_codes: int):
-    flat = _pad_to_tiles(codes.to(torch.int32), tile_codes, -1)
-    return code_range_filter(flat, int(lo), int(hi), tile_codes)
+def _int32_column(codes: torch.Tensor) -> torch.Tensor:
+    """``codes`` as a contiguous int32 column (itself when it is one)."""
+    return codes.to(torch.int32).contiguous()
 
 
 def range_filter_codes(codes: torch.Tensor, lo: int, hi: int,
                        tile_codes: int = DEFAULT_TILE_CODES) -> torch.Tensor:
-    """bool mask over an int32 code column: lo <= code <= hi (inclusive;
-    the column is padded with -1)."""
-    mask, _counts = _code_tiles(codes, lo, hi, tile_codes)
-    return mask[:codes.shape[0]].view(torch.bool)
+    """bool mask over an int32 code column: lo <= code <= hi (inclusive)."""
+    mask, _counts = code_range_filter(_int32_column(codes), int(lo), int(hi),
+                                      tile_codes)
+    return mask.view(torch.bool)
 
 
 def range_filter_count(codes: torch.Tensor, lo: int, hi: int,
                        tile_codes: int = DEFAULT_TILE_CODES) -> int:
-    """How many codes of the column lie in [lo, hi] (padding included, as
-    the reference counts it: -1 matches where lo <= -1)."""
-    _mask, counts = _code_tiles(codes, lo, hi, tile_codes)
+    """How many codes of the column lie in [lo, hi], counted as the
+    reference counts its column padded with -1 to whole tiles (the padding
+    matches where lo <= -1 <= hi)."""
+    _mask, counts = code_range_filter(_int32_column(codes), int(lo), int(hi),
+                                      tile_codes)
     return int(counts.sum())
 
 
@@ -234,14 +237,10 @@ def range_filter_packed(words: torch.Tensor, width: int, lo: int, hi: int,
                         tile_words: int = PACKED_TILE_WORDS) -> torch.Tensor:
     """int32 bitmap aligned with ``words``: bit f of ``bitmap[j]`` is
     ``lo <= code <= hi`` for the code in field f of word j (inclusive
-    uint32 bounds; lo > hi is the empty range).  The words are padded with
-    0xFFFFFFFF, whose fields match only where hi = 2**width - 1, and the
-    bitmap is cut back to the real words."""
-    m = words.shape[0]
-    flat = _pad_to_tiles(words, tile_words, -1)
-    bitmap, _counts = packed_range_filter(flat, int(lo), int(hi), width,
-                                          tile_words)
-    return bitmap[:m]
+    uint32 bounds; lo > hi is the empty range)."""
+    bitmap, _counts = packed_range_filter(words.contiguous(), int(lo),
+                                          int(hi), width, tile_words)
+    return bitmap
 
 
 def bloom_probe(bloom_words: torch.Tensor, nbits: int, keys32: torch.Tensor,

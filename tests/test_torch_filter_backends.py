@@ -7,8 +7,11 @@ held against the reference's Pallas kernels in interpret mode at the
 reference's (256, 128) tile, bitmaps, masks and per-tile counts alike,
 with lengths that are not a multiple of the tile (so padding words and
 codes are counted), empty ``lo > hi`` ranges and ranges reaching
-``2**width - 1`` (which the padding word matches); the op-level entry
-points against the reference's ``kernels.ops``.
+``2**width - 1`` (which the padding word matches); ``code_range_filter``
+also on the column as it is (its partial last tile read in place, the
+padding's -1 counted as the reference counts it), at tiles of 32,768 and
+1,024 codes; the op-level entry points against the reference's
+``kernels.ops``.
 
 Engine: the same puts, deletes, flushes and compactions go into the
 reference tree (``LSMConfig(codec='opd', filter_backend=b,
@@ -121,6 +124,11 @@ def test_code_range_filter_plain_matches_pallas(lo, hi):
     assert np.array_equal(pm.numpy(), np.asarray(jm).reshape(-1))
     assert pc.dtype == torch.int32
     assert np.array_equal(pc.numpy(), np.asarray(jc).reshape(-1))
+    # the column as it is: the partial last tile read in place
+    um, uc = opd_filter.code_range_filter_plain(_t(codes), lo, hi, TILE)
+    assert um.dtype == torch.int8 and uc.dtype == torch.int32
+    assert np.array_equal(um.numpy(), np.asarray(jm).reshape(-1)[:n])
+    assert np.array_equal(uc.numpy(), np.asarray(jc).reshape(-1))
     # the op-level entry points: mask cut back to n, count with padding
     got = ops.range_filter_codes(_t(codes), lo, hi)
     assert got.dtype == torch.bool and got.shape == (n,)
@@ -145,10 +153,38 @@ def test_staged_kernels_reject_bad_operands():
         multi_filter.multi_range_filter(words, rng, 3)
     with pytest.raises(ValueError, match="multiple of 4"):
         opd_filter.code_range_filter(words[:1022], 0, 1, 1022)
-    with pytest.raises(ValueError, match="whole tiles"):
-        opd_filter.code_range_filter(words[:-4], 0, 1)
+    # codes that end inside a tile: the counts of the reference's padded
+    # input, the padding's -1 counted where the range holds it
+    for lo, hi in ((0, 1), (-1, 1)):
+        flat = _pad(words[:-4].numpy(), np.int32(-1))
+        _, jc = jopd.range_filter_codes_2d(
+            jnp.asarray(flat.reshape(-1, 128)), jnp.int32(lo), jnp.int32(hi),
+            block_rows=BLOCK_ROWS, interpret=True)
+        mask, counts = opd_filter.code_range_filter(words[:-4], lo, hi)
+        assert mask.shape == (TILE - 4,)
+        assert np.array_equal(counts.numpy(), np.asarray(jc).reshape(-1))
     with pytest.raises(ValueError, match="int32"):
         opd_filter.code_range_filter(words, 0, 2**31)
+
+
+@pytest.mark.parametrize("short", [5, -3, 1])
+@pytest.mark.parametrize("lo,hi", [(0, 3), (-1, 40), (9, 2), (-5, -1)])
+def test_code_range_filter_partial_tiles_match_pallas(short, lo, hi):
+    """The plain version on a column that ends inside a tile (``short``
+    codes before the end of 1, 1 and 3 tiles of 1,024 codes) against the
+    Pallas kernel on the reference's input padded with -1."""
+    rows, tile = 8, 8 * 128
+    n = {5: tile - 5, -3: tile + 3, 1: 3 * tile - 1}[short]
+    rng = np.random.default_rng(7 * n + lo)
+    codes = rng.integers(-1, 60, n).astype(np.int32)
+    flat = np.full(-(-n // tile) * tile, -1, np.int32)
+    flat[:n] = codes
+    jm, jc = jopd.range_filter_codes_2d(
+        jnp.asarray(flat.reshape(-1, 128)), jnp.int32(lo), jnp.int32(hi),
+        block_rows=rows, interpret=True)
+    pm, pc = opd_filter.code_range_filter_plain(_t(codes), lo, hi, tile)
+    assert np.array_equal(pm.numpy(), np.asarray(jm).reshape(-1)[:n])
+    assert np.array_equal(pc.numpy(), np.asarray(jc).reshape(-1))
 
 
 def test_empty_inputs_give_empty_outputs():

@@ -10,6 +10,8 @@ JAX:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -961,6 +963,98 @@ def test_packed_range_filter_matches_plain(card, width, tile):
         assert torch.equal(
             ops.range_filter_packed(words[:-5].to(card), width, lo, hi).cpu(),
             ops.range_filter_packed(words[:-5], width, lo, hi))
+
+
+def _filter_lengths(tile):
+    """0, one tile, 37 tiles (fig5's largest SCT at 32,768), more tiles than
+    the card holds blocks at once, and last tiles 5 short, 3 long and 1
+    short of 3 tiles."""
+    many = 140 if tile > 4096 else 1500
+    return [0, tile, 37 * tile, many * tile, tile - 5, tile + 3, 3 * tile - 1]
+
+
+def _check_filter_on_card(name, fn, plain, x, *args):
+    """``fn`` on the card against ``plain`` on the same operands (on the
+    card too: the same PyTorch code), outputs bit for bit, one launch of
+    the kernel ``name`` for a non-empty input."""
+    before = ops.LAUNCHES[name]
+    got = fn(x, *args)
+    torch.cuda.synchronize()
+    want = plain(x, *args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), args
+    assert ops.LAUNCHES[name] == before + (x.shape[0] > 0)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("tile", [packed_filter.DEFAULT_TILE_WORDS, 1000])
+@pytest.mark.parametrize("cluster", packed_filter.CLUSTER_SIZES)
+def test_packed_range_filter_every_shape_matches_plain(card, width, tile,
+                                                       cluster):
+    """Every cluster size the build instantiates, at partial last tiles,
+    on words[1:] views (4-byte loads), with a range in the middle, one
+    reaching 2**width - 1 (the padding words' fields count) and an empty
+    one; width 32 also with hi = 0xFFFFFFFF over all of uint32."""
+    rng = np.random.default_rng(width * 31 + tile + cluster)
+    top = 2 ** width - 1
+    ranges = [(1, min(200, top)), (top // 3, top), (5, 2), (0, top)]
+    fn = functools.partial(packed_filter._launch, width=width,
+                           tile_words=tile, cluster=cluster)
+    plain = functools.partial(packed_filter.packed_range_filter_plain,
+                              width=width, tile_words=tile)
+    for n in _filter_lengths(tile):
+        words = torch.from_numpy(rng.integers(-2**31, 2**31, n + 1,
+                                              dtype=np.int64)
+                                 .astype(np.int32)).to(card)
+        for lo, hi in ranges:
+            _check_filter_on_card("range_filter_packed", fn, plain,
+                                  words[:n], lo, hi)
+            _check_filter_on_card("range_filter_packed", fn, plain,
+                                  words[1:], lo, hi)
+
+
+@pytest.mark.parametrize("tile", [opd_filter.DEFAULT_TILE_CODES, 1000])
+@pytest.mark.parametrize("cluster", packed_filter.CLUSTER_SIZES)
+def test_code_range_filter_every_shape_matches_plain(card, tile, cluster):
+    """Every cluster size, at partial last tiles, on codes[1:] views
+    (4-byte loads), with ranges that hold -1 (the padding codes count),
+    an empty one and all of int32."""
+    rng = np.random.default_rng(tile + cluster)
+    ranges = [(0, 3), (-1, 40), (9, 2), (-5, -1), (-2**31, 2**31 - 1)]
+    fn = functools.partial(opd_filter._launch, tile_codes=tile,
+                           cluster=cluster)
+    plain = functools.partial(opd_filter.code_range_filter_plain,
+                              tile_codes=tile)
+    for n in _filter_lengths(tile):
+        codes = torch.from_numpy(rng.integers(-1, 60, n + 1)
+                                 .astype(np.int32)).to(card)
+        for lo, hi in ranges:
+            _check_filter_on_card("range_filter_codes", fn, plain,
+                                  codes[:n], lo, hi)
+            _check_filter_on_card("range_filter_codes", fn, plain,
+                                  codes[1:], lo, hi)
+
+
+def test_filters_write_counts_without_a_fill(card):
+    """The counts are stored, not added: outputs allocated over memory left
+    full of other values still come out equal to plain."""
+    rng = np.random.default_rng(5)
+    n = 37 * packed_filter.DEFAULT_TILE_WORDS - 26044
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, n, dtype=np.int64)
+                             .astype(np.int32)).to(card)
+    for _ in range(3):
+        junk = torch.full((4 * n,), 12345, dtype=torch.int32, device=card)
+        del junk
+        _check_filter_on_card("range_filter_packed",
+                              packed_filter.packed_range_filter,
+                              packed_filter.packed_range_filter_plain,
+                              words, 0, 2**31, 32)
+        junk = torch.full((4 * n,), 777, dtype=torch.int32, device=card)
+        del junk
+        _check_filter_on_card("range_filter_codes",
+                              opd_filter.code_range_filter,
+                              opd_filter.code_range_filter_plain,
+                              words, -2**30, 2**30)
 
 
 @pytest.mark.parametrize("n_words,nbits,n_keys", [

@@ -9,9 +9,11 @@ Pallas kernel in interpret mode at its (256, 128) tile and against its
 ``kernels.ops`` entry point:
 
 * ``range_filter_packed``: bitmaps and per-tile counts bit for bit at
-  widths 1-32, with ranges reaching ``2**width - 1`` (the padding words'
-  fields match them and are counted), empty ``lo > hi`` ranges, and width
-  32 with ``hi = 0xFFFFFFFF``;
+  widths 1-32, the plain version on the words as they are (a partial last
+  tile read in place) and on the reference's padded input, with ranges
+  reaching ``2**width - 1`` (the padding words' fields match them and are
+  counted), empty ``lo > hi`` ranges, width 32 with ``hi = 0xFFFFFFFF``,
+  and last tiles 5 words short, 3 words long and 1 word short of 3 tiles;
 * ``bloom_probe``: hits bit for bit, including a bloom whose ``nbits``
   exceeds its words (the kernel reads the missing words as 0, a miss,
   where ``ref.bloom_probe`` clamps the index and hits), and no false
@@ -83,6 +85,13 @@ def test_range_filter_packed_plain_matches_pallas(width, kind):
     assert np.array_equal(_u32(pb), np.asarray(jb).reshape(-1))
     assert pc.dtype == torch.int32
     assert np.array_equal(pc.numpy(), np.asarray(jc).reshape(-1))
+    # the words as they are: the partial last tile read in place, its count
+    # with the padding words' matches
+    ub, uc = packed_filter.packed_range_filter_plain(_t(words), lo, hi, width,
+                                                     TILE)
+    assert np.array_equal(_u32(ub), np.asarray(jb).reshape(-1)[:n_words])
+    assert uc.dtype == torch.int32
+    assert np.array_equal(uc.numpy(), np.asarray(jc).reshape(-1))
     # the op-level entry point: padded, cut back to the real words
     got = ops.range_filter_packed(_t(words), width, lo, hi)
     assert got.shape == (n_words,)
@@ -110,12 +119,48 @@ def test_range_filter_packed_width_32_full_uint32_range():
     _, counts = packed_filter.packed_range_filter_plain(
         _t(_pad(words, np.uint32(0xFFFFFFFF))), 0, 0xFFFFFFFF, 32, TILE)
     assert int(counts.sum()) == TILE
+    _, counts = packed_filter.packed_range_filter_plain(
+        _t(words), 0, 0xFFFFFFFF, 32, TILE)
+    assert counts.tolist() == [TILE]
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("short", [5, -3, 1])
+def test_range_filter_packed_partial_tiles_match_pallas(width, short):
+    """The plain version on words that end inside a tile (``short`` words
+    before the end of 1, 1, and 3 tiles of 1,024 words) against the Pallas
+    kernel on the reference's padded input, for a range in the middle, one
+    reaching 2**width - 1 and an empty one."""
+    rows, tile = 8, 8 * 128
+    n_words = {5: tile - 5, -3: tile + 3, 1: 3 * tile - 1}[short]
+    rng = np.random.default_rng(1000 * width + n_words)
+    words = rng.integers(0, 2**32, n_words, dtype=np.uint64).astype(np.uint32)
+    flat = np.full(-(-n_words // tile) * tile, 0xFFFFFFFF, np.uint32)
+    flat[:n_words] = words
+    for kind in ("mid", "top", "empty"):
+        lo, hi = _range(kind, width, rng)
+        jb, jc = jpacked.range_filter_packed_2d(
+            jnp.asarray(flat.reshape(-1, 128)), jnp.uint32(lo),
+            jnp.uint32(hi), width=width, block_rows=rows, interpret=True)
+        pb, pc = packed_filter.packed_range_filter_plain(_t(words), lo, hi,
+                                                         width, tile)
+        assert np.array_equal(_u32(pb), np.asarray(jb).reshape(-1)[:n_words])
+        assert np.array_equal(pc.numpy(), np.asarray(jc).reshape(-1)), kind
 
 
 def test_range_filter_packed_rejects_bad_operands():
     words = torch.zeros(TILE, dtype=torch.int32)
-    with pytest.raises(ValueError, match="whole tiles"):
-        packed_filter.packed_range_filter(words[:-1], 0, 1, 8)
+    # words that end inside a tile: the counts of the reference's padded
+    # input, padding words (fields 255) counted where the range holds 255
+    for lo, hi in ((0, 1), (200, 255)):
+        flat = _pad(words[:-1].numpy().view(np.uint32), np.uint32(0xFFFFFFFF))
+        _, jc = jpacked.range_filter_packed_2d(
+            jnp.asarray(flat.reshape(-1, 128)), jnp.uint32(lo),
+            jnp.uint32(hi), width=8, block_rows=BLOCK_ROWS, interpret=True)
+        bitmap, counts = packed_filter.packed_range_filter(words[:-1], lo, hi,
+                                                           8)
+        assert bitmap.shape == (TILE - 1,)
+        assert np.array_equal(counts.numpy(), np.asarray(jc).reshape(-1))
     with pytest.raises(ValueError, match="width"):
         packed_filter.packed_range_filter(words, 0, 1, 3)
     with pytest.raises(ValueError, match="uint32"):
