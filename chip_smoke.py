@@ -68,13 +68,25 @@ Phases, each printing JSON lines:
             'numpy' backends), through filter, filter_many (K=16) and a
             ScanServer (max_batch 8), every answer held against the host
             model.
-8. bench:   the kernel micro-bench's entry points
+8. codecs:  one seeded stream (the main phase's generator at 2^20 pairs
+            and 2,048 deletes, ``--codec-pairs``) into an 'opd', a 'plain'
+            and a 'heavy' tree of the main configuration, the paper's
+            baselines beside its design: filter_many (K=16) under 'fused'
+            and under 'numpy', range_lookup over 8 windows and get of
+            1,024 keys (deleted and missing ones among them).  The three
+            trees must give the same answers, each equal to the host
+            model; one line per codec carries ingest seconds and ops/s,
+            compaction and filter stage seconds ('decode' included), the
+            range_lookup median, disk bytes per level and the launch
+            counts of its window, which must be 0 for 'plain' and 'heavy'.
+            codecs.done gives the phase's wall seconds.
+9. bench:   the kernel micro-bench's entry points
             (``benchmarks/bench_kernels.py``): range_filter_packed on 2^20
             codes at widths 8 and 16, bloom_probe on a 2^14-bit bloom and
             on the largest documented one (2,048 words, 2^20 keys, no false
             negative), ssm_scan at falcon-mamba-7b's width (d_inner 8192,
             d_state 16, 2,048 tokens), held against host models.
-9. kernels: each kernel against its plain PyTorch version on the card, on
+10. kernels: each kernel against its plain PyTorch version on the card, on
             operands recorded from the main path, the serve phases,
             agg.fast, compact.jax and fig5, and at bench's shapes
             (bit-identical required; ssm_scan within rtol = atol = 1e-4),
@@ -117,8 +129,8 @@ Phases, each printing JSON lines:
             instantiation of their kernel at that width, from the build's
             -Xptxas=-v log.
 
-The last three lines are the card (nvidia-smi name, power limit), the
-kernel table ``{"kernels": [...]}`` and ``{"ok": true, "device": ...}``.
+A ``total`` line gives the run's wall seconds.  The last three lines are
+the card (nvidia-smi name, power limit), the kernel table ``{"kernels": [...]}`` and ``{"ok": true, "device": ...}``.
 Any mismatch or error exits non-zero before them.  The script imports
 only torch, numpy and the port; it exits non-zero with no result when no
 CUDA card is available or when it stands outside the repository.
@@ -340,27 +352,52 @@ def run_get_check(tree, ref: Reference, keys: np.ndarray, label: str) -> dict:
             "get_us": (time.perf_counter() - t0) / max(1, keys.shape[0]) * 1e6}
 
 
-def main_phase(args, device: str):
-    """Uniform phase then clustered phase; returns the launch counts and
-    the trees with their host models for the analytics phases."""
-    import torch
-    from repro_torch import LSMConfig, LSMTree, Predicate
-    from repro_torch.kernels import ops
+def main_config():
+    """The main phase's configuration: the paper's section 5.1 shapes."""
+    from repro_torch import LSMConfig
 
-    rng = np.random.default_rng(args.seed)
-    width, n = 256, args.pairs
-    cfg = LSMConfig(key_bytes=16, value_width=width, file_bytes=32 * 2**20,
-                    size_ratio=10, l0_limit=4)
+    return LSMConfig(key_bytes=16, value_width=256, file_bytes=32 * 2**20,
+                     size_ratio=10, l0_limit=4)
+
+
+def make_stream(rng, n: int, width: int) -> tuple:
+    """(keys, vocabulary, vocabulary index per put, deleted keys): n puts
+    of width-byte values uniform over NDV ratio 0.01, keys uniform over
+    [0, 4 n), then n / 512 deletes of written keys."""
     ndv = max(1, int(n * 0.01))
     vocab = make_vocab(ndv, width, rng)
     keys = rng.integers(0, 4 * n, n, dtype=np.uint64)
     vidx = rng.integers(0, ndv, n)
+    dels = rng.choice(keys, max(1, n // 512), replace=False)
+    return keys, vocab, vidx, dels
+
+
+def make_preds(vocab: np.ndarray) -> list:
+    """The 16 filter predicates over a ``make_vocab`` vocabulary."""
+    preds = [("prefix", b"cat_%05d_" % (37 * i + 5), b"") for i in range(11)]
+    preds += [("range", b"cat_00100_", b"cat_00104_\xff"),
+              ("eq", bytes(vocab[vocab.shape[0] // 2]).rstrip(b"\x00"), b""),
+              ("ge", b"cat_00996_", b""), ("le", b"", b"cat_00002_\xff"),
+              ("prefix", b"zzz", b"")]
+    return preds
+
+
+def main_phase(args, device: str):
+    """Uniform phase then clustered phase; returns the launch counts and
+    the trees with their host models for the analytics phases."""
+    import torch
+    from repro_torch import LSMTree, Predicate
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(args.seed)
+    n, cfg = args.pairs, main_config()
+    stream = make_stream(rng, n, cfg.value_width)
+    keys, vocab, vidx, dels = stream
+    ndv = vocab.shape[0]
     emit({"phase": "main", "reduced": "pairs 6.4e7 -> %.1e (host-side memtable "
           "ingest within the smoke's time limit)" % n, "pairs": n,
-          "value_width": width, "ndv": ndv, "file_bytes": cfg.file_bytes})
-
-    dels = rng.choice(keys, max(1, n // 512), replace=False)
-    stream = (keys, vocab, vidx, dels)
+          "value_width": cfg.value_width, "ndv": ndv,
+          "file_bytes": cfg.file_bytes})
 
     ops.reset_launches()
     tree = LSMTree(cfg, device=device)
@@ -370,11 +407,7 @@ def main_phase(args, device: str):
     ref.delete(dels)
     emit({"phase": "main.ingest", **ingest_report(tree, stream, ingest_s)})
 
-    preds = [("prefix", b"cat_%05d_" % (37 * i + 5), b"") for i in range(11)]
-    preds += [("range", b"cat_00100_", b"cat_00104_\xff"),
-              ("eq", bytes(vocab[ndv // 2]).rstrip(b"\x00"), b""),
-              ("ge", b"cat_00996_", b""), ("le", b"", b"cat_00002_\xff"),
-              ("prefix", b"zzz", b"")]
+    preds = make_preds(vocab)
     res = run_filter_check(tree, ref, preds, "main")
     res["filter_stages_s"] = dict(tree.filter_stats.seconds)
     c = tree.filter_stats.counts
@@ -393,7 +426,7 @@ def main_phase(args, device: str):
     n2 = args.clustered_pairs
     ck = np.arange(n2, dtype=np.uint64)
     cv = np.char.add(b"ts_", np.char.zfill(
-        (ck // 4).astype(np.int64).astype("S12"), 12)).astype(f"S{width}")
+        (ck // 4).astype(np.int64).astype("S12"), 12)).astype(f"S{cfg.value_width}")
     ctree = LSMTree(cfg, device=device)
     cvocab, cidx = np.unique(cv, return_inverse=True)
     cref = Reference(cvocab)
@@ -993,6 +1026,132 @@ def range_phase(args, state) -> None:
           "overwrites": int(over.shape[0]), "deletes": int(gone.shape[0]),
           "lookup_stages_s": dict(tree.lookup_stats.seconds),
           "windows": rows, "launches": launches})
+
+
+# --------------------------------------------------------------------------- #
+# the competitor codecs: one stream into an 'opd', a 'plain' and a 'heavy' tree
+# --------------------------------------------------------------------------- #
+CODECS = ("opd", "plain", "heavy")
+
+
+def codec_run(cfg, codec: str, stream, ref: Reference, preds, windows,
+              probe, device: str) -> tuple:
+    """codecs.<codec>: the stream into a tree of ``cfg`` under ``codec``;
+    filter_many (K=16) under 'fused' and 'numpy', range_lookup over
+    ``windows`` and get over ``probe``, each held against the host model.
+    Returns (the JSON line, the answers)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import LSMTree, Predicate
+
+    label = f"codecs.{codec}"
+    tree = LSMTree(dataclasses.replace(cfg, codec=codec), device=device)
+    vocab = ref.vocab
+
+    def drive():
+        out = {"ingest_s": ingest(tree, stream)}
+        for backend in ("fused", "numpy"):
+            tree.cfg = dataclasses.replace(tree.cfg, filter_backend=backend)
+            before = dict(tree.filter_stats.seconds)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = tree.filter_many([Predicate(*p) for p in preds])
+            torch.cuda.synchronize()
+            out[backend] = (got, time.perf_counter() - t0, {
+                k: v - before.get(k, 0.0)
+                for k, v in tree.filter_stats.seconds.items()})
+        tree.cfg = dataclasses.replace(tree.cfg, filter_backend="fused")
+        out["range"] = []
+        for lo, hi in windows:
+            t0 = time.perf_counter()
+            got = tree.range_lookup(lo, hi)
+            out["range"].append((got, time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        out["get"] = [tree.get(k) for k in probe.tolist()]
+        out["get_s"] = time.perf_counter() - t0
+        return out
+
+    out, launches = launch_window(drive)
+    n_match = 0
+    for backend in ("fused", "numpy"):
+        n_match = check_filters(out[backend][0], ref, preds,
+                                f"{label} {backend}")
+    live_keys, live_idx = ref.state()
+    for (lo, hi), ((gk, gv), _) in zip(windows, out["range"]):
+        sel = (live_keys >= np.uint64(lo)) & (live_keys <= np.uint64(hi))
+        check(np.array_equal(gk, live_keys[sel]) and gv.dtype == vocab.dtype
+              and np.array_equal(gv, vocab[live_idx[sel]]),
+              f"{label}: range_lookup [{lo}, {hi}] differs")
+    for k, got in zip(probe.tolist(), out["get"]):
+        check(got == ref.get(k), f"{label}: get({k}) = {got!r}")
+    if codec == "opd":
+        for name in ("pack_codes", "fused_zone_filter"):
+            check(launches[name] > 0, f"{label}: {name} never launched")
+    else:
+        check(sum(launches.values()) == 0, f"{label}: launches {launches}")
+    shape = tree.shape_report()
+    n_ops = stream[0].shape[0] + stream[3].shape[0]
+    line = {"phase": label, "ops": n_ops, "ingest_s": out["ingest_s"],
+            "ops_per_s": n_ops / out["ingest_s"],
+            "flush_s": tree.flush_stats.total(),
+            "compaction_stages_s": dict(tree.compaction_stats.seconds),
+            "n_flushes": shape["n_flushes"],
+            "n_compactions": shape["n_compactions"],
+            "levels": shape["levels"], "level_bytes": shape["level_bytes"],
+            "disk_bytes": shape["disk_bytes"], "k": len(preds),
+            "rows_matched": n_match,
+            "filter_many_s": {b: out[b][1] for b in ("fused", "numpy")},
+            "filter_stages_s": {b: out[b][2] for b in ("fused", "numpy")},
+            "range_median_s": statistics.median(dt for _, dt in out["range"]),
+            "range_rows": [int(gk.shape[0]) for (gk, _), _ in out["range"]],
+            "gets": int(probe.shape[0]),
+            "get_us": out["get_s"] / probe.shape[0] * 1e6,
+            "launches": launches}
+    answers = ([(r.keys, r.values) for b in ("fused", "numpy")
+                for r in out[b][0]], [got for got, _ in out["range"]],
+               out["get"])
+    return line, answers
+
+
+def codecs_phase(args, device: str) -> None:
+    """codecs: one seeded stream (the main phase's generator at
+    ``--codec-pairs`` pairs) into an 'opd', a 'plain' and a 'heavy' tree of
+    the main configuration; the three must give the same answers, each
+    equal to the host model, and 'plain' and 'heavy' launch no kernel."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 3)
+    n, cfg = args.codec_pairs, main_config()
+    stream = make_stream(rng, n, cfg.value_width)
+    keys, vocab, vidx, dels = stream
+    ref = Reference(vocab)
+    ref.put(keys, vidx)
+    ref.delete(dels)
+    preds = make_preds(vocab)
+    space = 4 * n                # keys are uniform over [0, 4 n)
+    windows = [(i * space // 8 + space // 32,
+                i * space // 8 + space // 32 + space // 64 - 1)
+               for i in range(8)]
+    probe = np.concatenate([rng.choice(keys, 768), dels[:128],
+                            rng.integers(4 * n, 8 * n, 128, dtype=np.uint64)])
+    emit({"phase": "codecs", "reduced": "pairs 6.4e7 -> %.1e ('heavy' "
+          "compaction's zlib within the smoke's time limit)" % n, "pairs": n,
+          "deletes": int(dels.shape[0]), "value_width": cfg.value_width,
+          "ndv": int(vocab.shape[0]), "file_bytes": cfg.file_bytes,
+          "codecs": CODECS})
+    first = None
+    for codec in CODECS:
+        line, answers = codec_run(cfg, codec, stream, ref, preds, windows,
+                                  probe, device)
+        emit(line)
+        if first is None:
+            first = answers
+            continue
+        (fa, ra, ga), (fb, rb, gb) = first, answers
+        check(all(np.array_equal(ka, kb) and np.array_equal(va, vb)
+                  for (ka, va), (kb, vb) in zip(fa + ra, fb + rb))
+              and ga == gb, f"codecs.{codec}: answers differ from 'opd'")
+    emit({"phase": "codecs.done", "seconds": time.perf_counter() - t_phase})
 
 
 # --------------------------------------------------------------------------- #
@@ -2095,8 +2254,11 @@ def main() -> int:
     ap.add_argument("--clustered-pairs", type=int, default=1 << 20)
     ap.add_argument("--fast-pairs", type=int, default=1 << 22,
                     help="pairs of the agg.fast tree (sequential keys)")
+    ap.add_argument("--codec-pairs", type=int, default=1 << 20,
+                    help="pairs of the codecs phase's three trees")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -2202,12 +2364,14 @@ def main() -> int:
     range_phase(args, state)
     launches["range_filter_packed"] = fig5_phase(state, recs)
     fig5_example("cuda")
+    codecs_phase(args, "cuda")
     bench_launches, bench = bench_phase(args)
     launches.update({k: bench_launches[k] for k in ("bloom_probe", "ssm_scan")})
     rows = kernel_phase(recs, launches, bw, bench, rates, log,
                         sass_functions(lib))
     for r in rows:
         emit({"phase": "kernel", **r})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     print(card, flush=True)
     keep = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,11 +1,19 @@
-"""OPD leveling compaction (paper Algorithm 1).
+"""Leveling compaction: OPD's Algorithm 1 and the competitors' raw merge.
 
-Port of ``repro/core/compaction.py`` for the 'opd' codec with the
-reference's three encode backends (``backend=``), which write bit-identical
-SCTs.  The key merge stays on the host: concatenate the inputs' key
-columns, sort by (key asc, seqno desc), keep the newest version per key
-and, at the bottom level, drop tombstones; then cut the survivors into
-output files.  The values never leave the encoded domain.  Per merge, the
+Port of ``repro/core/compaction.py`` for the 'opd', 'plain' and 'heavy'
+codecs, with the reference's three 'opd' encode backends (``backend=``),
+which write bit-identical SCTs.  The key merge is the same for every codec
+and stays on the host: concatenate the inputs' key columns, sort by (key
+asc, seqno desc), keep the newest version per key and, at the bottom
+level, drop tombstones; then cut the survivors into output files.
+
+The competitors pay what the reference makes them pay, on the host: stage
+``decode`` takes every input's raw value column (``SCT.raw_values``: a
+'heavy' input's blocks all really decompressed), stage ``encode`` gathers
+each output's values, and ``build_sct`` ('write') compresses a 'heavy'
+output's blocks again.  The backend does not matter to them.
+
+For 'opd' the values never leave the encoded domain.  Per merge, the
 inputs' old codes are read once (tombstones set to -1); per output file,
 the old code of every surviving entry is gathered, the dictionary codes it
 uses are marked, the dictionaries are merged on the host
@@ -66,12 +74,18 @@ def merge_scts(
     if backend not in BACKENDS:
         raise ValueError(f"unknown compaction backend {backend!r} (one of "
                          f"{', '.join(map(repr, BACKENDS))})")
+    codec = inputs[0].codec
     n_in = sum(s.n for s in inputs)
 
     # ---- stage: read (charge full-file I/O for every input) -------------- #
     with stats.time("read"):
         for s in inputs:
             store.read(s.file_id)
+
+    # ---- stage: decode (only the competitors pay here) -------------------- #
+    with stats.time("decode"):
+        raw_cols = ([s.raw_values() for s in inputs] if codec != "opd"
+                    else None)
 
     # ---- stage: merge (keys + GC on the host) ----------------------------- #
     with stats.time("merge"):
@@ -95,9 +109,11 @@ def merge_scts(
     outputs: List[SCT] = []
     dict_compares = 0
     host = backend == "numpy"
-    # 'jax_packed' hands build_sct (words, width, opd), the others (evs, opd)
-    source_kw = "packed_encoded" if backend == "jax_packed" else "encoded"
-    if n_out:
+    # the competitors hand build_sct raw values; for 'opd', 'jax_packed'
+    # hands it (words, width, opd), the others (evs, opd)
+    source_kw = ("raw_values" if raw_cols is not None else
+                 "packed_encoded" if backend == "jax_packed" else "encoded")
+    if raw_cols is None and n_out:
         with stats.time("encode"):
             source = (_host_source_codes(inputs) if host
                       else _source_codes(inputs, device))
@@ -105,7 +121,10 @@ def merge_scts(
         hi = min(lo + file_entries, n_out)
         ck, cs, ct = keys[lo:hi], seqnos[lo:hi], tombs[lo:hi]
         with stats.time("encode"):
-            if host:
+            if raw_cols is not None:
+                value, ncmp = _gather_raw(raw_cols, srcs[lo:hi], idxs[lo:hi],
+                                          inputs[0].value_width), 0
+            elif host:
                 value, ncmp = _host_remap_codes(
                     inputs, *source, srcs[lo:hi], idxs[lo:hi], ct, device)
             else:
@@ -119,7 +138,7 @@ def merge_scts(
                 key_bytes=inputs[0].key_bytes,
                 value_width=inputs[0].value_width, block_bytes=block_bytes,
                 bloom_bits_per_key=bloom_bits_per_key, store=store,
-                device=device, **{source_kw: value})
+                device=device, codec=codec, **{source_kw: value})
         outputs.append(out)
     return CompactionResult(outputs, n_in, n_out, n_in - n_out, dict_compares)
 
@@ -207,3 +226,15 @@ def _host_remap_codes(inputs: List[SCT], codes: np.ndarray,
     new = np.full(c_src.shape[0], -1, np.int32)
     new[live] = flat[old[live].astype(np.int64) + offsets[c_src[live]]]
     return (torch.from_numpy(new).to(device), new_opd), int(used.sum())
+
+
+def _gather_raw(raw_cols: List[np.ndarray], c_src: np.ndarray,
+                c_idx: np.ndarray, width: int) -> np.ndarray:
+    """One output's raw values (S<width>) gathered from the inputs'
+    columns."""
+    out = np.zeros(c_src.shape[0], f"S{width}")
+    for i, col in enumerate(raw_cols):
+        sel = c_src == i
+        if sel.any():
+            out[sel] = col[c_idx[sel]]
+    return out

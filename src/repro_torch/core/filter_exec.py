@@ -1,8 +1,9 @@
 """Scan-based value filtering (paper §4.2.2) on the card.
 
-Port of ``repro/core/filter_exec.py`` for the 'opd' codec and the
-reference's four backends.  K predicates are planned per SCT dictionary on
-the host (two binary searches each) and evaluated:
+Port of ``repro/core/filter_exec.py`` for the 'opd', 'plain' and 'heavy'
+codecs and the reference's four backends.  On 'opd' runs K predicates are
+planned per SCT dictionary on the host (two binary searches each) and
+evaluated:
 
 * ``'fused'``: every SCT of a level in ONE zone-gated
   ``fused_level_filter`` launch on the packed words;
@@ -20,6 +21,11 @@ are masked there, and only the matching positions and their codes (read
 straight from the packed words) come back to the host.  There the
 dictionary decodes them and the cross-level seqno merge discards stale
 versions.  The backends give the same results bit for bit.
+
+Competitor runs pay what the paper says they pay, on the host under every
+backend: stage ``decode`` decompresses every block of each 'heavy' run
+once per call (``SCT.raw_values``), and each predicate compares the raw
+S<w> strings of every entry (``string_mask``).  They launch nothing.
 """
 
 from __future__ import annotations
@@ -118,17 +124,24 @@ def evaluate_filter_many(
         for s in live_runs:
             store.stats.add_read(s.disk_bytes, 1)
 
+    # the competitors' raw value columns, once per call
+    with stats.time("decode"):
+        decoded = {i: s.raw_values() for i, s in enumerate(live_runs)
+                   if s.codec != "opd"}
+
     cand_keys = [[] for _ in range(n_preds)]
     cand_seqs = [[] for _ in range(n_preds)]
     cand_vals = [[] for _ in range(n_preds)]
     n_scanned = 0
     with stats.time("filter"):
-        hits = _run_hits(live_runs, preds, backend, stats, snap)
+        hits = _run_hits(live_runs, preds, backend, stats, snap, decoded)
         for i, s in enumerate(live_runs):
             n_scanned += s.n
             if i not in hits:
                 continue
-            q, idx, codes = hits[i]
+            q, idx, col = hits[i]
+            # O(1) decode: the code is the offset into the dictionary
+            vals = s.opd.decode(col) if i not in decoded else col
             bounds = np.searchsorted(q, np.arange(n_preds + 1))
             for k in range(n_preds):
                 sel = slice(bounds[k], bounds[k + 1])
@@ -136,8 +149,7 @@ def evaluate_filter_many(
                     continue
                 cand_keys[k].append(s.keys[idx[sel]])
                 cand_seqs[k].append(s.seqnos[idx[sel]])
-                # O(1) decode: the code is the offset into the dictionary
-                cand_vals[k].append(s.opd.decode(codes[sel]))
+                cand_vals[k].append(vals[sel])
         # memtable stack (newest data): small row-oriented scans
         mk, ms, mv = _memtable_visible(mems, snap, value_width)
         if mk.shape[0]:
@@ -159,17 +171,20 @@ def evaluate_filter_many(
 
 
 def _run_hits(live_runs: List[SCT], preds: Sequence[Predicate],
-              backend: str, stats: StageStats, snap
+              backend: str, stats: StageStats, snap,
+              decoded: Optional[Dict[int, np.ndarray]] = None
               ) -> Dict[int, Tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """{run index -> (q, idx, codes)}: the (predicate, entry) pairs of the
     run's live entries that match and are visible at ``snap``, with the
-    entries' codes, as host arrays ordered by predicate, then entry.  A run
-    where no predicate can match is left out."""
+    entries' codes ('opd') or raw values (the competitor runs, whose value
+    columns ``decoded`` holds by run index), as host arrays ordered by
+    predicate, then entry.  An 'opd' run where no predicate can match is
+    left out."""
     out = {}
-    run_masks = _run_masks(live_runs, preds, backend, stats)
+    run_masks = _run_masks(live_runs, preds, backend, stats, decoded or {})
     for i in sorted(run_masks):
         s, masks = live_runs[i], run_masks[i]
-        if isinstance(masks, tuple):          # 'numpy': host masks, codes
+        if isinstance(masks, tuple):    # host masks and column
             masks, col = masks
             q, idx = np.nonzero(masks)
             codes = col[idx]
@@ -186,20 +201,30 @@ def _run_hits(live_runs: List[SCT], preds: Sequence[Predicate],
 
 
 def _run_masks(live_runs: List[SCT], preds: Sequence[Predicate],
-               backend: str, stats: StageStats) -> dict:
-    """{run index -> masks} under ``backend``; a run where no predicate can
-    match is left out (no launch).  On the card backends the masks are
-    bool [K, n] on the card, where tombstones may still be set (callers AND
-    with ``SCT.live``); under 'numpy' they are a host pair (bool [K, n]
-    without tombstones, the int32 code column)."""
+               backend: str, stats: StageStats,
+               decoded: Dict[int, np.ndarray]) -> dict:
+    """{run index -> masks}: 'opd' runs under ``backend``, where a run no
+    predicate can match is left out (no launch).  On the card backends the
+    masks are bool [K, n] on the card, where tombstones may still be set
+    (callers AND with ``SCT.live``); under 'numpy' they are a host pair
+    (bool [K, n] without tombstones, the int32 code column).  A competitor
+    run's masks are the same host pair over its raw values ``decoded[i]``
+    under every backend: the strings compared, tombstones masked."""
+    opd_runs = [i for i in range(len(live_runs)) if i not in decoded]
     if backend == "fused":
-        return _fused_level_masks(live_runs, preds, stats)
-    out = {}
-    for i, s in enumerate(live_runs):
-        masks = _code_masks_many(s, [s.opd.code_range(p) for p in preds],
-                                 backend)
-        if masks is not None:
-            out[i] = masks
+        out = _fused_level_masks(live_runs, opd_runs, preds, stats)
+    else:
+        out = {}
+        for i in opd_runs:
+            s = live_runs[i]
+            masks = _code_masks_many(
+                s, [s.opd.code_range(p) for p in preds], backend)
+            if masks is not None:
+                out[i] = masks
+    for i, vals in decoded.items():
+        live = ~live_runs[i].tombs
+        out[i] = (np.stack([string_mask(vals, p) & live for p in preds]),
+                  vals)
     return out
 
 
@@ -242,17 +267,19 @@ def _code_masks_many(s: SCT, ranges: Sequence[Tuple[int, int]],
     raise ValueError(f"filter backend {backend!r}")
 
 
-def _fused_level_masks(live_runs: List[SCT], preds: Sequence[Predicate],
-                       stats: StageStats) -> dict:
-    """Plan + evaluate every run through ``fused_level_filter``, ONE launch
-    per (level, pack width) group; each run contributes its own K planned
-    ranges.  Tile/block skip telemetry lands in ``stats.counts``
-    (``fused_launches``, ``zone_tiles_*``, ``zone_blocks_*``).
+def _fused_level_masks(live_runs: List[SCT], opd_runs: Sequence[int],
+                       preds: Sequence[Predicate], stats: StageStats) -> dict:
+    """Plan + evaluate the 'opd' runs ``live_runs[i]``, i in ``opd_runs``,
+    through ``fused_level_filter``, ONE launch per (level, pack width)
+    group; each run contributes its own K planned ranges.  Tile/block skip
+    telemetry lands in ``stats.counts`` (``fused_launches``,
+    ``zone_tiles_*``, ``zone_blocks_*``).
 
     Returns {run index -> bool masks [K, n] on the card}; runs of a level
     where no predicate can match are left out (no launch)."""
     groups: dict = {}
-    for i, s in enumerate(live_runs):
+    for i in opd_runs:
+        s = live_runs[i]
         groups.setdefault((s.level, s.code_bits), []).append(i)
     out: dict = {}
     for (_level, width), idxs in sorted(groups.items()):

@@ -1,11 +1,13 @@
 """Merged range scans (``range_lookup``) across the memtable and all runs.
 
-Port of ``repro/core/iterator.py`` for the 'opd' codec.  Iterator
-semantics follow RocksDB (paper §4.1): examine all levels at once, keep the
-newest visible version per key, skip tombstones.  Per run, the ``[a, b)``
-slice of the range is found on the host keys, and only the slice's codes
-are read from the packed words on the card (``SCT.codes_at``) and mapped
-through the memory-resident dictionary; the merge is a host lexsort.
+Port of ``repro/core/iterator.py`` for the 'opd', 'plain' and 'heavy'
+codecs.  Iterator semantics follow RocksDB (paper §4.1): examine all levels
+at once, keep the newest visible version per key, skip tombstones.  Per
+run, the ``[a, b)`` slice of the range is found on the host keys and
+decoded by ``SCT.decode_slice``: for 'opd' only the slice's codes are read
+from the packed words on the card and mapped through the memory-resident
+dictionary, 'plain' slices its raw column and 'heavy' decompresses every
+block the slice touches.  The merge is a host lexsort.
 
 I/O accounting is block-granular, as in the reference: each run charges
 the disk blocks its slice touches.
@@ -16,7 +18,6 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from repro_torch.core.memtable import MemTables, as_mems
 from repro_torch.core.sct import SCT
@@ -67,7 +68,7 @@ def range_scan(
             ks.append(s.keys[a:b])
             sqs.append(s.seqnos[a:b])
             tbs.append(s.tombs[a:b])
-            vls.append(_decode_slice(s, a, b))
+            vls.append(s.decode_slice(a, b))
         for mem in mems:
             mk, ms, mt, mv = mem.newest_rows(
                 None if snap is None else int(snap), lo=lo, hi=hi)
@@ -91,14 +92,3 @@ def range_scan(
         keep = first & ~tombs
         return keys[keep], vals[keep]
 
-
-def _decode_slice(s: SCT, a: int, b: int) -> np.ndarray:
-    """Values of entries [a, b): their codes read from the packed words on
-    the card, then O(1) per entry into the dictionary; b"" at tombstones.
-    A run of tombstones only has an empty dictionary and reads nothing."""
-    if s.opd.size == 0:
-        return np.zeros(b - a, s.opd.values.dtype)
-    idx = torch.arange(a, b, dtype=torch.int64, device=s.packed.device)
-    out = s.opd.decode(s.codes_at(idx).cpu().numpy())
-    out[s.tombs[a:b]] = b""
-    return out

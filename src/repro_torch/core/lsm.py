@@ -14,9 +14,15 @@ range launch per SCT and predicate over an unpacked column) and 'numpy'
 (the reference's default: the codes unpacked and compared on the host, no
 kernel) are the alternatives to 'fused'; ``compaction_backend``
 'jax' (the ``remap_codes`` kernel) and 'numpy' (the remap on the host) are
-the alternatives to 'jax_packed'.  Results are bit-identical to the
-reference engine configured as ``LSMConfig(codec='opd', filter_backend=<the
-same>, compaction_backend=<the same>)``.
+the alternatives to 'jax_packed'.
+
+``codec`` 'plain' and 'heavy' are two of the paper's baselines: raw rows,
+and rows zlib-compressed per block.  They stay on the host, as in the
+reference, through writes, ``get``, ``range_lookup``, the filters and
+compaction; an aggregate over them raises (ROADMAP §1, competitor codecs).
+Results are bit-identical to the reference engine configured as
+``LSMConfig(codec=<the same>, filter_backend=<the same>,
+compaction_backend=<the same>)``.
 
 Maintenance is synchronous: flushes and compactions run inline on the
 writer's thread.  MVCC follows the paper's file-snapshot scheme: a snapshot
@@ -53,7 +59,7 @@ from repro_torch.storage.io import FileStore
 # item that ports the others (kernels named by their function); None where
 # the port takes every value the reference takes
 SUPPORTED = {
-    "codec": (("opd",), "§1 competitor codecs"),
+    "codec": (("opd", "plain", "heavy"), "§1 competitor codecs"),
     "filter_backend": (("fused", "jax_packed", "jax", "numpy"), None),
     "compaction_backend": (("numpy", "jax", "jax_packed"), None),
     "compaction_policy": (("leveled",), "§1 policy"),
@@ -137,6 +143,19 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def _require_opd_runs(runs: Sequence[SCT]) -> None:
+    """Aggregates run on OPD codes only.  The reference's fast-path gate
+    sends a competitor run to its general path (``fastpath_eligible``'s
+    codec gate, ``repro/query/planner.py:190-191``), whose raw-value pool
+    is not ported yet; nothing falls back."""
+    other = sorted({s.codec for s in runs if s.codec != "opd"})
+    if other:
+        raise ValueError(
+            f"aggregates over codec {other[0]!r} runs are not ported yet "
+            "(this port aggregates 'opd' runs); see ROADMAP §1 competitor "
+            "codecs")
 
 
 class LSMTree:
@@ -285,7 +304,8 @@ class LSMTree:
                     value_width=self.cfg.value_width,
                     block_bytes=self.cfg.block_bytes,
                     bloom_bits_per_key=self.cfg.bloom_bits_per_key,
-                    store=self.store, device=self.device))
+                    store=self.store, device=self.device,
+                    codec=self.cfg.codec))
         # adds listed oldest-chunk-first; L0 prepends them reversed
         self.versions.apply(VersionEdit(adds=[(0, s) for s in new],
                                         last_seqno=int(frozen.seqnos.max())))
@@ -495,6 +515,7 @@ class LSMTree:
         GROUP BY one ``zone_histogram`` launch; otherwise the fused filter
         feeds the visibility merge."""
         snap = snapshot or self.snapshot()
+        _require_opd_runs(snap.runs)
         specs = self._resolve_agg_specs(specs, snap)
         parts = self._aggregate_partials(specs, snap)
         return [finalize_partial(spec, part)
@@ -506,6 +527,7 @@ class LSMTree:
         """Mergeable per-tree partials.  Specs must arrive resolved (bucket
         edges fixed over every tree whose partials are merged)."""
         snap = snapshot or self.snapshot()
+        _require_opd_runs(snap.runs)
         return self._aggregate_partials(specs, snap)
 
     def _aggregate_partials(self, specs, snap: Snapshot) -> List[AggPartial]:

@@ -1,8 +1,9 @@
-"""Sorted Compressed Tables (SCTs), 'opd' codec.
+"""Sorted Compressed Tables (SCTs): the 'opd' codec and the 'plain' and
+'heavy' competitors.
 
-Port of ``repro/core/sct.py`` for the paper's own design: keys and seqnos
-stay columnar on the host, values are OPD-encoded to dense codes that are
-bit-packed at a power-of-two width into words on the card, and the
+Port of ``repro/core/sct.py``.  For the paper's own design ('opd') keys
+and seqnos stay columnar on the host, values are OPD-encoded to dense codes
+that are bit-packed at a power-of-two width into words on the card, and the
 file-grained dictionary stays memory-resident on the host.  Flush packs the
 codes with the ``pack_codes`` kernel, and so do the 'jax' and 'numpy'
 compaction backends, whose outputs arrive as remapped code columns; SCTs
@@ -13,15 +14,23 @@ Unlike the reference, an SCT keeps no unpacked code column (``SCT.evs``):
 readers extract just the codes they need from the packed words on the card
 (``codes_at``), the 'jax' filter backend and the host aggregate routes
 unpack a transient column per call on the card (``code_column``), and the
-'numpy' filter and compaction backends one on the host (``host_codes``).  The 'plain',
-'heavy' and 'blob' codecs and ``BlobManager`` are not ported yet (ROADMAP
-§1).
+'numpy' filter and compaction backends one on the host (``host_codes``).
+
+The competitors stay on the host, as in the reference: a 'plain' SCT keeps
+its raw ``S<w>`` value column, a 'heavy' one its rows (key 8 bytes, seqno
+8, value w) zlib-compressed per block at level 1, so its disk bytes and
+blocks are the reference's.  Readers decode through three methods that
+dispatch on ``codec``: ``raw_values`` (every value, each 'heavy' block
+decompressed), ``value_at`` (one value; one block) and ``decode_slice``
+(the values of [a, b); every block the slice touches).  The 'blob' codec
+and ``BlobManager`` are not ported yet (ROADMAP §1, competitor codecs).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+import zlib
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +42,7 @@ from repro_torch.kernels.bitpack import unpack_codes_plain
 from repro_torch.storage.io import FileStore
 
 SEQNO_BYTES = 8
+CODECS = ("opd", "plain", "heavy")
 
 
 def pack_width(code_bits: int) -> int:
@@ -48,6 +58,7 @@ def pack_width(code_bits: int) -> int:
 class SCT:
     file_id: int
     level: int
+    codec: str                # 'opd' | 'plain' | 'heavy'
     keys: np.ndarray          # uint64 [n], (key asc, seqno desc)
     seqnos: np.ndarray        # uint64 [n]
     tombs: np.ndarray         # bool [n]
@@ -55,10 +66,16 @@ class SCT:
     key_bytes: int
     value_width: int
     disk_bytes: int
-    packed: torch.Tensor      # int32 words on the card (uint32 bits)
-    code_bits: int            # pack width
-    opd: OPD                  # memory-resident dictionary
-    live: torch.Tensor        # bool [n] on the card: ~tombs
+    # --- 'opd' ---
+    packed: Optional[torch.Tensor] = None   # int32 words on the card (uint32)
+    code_bits: int = 0                      # pack width
+    opd: Optional[OPD] = None               # memory-resident dictionary
+    live: Optional[torch.Tensor] = None     # bool [n] on the card: ~tombs
+    # --- 'plain' ---
+    values: Optional[np.ndarray] = None     # S<w> [n] on the host
+    # --- 'heavy' ---
+    zblocks: Optional[List[bytes]] = None   # zlib rows, one per block
+    zblock_entries: int = 0
     max_seqno: int = 0
     # facts the aggregate planner derives once per SCT (SCTs are immutable
     # after build): weight tables, prefix-label tables, tombstone and key
@@ -80,7 +97,7 @@ class SCT:
 
     @property
     def dict_nbytes(self) -> int:
-        return self.opd.nbytes
+        return self.opd.nbytes if self.opd is not None else 0
 
     def overlaps(self, lo: int, hi: int) -> bool:
         return self.n > 0 and not (hi < self.min_key or lo > self.max_key)
@@ -109,18 +126,79 @@ class SCT:
                                    self.n).numpy()
         return np.where(self.tombs, np.int32(-1), codes)
 
+    # ------------------------------------------------------------------ #
+    # decoding, one dispatch on the codec each
+    # ------------------------------------------------------------------ #
+    def raw_values(self) -> np.ndarray:
+        """The raw value column S<w> [n] (b"" at an 'opd' tombstone): a
+        'plain' SCT's own column, every block of a 'heavy' one really
+        decompressed.  The decode cost the paper's design avoids."""
+        if self.codec == "plain":
+            return self.values
+        if self.codec == "heavy":
+            return self._decompress_rows(0, len(self.zblocks))
+        return self.decode_slice(0, self.n)
+
     def value_at(self, pos: int) -> bytes:
-        """Decoded value of live entry ``pos``."""
+        """Decoded value of live entry ``pos``: one code from the packed
+        words, the 'plain' column, or one 'heavy' block decompressed."""
+        if self.codec == "plain":
+            return bytes(self.values[pos])
+        if self.codec == "heavy":
+            blk = pos // self.zblock_entries
+            rows = self._decompress_rows(blk, blk + 1)
+            return bytes(rows[pos - blk * self.zblock_entries])
         idx = torch.tensor([pos], dtype=torch.int64, device=self.packed.device)
         return bytes(self.opd.values[int(self.codes_at(idx)[0])])
 
+    def decode_slice(self, a: int, b: int) -> np.ndarray:
+        """Values of entries [a, b) (``a < b``), b"" at an 'opd' tombstone.
+        'opd' reads the slice's codes from the packed words on the card and
+        maps them through the dictionary (a run of tombstones only has an
+        empty one and reads nothing); 'heavy' decompresses every block the
+        slice touches."""
+        if self.codec == "plain":
+            return self.values[a:b]
+        if self.codec == "heavy":
+            epb = self.zblock_entries
+            b_lo = a // epb
+            rows = self._decompress_rows(b_lo, (b - 1) // epb + 1)
+            return rows[a - b_lo * epb:b - b_lo * epb]
+        if self.opd.size == 0:
+            return np.zeros(b - a, self.opd.values.dtype)
+        idx = torch.arange(a, b, dtype=torch.int64, device=self.packed.device)
+        out = self.opd.decode(self.codes_at(idx).cpu().numpy())
+        out[self.tombs[a:b]] = b""
+        return out
+
+    def _decompress_rows(self, b_lo: int, b_hi: int) -> np.ndarray:
+        """The values of 'heavy' blocks [b_lo, b_hi), each block's rows
+        really zlib-decompressed."""
+        w, row = self.value_width, 8 + 8 + self.value_width
+        if b_hi <= b_lo:
+            return np.zeros(0, f"S{w}")
+        raw = np.frombuffer(b"".join(zlib.decompress(self.zblocks[j])
+                                     for j in range(b_lo, b_hi)), np.uint8)
+        return raw.reshape(-1, row)[:, 16:].copy().view(f"S{w}").reshape(-1)
+
 
 def record_disk_bytes(codec: str, key_bytes: int, value_width: int,
-                      code_bits: int = 32) -> float:
-    if codec != "opd":
-        raise ValueError(f"codec {codec!r} is not ported yet "
-                         "(ROADMAP §1, competitor codecs)")
-    return key_bytes + SEQNO_BYTES + pack_width(code_bits) / 8.0
+                      code_bits: int = 32, compress_est: float = 0.5) -> float:
+    """Estimated bytes a record takes on disk, per codec (drives file
+    splitting and so the tree's shape)."""
+    base = key_bytes + SEQNO_BYTES
+    if codec == "plain":
+        return base + value_width
+    if codec == "heavy":
+        return (base + value_width) * compress_est
+    if codec == "opd":
+        return base + pack_width(code_bits) / 8.0
+    raise _unported(codec)
+
+
+def _unported(codec: str) -> ValueError:
+    return ValueError(f"codec {codec!r} is not ported yet "
+                      "(ROADMAP §1, competitor codecs)")
 
 
 def _opd_encode(raw_values: np.ndarray, tombs: np.ndarray) -> Tuple[np.ndarray, OPD]:
@@ -136,6 +214,21 @@ def _opd_encode(raw_values: np.ndarray, tombs: np.ndarray) -> Tuple[np.ndarray, 
     return evs, opd
 
 
+def _zlib_blocks(keys: np.ndarray, seqnos: np.ndarray, values: np.ndarray,
+                 epb: int) -> Tuple[List[bytes], int]:
+    """Rows (key 8 bytes, seqno 8, value w) compressed ``epb`` at a time by
+    zlib at level 1; returns (blocks, their total bytes)."""
+    n = keys.shape[0]
+    w = values.dtype.itemsize
+    rows = np.zeros((n, 8 + 8 + w), np.uint8)
+    rows[:, :8] = keys.view(np.uint8).reshape(n, 8)
+    rows[:, 8:16] = seqnos.view(np.uint8).reshape(n, 8)
+    rows[:, 16:] = values.view(np.uint8).reshape(n, w)
+    zblocks = [zlib.compress(rows[lo:lo + epb].tobytes(), level=1)
+               for lo in range(0, n, epb)]
+    return zblocks, sum(len(z) for z in zblocks)
+
+
 def build_sct(
     *,
     keys: np.ndarray,
@@ -148,20 +241,49 @@ def build_sct(
     bloom_bits_per_key: int,
     store: FileStore,
     device,
+    codec: str = "opd",
     raw_values: Optional[np.ndarray] = None,
     encoded: Optional[Tuple[torch.Tensor, OPD]] = None,
     packed_encoded: Optional[Tuple[torch.Tensor, int, OPD]] = None,
 ) -> SCT:
-    """Build + "write" one SCT from exactly one value source: raw values
+    """Build + "write" one SCT from exactly one value source.  'plain' and
+    'heavy' take raw values (S<w>, on the host).  'opd' takes raw values
     (flush: OPD construction, then the pack kernel), ``encoded`` = (int32
     codes on the card, -1 at tombstones; opd) from the 'jax' and 'numpy'
     compaction backends (the pack kernel; no column is kept), or
     ``packed_encoded`` = (packed words on the card, pack width, opd) from
     the 'jax_packed' backend."""
     n = keys.shape[0]
-    rec = record_disk_bytes("opd", key_bytes, value_width)
+    rec = record_disk_bytes(codec, key_bytes, value_width)
     epb = max(1, int(block_bytes // max(rec, 1)))
-    blocks = BlockIndex.build(keys, epb, bloom_bits_per_key)
+    sct = SCT(file_id=-1, level=level, codec=codec, keys=keys, seqnos=seqnos,
+              tombs=tombs, blocks=BlockIndex.build(keys, epb,
+                                                   bloom_bits_per_key),
+              key_bytes=key_bytes, value_width=value_width, disk_bytes=0,
+              max_seqno=int(seqnos.max()) if n else 0)
+    # competitors keep no zone map or weight sums, as in the reference
+    if codec == "plain":
+        sct.values = raw_values
+        disk = (n * (key_bytes + SEQNO_BYTES + value_width)
+                + sct.blocks.nbytes)
+    elif codec == "heavy":
+        sct.zblocks, zbytes = _zlib_blocks(keys, seqnos, raw_values, epb)
+        sct.zblock_entries = epb
+        disk = zbytes + n * (key_bytes - 8) + sct.blocks.nbytes
+    else:
+        disk = _attach_opd(sct, device, raw_values, encoded, packed_encoded)
+    sct.disk_bytes = int(disk)
+    # the id is allocated before the write, in the reference's order:
+    # file ids and so the round-robin compaction victims depend on it
+    sct.file_id = store.alloc_id()
+    store.write(sct, sct.disk_bytes, fid=sct.file_id)
+    return sct
+
+
+def _attach_opd(sct: SCT, device, raw_values, encoded, packed_encoded) -> int:
+    """The 'opd' arm of ``build_sct``: packed words, dictionary, zones and
+    weight sums onto ``sct``; returns its disk bytes."""
+    n, tombs, blocks = sct.n, sct.tombs, sct.blocks
     live = torch.from_numpy(~tombs).to(device)
     if packed_encoded is not None:
         packed, width, opd = packed_encoded
@@ -190,31 +312,29 @@ def build_sct(
         wtab = torch.zeros(0, dtype=torch.int64, device=device)
         entry_w = torch.zeros(n, dtype=torch.int64, device=device)
     blocks.attach_weight_sums(entry_w)
-    disk = (n * (key_bytes + SEQNO_BYTES) + 4 * int(packed.shape[0])
-            + opd.nbytes + blocks.nbytes)
-    sct = SCT(file_id=-1, level=level, keys=keys, seqnos=seqnos, tombs=tombs,
-              blocks=blocks, key_bytes=key_bytes, value_width=value_width,
-              disk_bytes=int(disk), packed=packed, code_bits=width, opd=opd,
-              live=live, max_seqno=int(seqnos.max()) if n else 0)
+    sct.packed, sct.code_bits, sct.opd, sct.live = packed, width, opd, live
     # the per-code weights are the aggregate planner's SUM table too
     sct.facts["weight_table"] = wtab.to(torch.int32)
-    # the id is allocated before the write, in the reference's order:
-    # file ids and so the round-robin compaction victims depend on it
-    sct.file_id = store.alloc_id()
-    store.write(sct, sct.disk_bytes, fid=sct.file_id)
-    return sct
+    return (n * (sct.key_bytes + SEQNO_BYTES) + 4 * int(packed.shape[0])
+            + opd.nbytes + blocks.nbytes)
 
 
 def sct_from_arrays(fields: Dict[str, object], device) -> SCT:
     """An SCT from the reference's per-SCT numpy arrays (a plain dict):
-    ``keys``, ``seqnos``, ``tombs``, ``packed`` (uint32), ``code_bits``,
-    ``opd_values``, the ``BlockIndex`` fields (``entries_per_block``,
-    ``first_keys``, ``last_keys``, ``bloom_words``, ``n_hashes``,
-    ``nbits``, ``code_lo``, ``code_hi``, ``weight_sums``), ``file_id``,
-    ``level``, ``disk_bytes``, ``key_bytes`` and ``value_width``."""
+    ``codec`` ('opd' when absent), ``keys``, ``seqnos``, ``tombs``, the
+    ``BlockIndex`` fields (``entries_per_block``, ``first_keys``,
+    ``last_keys``, ``bloom_words``, ``n_hashes``, ``nbits``, and for 'opd'
+    ``code_lo``, ``code_hi``, ``weight_sums``), ``file_id``, ``level``,
+    ``disk_bytes``, ``key_bytes`` and ``value_width``; then the codec's
+    values: ``packed`` (uint32), ``code_bits`` and ``opd_values`` for
+    'opd', ``values`` (S<w>) for 'plain', ``zblocks`` (bytes) and
+    ``zblock_entries`` for 'heavy'."""
     def dev(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a).astype(dtype)).to(device)
 
+    codec = str(fields.get("codec", "opd"))
+    if codec not in CODECS:
+        raise _unported(codec)
     keys = np.asarray(fields["keys"], np.uint64)
     seqnos = np.asarray(fields["seqnos"], np.uint64)
     tombs = np.asarray(fields["tombs"], np.bool_)
@@ -223,19 +343,25 @@ def sct_from_arrays(fields: Dict[str, object], device) -> SCT:
         np.asarray(fields["first_keys"], np.uint64),
         np.asarray(fields["last_keys"], np.uint64),
         np.asarray(fields["bloom_words"], np.uint32),
-        int(fields["n_hashes"]), int(fields["nbits"]),
-        code_lo=dev(fields["code_lo"], np.int64),
-        code_hi=dev(fields["code_hi"], np.int64),
-        weight_sums=dev(fields["weight_sums"], np.int64))
-    packed = np.ascontiguousarray(np.asarray(fields["packed"], np.uint32))
-    return SCT(
-        file_id=int(fields["file_id"]), level=int(fields["level"]),
-        keys=keys, seqnos=seqnos, tombs=tombs, blocks=blocks,
-        key_bytes=int(fields["key_bytes"]),
-        value_width=int(fields["value_width"]),
-        disk_bytes=int(fields["disk_bytes"]),
-        packed=torch.from_numpy(packed.view(np.int32).copy()).to(device),
-        code_bits=int(fields["code_bits"]),
-        opd=OPD(np.asarray(fields["opd_values"])),
-        live=torch.from_numpy(~tombs).to(device),
-        max_seqno=int(seqnos.max()) if keys.shape[0] else 0)
+        int(fields["n_hashes"]), int(fields["nbits"]))
+    sct = SCT(file_id=int(fields["file_id"]), level=int(fields["level"]),
+              codec=codec, keys=keys, seqnos=seqnos, tombs=tombs,
+              blocks=blocks, key_bytes=int(fields["key_bytes"]),
+              value_width=int(fields["value_width"]),
+              disk_bytes=int(fields["disk_bytes"]),
+              max_seqno=int(seqnos.max()) if keys.shape[0] else 0)
+    if codec == "plain":
+        sct.values = np.asarray(fields["values"], f"S{sct.value_width}")
+    elif codec == "heavy":
+        sct.zblocks = [bytes(z) for z in fields["zblocks"]]
+        sct.zblock_entries = int(fields["zblock_entries"])
+    else:
+        blocks.code_lo = dev(fields["code_lo"], np.int64)
+        blocks.code_hi = dev(fields["code_hi"], np.int64)
+        blocks.weight_sums = dev(fields["weight_sums"], np.int64)
+        packed = np.ascontiguousarray(np.asarray(fields["packed"], np.uint32))
+        sct.packed = torch.from_numpy(packed.view(np.int32).copy()).to(device)
+        sct.code_bits = int(fields["code_bits"])
+        sct.opd = OPD(np.asarray(fields["opd_values"]))
+        sct.live = torch.from_numpy(~tombs).to(device)
+    return sct

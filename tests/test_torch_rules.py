@@ -7,8 +7,9 @@
   not carry on on the CPU.
 * A kernel wrapper handed tensors on the card launches its kernel or
   raises: it never falls back to its plain version.
-* Configuration values outside the ported slice raise ``ValueError``
-  naming their ROADMAP item, and values the reference does not take (the
+* Configuration values outside the ported slice (``codec='blob'`` among
+  them; 'plain' and 'heavy' are ported) raise ``ValueError`` naming their
+  ROADMAP item, and values the reference does not take (the
   retired ``compaction_backend='packed'``, ``filter_backend='pallas'``)
   raise naming the accepted ones; the compaction backends ``'numpy'`` and
   ``'jax'`` build the same tree as ``'jax_packed'``, and the filter
@@ -89,7 +90,7 @@ def test_default_device_is_the_card_and_missing_card_raises(monkeypatch):
     assert T.LSMTree(T.LSMConfig(), device="cpu").device.type == "cpu"
 
 
-OTHER_VALUES = {"codec": "plain", "filter_backend": "pallas",
+OTHER_VALUES = {"codec": "blob", "filter_backend": "pallas",
                 "compaction_backend": "packed", "compaction_policy": "tiered",
                 "policy_autotune": True, "maintenance": "background",
                 "wal_sync": "group", "blob_compress": True,
@@ -108,12 +109,23 @@ def test_unsupported_config_value_raises(field):
 
 
 @pytest.mark.parametrize("value,item", [
-    (("codec", "plain"), "competitor codecs"),
+    (("codec", "blob"), "competitor codecs"),
 ])
 def test_rejected_backend_names_its_kernel(value, item):
     """A codec that is not ported yet names its ROADMAP item."""
     with pytest.raises(ValueError, match=item):
         T.LSMConfig(**dict([value]))
+
+
+@pytest.mark.parametrize("codec", ["plain", "heavy"])
+def test_ported_competitor_codec_is_accepted(codec):
+    """'plain' and 'heavy' are ported; the tree they configure writes SCTs
+    of that codec."""
+    tree = T.LSMTree(T.LSMConfig(codec=codec, value_width=16), device="cpu")
+    tree.put(1, b"v")
+    tree.flush()
+    assert [s.codec for s in tree.all_runs()] == [codec]
+    assert tree.get(1) == b"v"
 
 
 @pytest.mark.parametrize("backend", ["jax_packed", "jax", "numpy"])
