@@ -75,6 +75,8 @@ def merge_scts(
         raise ValueError(f"unknown compaction backend {backend!r} (one of "
                          f"{', '.join(map(repr, BACKENDS))})")
     codec = inputs[0].codec
+    assert all(s.codec == codec for s in inputs), \
+        "a merge takes inputs of one codec"
     n_in = sum(s.n for s in inputs)
 
     # ---- stage: read (charge full-file I/O for every input) -------------- #

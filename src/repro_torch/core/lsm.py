@@ -46,7 +46,8 @@ from repro_torch.core.iterator import range_scan
 from repro_torch.core.memtable import MemTable
 from repro_torch.core.opd import Predicate
 from repro_torch.core.policy import CompactionPolicy, make_policy, run_depth
-from repro_torch.core.sct import SCT, build_sct, record_disk_bytes, sct_from_arrays
+from repro_torch.core.sct import (CODECS, SCT, build_sct, record_disk_bytes,
+                                  sct_from_arrays)
 from repro_torch.core.stats import StageStats
 from repro_torch.core.version import Version, VersionEdit, VersionSet
 from repro_torch.query.executor import evaluate_aggregates
@@ -59,7 +60,7 @@ from repro_torch.storage.io import FileStore
 # item that ports the others (kernels named by their function); None where
 # the port takes every value the reference takes
 SUPPORTED = {
-    "codec": (("opd", "plain", "heavy"), "§1 competitor codecs"),
+    "codec": (CODECS, "§1 competitor codecs"),
     "filter_backend": (("fused", "jax_packed", "jax", "numpy"), None),
     "compaction_backend": (("numpy", "jax", "jax_packed"), None),
     "compaction_policy": (("leveled",), "§1 policy"),
@@ -188,10 +189,16 @@ class LSMTree:
                     seqno: int, device=None) -> "LSMTree":
         """A tree over SCTs given as the reference's per-SCT arrays
         (``sct_from_arrays``), ``levels[i]`` in the reference's run order,
-        with the seqno watermark ``seqno`` and an empty memtable."""
+        with the seqno watermark ``seqno`` and an empty memtable.  Every
+        SCT must carry ``cfg.codec``: flushes write that codec and a merge
+        takes one codec, so a tree holds one."""
         tree = cls(cfg, device=device)
         lv = [tuple(sct_from_arrays(f, tree.device) for f in runs)
               for runs in levels]
+        other = sorted({s.codec for runs in lv for s in runs} - {cfg.codec})
+        if other:
+            raise ValueError(f"SCTs of codec {other[0]!r} in a tree "
+                             f"configured for codec {cfg.codec!r}")
         lv += [()] * (cfg.max_levels - len(lv))
         for s in (s for runs in lv for s in runs):
             tree.store.write(s, s.disk_bytes, fid=s.file_id)

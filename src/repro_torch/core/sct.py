@@ -43,6 +43,9 @@ from repro_torch.storage.io import FileStore
 
 SEQNO_BYTES = 8
 CODECS = ("opd", "plain", "heavy")
+# the reference's estimate of a 'heavy' record's compressed share of its raw
+# bytes (``repro/core/sct.py:288``); it sizes files, not the zlib output
+HEAVY_COMPRESS_EST = 0.5
 
 
 def pack_width(code_bits: int) -> int:
@@ -130,14 +133,16 @@ class SCT:
     # decoding, one dispatch on the codec each
     # ------------------------------------------------------------------ #
     def raw_values(self) -> np.ndarray:
-        """The raw value column S<w> [n] (b"" at an 'opd' tombstone): a
-        'plain' SCT's own column, every block of a 'heavy' one really
-        decompressed.  The decode cost the paper's design avoids."""
+        """A competitor's raw value column S<w> [n]: a 'plain' SCT's own
+        column, every block of a 'heavy' one really decompressed.  The
+        decode cost the paper's design avoids: 'opd' readers stay on the
+        codes, so an 'opd' SCT raises."""
         if self.codec == "plain":
             return self.values
         if self.codec == "heavy":
             return self._decompress_rows(0, len(self.zblocks))
-        return self.decode_slice(0, self.n)
+        raise ValueError("raw_values() decodes competitor codecs only; "
+                         "'opd' readers work on the codes")
 
     def value_at(self, pos: int) -> bytes:
         """Decoded value of live entry ``pos``: one code from the packed
@@ -183,14 +188,14 @@ class SCT:
 
 
 def record_disk_bytes(codec: str, key_bytes: int, value_width: int,
-                      code_bits: int = 32, compress_est: float = 0.5) -> float:
+                      code_bits: int = 32) -> float:
     """Estimated bytes a record takes on disk, per codec (drives file
     splitting and so the tree's shape)."""
     base = key_bytes + SEQNO_BYTES
     if codec == "plain":
         return base + value_width
     if codec == "heavy":
-        return (base + value_width) * compress_est
+        return (base + value_width) * HEAVY_COMPRESS_EST
     if codec == "opd":
         return base + pack_width(code_bits) / 8.0
     raise _unported(codec)

@@ -15,9 +15,14 @@ package's, on the CPU, bit for bit.
   compaction (file ids, levels, disk bytes, columns, values, zlib blocks,
   I/O), then ``get``, ``range_lookup`` and ``filter_many`` on a snapshot
   taken before later writes.
-* ``LSMTree.from_arrays`` over reference 'plain' and 'heavy' trees.
+* ``LSMTree.from_arrays`` over reference 'plain' and 'heavy' trees; SCTs
+  of a codec other than the configuration's are refused, and a merge takes
+  one codec.
 * Aggregates over a competitor run raise, and no competitor path reaches a
   kernel wrapper.
+
+The stream, the comparisons and the SCT export are ``test_torch_engine``'s,
+whose helpers take every ported codec.
 """
 
 import numpy as np
@@ -35,65 +40,15 @@ from repro_torch.core.compaction import merge_scts
 from repro_torch.kernels import _build
 from repro_torch.storage.io import FileStore
 from test_compaction_backends import _build_inputs
+from test_torch_engine import (KW, PREDS, VW, _apply, _stream, _trees,
+                               assert_same_reads, assert_same_sct,
+                               assert_same_tree, export_sct)
 
 CODECS = ["plain", "heavy"]
 FILTER_BACKENDS = ["numpy", "jax", "jax_packed", "fused"]
 COMPACTION_BACKENDS = ["numpy", "jax", "jax_packed"]
-VW = 24
-KW = dict(value_width=VW, file_bytes=8 * 1024, l0_limit=2, size_ratio=3)
-PREDS = [
-    ("prefix", b"tag_0", b""),
-    ("eq", b"tag_00037", b""),
-    ("range", b"tag_00020", b"tag_00090"),
-    ("ge", b"tag_00150", b""),
-    ("le", b"", b"tag_00012"),
-    ("prefix", b"zzz", b""),
-    ("range", b"tag_00090", b"tag_00020"),   # inverted: empty
-    ("prefix", b"tag_001", b""),
-]
 STAGES = {"read", "decode", "merge", "encode", "write"}
-
-
-def export_sct(s) -> dict:
-    """A reference 'plain' or 'heavy' SCT as the per-SCT arrays
-    ``sct_from_arrays`` takes."""
-    b = s.blocks
-    out = dict(codec=s.codec, keys=s.keys, seqnos=s.seqnos, tombs=s.tombs,
-               entries_per_block=b.entries_per_block, first_keys=b.first_keys,
-               last_keys=b.last_keys, bloom_words=b.bloom_words,
-               n_hashes=b.n_hashes, nbits=b.nbits, file_id=s.file_id,
-               level=s.level, disk_bytes=s.disk_bytes,
-               key_bytes=s.key_bytes, value_width=s.value_width)
-    if s.codec == "plain":
-        out["values"] = s.values
-    else:
-        out.update(zblocks=list(s.zblocks), zblock_entries=s.zblock_entries)
-    return out
-
-
-def assert_same_sct(a, b):
-    assert b.codec == a.codec
-    assert (a.file_id, a.level, a.disk_bytes, a.max_seqno) == \
-        (b.file_id, b.level, b.disk_bytes, b.max_seqno)
-    for f in ("keys", "seqnos", "tombs"):
-        assert np.array_equal(getattr(a, f), getattr(b, f)), f
-    if a.codec == "plain":
-        assert b.values.dtype == a.values.dtype
-        assert np.array_equal(a.values, b.values)
-        assert b.zblocks is None
-    else:
-        assert b.zblocks == a.zblocks
-        assert b.zblock_entries == a.zblock_entries
-        assert b.values is None
-    assert (b.packed, b.opd, b.live) == (None, None, None)
-    ba, bb = a.blocks, b.blocks
-    assert (ba.entries_per_block, ba.nbits, ba.n_hashes, ba.nbytes) == \
-        (bb.entries_per_block, bb.nbits, bb.n_hashes, bb.nbytes)
-    for f in ("first_keys", "last_keys", "bloom_words"):
-        assert np.array_equal(getattr(ba, f), getattr(bb, f)), f
-    # no zone map or weight sums for the competitors, in either engine
-    assert not ba.has_zones and not bb.has_zones
-    assert ba.weight_sums is None and bb.weight_sums is None
+KEY_MAX = 3000   # keys for the tree streams: deep enough to reach L2
 
 
 def io(store):
@@ -202,59 +157,11 @@ def test_merge_matches_reference(codec, backend, is_bottom, seed):
 # --------------------------------------------------------------------------- #
 # (c) trees, after every flush and compaction, under every filter backend
 # --------------------------------------------------------------------------- #
-def _stream(n=3500, seed=5, key_max=3000, ndv=200):
-    """Puts with overwrites, deletes mixed in (one in ten ops)."""
-    rng = np.random.default_rng(seed)
-    for _ in range(n):
-        k = int(rng.integers(0, key_max))
-        if rng.random() < 0.1:
-            yield ("delete", k, None)
-        else:
-            yield ("put", k, b"tag_%05d" % int(rng.integers(0, ndv)))
-
-
-def _apply(tree, op, k, v):
-    if op == "put":
-        tree.put(k, v)
-    else:
-        tree.delete(k)
-
-
-def _trees(codec, filter_backend, compaction_backend="jax_packed"):
-    cfg = dict(KW, codec=codec, filter_backend=filter_backend,
-               compaction_backend=compaction_backend)
-    return R.LSMTree(R.LSMConfig(**cfg)), T.LSMTree(T.LSMConfig(**cfg),
-                                                     device="cpu")
-
-
-def assert_same_tree(ref, port):
-    ids = lambda t: [[s.file_id for s in lvl] for lvl in t.levels]
-    assert ids(ref) == ids(port)
-    for la, lb in zip(ref.levels, port.levels):
-        for a, b in zip(la, lb):
-            assert_same_sct(a, b)
-    for c in ("n_flushes", "n_compactions", "dict_compares",
-              "compaction_in_bytes", "compaction_out_bytes"):
-        assert getattr(ref, c) == getattr(port, c), c
-    sa, sb = ref.shape_report(), port.shape_report()
-    for k in ("levels", "level_bytes", "n_files", "disk_bytes", "dict_bytes"):
-        assert sa[k] == sb[k], k
-    assert ref.file_entries == port.file_entries
-    assert io(ref.store) == io(port.store)
-
-
-def assert_same_reads(ref, port, probe_keys, snaps=(None, None)):
+def assert_same_scans(ref, port, snaps=(None, None)):
+    """``range_lookup`` windows at the snapshots ``snaps``, then the I/O
+    both stores were charged."""
     sa, sb = snaps
-    ra = ref.filter_many([R.Predicate(*p) for p in PREDS], snapshot=sa)
-    rb = port.filter_many([T.Predicate(*p) for p in PREDS], snapshot=sb)
-    for p, a, b in zip(PREDS, ra, rb):
-        assert np.array_equal(a.keys, b.keys), p
-        assert a.values.dtype == b.values.dtype
-        assert np.array_equal(a.values, b.values), p
-        assert (a.n_scanned, a.n_matched_raw) == (b.n_scanned, b.n_matched_raw)
-    for k in probe_keys:
-        assert ref.get(k, snapshot=sa) == port.get(k, snapshot=sb), k
-    for lo, hi in ((0, 3000), (100, 900), (1234, 1234), (2000, 1000),
+    for lo, hi in ((0, KEY_MAX), (100, 900), (1234, 1234), (2000, 1000),
                    (2990, 9999)):
         ka, va = ref.range_lookup(lo, hi, snapshot=sa)
         kb, vb = port.range_lookup(lo, hi, snapshot=sb)
@@ -267,8 +174,9 @@ def assert_same_reads(ref, port, probe_keys, snaps=(None, None)):
                          zip(FILTER_BACKENDS, COMPACTION_BACKENDS + ["numpy"]))
 @pytest.mark.parametrize("codec", CODECS)
 def test_tree_matches_reference(codec, filter_backend, compaction_backend):
-    ref, port = _trees(codec, filter_backend, compaction_backend)
-    ops = list(_stream())
+    ref, port = _trees(codec=codec, filter_backend=filter_backend,
+                       compaction_backend=compaction_backend)
+    ops = list(_stream(key_max=KEY_MAX))
     done, snaps = set(), None
     for i, (op, k, v) in enumerate(ops):
         if i == 2800:
@@ -281,18 +189,22 @@ def test_tree_matches_reference(codec, filter_backend, compaction_backend):
         if state not in done:
             done.add(state)
             assert_same_tree(ref, port)
+            assert io(ref.store) == io(port.store), i
     assert port.n_compactions >= 3, port.shape_report()
     assert port.shape_report()["levels"][2] > 0, "need an L1 -> L2 cascade"
     assert_same_tree(ref, port)
     # the memtable holds rows too; then a snapshot older than later writes
-    assert_same_reads(ref, port, range(0, 3000, 3))
-    assert_same_reads(ref, port, range(0, 3000, 7), snaps)
+    assert_same_reads(ref, port, range(0, KEY_MAX, 3))
+    assert_same_scans(ref, port)
+    assert_same_reads(ref, port, range(0, KEY_MAX, 7), snaps)
+    assert_same_scans(ref, port, snaps)
     assert set(ref.filter_stats.counts) == set(port.filter_stats.counts)
     assert set(port.compaction_stats.seconds) == STAGES
     ref.compact()
     port.compact()
     assert_same_tree(ref, port)
-    assert_same_reads(ref, port, range(0, 3000, 5))
+    assert_same_reads(ref, port, range(0, KEY_MAX, 5))
+    assert_same_scans(ref, port)
 
 
 # --------------------------------------------------------------------------- #
@@ -300,8 +212,8 @@ def test_tree_matches_reference(codec, filter_backend, compaction_backend):
 # --------------------------------------------------------------------------- #
 @pytest.mark.parametrize("codec", CODECS)
 def test_from_arrays_reads_like_the_reference(codec):
-    ref, _ = _trees(codec, "numpy")
-    for op, k, v in _stream(n=2500, seed=7):
+    ref, _ = _trees(codec=codec, filter_backend="numpy")
+    for op, k, v in _stream(n=2500, seed=7, key_max=KEY_MAX):
         _apply(ref, op, k, v)
     ref.flush()
     assert sum(1 for lvl in ref.levels if lvl) >= 2, ref.shape_report()
@@ -312,16 +224,37 @@ def test_from_arrays_reads_like_the_reference(codec):
         assert len(la) == len(lb)
         for a, b in zip(la, lb):
             assert_same_sct(a, b)
-    ra = ref.filter_many([R.Predicate(*p) for p in PREDS])
-    rb = port.filter_many([T.Predicate(*p) for p in PREDS])
-    for a, b in zip(ra, rb):
-        assert np.array_equal(a.keys, b.keys)
-        assert np.array_equal(a.values, b.values)
-    for k in range(0, 3000, 3):
-        assert ref.get(k) == port.get(k), k
-    ka, va = ref.range_lookup(0, 3000)
-    kb, vb = port.range_lookup(0, 3000)
+    assert_same_reads(ref, port, range(0, KEY_MAX, 3))
+    ka, va = ref.range_lookup(0, KEY_MAX)
+    kb, vb = port.range_lookup(0, KEY_MAX)
     assert np.array_equal(ka, kb) and np.array_equal(va, vb)
+
+
+@pytest.mark.parametrize("codec", CODECS)
+def test_one_codec_per_tree(codec):
+    """A tree holds the codec its configuration names: SCTs of another
+    codec are refused on the way in, and a merge takes one codec."""
+    ref, _ = _trees(codec=codec, filter_backend="numpy")
+    for op, k, v in _stream(n=600, seed=4, key_max=KEY_MAX):
+        _apply(ref, op, k, v)
+    ref.flush()
+    levels = [[export_sct(s) for s in lvl] for lvl in ref.levels]
+    for other in ["opd"] + [c for c in CODECS if c != codec]:
+        with pytest.raises(ValueError, match=f"codec {codec!r}"):
+            T.LSMTree.from_arrays(T.LSMConfig(codec=other, **KW), levels,
+                                  ref._seqno, device="cpu")
+    competitor = T.sct_from_arrays(export_sct(ref.all_runs()[0]), "cpu")
+    opd = T.LSMTree(T.LSMConfig(**KW), device="cpu")
+    for op, k, v in _stream(n=600, seed=4, key_max=KEY_MAX):
+        _apply(opd, op, k, v)
+    opd.flush()
+    for inputs in ([competitor, opd.all_runs()[0]],
+                   [opd.all_runs()[0], competitor]):
+        with pytest.raises(AssertionError, match="one codec"):
+            merge_scts(inputs, out_level=1, is_bottom=False, file_entries=256,
+                       store=FileStore(), stats=T.StageStats(), device="cpu")
+    with pytest.raises(ValueError, match="competitor codecs only"):
+        opd.all_runs()[0].raw_values()
 
 
 # --------------------------------------------------------------------------- #
@@ -330,7 +263,7 @@ def test_from_arrays_reads_like_the_reference(codec):
 @pytest.mark.parametrize("codec", CODECS)
 def test_aggregates_over_competitor_runs_raise(codec):
     tree = T.LSMTree(T.LSMConfig(codec=codec, **KW), device="cpu")
-    for op, k, v in _stream(n=600, seed=3):
+    for op, k, v in _stream(n=600, seed=3, key_max=KEY_MAX):
         _apply(tree, op, k, v)
     assert tree.all_runs()
     spec = AggSpec("count")
@@ -362,15 +295,15 @@ def test_competitor_paths_reach_no_kernel(codec, filter_backend, monkeypatch):
     monkeypatch.setattr(_build, "on_card", _no_kernel)
     tree = T.LSMTree(T.LSMConfig(codec=codec, filter_backend=filter_backend,
                                  **KW), device="cpu")
-    for op, k, v in _stream(n=1500, seed=9):
+    for op, k, v in _stream(n=1500, seed=9, key_max=KEY_MAX):
         _apply(tree, op, k, v)
     tree.compact()
     assert tree.n_compactions > 0
     tree.filter_many([T.Predicate(*p) for p in PREDS])
     tree.get(5)
-    tree.range_lookup(0, 3000)
+    tree.range_lookup(0, KEY_MAX)
     opd = T.LSMTree(T.LSMConfig(filter_backend=filter_backend, **KW),
                     device="cpu")
     with pytest.raises(AssertionError, match="kernel wrapper"):
-        for op, k, v in _stream(n=1500, seed=9):
+        for op, k, v in _stream(n=1500, seed=9, key_max=KEY_MAX):
             _apply(opd, op, k, v)

@@ -8,6 +8,7 @@ every compaction the two trees must agree bit for bit: level shape and file
 ids, every SCT's packed words, dictionary, zones, weight sums, bloom bits
 and size, the counters, ``filter_many`` results and zone telemetry at the
 1024-word tile, and ``get`` over present, overwritten and deleted keys.
+The helpers take the competitor codecs too (``test_torch_codecs.py``).
 """
 
 import dataclasses
@@ -28,6 +29,7 @@ PREDS = [
     ("le", b"", b"tag_00012"),
     ("prefix", b"zzz", b""),
     ("range", b"tag_00090", b"tag_00020"),   # inverted: empty
+    ("prefix", b"tag_001", b""),
 ]
 COUNTERS = ("n_flushes", "n_compactions", "dict_compares", "write_stalls",
             "compaction_in_bytes", "compaction_out_bytes")
@@ -36,9 +38,12 @@ ZONE_KEYS = ("fused_launches", "zone_tiles_total", "zone_tiles_skipped",
 
 
 def _trees(**kw):
+    """The reference and port trees under one configuration; the
+    reference's codec and backends default to the port's defaults."""
     cfg = dict(KW, **kw)
-    ref = R.LSMTree(R.LSMConfig(codec="opd", filter_backend="fused",
-                                compaction_backend="jax_packed", **cfg))
+    ref = R.LSMTree(R.LSMConfig(**dict(dict(
+        codec="opd", filter_backend="fused",
+        compaction_backend="jax_packed"), **cfg)))
     port = T.LSMTree(T.LSMConfig(**cfg), device="cpu")
     return ref, port
 
@@ -62,25 +67,45 @@ def _apply(tree, op, k, v):
 
 
 def assert_same_sct(a, b):
+    assert b.codec == a.codec
     assert (a.file_id, a.level, a.disk_bytes, a.max_seqno) == \
         (b.file_id, b.level, b.disk_bytes, b.max_seqno)
     assert np.array_equal(a.keys, b.keys)
     assert np.array_equal(a.seqnos, b.seqnos)
     assert np.array_equal(a.tombs, b.tombs)
-    assert np.array_equal(b.live.numpy(), ~a.tombs)
-    assert a.code_bits == b.code_bits
-    assert np.array_equal(a.packed, b.packed.numpy().view(np.uint32))
-    assert a.opd.values.dtype == b.opd.values.dtype
-    assert np.array_equal(a.opd.values, b.opd.values)
     ba, bb = a.blocks, b.blocks
     assert (ba.entries_per_block, ba.nbits, ba.n_hashes, ba.nbytes) == \
         (bb.entries_per_block, bb.nbits, bb.n_hashes, bb.nbytes)
     assert np.array_equal(ba.first_keys, bb.first_keys)
     assert np.array_equal(ba.last_keys, bb.last_keys)
     assert np.array_equal(ba.bloom_words, bb.bloom_words)
+    if a.codec != "opd":
+        _assert_same_competitor_values(a, b)
+        return
+    assert np.array_equal(b.live.numpy(), ~a.tombs)
+    assert a.code_bits == b.code_bits
+    assert np.array_equal(a.packed, b.packed.numpy().view(np.uint32))
+    assert a.opd.values.dtype == b.opd.values.dtype
+    assert np.array_equal(a.opd.values, b.opd.values)
     assert np.array_equal(ba.code_lo.astype(np.int64), bb.code_lo.numpy())
     assert np.array_equal(ba.code_hi.astype(np.int64), bb.code_hi.numpy())
     assert np.array_equal(ba.weight_sums, bb.weight_sums.numpy())
+
+
+def _assert_same_competitor_values(a, b):
+    """A 'plain' SCT's raw column or a 'heavy' one's zlib blocks; no OPD
+    fields, zone map or weight sums in either engine."""
+    if a.codec == "plain":
+        assert b.values.dtype == a.values.dtype
+        assert np.array_equal(a.values, b.values)
+        assert b.zblocks is None
+    else:
+        assert b.zblocks == a.zblocks
+        assert b.zblock_entries == a.zblock_entries
+        assert b.values is None
+    assert (b.packed, b.opd, b.live) == (None, None, None)
+    assert not a.blocks.has_zones and not b.blocks.has_zones
+    assert a.blocks.weight_sums is None and b.blocks.weight_sums is None
 
 
 def assert_same_tree(ref, port):
@@ -98,18 +123,22 @@ def assert_same_tree(ref, port):
     assert ref.file_entries == port.file_entries
 
 
-def assert_same_reads(ref, port, probe_keys):
-    ra = ref.filter_many([R.Predicate(*p) for p in PREDS])
-    rb = port.filter_many([T.Predicate(*p) for p in PREDS])
+def assert_same_reads(ref, port, probe_keys, snaps=(None, None)):
+    """``filter_many`` and ``get`` at the snapshots ``snaps`` (reference's,
+    port's; the latest when None), and the zone telemetry of 'opd' trees."""
+    sa, sb = snaps
+    ra = ref.filter_many([R.Predicate(*p) for p in PREDS], snapshot=sa)
+    rb = port.filter_many([T.Predicate(*p) for p in PREDS], snapshot=sb)
     for p, a, b in zip(PREDS, ra, rb):
         assert np.array_equal(a.keys, b.keys), p
         assert a.values.dtype == b.values.dtype
         assert np.array_equal(a.values, b.values), p
         assert (a.n_scanned, a.n_matched_raw) == (b.n_scanned, b.n_matched_raw), p
-    ca, cb = ref.filter_stats.counts, port.filter_stats.counts
-    assert {k: ca[k] for k in ZONE_KEYS} == {k: cb[k] for k in ZONE_KEYS}
+    if port.cfg.codec == "opd":
+        ca, cb = ref.filter_stats.counts, port.filter_stats.counts
+        assert {k: ca[k] for k in ZONE_KEYS} == {k: cb[k] for k in ZONE_KEYS}
     for k in probe_keys:
-        assert ref.get(k) == port.get(k), k
+        assert ref.get(k, snapshot=sa) == port.get(k, snapshot=sb), k
 
 
 def test_stream_bit_identical_after_every_flush_and_compaction():
@@ -174,17 +203,24 @@ def test_put_batch_matches_single_puts():
 
 
 def export_sct(s) -> dict:
-    """The reference SCT as the plain per-SCT arrays ``sct_from_arrays``
-    takes."""
+    """The reference SCT, of any ported codec, as the plain per-SCT arrays
+    ``sct_from_arrays`` takes."""
     b = s.blocks
-    return dict(keys=s.keys, seqnos=s.seqnos, tombs=s.tombs, packed=s.packed,
-                code_bits=s.code_bits, opd_values=s.opd.values,
-                entries_per_block=b.entries_per_block, first_keys=b.first_keys,
-                last_keys=b.last_keys, bloom_words=b.bloom_words,
-                n_hashes=b.n_hashes, nbits=b.nbits, code_lo=b.code_lo,
-                code_hi=b.code_hi, weight_sums=b.weight_sums,
-                file_id=s.file_id, level=s.level, disk_bytes=s.disk_bytes,
-                key_bytes=s.key_bytes, value_width=s.value_width)
+    out = dict(codec=s.codec, keys=s.keys, seqnos=s.seqnos, tombs=s.tombs,
+               entries_per_block=b.entries_per_block, first_keys=b.first_keys,
+               last_keys=b.last_keys, bloom_words=b.bloom_words,
+               n_hashes=b.n_hashes, nbits=b.nbits, file_id=s.file_id,
+               level=s.level, disk_bytes=s.disk_bytes,
+               key_bytes=s.key_bytes, value_width=s.value_width)
+    if s.codec == "plain":
+        out["values"] = s.values
+    elif s.codec == "heavy":
+        out.update(zblocks=list(s.zblocks), zblock_entries=s.zblock_entries)
+    else:
+        out.update(packed=s.packed, code_bits=s.code_bits,
+                   opd_values=s.opd.values, code_lo=b.code_lo,
+                   code_hi=b.code_hi, weight_sums=b.weight_sums)
+    return out
 
 
 def test_from_arrays_reads_like_the_reference():
