@@ -69,17 +69,26 @@ Phases, each printing JSON lines:
             ScanServer (max_batch 8), every answer held against the host
             model.
 8. codecs:  one seeded stream (the main phase's generator at 2^20 pairs
-            and 2,048 deletes, ``--codec-pairs``) into an 'opd', a 'plain'
-            and a 'heavy' tree of the main configuration, the paper's
-            baselines beside its design: filter_many (K=16) under 'fused'
-            and under 'numpy', range_lookup over 8 windows and get of
-            1,024 keys (deleted and missing ones among them).  The three
-            trees must give the same answers, each equal to the host
-            model; one line per codec carries ingest seconds and ops/s,
-            compaction and filter stage seconds ('decode' included), the
-            range_lookup median, disk bytes per level and the launch
-            counts of its window, which must be 0 for 'plain' and 'heavy'.
-            codecs.done gives the phase's wall seconds.
+            and 2,048 deletes, ``--codec-pairs``) into a tree of the main
+            configuration for each of the harness's five systems: 'opd',
+            'plain', 'heavy', 'blob' and 'blob' with blob_compress
+            (codecs.blob_zstd), the paper's baselines beside its design:
+            filter_many (K=16) and aggregate_many (the agg phase's 6 specs)
+            under 'fused' and under 'numpy', range_lookup over 8 windows
+            and get of 1,024 keys (deleted and missing ones among them).
+            The five trees must give the same answers, each equal to the
+            host model; one line per codec carries ingest seconds and
+            ops/s, compaction, filter and aggregate stage seconds ('decode'
+            included), the range_lookup median, disk bytes per level, blob
+            GC counters and logs, and the launch counts of its window,
+            which must be 0 for the four competitors.  Then each blob tree
+            takes a snapshot and a burst overwriting most live keys twice
+            (codecs.<codec>.burst): compaction and GC run while the
+            snapshot pins its logs, filter_many and the 1,024 gets at the
+            snapshot return the answers from before the burst, current
+            reads the burst's values, and once the snapshot is released the
+            next GC pass leaves no log past the threshold.  codecs.done
+            gives the phase's wall seconds.
 9. bench:   the kernel micro-bench's entry points
             (``benchmarks/bench_kernels.py``): range_filter_packed on 2^20
             codes at widths 8 and 16, bloom_probe on a 2^14-bit bloom and
@@ -1029,38 +1038,65 @@ def range_phase(args, state) -> None:
 
 
 # --------------------------------------------------------------------------- #
-# the competitor codecs: one stream into an 'opd', a 'plain' and a 'heavy' tree
+# the competitor codecs: one stream into the harness's five systems' trees
 # --------------------------------------------------------------------------- #
-CODECS = ("opd", "plain", "heavy")
+# benchmarks/_harness.py's SYSTEMS by their configuration: LSM-OPD, RocksDB
+# plain and heavy (zlib a block), BlobDB and BlobDB with compressed logs
+CODECS = {"opd": {"codec": "opd"}, "plain": {"codec": "plain"},
+          "heavy": {"codec": "heavy"}, "blob": {"codec": "blob"},
+          "blob_zstd": {"codec": "blob", "blob_compress": True}}
+# the blob burst overwrites this share of the live keys twice, each pass
+# independently: the logs of the first pass hold about 60 % garbage once
+# merged with the second, so GC rewrites them while the snapshot pins the
+# logs it reads
+BURST_SHARE = 0.6
+# current gets after the burst (filter_many checks the current values of
+# every key its predicates match): every 'blob_zstd' get decompresses a
+# whole log of ~30 MB
+CURRENT_GETS = 128
 
 
-def codec_run(cfg, codec: str, stream, ref: Reference, preds, windows,
+def agg_answers(got) -> list:
+    return [(r.op, r.count, r.total, r.min_value, r.max_value, r.groups)
+            for r in got]
+
+
+def codec_run(cfg, name: str, stream, ref: Reference, preds, windows,
               probe, device: str) -> tuple:
-    """codecs.<codec>: the stream into a tree of ``cfg`` under ``codec``;
-    filter_many (K=16) under 'fused' and 'numpy', range_lookup over
-    ``windows`` and get over ``probe``, each held against the host model.
-    Returns (the JSON line, the answers)."""
+    """codecs.<name>: the stream into a tree of ``cfg`` under the codec
+    ``CODECS[name]``; filter_many (K=16) and aggregate_many (``AGG_TABLE``)
+    under 'fused' and under 'numpy', range_lookup over ``windows`` and get
+    over ``probe``, each held against the host model.  Returns (the JSON
+    line, the answers, the tree)."""
     import dataclasses
 
     import torch
     from repro_torch import LSMTree, Predicate
 
-    label = f"codecs.{codec}"
-    tree = LSMTree(dataclasses.replace(cfg, codec=codec), device=device)
+    label = f"codecs.{name}"
+    t_run = time.perf_counter()
+    tree = LSMTree(dataclasses.replace(cfg, **CODECS[name]), device=device)
     vocab = ref.vocab
+    specs = make_specs(AGG_TABLE)
+
+    def timed(fn, stats):
+        before = dict(stats.seconds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0, {
+            k: v - before.get(k, 0.0) for k, v in stats.seconds.items()}
 
     def drive():
         out = {"ingest_s": ingest(tree, stream)}
         for backend in ("fused", "numpy"):
             tree.cfg = dataclasses.replace(tree.cfg, filter_backend=backend)
-            before = dict(tree.filter_stats.seconds)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got = tree.filter_many([Predicate(*p) for p in preds])
-            torch.cuda.synchronize()
-            out[backend] = (got, time.perf_counter() - t0, {
-                k: v - before.get(k, 0.0)
-                for k, v in tree.filter_stats.seconds.items()})
+            out[backend] = timed(
+                lambda: tree.filter_many([Predicate(*p) for p in preds]),
+                tree.filter_stats)
+            out[f"agg.{backend}"] = timed(lambda: tree.aggregate_many(specs),
+                                          tree.agg_stats)
         tree.cfg = dataclasses.replace(tree.cfg, filter_backend="fused")
         out["range"] = []
         for lo, hi in windows:
@@ -1077,6 +1113,10 @@ def codec_run(cfg, codec: str, stream, ref: Reference, preds, windows,
     for backend in ("fused", "numpy"):
         n_match = check_filters(out[backend][0], ref, preds,
                                 f"{label} {backend}")
+        check_aggs(out[f"agg.{backend}"][0], vocab, ref.state()[1],
+                   AGG_TABLE, f"{label} agg {backend}", pinned_domain(ref))
+    check(agg_answers(out["agg.fused"][0]) == agg_answers(out["agg.numpy"][0]),
+          f"{label}: aggregates differ between 'fused' and 'numpy'")
     live_keys, live_idx = ref.state()
     for (lo, hi), ((gk, gv), _) in zip(windows, out["range"]):
         sel = (live_keys >= np.uint64(lo)) & (live_keys <= np.uint64(hi))
@@ -1085,14 +1125,15 @@ def codec_run(cfg, codec: str, stream, ref: Reference, preds, windows,
               f"{label}: range_lookup [{lo}, {hi}] differs")
     for k, got in zip(probe.tolist(), out["get"]):
         check(got == ref.get(k), f"{label}: get({k}) = {got!r}")
-    if codec == "opd":
-        for name in ("pack_codes", "fused_zone_filter"):
-            check(launches[name] > 0, f"{label}: {name} never launched")
+    if name == "opd":
+        for kernel in ("pack_codes", "fused_zone_filter"):
+            check(launches[kernel] > 0, f"{label}: {kernel} never launched")
     else:
         check(sum(launches.values()) == 0, f"{label}: launches {launches}")
     shape = tree.shape_report()
     n_ops = stream[0].shape[0] + stream[3].shape[0]
-    line = {"phase": label, "ops": n_ops, "ingest_s": out["ingest_s"],
+    line = {"phase": label, **CODECS[name], "ops": n_ops,
+            "ingest_s": out["ingest_s"],
             "ops_per_s": n_ops / out["ingest_s"],
             "flush_s": tree.flush_stats.total(),
             "compaction_stages_s": dict(tree.compaction_stats.seconds),
@@ -1103,22 +1144,123 @@ def codec_run(cfg, codec: str, stream, ref: Reference, preds, windows,
             "rows_matched": n_match,
             "filter_many_s": {b: out[b][1] for b in ("fused", "numpy")},
             "filter_stages_s": {b: out[b][2] for b in ("fused", "numpy")},
+            "aggregate_many_s": {b: out[f"agg.{b}"][1]
+                                 for b in ("fused", "numpy")},
+            "agg_stages_s": {b: out[f"agg.{b}"][2]
+                             for b in ("fused", "numpy")},
+            "agg_counts": agg_counts(tree),
             "range_median_s": statistics.median(dt for _, dt in out["range"]),
             "range_rows": [int(gk.shape[0]) for (gk, _), _ in out["range"]],
             "gets": int(probe.shape[0]),
             "get_us": out["get_s"] / probe.shape[0] * 1e6,
             "launches": launches}
+    if tree.blob_mgr is not None:
+        line.update(blob_report(tree))
+    line["seconds"] = time.perf_counter() - t_run
     answers = ([(r.keys, r.values) for b in ("fused", "numpy")
                 for r in out[b][0]], [got for got, _ in out["range"]],
-               out["get"])
-    return line, answers
+               out["get"], agg_answers(out["agg.fused"][0]))
+    return line, answers, tree
+
+
+def blob_report(tree) -> dict:
+    mgr = tree.blob_mgr
+    return {"gc_runs": mgr.gc_runs,
+            "gc_bytes_rewritten": mgr.gc_bytes_rewritten,
+            "blob_logs": len(mgr.live),
+            "blob_log_bytes": sum(tree.store.size_of(f) for f in mgr.live)}
+
+
+def blob_burst(tree, name: str, ref: Reference, preds, probe, before,
+               rng) -> None:
+    """codecs.<name>.burst, on a blob tree after the cross-tree comparison:
+    a snapshot, then two passes that each overwrite ``BURST_SHARE`` of the
+    live keys, and a full compaction, so that compaction and GC run while
+    the snapshot pins its logs.  At the snapshot, filter_many and the gets
+    of ``probe`` must return ``before`` (the tree's answers before the
+    burst); current reads the burst's values.  Released (``del`` and
+    ``gc.collect()``), the snapshot's logs go at the next GC pass."""
+    import gc
+
+    import torch
+    from repro_torch import Predicate
+
+    label = f"codecs.{name}.burst"
+    t_run = time.perf_counter()
+    live_keys = ref.state()[0]
+    m = int(BURST_SHARE * live_keys.shape[0])
+    passes = [(np.sort(rng.choice(live_keys, m, replace=False)),
+               rng.integers(0, ref.vocab.shape[0], m)) for _ in range(2)]
+    after = Reference(ref.vocab)
+    after.ops = list(ref.ops) + passes
+    tp = [Predicate(*p) for p in preds]
+    mgr = tree.blob_mgr
+    snap = tree.snapshot()
+    runs0 = mgr.gc_runs
+
+    def drive():
+        t0 = time.perf_counter()
+        for keys, idx in passes:
+            tree.put_batch(keys, ref.vocab[idx])
+        tree.compact()
+        torch.cuda.synchronize()
+        out = {"burst_s": time.perf_counter() - t0,
+               "gc_runs_pinned": mgr.gc_runs - runs0,
+               "pinned_candidates": len(mgr.gc_candidates())}
+        t0 = time.perf_counter()
+        out["snap_filter"] = tree.filter_many(tp, snapshot=snap)
+        out["snap_get"] = [tree.get(k, snapshot=snap)
+                           for k in probe.tolist()]
+        out["snap_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["filter"] = tree.filter_many(tp)
+        out["get"] = [tree.get(k)
+                      for k in probe[:CURRENT_GETS].tolist()]
+        out["current_s"] = time.perf_counter() - t0
+        return out
+
+    out, launches = launch_window(drive)
+    fa, _, ga, _ = before
+    check(all(np.array_equal(r.keys, ka) and np.array_equal(r.values, va)
+              for r, (ka, va) in zip(out["snap_filter"], fa)),
+          f"{label}: filter_many at the snapshot differs from before")
+    check(out["snap_get"] == ga, f"{label}: gets at the snapshot differ")
+    n_match = check_filters(out["filter"], after, preds, label)
+    for k, got in zip(probe[:CURRENT_GETS].tolist(), out["get"]):
+        check(got == after.get(k), f"{label}: get({k}) = {got!r}")
+    check(out["gc_runs_pinned"] > 0, f"{label}: GC never ran")
+    check(out["pinned_candidates"] > 0,
+          f"{label}: no log past the threshold was pinned")
+    check(sum(launches.values()) == 0, f"{label}: launches {launches}")
+    del snap
+    gc.collect()
+    t0 = time.perf_counter()
+    runs1 = mgr.gc_runs
+    tree._gc_blobs()
+    released_s = time.perf_counter() - t0
+    check(mgr.gc_candidates() == [],
+          f"{label}: logs left past the threshold after the release")
+    check(mgr.gc_runs > runs1, f"{label}: the release freed nothing")
+    emit({"phase": label, "puts": 2 * m, "burst_s": out["burst_s"],
+          "n_flushes": tree.n_flushes, "n_compactions": tree.n_compactions,
+          "gc_runs_pinned": out["gc_runs_pinned"],
+          "pinned_candidates": out["pinned_candidates"],
+          "gc_runs_released": mgr.gc_runs - runs1, "gc_released_s": released_s,
+          **blob_report(tree), "disk_bytes": tree.disk_bytes,
+          "snapshot_reads_s": out["snap_s"],
+          "current_reads_s": out["current_s"],
+          "snapshot_gets": int(probe.shape[0]),
+          "current_gets": CURRENT_GETS,
+          "rows_matched": n_match, "launches": launches,
+          "seconds": time.perf_counter() - t_run})
 
 
 def codecs_phase(args, device: str) -> None:
     """codecs: one seeded stream (the main phase's generator at
-    ``--codec-pairs`` pairs) into an 'opd', a 'plain' and a 'heavy' tree of
-    the main configuration; the three must give the same answers, each
-    equal to the host model, and 'plain' and 'heavy' launch no kernel."""
+    ``--codec-pairs`` pairs) into a tree of the main configuration for
+    each of the harness's five systems; the five must give the same
+    answers, each equal to the host model, and the four competitors launch
+    no kernel.  Then each blob tree takes its burst (``blob_burst``)."""
     t_phase = time.perf_counter()
     rng = np.random.default_rng(args.seed + 3)
     n, cfg = args.codec_pairs, main_config()
@@ -1134,23 +1276,31 @@ def codecs_phase(args, device: str) -> None:
                for i in range(8)]
     probe = np.concatenate([rng.choice(keys, 768), dels[:128],
                             rng.integers(4 * n, 8 * n, 128, dtype=np.uint64)])
+    check(pinned_domain(ref) is not None,
+          "codecs: a written value has no live row (bucket edges unpinned)")
     emit({"phase": "codecs", "reduced": "pairs 6.4e7 -> %.1e ('heavy' "
           "compaction's zlib within the smoke's time limit)" % n, "pairs": n,
           "deletes": int(dels.shape[0]), "value_width": cfg.value_width,
           "ndv": int(vocab.shape[0]), "file_bytes": cfg.file_bytes,
-          "codecs": CODECS})
+          "codecs": list(CODECS), "burst_share": BURST_SHARE})
     first = None
-    for codec in CODECS:
-        line, answers = codec_run(cfg, codec, stream, ref, preds, windows,
-                                  probe, device)
+    for name in CODECS:
+        line, answers, tree = codec_run(cfg, name, stream, ref, preds,
+                                        windows, probe, device)
         emit(line)
         if first is None:
             first = answers
-            continue
-        (fa, ra, ga), (fb, rb, gb) = first, answers
-        check(all(np.array_equal(ka, kb) and np.array_equal(va, vb)
-                  for (ka, va), (kb, vb) in zip(fa + ra, fb + rb))
-              and ga == gb, f"codecs.{codec}: answers differ from 'opd'")
+        else:
+            (fa, ra, ga, aa), (fb, rb, gb, ab) = first, answers
+            check(all(np.array_equal(ka, kb) and np.array_equal(va, vb)
+                      for (ka, va), (kb, vb) in zip(fa + ra, fb + rb))
+                  and ga == gb and aa == ab,
+                  f"codecs.{name}: answers differ from 'opd'")
+        if tree.blob_mgr is not None:
+            # both blob trees take the same burst
+            blob_burst(tree, name, ref, preds, probe, answers,
+                       np.random.default_rng(args.seed + 4))
+        del tree
     emit({"phase": "codecs.done", "seconds": time.perf_counter() - t_phase})
 
 
@@ -2255,7 +2405,7 @@ def main() -> int:
     ap.add_argument("--fast-pairs", type=int, default=1 << 22,
                     help="pairs of the agg.fast tree (sequential keys)")
     ap.add_argument("--codec-pairs", type=int, default=1 << 20,
-                    help="pairs of the codecs phase's three trees")
+                    help="pairs of the codecs phase's five trees")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     t_start = time.perf_counter()

@@ -1,11 +1,11 @@
-"""Leveling compaction: OPD's Algorithm 1 and the competitors' raw merge.
+"""Leveling compaction: OPD's Algorithm 1 and the competitors' merges.
 
-Port of ``repro/core/compaction.py`` for the 'opd', 'plain' and 'heavy'
-codecs, with the reference's three 'opd' encode backends (``backend=``),
-which write bit-identical SCTs.  The key merge is the same for every codec
-and stays on the host: concatenate the inputs' key columns, sort by (key
-asc, seqno desc), keep the newest version per key and, at the bottom
-level, drop tombstones; then cut the survivors into output files.
+Port of ``repro/core/compaction.py`` for every codec, with the
+reference's three 'opd' encode backends (``backend=``), which write
+bit-identical SCTs.  The key merge is the same for every codec and stays
+on the host: concatenate the inputs' key columns, sort by (key asc, seqno
+desc), keep the newest version per key and, at the bottom level, drop
+tombstones; then cut the survivors into output files.
 
 The competitors pay what the reference makes them pay, on the host: stage
 ``decode`` takes every input's raw value column (``SCT.raw_values``: a
@@ -34,13 +34,13 @@ every entry is rewritten through the flat ``old -> new`` table:
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.opd import OPD
-from repro_torch.core.sct import SCT, build_sct, pack_width
+from repro_torch.core.sct import SCT, BlobManager, build_sct, pack_width
 from repro_torch.core.stats import StageStats
 from repro_torch.kernels import ops
 from repro_torch.storage.io import FileStore
@@ -67,10 +67,13 @@ def merge_scts(
     store: FileStore,
     stats: StageStats,
     device,
+    blob_mgr: Optional[BlobManager] = None,
     block_bytes: int = 4096,
     bloom_bits_per_key: int = 10,
     backend: str = "jax_packed",
 ) -> CompactionResult:
+    """Merge ``inputs`` (one codec) into ``out_level``; 'blob' inputs need
+    their tree's ``blob_mgr``, whose garbage counts the merge updates."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown compaction backend {backend!r} (one of "
                          f"{', '.join(map(repr, BACKENDS))})")
@@ -84,10 +87,10 @@ def merge_scts(
         for s in inputs:
             store.read(s.file_id)
 
-    # ---- stage: decode (only the competitors pay here) -------------------- #
+    # ---- stage: decode (only 'plain' and 'heavy' pay here) ---------------- #
     with stats.time("decode"):
-        raw_cols = ([s.raw_values() for s in inputs] if codec != "opd"
-                    else None)
+        raw_cols = ([s.raw_values() for s in inputs]
+                    if codec in ("plain", "heavy") else None)
 
     # ---- stage: merge (keys + GC on the host) ----------------------------- #
     with stats.time("merge"):
@@ -108,14 +111,20 @@ def merge_scts(
         srcs, idxs = srcs[keep], idxs[keep]
     n_out = int(keys.shape[0])
 
+    blob = codec == "blob"
+    if blob:
+        assert blob_mgr is not None, "a 'blob' merge needs its blob_mgr"
+        _mark_blob_garbage(inputs, srcs, idxs, blob_mgr)
     outputs: List[SCT] = []
     dict_compares = 0
     host = backend == "numpy"
-    # the competitors hand build_sct raw values; for 'opd', 'jax_packed'
-    # hands it (words, width, opd), the others (evs, opd)
+    # 'plain' and 'heavy' hand build_sct raw values, 'blob' its pointers;
+    # for 'opd', 'jax_packed' hands it (words, width, opd), the others
+    # (evs, opd)
     source_kw = ("raw_values" if raw_cols is not None else
+                 "blob_refs" if blob else
                  "packed_encoded" if backend == "jax_packed" else "encoded")
-    if raw_cols is None and n_out:
+    if codec == "opd" and n_out:
         with stats.time("encode"):
             source = (_host_source_codes(inputs) if host
                       else _source_codes(inputs, device))
@@ -124,8 +133,14 @@ def merge_scts(
         ck, cs, ct = keys[lo:hi], seqnos[lo:hi], tombs[lo:hi]
         with stats.time("encode"):
             if raw_cols is not None:
-                value, ncmp = _gather_raw(raw_cols, srcs[lo:hi], idxs[lo:hi],
-                                          inputs[0].value_width), 0
+                value, ncmp = _gather(raw_cols, srcs[lo:hi], idxs[lo:hi],
+                                      f"S{inputs[0].value_width}", b""), 0
+            elif blob:
+                value, ncmp = (
+                    _gather([s.vfids for s in inputs], srcs[lo:hi],
+                            idxs[lo:hi], np.int64, -1),
+                    _gather([s.vptrs for s in inputs], srcs[lo:hi],
+                            idxs[lo:hi], np.uint64, 0)), 0
             elif host:
                 value, ncmp = _host_remap_codes(
                     inputs, *source, srcs[lo:hi], idxs[lo:hi], ct, device)
@@ -140,7 +155,8 @@ def merge_scts(
                 key_bytes=inputs[0].key_bytes,
                 value_width=inputs[0].value_width, block_bytes=block_bytes,
                 bloom_bits_per_key=bloom_bits_per_key, store=store,
-                device=device, codec=codec, **{source_kw: value})
+                device=device, codec=codec, blob_mgr=blob_mgr,
+                **{source_kw: value})
         outputs.append(out)
     return CompactionResult(outputs, n_in, n_out, n_in - n_out, dict_compares)
 
@@ -230,13 +246,30 @@ def _host_remap_codes(inputs: List[SCT], codes: np.ndarray,
     return (torch.from_numpy(new).to(device), new_opd), int(used.sum())
 
 
-def _gather_raw(raw_cols: List[np.ndarray], c_src: np.ndarray,
-                c_idx: np.ndarray, width: int) -> np.ndarray:
-    """One output's raw values (S<width>) gathered from the inputs'
-    columns."""
-    out = np.zeros(c_src.shape[0], f"S{width}")
-    for i, col in enumerate(raw_cols):
+def _gather(cols: List[np.ndarray], c_src: np.ndarray, c_idx: np.ndarray,
+            dtype, fill) -> np.ndarray:
+    """One output's column gathered from the inputs' ``cols`` (raw values
+    or 'blob' pointers), ``fill`` where no input supplies an entry."""
+    out = np.full(c_src.shape[0], fill, dtype)
+    for i, col in enumerate(cols):
         sel = c_src == i
         if sel.any():
             out[sel] = col[c_idx[sel]]
     return out
+
+
+def _mark_blob_garbage(inputs: List[SCT], srcs: np.ndarray, idxs: np.ndarray,
+                       blob_mgr: BlobManager) -> None:
+    """Entries the merge dropped leave garbage in the logs they point into.
+    (The reference's ``key_range`` restriction, for its shard split, is not
+    ported.)"""
+    starts = np.zeros(len(inputs) + 1, np.int64)
+    np.cumsum([s.n for s in inputs], out=starts[1:])
+    kept = np.zeros(int(starts[-1]), np.bool_)
+    kept[starts[srcs] + idxs] = True
+    for i, s in enumerate(inputs):
+        dead = ~kept[starts[i]:starts[i + 1]] & (s.vfids >= 0)
+        if dead.any():
+            fids, counts = np.unique(s.vfids[dead], return_counts=True)
+            for fid, count in zip(fids.tolist(), counts.tolist()):
+                blob_mgr.mark_dead(fid, count)

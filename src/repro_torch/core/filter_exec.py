@@ -1,9 +1,8 @@
 """Scan-based value filtering (paper §4.2.2) on the card.
 
-Port of ``repro/core/filter_exec.py`` for the 'opd', 'plain' and 'heavy'
-codecs and the reference's four backends.  On 'opd' runs K predicates are
-planned per SCT dictionary on the host (two binary searches each) and
-evaluated:
+Port of ``repro/core/filter_exec.py`` for every codec and the reference's
+four backends.  On 'opd' runs K predicates are planned per SCT dictionary
+on the host (two binary searches each) and evaluated:
 
 * ``'fused'``: every SCT of a level in ONE zone-gated
   ``fused_level_filter`` launch on the packed words;
@@ -24,7 +23,8 @@ versions.  The backends give the same results bit for bit.
 
 Competitor runs pay what the paper says they pay, on the host under every
 backend: stage ``decode`` decompresses every block of each 'heavy' run
-once per call (``SCT.raw_values``), and each predicate compares the raw
+and reads every value of each 'blob' run from its logs once per call
+(``SCT.raw_values``), and each predicate compares the raw
 S<w> strings of every entry (``string_mask``).  They launch nothing.
 """
 

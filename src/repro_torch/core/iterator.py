@@ -1,13 +1,14 @@
 """Merged range scans (``range_lookup``) across the memtable and all runs.
 
-Port of ``repro/core/iterator.py`` for the 'opd', 'plain' and 'heavy'
-codecs.  Iterator semantics follow RocksDB (paper §4.1): examine all levels
-at once, keep the newest visible version per key, skip tombstones.  Per
-run, the ``[a, b)`` slice of the range is found on the host keys and
-decoded by ``SCT.decode_slice``: for 'opd' only the slice's codes are read
-from the packed words on the card and mapped through the memory-resident
-dictionary, 'plain' slices its raw column and 'heavy' decompresses every
-block the slice touches.  The merge is a host lexsort.
+Port of ``repro/core/iterator.py`` for every codec.  Iterator semantics
+follow RocksDB (paper §4.1): examine all levels at once, keep the newest
+visible version per key, skip tombstones.  Per run, the ``[a, b)`` slice
+of the range is found on the host keys and decoded by
+``SCT.decode_slice``: for 'opd' only the slice's codes are read from the
+packed words on the card and mapped through the memory-resident
+dictionary, 'plain' slices its raw column, 'heavy' decompresses every
+block the slice touches and 'blob' reads every value log the slice points
+into.  The merge is a host lexsort.
 
 I/O accounting is block-granular, as in the reference: each run charges
 the disk blocks its slice touches.

@@ -16,17 +16,23 @@ kernel) are the alternatives to 'fused'; ``compaction_backend``
 'jax' (the ``remap_codes`` kernel) and 'numpy' (the remap on the host) are
 the alternatives to 'jax_packed'.
 
-``codec`` 'plain' and 'heavy' are two of the paper's baselines: raw rows,
-and rows zlib-compressed per block.  They stay on the host, as in the
-reference, through writes, ``get``, ``range_lookup``, the filters and
-compaction; an aggregate over them raises (ROADMAP §1, competitor codecs).
+``codec`` 'plain', 'heavy' and 'blob' are the paper's baselines: raw
+rows, rows zlib-compressed per block, and keys with pointers into
+append-only value logs (``blob_compress`` compresses each log whole).  They
+stay on the host, as in the reference, through writes, ``get``,
+``range_lookup``, the filters, the aggregates (the general path's raw-value
+pool) and compaction, and launch no kernel.  A 'blob' tree rewrites every
+log past ``blob_gc_threshold`` garbage after each compaction (blob GC).
 Results are bit-identical to the reference engine configured as
 ``LSMConfig(codec=<the same>, filter_backend=<the same>,
 compaction_backend=<the same>)``.
 
 Maintenance is synchronous: flushes and compactions run inline on the
 writer's thread.  MVCC follows the paper's file-snapshot scheme: a snapshot
-pins (seqno, memtable, the current version's runs).
+pins (seqno, memtable, the current version's runs).  Blob GC is
+copy-on-write: a run whose pointers move is rebuilt and swapped in by a
+replace edit, and a log is deleted only while no live snapshot points into
+it.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ from __future__ import annotations
 import dataclasses
 import time
 import warnings
-from typing import Dict, List, Optional, Sequence, Tuple
+import weakref
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -46,8 +53,8 @@ from repro_torch.core.iterator import range_scan
 from repro_torch.core.memtable import MemTable
 from repro_torch.core.opd import Predicate
 from repro_torch.core.policy import CompactionPolicy, make_policy, run_depth
-from repro_torch.core.sct import (CODECS, SCT, build_sct, record_disk_bytes,
-                                  sct_from_arrays)
+from repro_torch.core.sct import (CODECS, SCT, BlobManager, build_sct,
+                                  record_disk_bytes, sct_from_arrays)
 from repro_torch.core.stats import StageStats
 from repro_torch.core.version import Version, VersionEdit, VersionSet
 from repro_torch.query.executor import evaluate_aggregates
@@ -60,14 +67,14 @@ from repro_torch.storage.io import FileStore
 # item that ports the others (kernels named by their function); None where
 # the port takes every value the reference takes
 SUPPORTED = {
-    "codec": (CODECS, "§1 competitor codecs"),
+    "codec": (CODECS, None),
     "filter_backend": (("fused", "jax_packed", "jax", "numpy"), None),
     "compaction_backend": (("numpy", "jax", "jax_packed"), None),
     "compaction_policy": (("leveled",), "§1 policy"),
     "policy_autotune": ((False,), "§1 policy"),
     "maintenance": (("sync",), "§1 durability and maintenance"),
     "wal_sync": (("off",), "§1 durability and maintenance"),
-    "blob_compress": ((False,), "§1 competitor codecs"),
+    "blob_compress": ((False, True), None),
     "level_modes": ((None,), "§1 policy"),
 }
 
@@ -146,25 +153,18 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _require_opd_runs(runs: Sequence[SCT]) -> None:
-    """Aggregates run on OPD codes only.  The reference's fast-path gate
-    sends a competitor run to its general path (``fastpath_eligible``'s
-    codec gate, ``repro/query/planner.py:190-191``), whose raw-value pool
-    is not ported yet; nothing falls back."""
-    other = sorted({s.codec for s in runs if s.codec != "opd"})
-    if other:
-        raise ValueError(
-            f"aggregates over codec {other[0]!r} runs are not ported yet "
-            "(this port aggregates 'opd' runs); see ROADMAP §1 competitor "
-            "codecs")
-
-
 class LSMTree:
     def __init__(self, cfg: LSMConfig, spill_dir: Optional[str] = None,
                  device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.store = FileStore(spill_dir)
+        # 'blob' keeps its values in logs of the tree's store ('blob_compress'
+        # is ignored by the other codecs, as in the reference)
+        self.blob_mgr: Optional[BlobManager] = (
+            BlobManager(self.store, cfg.value_width, cfg.blob_compress,
+                        cfg.blob_gc_threshold)
+            if cfg.codec == "blob" else None)
         self.memtable = MemTable(cfg.value_width, cfg.key_bytes)
         self.versions = VersionSet(cfg.max_levels)
         self._seqno = 0
@@ -183,17 +183,37 @@ class LSMTree:
         self.compaction_in_bytes = 0
         self.compaction_out_bytes = 0
         self.dict_compares = 0  # cumulative D_i terms across compactions
+        # weak references to handed-out snapshots: blob GC must not delete
+        # a log a live snapshot can still read
+        self._snapshots: List["weakref.ref[Snapshot]"] = []
+        # logs replaced by GC, deleted one pass later while no snapshot
+        # points into them
+        self._zombie_blobs: List[int] = []
 
     @classmethod
     def from_arrays(cls, cfg: LSMConfig, levels: Sequence[Sequence[dict]],
-                    seqno: int, device=None) -> "LSMTree":
+                    seqno: int, device=None,
+                    blob_logs: Optional[Dict[int, np.ndarray]] = None,
+                    blob_live: Optional[Dict[int, int]] = None,
+                    blob_total: Optional[Dict[int, int]] = None
+                    ) -> "LSMTree":
         """A tree over SCTs given as the reference's per-SCT arrays
         (``sct_from_arrays``), ``levels[i]`` in the reference's run order,
         with the seqno watermark ``seqno`` and an empty memtable.  Every
         SCT must carry ``cfg.codec``: flushes write that codec and a merge
-        takes one codec, so a tree holds one."""
+        takes one codec, so a tree holds one.  A 'blob' tree also takes its
+        logs as ``{log id: values}``, written under the same ids (and
+        compressed where ``cfg.blob_compress`` is set), and the reference
+        manager's ``live`` and ``total`` tables as they stand, so that the
+        next GC pass decides as the reference's would."""
         tree = cls(cfg, device=device)
-        lv = [tuple(sct_from_arrays(f, tree.device) for f in runs)
+        mgr = tree.blob_mgr
+        if mgr is not None:
+            for fid, values in sorted((blob_logs or {}).items()):
+                mgr.write_log(np.asarray(values, f"S{cfg.value_width}"),
+                              fid=fid)
+            mgr.live, mgr.total = dict(blob_live or {}), dict(blob_total or {})
+        lv = [tuple(sct_from_arrays(f, tree.device, mgr) for f in runs)
               for runs in levels]
         other = sorted({s.codec for runs in lv for s in runs} - {cfg.codec})
         if other:
@@ -251,7 +271,11 @@ class LSMTree:
 
     @property
     def disk_bytes(self) -> int:
-        return sum(s.disk_bytes for s in self.versions.current.all_runs())
+        """The runs' bytes, and a 'blob' tree's logs that runs point into."""
+        total = sum(s.disk_bytes for s in self.versions.current.all_runs())
+        if self.blob_mgr is not None:
+            total += sum(self.store.size_of(f) for f in self.blob_mgr.live)
+        return total
 
     def all_runs(self) -> List[SCT]:
         """L0 runs newest first, then L1..Ln."""
@@ -312,7 +336,7 @@ class LSMTree:
                     block_bytes=self.cfg.block_bytes,
                     bloom_bits_per_key=self.cfg.bloom_bits_per_key,
                     store=self.store, device=self.device,
-                    codec=self.cfg.codec))
+                    codec=self.cfg.codec, blob_mgr=self.blob_mgr))
         # adds listed oldest-chunk-first; L0 prepends them reversed
         self.versions.apply(VersionEdit(adds=[(0, s) for s in new],
                                         last_seqno=int(frozen.seqnos.max())))
@@ -415,7 +439,7 @@ class LSMTree:
             is_bottom=self._merge_is_bottom(inputs, out_level),
             file_entries=self.file_entries, store=self.store,
             stats=self.compaction_stats, device=self.device,
-            block_bytes=self.cfg.block_bytes,
+            blob_mgr=self.blob_mgr, block_bytes=self.cfg.block_bytes,
             bloom_bits_per_key=self.cfg.bloom_bits_per_key,
             backend=self.cfg.compaction_backend)
         self.n_compactions += 1
@@ -428,13 +452,97 @@ class LSMTree:
         for _, gone in drop_in:
             for s in gone:
                 self.store.delete(s.file_id)
+        if self.blob_mgr is not None:
+            self._gc_blobs()
+
+    # ------------------------------------------------------------------ #
+    # blob GC (copy-on-write)
+    # ------------------------------------------------------------------ #
+    def _pinned_blob_fids(self) -> Set[int]:
+        """Logs a live snapshot's runs point into.  Snapshots hold their SCTs
+        directly, but the values live in the store, so GC must not delete
+        these logs.  Dead references are pruned here: a released snapshot
+        frees its logs at the next GC pass."""
+        pinned: Set[int] = set()
+        for snap in self._live_snapshots():
+            for s in snap.runs:
+                if s.vfids is not None and s.n:
+                    pinned.update(f for f in np.unique(s.vfids).tolist()
+                                  if f >= 0)
+        return pinned
+
+    def _live_snapshots(self) -> List[Snapshot]:
+        """The handed-out snapshots still alive; the registry forgets the
+        others."""
+        snaps = [s for s in (r() for r in self._snapshots) if s is not None]
+        self._snapshots = [weakref.ref(s) for s in snaps]
+        return snaps
+
+    def _gc_blobs(self) -> None:
+        """Rewrite every log past the garbage threshold that no live
+        snapshot pins (BlobDB GC), copy-on-write: its live values go to a
+        new log, each run pointing into it is rebuilt with the new pointers
+        under a new id and swapped in by one replace edit, and the old log
+        is deleted one pass later, while no snapshot pins it.  A log no run
+        points into any more is deleted at once."""
+        pinned = self._pinned_blob_fids()
+        zombies, self._zombie_blobs = self._zombie_blobs, []
+        for fid in zombies:
+            if fid in pinned:
+                self._zombie_blobs.append(fid)
+            else:
+                self.store.delete(fid)
+        mgr = self.blob_mgr
+        for fid in mgr.gc_candidates():
+            if fid in pinned:
+                continue
+            refs = []   # (level, run, its entries pointing into the log)
+            for i, lvl in enumerate(self.versions.current.levels):
+                for s in lvl:
+                    sel = np.nonzero(s.vfids == fid)[0]
+                    if sel.shape[0]:
+                        refs.append((i, s, sel))
+            self.store.stats.add_read(self.store.size_of(fid), 1)
+            if not refs:
+                self.store.delete(fid)
+                mgr.forget(fid)
+                continue
+            values = mgr.log_values(fid)
+            new_vals = np.concatenate(
+                [values[s.vptrs[sel].astype(np.int64)] for _, s, sel in refs])
+            new_fid, _ = mgr.append(new_vals)
+            replaces, off = [], 0
+            for lvl, s, sel in refs:
+                vfids, vptrs = s.vfids.copy(), s.vptrs.copy()
+                vfids[sel] = new_fid
+                vptrs[sel] = np.arange(off, off + sel.shape[0],
+                                       dtype=np.uint64)
+                off += sel.shape[0]
+                new = dataclasses.replace(s, vfids=vfids, vptrs=vptrs,
+                                          facts={})
+                new.file_id = self.store.alloc_id()
+                self.store.write(new, new.disk_bytes, fid=new.file_id)
+                replaces.append((lvl, s.file_id, new))
+            self.versions.apply(VersionEdit(replaces=replaces))
+            for _, s, _ in refs:
+                self.store.delete(s.file_id)
+            mgr.forget(fid)
+            self._zombie_blobs.append(fid)
+            mgr.gc_runs += 1
+            mgr.gc_bytes_rewritten += int(new_vals.nbytes)
 
     # ------------------------------------------------------------------ #
     # reads
     # ------------------------------------------------------------------ #
     def snapshot(self) -> Snapshot:
         v = self.versions.current
-        return Snapshot(self._seqno, self.memtable, v.all_runs(), version=v)
+        snap = Snapshot(self._seqno, self.memtable, v.all_runs(), version=v)
+        if self.blob_mgr is not None:
+            # the registry feeds blob GC's pinning only; pruned on the way
+            # in, it never grows past the live snapshots
+            self._live_snapshots()
+            self._snapshots.append(weakref.ref(snap))
+        return snap
 
     def get(self, key: int, snapshot: Optional[Snapshot] = None) -> Optional[bytes]:
         """point_lookup: memtable, then every candidate run; the newest
@@ -522,7 +630,6 @@ class LSMTree:
         GROUP BY one ``zone_histogram`` launch; otherwise the fused filter
         feeds the visibility merge."""
         snap = snapshot or self.snapshot()
-        _require_opd_runs(snap.runs)
         specs = self._resolve_agg_specs(specs, snap)
         parts = self._aggregate_partials(specs, snap)
         return [finalize_partial(spec, part)
@@ -534,7 +641,6 @@ class LSMTree:
         """Mergeable per-tree partials.  Specs must arrive resolved (bucket
         edges fixed over every tree whose partials are merged)."""
         snap = snapshot or self.snapshot()
-        _require_opd_runs(snap.runs)
         return self._aggregate_partials(specs, snap)
 
     def _aggregate_partials(self, specs, snap: Snapshot) -> List[AggPartial]:

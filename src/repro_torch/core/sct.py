@@ -1,5 +1,5 @@
-"""Sorted Compressed Tables (SCTs): the 'opd' codec and the 'plain' and
-'heavy' competitors.
+"""Sorted Compressed Tables (SCTs): the 'opd' codec and the 'plain',
+'heavy' and 'blob' competitors.
 
 Port of ``repro/core/sct.py``.  For the paper's own design ('opd') keys
 and seqnos stay columnar on the host, values are OPD-encoded to dense codes
@@ -19,11 +19,14 @@ unpack a transient column per call on the card (``code_column``), and the
 The competitors stay on the host, as in the reference: a 'plain' SCT keeps
 its raw ``S<w>`` value column, a 'heavy' one its rows (key 8 bytes, seqno
 8, value w) zlib-compressed per block at level 1, so its disk bytes and
-blocks are the reference's.  Readers decode through three methods that
-dispatch on ``codec``: ``raw_values`` (every value, each 'heavy' block
-decompressed), ``value_at`` (one value; one block) and ``decode_slice``
-(the values of [a, b); every block the slice touches).  The 'blob' codec
-and ``BlobManager`` are not ported yet (ROADMAP §1, competitor codecs).
+blocks are the reference's.  A 'blob' SCT keeps (log id, offset) pointers
+into the append-only value logs of its tree's ``BlobManager`` (WiscKey /
+BlobDB key-value separation), which it holds a reference to; with
+``compress`` each log is zlib-compressed whole.  Readers decode through
+three methods that dispatch on ``codec``: ``raw_values`` (every value, each
+'heavy' block decompressed, each 'blob' log read once), ``value_at`` (one
+value; one block or one log read) and ``decode_slice`` (the values of
+[a, b); every block or log the slice touches).
 """
 
 from __future__ import annotations
@@ -42,7 +45,8 @@ from repro_torch.kernels.bitpack import unpack_codes_plain
 from repro_torch.storage.io import FileStore
 
 SEQNO_BYTES = 8
-CODECS = ("opd", "plain", "heavy")
+PTR_BYTES = 8
+CODECS = ("opd", "plain", "heavy", "blob")
 # the reference's estimate of a 'heavy' record's compressed share of its raw
 # bytes (``repro/core/sct.py:288``); it sizes files, not the zlib output
 HEAVY_COMPRESS_EST = 0.5
@@ -57,11 +61,92 @@ def pack_width(code_bits: int) -> int:
     return 32
 
 
+class BlobManager:
+    """Append-only value logs with garbage-ratio GC (the WiscKey / BlobDB
+    competitor), on the host.  A log is one store object: its raw S<w>
+    values, or with ``compress`` their bytes zlib-compressed at level 1 and
+    charged at the compressed size.  Reads are charged as the reference
+    charges them: a raw log one I/O of ``value_width`` bytes a value read,
+    a compressed log its whole size in one I/O, and it is really
+    decompressed whole on every read.  ``live`` and ``total`` count each
+    log's values that runs still point to and that it holds."""
+
+    def __init__(self, store: FileStore, value_width: int,
+                 compress: bool = False, gc_threshold: float = 0.5):
+        self.store = store
+        self.value_width = value_width
+        self.compress = compress
+        self.gc_threshold = gc_threshold
+        self.live: Dict[int, int] = {}     # log id -> values still pointed to
+        self.total: Dict[int, int] = {}    # log id -> values it holds
+        self.gc_runs = 0
+        self.gc_bytes_rewritten = 0
+
+    def write_log(self, values: np.ndarray, fid: Optional[int] = None) -> int:
+        """Write ``values`` (S<w>) as one log (under ``fid`` if given, else
+        a new id); returns its id.  The liveness tables are the caller's."""
+        if self.compress:
+            obj = zlib.compress(values.tobytes(), level=1)
+            nbytes = len(obj)
+        else:
+            obj, nbytes = values.copy(), int(values.nbytes)
+        return self.store.write(obj, nbytes, fid=fid)
+
+    def append(self, values: np.ndarray) -> Tuple[int, np.ndarray]:
+        """Write values as a new log; returns (its id, the values' offsets)."""
+        n = values.shape[0]
+        fid = self.write_log(values)
+        self.live[fid] = n
+        self.total[fid] = n
+        return fid, np.arange(n, dtype=np.uint64)
+
+    def log_values(self, fid: int) -> np.ndarray:
+        """Every value of log ``fid`` (S<w>), decompressed whole where the
+        log is compressed; no I/O is charged.  A missing log raises."""
+        obj = self.store.payload(fid)
+        if self.compress:
+            return np.frombuffer(zlib.decompress(obj), f"S{self.value_width}")
+        return obj
+
+    def read_values(self, fid: int, ptrs: np.ndarray) -> np.ndarray:
+        """The values at offsets ``ptrs`` of log ``fid``: random value reads,
+        one I/O a value (BlobDB's scan weakness), or for a compressed log
+        the whole file read and decompressed."""
+        values = self.log_values(fid)
+        n = ptrs.shape[0]
+        if self.compress:
+            self.store.stats.add_read(self.store.size_of(fid), 1)
+        else:
+            self.store.stats.add_read(n * self.value_width, n)
+        return values[ptrs.astype(np.int64)]
+
+    def mark_dead(self, fid: int, count: int) -> None:
+        if fid in self.live:
+            self.live[fid] = max(0, self.live[fid] - int(count))
+
+    def forget(self, fid: int) -> None:
+        """Drop a log from the liveness tables (GC rewrote or freed it)."""
+        self.live.pop(fid, None)
+        self.total.pop(fid, None)
+
+    def live_fids(self) -> List[int]:
+        return list(self.live)
+
+    def garbage_ratio(self, fid: int) -> float:
+        t = self.total.get(fid, 0)
+        return 0.0 if t == 0 else 1.0 - self.live.get(fid, 0) / t
+
+    def gc_candidates(self) -> List[int]:
+        """Logs whose garbage ratio is above the threshold, in write order."""
+        return [f for f in self.live
+                if self.garbage_ratio(f) > self.gc_threshold]
+
+
 @dataclasses.dataclass
 class SCT:
     file_id: int
     level: int
-    codec: str                # 'opd' | 'plain' | 'heavy'
+    codec: str                # 'opd' | 'plain' | 'heavy' | 'blob'
     keys: np.ndarray          # uint64 [n], (key asc, seqno desc)
     seqnos: np.ndarray        # uint64 [n]
     tombs: np.ndarray         # bool [n]
@@ -79,6 +164,13 @@ class SCT:
     # --- 'heavy' ---
     zblocks: Optional[List[bytes]] = None   # zlib rows, one per block
     zblock_entries: int = 0
+    # --- 'blob' ---
+    vfids: Optional[np.ndarray] = None      # int64 [n] log ids, -1 = none
+    vptrs: Optional[np.ndarray] = None      # uint64 [n] offsets in the log
+    # the tree's value logs, which a 'blob' SCT reads through; not part of
+    # the SCT's value
+    blob_mgr: Optional[BlobManager] = dataclasses.field(
+        default=None, repr=False, compare=False)
     max_seqno: int = 0
     # facts the aggregate planner derives once per SCT (SCTs are immutable
     # after build): weight tables, prefix-label tables, tombstone and key
@@ -134,21 +226,28 @@ class SCT:
     # ------------------------------------------------------------------ #
     def raw_values(self) -> np.ndarray:
         """A competitor's raw value column S<w> [n]: a 'plain' SCT's own
-        column, every block of a 'heavy' one really decompressed.  The
-        decode cost the paper's design avoids: 'opd' readers stay on the
-        codes, so an 'opd' SCT raises."""
+        column, every block of a 'heavy' one really decompressed, a 'blob'
+        one's values read from each log it points into (b"" at its
+        tombstones).  The decode cost the paper's design avoids: 'opd'
+        readers stay on the codes, so an 'opd' SCT raises."""
         if self.codec == "plain":
             return self.values
         if self.codec == "heavy":
             return self._decompress_rows(0, len(self.zblocks))
-        raise ValueError("raw_values() decodes competitor codecs only; "
+        if self.codec == "blob":
+            return self._blob_values(0, self.n)
+        raise ValueError("raw_values() decodes the competitors only; "
                          "'opd' readers work on the codes")
 
     def value_at(self, pos: int) -> bytes:
         """Decoded value of live entry ``pos``: one code from the packed
-        words, the 'plain' column, or one 'heavy' block decompressed."""
+        words, the 'plain' column, one 'heavy' block decompressed, or one
+        value read from a 'blob' log."""
         if self.codec == "plain":
             return bytes(self.values[pos])
+        if self.codec == "blob":
+            return bytes(self.blob_mgr.read_values(
+                int(self.vfids[pos]), self.vptrs[pos:pos + 1])[0])
         if self.codec == "heavy":
             blk = pos // self.zblock_entries
             rows = self._decompress_rows(blk, blk + 1)
@@ -157,13 +256,16 @@ class SCT:
         return bytes(self.opd.values[int(self.codes_at(idx)[0])])
 
     def decode_slice(self, a: int, b: int) -> np.ndarray:
-        """Values of entries [a, b) (``a < b``), b"" at an 'opd' tombstone.
-        'opd' reads the slice's codes from the packed words on the card and
-        maps them through the dictionary (a run of tombstones only has an
-        empty one and reads nothing); 'heavy' decompresses every block the
-        slice touches."""
+        """Values of entries [a, b) (``a < b``), b"" at an 'opd' or 'blob'
+        tombstone.  'opd' reads the slice's codes from the packed words on
+        the card and maps them through the dictionary (a run of tombstones
+        only has an empty one and reads nothing); 'heavy' decompresses
+        every block the slice touches, 'blob' reads every log it points
+        into once."""
         if self.codec == "plain":
             return self.values[a:b]
+        if self.codec == "blob":
+            return self._blob_values(a, b)
         if self.codec == "heavy":
             epb = self.zblock_entries
             b_lo = a // epb
@@ -174,6 +276,17 @@ class SCT:
         idx = torch.arange(a, b, dtype=torch.int64, device=self.packed.device)
         out = self.opd.decode(self.codes_at(idx).cpu().numpy())
         out[self.tombs[a:b]] = b""
+        return out
+
+    def _blob_values(self, a: int, b: int) -> np.ndarray:
+        """The values of 'blob' entries [a, b), one ``read_values`` per log
+        they point into; b"" at tombstones."""
+        out = np.zeros(b - a, f"S{self.value_width}")
+        fids, ptrs = self.vfids[a:b], self.vptrs[a:b]
+        live = fids >= 0
+        for fid in np.unique(fids[live]):
+            sel = live & (fids == fid)
+            out[sel] = self.blob_mgr.read_values(int(fid), ptrs[sel])
         return out
 
     def _decompress_rows(self, b_lo: int, b_hi: int) -> np.ndarray:
@@ -196,14 +309,16 @@ def record_disk_bytes(codec: str, key_bytes: int, value_width: int,
         return base + value_width
     if codec == "heavy":
         return (base + value_width) * HEAVY_COMPRESS_EST
+    if codec == "blob":
+        return base + PTR_BYTES    # the values are charged to their logs
     if codec == "opd":
         return base + pack_width(code_bits) / 8.0
-    raise _unported(codec)
+    raise _unknown(codec)
 
 
-def _unported(codec: str) -> ValueError:
-    return ValueError(f"codec {codec!r} is not ported yet "
-                      "(ROADMAP §1, competitor codecs)")
+def _unknown(codec: str) -> ValueError:
+    return ValueError(f"codec {codec!r} is not one of "
+                      f"{' or '.join(map(repr, CODECS))}")
 
 
 def _opd_encode(raw_values: np.ndarray, tombs: np.ndarray) -> Tuple[np.ndarray, OPD]:
@@ -247,12 +362,17 @@ def build_sct(
     store: FileStore,
     device,
     codec: str = "opd",
+    blob_mgr: Optional[BlobManager] = None,
     raw_values: Optional[np.ndarray] = None,
     encoded: Optional[Tuple[torch.Tensor, OPD]] = None,
     packed_encoded: Optional[Tuple[torch.Tensor, int, OPD]] = None,
+    blob_refs: Optional[Tuple[np.ndarray, np.ndarray]] = None,
 ) -> SCT:
     """Build + "write" one SCT from exactly one value source.  'plain' and
-    'heavy' take raw values (S<w>, on the host).  'opd' takes raw values
+    'heavy' take raw values (S<w>, on the host).  'blob' takes raw values
+    (flush: the live ones appended to a new log of ``blob_mgr``) or
+    ``blob_refs`` = (log ids, offsets) from compaction, which moves the
+    pointers and leaves the values where they are.  'opd' takes raw values
     (flush: OPD construction, then the pack kernel), ``encoded`` = (int32
     codes on the card, -1 at tombstones; opd) from the 'jax' and 'numpy'
     compaction backends (the pack kernel; no column is kept), or
@@ -275,6 +395,14 @@ def build_sct(
         sct.zblocks, zbytes = _zlib_blocks(keys, seqnos, raw_values, epb)
         sct.zblock_entries = epb
         disk = zbytes + n * (key_bytes - 8) + sct.blocks.nbytes
+    elif codec == "blob":
+        # the log is written before the SCT's id is allocated, as in the
+        # reference: both take their ids from the store's one counter
+        sct.blob_mgr = blob_mgr
+        sct.vfids, sct.vptrs = (blob_refs if blob_refs is not None
+                                else _append_blob(blob_mgr, raw_values, tombs))
+        disk = (n * (key_bytes + SEQNO_BYTES + PTR_BYTES)
+                + sct.blocks.nbytes)
     else:
         disk = _attach_opd(sct, device, raw_values, encoded, packed_encoded)
     sct.disk_bytes = int(disk)
@@ -283,6 +411,19 @@ def build_sct(
     sct.file_id = store.alloc_id()
     store.write(sct, sct.disk_bytes, fid=sct.file_id)
     return sct
+
+
+def _append_blob(blob_mgr: BlobManager, raw_values: np.ndarray,
+                 tombs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The live values into a new log (none when every entry is a
+    tombstone); returns (log ids, offsets), -1 and 0 at tombstones."""
+    live = ~tombs
+    fids = np.full(tombs.shape[0], -1, np.int64)
+    ptrs = np.zeros(tombs.shape[0], np.uint64)
+    if live.any():
+        fid, ptrs[live] = blob_mgr.append(raw_values[live])
+        fids[live] = fid
+    return fids, ptrs
 
 
 def _attach_opd(sct: SCT, device, raw_values, encoded, packed_encoded) -> int:
@@ -324,7 +465,8 @@ def _attach_opd(sct: SCT, device, raw_values, encoded, packed_encoded) -> int:
             + opd.nbytes + blocks.nbytes)
 
 
-def sct_from_arrays(fields: Dict[str, object], device) -> SCT:
+def sct_from_arrays(fields: Dict[str, object], device,
+                    blob_mgr: Optional[BlobManager] = None) -> SCT:
     """An SCT from the reference's per-SCT numpy arrays (a plain dict):
     ``codec`` ('opd' when absent), ``keys``, ``seqnos``, ``tombs``, the
     ``BlockIndex`` fields (``entries_per_block``, ``first_keys``,
@@ -333,13 +475,14 @@ def sct_from_arrays(fields: Dict[str, object], device) -> SCT:
     ``disk_bytes``, ``key_bytes`` and ``value_width``; then the codec's
     values: ``packed`` (uint32), ``code_bits`` and ``opd_values`` for
     'opd', ``values`` (S<w>) for 'plain', ``zblocks`` (bytes) and
-    ``zblock_entries`` for 'heavy'."""
+    ``zblock_entries`` for 'heavy', ``vfids`` and ``vptrs`` for 'blob',
+    whose values stay in the logs of ``blob_mgr``."""
     def dev(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a).astype(dtype)).to(device)
 
     codec = str(fields.get("codec", "opd"))
     if codec not in CODECS:
-        raise _unported(codec)
+        raise _unknown(codec)
     keys = np.asarray(fields["keys"], np.uint64)
     seqnos = np.asarray(fields["seqnos"], np.uint64)
     tombs = np.asarray(fields["tombs"], np.bool_)
@@ -360,6 +503,10 @@ def sct_from_arrays(fields: Dict[str, object], device) -> SCT:
     elif codec == "heavy":
         sct.zblocks = [bytes(z) for z in fields["zblocks"]]
         sct.zblock_entries = int(fields["zblock_entries"])
+    elif codec == "blob":
+        sct.vfids = np.asarray(fields["vfids"], np.int64)
+        sct.vptrs = np.asarray(fields["vptrs"], np.uint64)
+        sct.blob_mgr = blob_mgr
     else:
         blocks.code_lo = dev(fields["code_lo"], np.int64)
         blocks.code_hi = dev(fields["code_hi"], np.int64)

@@ -2,11 +2,12 @@
 
 Port of ``repro/core/version.py`` for the in-memory engine.  ``Version`` is
 a frozen per-level tuple of SCT tuples; ``VersionEdit`` a delta (SCTs added
-per level, file ids dropped per level, the highest seqno made durable);
-``VersionSet.apply`` installs an edit atomically.  L0 runs are newest
-first (adds prepend, the first-listed add ends up newest); L1+ runs are
-kept sorted by ``min_key``.  The manifest log, recovery, and the stacked
-(tiered) and replace (blob GC) edits are not ported yet (ROADMAP §1).
+per level, file ids dropped per level, SCTs swapped in place of others by
+blob GC, the highest seqno made durable); ``VersionSet.apply`` installs an
+edit atomically.  L0 runs are newest first (adds prepend, the first-listed
+add ends up newest); L1+ runs are kept sorted by ``min_key``; a replaced
+run keeps its position.  The manifest log, recovery and the stacked
+(tiered) edit are not ported yet (ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -44,6 +45,9 @@ class Version:
     def with_edit(self, edit: "VersionEdit", vid: int) -> "Version":
         """Apply one edit functionally; the receiver is untouched."""
         levels: List[List[SCT]] = [list(lvl) for lvl in self.levels]
+        for lvl, old_fid, new in edit.replaces:
+            levels[lvl] = [new if s.file_id == old_fid else s
+                           for s in levels[lvl]]
         for lvl, fid in edit.drops:
             levels[lvl] = [s for s in levels[lvl] if s.file_id != fid]
         adds0 = [s for lvl, s in edit.adds if lvl == 0]
@@ -58,11 +62,15 @@ class Version:
 
 @dataclasses.dataclass
 class VersionEdit:
-    """``adds`` (level, sct); ``drops`` (level, file_id); ``last_seqno``
-    the highest seqno this edit makes durable."""
+    """``adds`` (level, sct); ``drops`` (level, file_id); ``replaces``
+    (level, old file_id, new sct), an in-place swap that keeps the run's
+    position (copy-on-write blob GC must not perturb L0's recency order);
+    ``last_seqno`` the highest seqno this edit makes durable."""
 
     adds: List[Tuple[int, SCT]] = dataclasses.field(default_factory=list)
     drops: List[Tuple[int, int]] = dataclasses.field(default_factory=list)
+    replaces: List[Tuple[int, int, SCT]] = dataclasses.field(
+        default_factory=list)
     last_seqno: Optional[int] = None
 
 

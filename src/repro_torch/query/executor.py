@@ -1,6 +1,6 @@
 """Aggregate execution on packed codes, with an MVCC fallback.
 
-Port of ``repro/query/executor.py`` for the 'opd' codec and the 'fused',
+Port of ``repro/query/executor.py`` for every codec and the 'fused',
 'jax_packed', 'jax' and 'numpy' backends.  Two paths, chosen per snapshot by
 ``planner.fastpath_eligible``:
 
@@ -18,9 +18,11 @@ match the reference), goes to the host evaluation at 4 KB-block
 granularity instead, as every run does under 'jax' and 'numpy'.
 
 **General path** (overlapping runs, visible memtable rows, snapshots older
-than stored seqnos): ``filter_exec``'s masks under the tree's filter
-backend, dedup and global shadow check, with candidates carrying
-``(run, code)`` instead of decoded values; memtable rows carry raw values.
+than stored seqnos, competitor runs): ``filter_exec``'s masks under the
+tree's filter backend, dedup and global shadow check, with candidates of
+'opd' runs carrying ``(run, code)`` instead of decoded values; memtable
+rows and competitor runs, each decoded once a call in stage ``decode``
+(``SCT.raw_values``), carry raw values in a per-spec pool.
 
 MIN and MAX stay codes until one dictionary decode per run; runs merge in
 value space.  SUM gathers ``numeric_values`` weights per code.  GROUP BY
@@ -347,6 +349,11 @@ def _general_aggregate(live_runs, mems, mem_newest, specs, stats, snap,
     K = len(specs)
     preds = [spec.plan_pred() for spec in specs]
 
+    # the competitors' raw value columns, once per call
+    with stats.time("decode"):
+        decoded = {i: s.raw_values() for i, s in enumerate(live_runs)
+                   if s.codec != "opd"}
+
     # per-spec candidate columns; srcs >= 0 index live_runs and pair with
     # CODES, srcs == -1 pairs with an index into the spec's `others` pool
     cand = [{"keys": [], "seqs": [], "srcs": [], "codes": []}
@@ -368,17 +375,22 @@ def _general_aggregate(live_runs, mems, mem_newest, specs, stats, snap,
             other_n[q] += keys.shape[0]
 
     with stats.time("filter"):
-        # runs where no predicate can match are left out
-        for i, (q, idx, codes) in _run_hits(live_runs, preds, backend, stats,
-                                            snap).items():
+        # 'opd' runs where no predicate can match are left out; a
+        # competitor run's hits carry their values, which join the pool
+        for i, (q, idx, col) in _run_hits(live_runs, preds, backend, stats,
+                                          snap, decoded).items():
             s = live_runs[i]
             bounds = np.searchsorted(q, np.arange(K + 1))
             for k in range(K):
                 if bounds[k] == bounds[k + 1]:
                     continue
                 sel = slice(bounds[k], bounds[k + 1])
-                _push(k, s.keys[idx[sel]], s.seqnos[idx[sel]], i,
-                      codes=codes[sel])
+                if i in decoded:
+                    _push(k, s.keys[idx[sel]], s.seqnos[idx[sel]], -1,
+                          vals=col[sel])
+                else:
+                    _push(k, s.keys[idx[sel]], s.seqnos[idx[sel]], i,
+                          codes=col[sel])
         mk, ms, mv = _memtable_visible(mems, snap, value_width)
         if mk.shape[0]:
             for q, p in enumerate(preds):

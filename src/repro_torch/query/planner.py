@@ -1,19 +1,20 @@
 """Aggregate planning: predicate -> code ranges, grouping keys -> code
 edges, bucket-edge resolution and the fast-path eligibility check.
 
-Port of ``repro/query/planner.py`` for the 'opd' codec.  Planning works on
-the host dictionaries (``S<w>`` numpy arrays, two binary searches per
-predicate); only the per-code SUM weight table goes to the card, where the
+Port of ``repro/query/planner.py``.  Planning works on the host
+dictionaries (``S<w>`` numpy arrays, two binary searches per predicate);
+only the per-code SUM weight table goes to the card, where the
 ``fused_zone_agg`` kernel gathers from it.
 
 * ``resolve_specs`` pins 'bucket' group edges to equi-depth cuts of the
-  observed sorted-unique value domain.
+  observed sorted-unique value domain (``collect_domain``: each 'opd' run's
+  dictionary, a competitor run's decoded live values).
 * ``group_code_edges`` maps a resolved grouping onto one dictionary's code
   space as B+1 ascending edges, clipped to the spec's planned code window
   so one histogram counts filter and group together.
 * ``fastpath_eligible`` decides whether per-run partials add up without
-  the visibility merge: disjoint key spans, unique keys per run, no
-  visible memtable rows, no stored seqno above the snapshot.
+  the visibility merge: every run 'opd', disjoint key spans, unique keys
+  per run, no visible memtable rows, no stored seqno above the snapshot.
 """
 
 from __future__ import annotations
@@ -76,11 +77,19 @@ def run_prefix_table(s: SCT, prefix_len: int) -> np.ndarray:
 # --------------------------------------------------------------------------- #
 # bucket-edge resolution
 # --------------------------------------------------------------------------- #
+def source_domain(s: SCT) -> np.ndarray:
+    """Sorted unique live values of one run: an 'opd' run's dictionary is
+    that set; a competitor run decodes its values (``SCT.raw_values``)."""
+    if s.codec == "opd":
+        return s.opd.values
+    return np.unique(s.raw_values()[~s.tombs])
+
+
 def collect_domain(runs: Sequence[SCT], mems,
                    value_width: int) -> np.ndarray:
-    """Observed value domain of a snapshot: every run's dictionary (the
-    sorted unique values it stores) and the memtables' newest live rows."""
-    parts = [s.opd.values for s in runs if s.n > 0]
+    """Observed value domain of a snapshot: every run's ``source_domain``
+    and the memtables' newest live rows."""
+    parts = [source_domain(s) for s in runs if s.n > 0]
     for m in mems or []:
         if m.n_versions:
             _k, _sq, t, v = m.newest_rows(None)
@@ -158,11 +167,12 @@ def group_code_edges(
 # --------------------------------------------------------------------------- #
 def fastpath_eligible(live_runs: Sequence[SCT], mem_newest,
                       snap) -> Tuple[bool, str]:
-    """Can per-run partials be summed without the visibility merge?  (Every
-    run of the port is 'opd', the reference's codec condition.)"""
+    """Can per-run partials be summed without the visibility merge?"""
     if mem_newest is not None:
         return False, "memtable"
     for s in live_runs:
+        if s.codec != "opd":
+            return False, f"codec:{s.codec}"
         if snap is not None and np.uint64(s.max_seqno) > snap:
             return False, "seqno"
         if not run_keys_unique(s):

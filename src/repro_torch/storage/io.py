@@ -79,6 +79,16 @@ class FileStore:
             self._objects.pop(fid, None)
             self._sizes.pop(fid, None)
 
+    def payload(self, fid: int) -> Any:
+        """The stored object with no I/O charged, for callers that do their
+        own accounting (blob value reads, blob GC rewrites)."""
+        with self._lock:
+            return self._objects[fid]
+
+    def size_of(self, fid: int) -> int:
+        with self._lock:
+            return self._sizes[fid]
+
     @property
     def n_files(self) -> int:
         with self._lock:

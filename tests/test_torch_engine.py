@@ -93,16 +93,23 @@ def assert_same_sct(a, b):
 
 
 def _assert_same_competitor_values(a, b):
-    """A 'plain' SCT's raw column or a 'heavy' one's zlib blocks; no OPD
-    fields, zone map or weight sums in either engine."""
+    """A 'plain' SCT's raw column, a 'heavy' one's zlib blocks or a 'blob'
+    one's log pointers; no OPD fields, zone map or weight sums in either
+    engine."""
     if a.codec == "plain":
         assert b.values.dtype == a.values.dtype
         assert np.array_equal(a.values, b.values)
-        assert b.zblocks is None
-    else:
+        assert b.zblocks is None and b.vfids is None
+    elif a.codec == "heavy":
         assert b.zblocks == a.zblocks
         assert b.zblock_entries == a.zblock_entries
-        assert b.values is None
+        assert b.values is None and b.vfids is None
+    else:
+        assert b.vfids.dtype == a.vfids.dtype
+        assert b.vptrs.dtype == a.vptrs.dtype
+        assert np.array_equal(a.vfids, b.vfids)
+        assert np.array_equal(a.vptrs, b.vptrs)
+        assert b.values is None and b.zblocks is None
     assert (b.packed, b.opd, b.live) == (None, None, None)
     assert not a.blocks.has_zones and not b.blocks.has_zones
     assert a.blocks.weight_sums is None and b.blocks.weight_sums is None
@@ -116,6 +123,8 @@ def assert_same_tree(ref, port):
             assert_same_sct(a, b)
     for c in COUNTERS:
         assert getattr(ref, c) == getattr(port, c), c
+    if port.blob_mgr is not None:
+        assert_same_blobs(ref, port)
     sa, sb = ref.shape_report(), port.shape_report()
     for k in ("levels", "level_bytes", "run_depths", "n_files", "disk_bytes",
               "dict_bytes", "version"):
@@ -202,6 +211,31 @@ def test_put_batch_matches_single_puts():
     assert_same_reads(ref, port, range(0, 3000, 3))
 
 
+def assert_same_blobs(ref, port):
+    """Two 'blob' trees' value logs: the liveness tables, the GC counters,
+    the logs GC replaced and has yet to delete, the files in the store, and
+    every live log's values and size."""
+    ma, mb = ref.blob_mgr, port.blob_mgr
+    assert (ma.live, ma.total) == (mb.live, mb.total)
+    assert (ma.gc_runs, ma.gc_bytes_rewritten) == \
+        (mb.gc_runs, mb.gc_bytes_rewritten)
+    assert ref._zombie_blobs == port._zombie_blobs
+    assert sorted(ref.store.fids()) == sorted(port.store._objects)
+    for fid in ma.live:
+        assert ref.store.size_of(fid) == port.store.size_of(fid), fid
+        values = ref.store.payload(fid)[2]
+        got = mb.log_values(fid)
+        assert got.dtype == values.dtype and np.array_equal(got, values), fid
+
+
+def export_blobs(ref) -> dict:
+    """A reference 'blob' tree's logs and liveness tables, as the keyword
+    arguments ``LSMTree.from_arrays`` takes."""
+    mgr = ref.blob_mgr
+    return dict(blob_logs={f: ref.store.payload(f)[2] for f in mgr.live},
+                blob_live=dict(mgr.live), blob_total=dict(mgr.total))
+
+
 def export_sct(s) -> dict:
     """The reference SCT, of any ported codec, as the plain per-SCT arrays
     ``sct_from_arrays`` takes."""
@@ -216,6 +250,8 @@ def export_sct(s) -> dict:
         out["values"] = s.values
     elif s.codec == "heavy":
         out.update(zblocks=list(s.zblocks), zblock_entries=s.zblock_entries)
+    elif s.codec == "blob":
+        out.update(vfids=s.vfids, vptrs=s.vptrs)
     else:
         out.update(packed=s.packed, code_bits=s.code_bits,
                    opd_values=s.opd.values, code_lo=b.code_lo,
