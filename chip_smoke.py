@@ -75,7 +75,10 @@ Phases, each printing JSON lines:
             (codecs.blob_zstd), the paper's baselines beside its design:
             filter_many (K=16) and aggregate_many (the agg phase's 6 specs)
             under 'fused' and under 'numpy', range_lookup over 8 windows
-            and get of 1,024 keys (deleted and missing ones among them).
+            and get of 1,024 keys (768 present, 128 deleted, 128 missing;
+            'blob_zstd', whose every read decompresses a whole log, reads
+            the first 48, 8 and 8 of them and is compared with 'opd' at
+            those 64).
             The five trees must give the same answers, each equal to the
             host model; one line per codec carries ingest seconds and
             ops/s, compaction, filter and aggregate stage seconds ('decode'
@@ -86,16 +89,38 @@ Phases, each printing JSON lines:
             (codecs.<codec>.burst): compaction and GC run while the
             snapshot pins its logs, filter_many and the 1,024 gets at the
             snapshot return the answers from before the burst, current
-            reads the burst's values, and once the snapshot is released the
-            next GC pass leaves no log past the threshold.  codecs.done
-            gives the phase's wall seconds.
-9. bench:   the kernel micro-bench's entry points
+            reads the burst's values (128 gets; 'blob_zstd' its 64), and
+            once the snapshot is released the next GC pass leaves no log
+            past the threshold.  codecs.done gives the phase's wall
+            seconds.
+9. durable: the main configuration with wal_sync='group' and a spill
+            directory, the main phase's generator at 2^20 pairs and 2,048
+            deletes (``--durable-pairs``): the crash point
+            compact.before_manifest armed, the stream ingested until it
+            fires, the WAL's unsynced tail dropped
+            (``simulate_power_loss``) and the tree abandoned;
+            ``LSMTree.restore`` on the card must recover a seqno K between
+            the WAL's durable floor and the mutations issued and answer
+            filter_many (K=16), range_lookup over 8 windows, get of the
+            codec probe's 1,024 keys and aggregate_many (6 specs) as the
+            host model of the first K mutations; then the rest of the
+            stream, the same reads against the whole model, and a planned
+            ``close`` and second restore after which every SCT equals its
+            counterpart (torch.equal on the packed words) and every answer
+            the one before.  The window from the first restore to the end
+            of the ingest must launch fused_zone_filter, unpack_codes,
+            remap_pack_codes and pack_codes.  durable.done carries the
+            WAL's appends, syncs and bytes, the spill files and bytes,
+            the restores' seconds by stage (store, manifest, build,
+            wal_replay), ingest ops/s with the WAL on and io_report under
+            the three device models.
+10. bench:   the kernel micro-bench's entry points
             (``benchmarks/bench_kernels.py``): range_filter_packed on 2^20
             codes at widths 8 and 16, bloom_probe on a 2^14-bit bloom and
             on the largest documented one (2,048 words, 2^20 keys, no false
             negative), ssm_scan at falcon-mamba-7b's width (d_inner 8192,
             d_state 16, 2,048 tokens), held against host models.
-10. kernels: each kernel against its plain PyTorch version on the card, on
+11. kernels: each kernel against its plain PyTorch version on the card, on
             operands recorded from the main path, the serve phases,
             agg.fast, compact.jax and fig5, and at bench's shapes
             (bit-identical required; ssm_scan within rtol = atol = 1e-4),
@@ -1054,6 +1079,19 @@ BURST_SHARE = 0.6
 # every key its predicates match): every 'blob_zstd' get decompresses a
 # whole log of ~30 MB
 CURRENT_GETS = 128
+# the codec probe: PROBE_PARTS keys present, deleted and missing, in that
+# order.  'blob_zstd' reads the first READ_PARTS of each part (64 keys):
+# its every read decompresses a whole log, ~128 ms a key; its current gets
+# after the burst are those 64 too
+PROBE_PARTS = (768, 128, 128)
+READ_PARTS = {"blob_zstd": (48, 8, 8)}
+
+
+def probe_positions(name: str) -> np.ndarray:
+    """The positions in the codec probe that codec ``name`` reads."""
+    parts = READ_PARTS.get(name, PROBE_PARTS)
+    starts = np.cumsum((0,) + PROBE_PARTS[:-1])
+    return np.concatenate([np.arange(a, a + m) for a, m in zip(starts, parts)])
 
 
 def agg_answers(got) -> list:
@@ -1195,6 +1233,7 @@ def blob_burst(tree, name: str, ref: Reference, preds, probe, before,
     after.ops = list(ref.ops) + passes
     tp = [Predicate(*p) for p in preds]
     mgr = tree.blob_mgr
+    current = min(CURRENT_GETS, probe.shape[0])
     snap = tree.snapshot()
     runs0 = mgr.gc_runs
 
@@ -1214,8 +1253,7 @@ def blob_burst(tree, name: str, ref: Reference, preds, probe, before,
         out["snap_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         out["filter"] = tree.filter_many(tp)
-        out["get"] = [tree.get(k)
-                      for k in probe[:CURRENT_GETS].tolist()]
+        out["get"] = [tree.get(k) for k in probe[:current].tolist()]
         out["current_s"] = time.perf_counter() - t0
         return out
 
@@ -1226,7 +1264,7 @@ def blob_burst(tree, name: str, ref: Reference, preds, probe, before,
           f"{label}: filter_many at the snapshot differs from before")
     check(out["snap_get"] == ga, f"{label}: gets at the snapshot differ")
     n_match = check_filters(out["filter"], after, preds, label)
-    for k, got in zip(probe[:CURRENT_GETS].tolist(), out["get"]):
+    for k, got in zip(probe[:current].tolist(), out["get"]):
         check(got == after.get(k), f"{label}: get({k}) = {got!r}")
     check(out["gc_runs_pinned"] > 0, f"{label}: GC never ran")
     check(out["pinned_candidates"] > 0,
@@ -1250,7 +1288,7 @@ def blob_burst(tree, name: str, ref: Reference, preds, probe, before,
           "snapshot_reads_s": out["snap_s"],
           "current_reads_s": out["current_s"],
           "snapshot_gets": int(probe.shape[0]),
-          "current_gets": CURRENT_GETS,
+          "current_gets": current,
           "rows_matched": n_match, "launches": launches,
           "seconds": time.perf_counter() - t_run})
 
@@ -1274,8 +1312,10 @@ def codecs_phase(args, device: str) -> None:
     windows = [(i * space // 8 + space // 32,
                 i * space // 8 + space // 32 + space // 64 - 1)
                for i in range(8)]
-    probe = np.concatenate([rng.choice(keys, 768), dels[:128],
-                            rng.integers(4 * n, 8 * n, 128, dtype=np.uint64)])
+    present, deleted, missing = PROBE_PARTS
+    probe = np.concatenate([rng.choice(keys, present), dels[:deleted],
+                            rng.integers(4 * n, 8 * n, missing,
+                                         dtype=np.uint64)])
     check(pinned_domain(ref) is not None,
           "codecs: a written value has no live row (bucket edges unpinned)")
     emit({"phase": "codecs", "reduced": "pairs 6.4e7 -> %.1e ('heavy' "
@@ -1285,23 +1325,270 @@ def codecs_phase(args, device: str) -> None:
           "codecs": list(CODECS), "burst_share": BURST_SHARE})
     first = None
     for name in CODECS:
+        at = probe_positions(name)
         line, answers, tree = codec_run(cfg, name, stream, ref, preds,
-                                        windows, probe, device)
+                                        windows, probe[at], device)
         emit(line)
         if first is None:
             first = answers
         else:
+            # the gets are compared at the probe positions this codec read
             (fa, ra, ga, aa), (fb, rb, gb, ab) = first, answers
             check(all(np.array_equal(ka, kb) and np.array_equal(va, vb)
                       for (ka, va), (kb, vb) in zip(fa + ra, fb + rb))
-                  and ga == gb and aa == ab,
+                  and [ga[i] for i in at.tolist()] == gb and aa == ab,
                   f"codecs.{name}: answers differ from 'opd'")
         if tree.blob_mgr is not None:
             # both blob trees take the same burst
-            blob_burst(tree, name, ref, preds, probe, answers,
+            blob_burst(tree, name, ref, preds, probe[at], answers,
                        np.random.default_rng(args.seed + 4))
         del tree
     emit({"phase": "codecs.done", "seconds": time.perf_counter() - t_phase})
+
+
+# --------------------------------------------------------------------------- #
+# durability in sync mode: spill files, manifest, WAL, a crash and restores
+# --------------------------------------------------------------------------- #
+def prefix_model(stream, k: int) -> Reference:
+    """The host model of the stream's first ``k`` mutations (the puts in
+    order, then the deletes)."""
+    keys, vocab, vidx, dels = stream
+    n = keys.shape[0]
+    model = Reference(vocab)
+    model.put(keys[:min(k, n)], vidx[:min(k, n)])
+    model.delete(dels[:max(0, k - n)])
+    return model
+
+
+def durable_checks(tree, model: Reference, preds, windows, probe,
+                   label: str) -> tuple:
+    """filter_many (K=16) under 'fused', range_lookup over ``windows``, get
+    over ``probe`` and aggregate_many (``AGG_TABLE``), each held against
+    ``model``; returns (the answers, the seconds)."""
+    import torch
+    from repro_torch import Predicate
+
+    t0 = time.perf_counter()
+    got = tree.filter_many([Predicate(*p) for p in preds])
+    check_filters(got, model, preds, label)
+    live_keys, live_idx = model.state()
+    vocab = model.vocab
+    ranges = []
+    for lo, hi in windows:
+        gk, gv = tree.range_lookup(lo, hi)
+        sel = (live_keys >= np.uint64(lo)) & (live_keys <= np.uint64(hi))
+        check(np.array_equal(gk, live_keys[sel]) and gv.dtype == vocab.dtype
+              and np.array_equal(gv, vocab[live_idx[sel]]),
+              f"{label}: range_lookup [{lo}, {hi}] differs")
+        ranges.append((gk, gv))
+    gets = [tree.get(k) for k in probe.tolist()]
+    for k, g in zip(probe.tolist(), gets):
+        check(g == model.get(k), f"{label}: get({k}) = {g!r}")
+    aggs = tree.aggregate_many(make_specs(AGG_TABLE))
+    check_aggs(aggs, vocab, live_idx, AGG_TABLE, f"{label} agg",
+               pinned_domain(model))
+    torch.cuda.synchronize()
+    return ([(r.keys, r.values) for r in got], ranges, gets,
+            agg_answers(aggs)), time.perf_counter() - t0
+
+
+def same_answers(a, b) -> bool:
+    (fa, ra, ga, aa), (fb, rb, gb, ab) = a, b
+    return (all(np.array_equal(ka, kb) and np.array_equal(va, vb)
+                for (ka, va), (kb, vb) in zip(fa + ra, fb + rb))
+            and ga == gb and aa == ab)
+
+
+def spill_report(spill: str, trees) -> dict:
+    """The spill directory's files by kind, and the stores' spill writes."""
+    import os
+
+    kinds = collections.defaultdict(lambda: [0, 0])
+    for name in os.listdir(spill):
+        kind = ("sct_or_log" if name.endswith(".bin") else "wal"
+                if name.endswith(".wal") else "manifest"
+                if name.endswith(".log") else "other")
+        kinds[kind][0] += 1
+        kinds[kind][1] += os.path.getsize(os.path.join(spill, name))
+    return {"files": {k: {"files": v[0], "bytes": v[1]}
+                      for k, v in sorted(kinds.items())},
+            "spill_writes_s": sum(t.store.spill_seconds for t in trees),
+            "spill_write_bytes": sum(t.store.spill_bytes for t in trees)}
+
+
+def wal_report(tree) -> dict:
+    r = tree.shape_report()
+    return {k: r[k] for k in ("wal_appends", "wal_syncs", "wal_bytes",
+                              "wal_replayed")}
+
+
+def durable_phase(args, device: str) -> None:
+    """durable: the main configuration with ``wal_sync='group'`` and a
+    spill directory, the main phase's generator at ``--durable-pairs``.
+    ``compact.before_manifest`` is armed and the stream ingested until it
+    fires; the WAL loses its unsynced tail (``simulate_power_loss``) and
+    the tree is dropped.  ``LSMTree.restore`` on the card must recover a
+    seqno K between the WAL's durable floor and the mutations issued, and
+    the restored tree answer as the host model of the first K mutations;
+    then it takes the rest of the stream and must answer as the whole
+    model, its launch window (restore, reads, ingest) holding
+    fused_zone_filter, unpack_codes, remap_pack_codes and pack_codes.  A
+    planned ``close`` and a second restore must give every SCT back equal
+    (the packed words by ``torch.equal``) and the same answers."""
+    import dataclasses
+    import gc
+    import tempfile
+
+    import torch
+    from repro_torch import LSMTree
+    from repro_torch.storage.devices import DEVICES
+    from repro_torch.testing.crashpoints import CRASH, SimulatedCrash
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 5)
+    n, cfg = args.durable_pairs, dataclasses.replace(main_config(),
+                                                     wal_sync="group")
+    stream = make_stream(rng, n, cfg.value_width)
+    keys, vocab, vidx, dels = stream
+    n_muts = n + dels.shape[0]
+    preds = make_preds(vocab)
+    space = 4 * n
+    windows = [(i * space // 8 + space // 32,
+                i * space // 8 + space // 32 + space // 64 - 1)
+               for i in range(8)]
+    present, deleted, missing = PROBE_PARTS
+    probe = np.concatenate([rng.choice(keys, present), dels[:deleted],
+                            rng.integers(4 * n, 8 * n, missing,
+                                         dtype=np.uint64)])
+    emit({"phase": "durable", "reduced": "pairs 6.4e7 -> %.1e (host-side "
+          "ingest with a WAL record per write, twice restored, within the "
+          "smoke's time limit; halved from 2^21 to keep the whole smoke "
+          "within 720 s)" % n, "pairs": n,
+          "deletes": int(dels.shape[0]), "value_width": cfg.value_width,
+          "file_bytes": cfg.file_bytes, "wal_sync": cfg.wal_sync,
+          "wal_group_bytes": cfg.wal_group_bytes,
+          "crash_point": "compact.before_manifest"})
+    line = {"phase": "durable.done"}
+    with tempfile.TemporaryDirectory() as spill:
+        tree = LSMTree(cfg, spill_dir=spill, device=device)
+        t0 = time.perf_counter()
+        with CRASH.armed("compact.before_manifest"):
+            try:
+                ingest(tree, stream)
+            except SimulatedCrash:
+                pass
+            check(CRASH.fired == "compact.before_manifest",
+                  "durable: compact.before_manifest never fired")
+            floor, issued = tree.wal.durable_seqno, tree._seqno
+            tree.wal.simulate_power_loss()
+        line["crash"] = {"ingest_s": time.perf_counter() - t0,
+                         "issued": issued, "durable_floor": floor,
+                         "n_flushes": tree.n_flushes,
+                         "levels": tree.shape_report()["levels"],
+                         **wal_report(tree), **spill_report(spill, [tree])}
+        crashed_fids = set(tree.store.fids())
+        del tree
+        gc.collect()
+
+        def drive():
+            out = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            back = LSMTree.restore(cfg, spill, device=device)
+            torch.cuda.synchronize()
+            out["restore_s"] = time.perf_counter() - t0
+            out["orphans"] = len(crashed_fids - set(back.store.fids()))
+            k = back._seqno
+            check(floor <= k <= issued, f"durable: recovered seqno {k} "
+                  f"outside [{floor}, {issued}]")
+            out["k"] = k
+            _, out["checks_s"] = durable_checks(
+                back, prefix_model(stream, k), preds, windows, probe,
+                "durable.restored")
+            t0 = time.perf_counter()
+            batch = 1 << 20
+            for i in range(min(k, n), n, batch):
+                j = min(n, i + batch)
+                back.put_batch(keys[i:j], vocab[vidx[i:j]])
+            for d in dels[max(0, k - n):].tolist():
+                back.delete(d)
+            torch.cuda.synchronize()
+            out["resume_s"] = time.perf_counter() - t0
+            out["answers"], out["final_checks_s"] = durable_checks(
+                back, prefix_model(stream, n_muts), preds, windows, probe,
+                "durable.resumed")
+            return back, out
+
+        (back, out), launches = launch_window(drive)
+        for kernel in ("fused_zone_filter", "unpack_codes",
+                       "remap_pack_codes", "pack_codes"):
+            check(launches[kernel] > 0,
+                  f"durable: {kernel} never launched on the restored tree")
+        check(back._seqno == n_muts, f"durable: seqno {back._seqno}")
+        k = out["k"]
+        resumed = issued - k + (n_muts - issued)
+        line.update({
+            "recovered_seqno": k, "mutations": n_muts,
+            "restore": {"seconds": out["restore_s"],
+                        "stages_s": dict(back.restore_stats.seconds),
+                        "orphans_deleted": out["orphans"],
+                        "wal_replayed": back.wal_replayed},
+            "checks_s": out["checks_s"],
+            "resume": {"ops": resumed, "seconds": out["resume_s"],
+                       "ops_per_s": resumed / out["resume_s"],
+                       "n_flushes": back.n_flushes,
+                       "n_compactions": back.n_compactions,
+                       "flush_s": back.flush_stats.total(),
+                       "compaction_stages_s": dict(
+                           back.compaction_stats.seconds),
+                       **wal_report(back)},
+            "ingest_ops_per_s_with_wal": (issued + resumed) / (
+                line["crash"]["ingest_s"] + out["resume_s"]),
+            "final_checks_s": out["final_checks_s"],
+            "levels": back.shape_report()["levels"],
+            "io_report": {name: back.io_report(dev)
+                          for name, dev in sorted(DEVICES.items())},
+            "launches": launches})
+        before = {s.file_id: s for s in back.all_runs()}
+        back.close()
+        line["closed"] = spill_report(spill, [back])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = LSMTree.restore(cfg, spill, device=device)
+        torch.cuda.synchronize()
+        line["reopen"] = {"seconds": time.perf_counter() - t0,
+                          "stages_s": dict(again.restore_stats.seconds),
+                          "wal_replayed": again.wal_replayed}
+        check(again._seqno == n_muts, f"durable: reopened at {again._seqno}")
+        ids = [[s.file_id for s in lvl] for lvl in again.levels]
+        check(ids == [[s.file_id for s in lvl] for lvl in back.levels],
+              f"durable: file ids after the reopen {ids}")
+        for s in again.all_runs():
+            old, what = before[s.file_id], f"durable: SCT {s.file_id}"
+            check(torch.equal(s.packed, old.packed), f"{what}: words differ")
+            check(s.code_bits == old.code_bits
+                  and s.disk_bytes == old.disk_bytes,
+                  f"{what}: width or size differs")
+            for f in ("keys", "seqnos", "tombs"):
+                check(np.array_equal(getattr(s, f), getattr(old, f)),
+                      f"{what}: {f} differ")
+            check(np.array_equal(s.opd.values, old.opd.values),
+                  f"{what}: dictionary differs")
+            for f in ("code_lo", "code_hi", "weight_sums"):
+                check(torch.equal(getattr(s.blocks, f),
+                                  getattr(old.blocks, f)),
+                      f"{what}: {f} differ")
+        answers, line["reopen"]["checks_s"] = durable_checks(
+            again, prefix_model(stream, n_muts), preds, windows, probe,
+            "durable.reopened")
+        check(same_answers(answers, out["answers"]),
+              "durable: answers after the reopen differ from before")
+        line["reopen"]["scts_equal"] = len(before)
+        again.close()
+        del back, again, before
+        gc.collect()
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
 
 
 # --------------------------------------------------------------------------- #
@@ -2406,6 +2693,8 @@ def main() -> int:
                     help="pairs of the agg.fast tree (sequential keys)")
     ap.add_argument("--codec-pairs", type=int, default=1 << 20,
                     help="pairs of the codecs phase's five trees")
+    ap.add_argument("--durable-pairs", type=int, default=1 << 20,
+                    help="pairs of the durable phase's stream")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     t_start = time.perf_counter()
@@ -2515,6 +2804,7 @@ def main() -> int:
     launches["range_filter_packed"] = fig5_phase(state, recs)
     fig5_example("cuda")
     codecs_phase(args, "cuda")
+    durable_phase(args, "cuda")
     bench_launches, bench = bench_phase(args)
     launches.update({k: bench_launches[k] for k in ("bloom_probe", "ssm_scan")})
     rows = kernel_phase(recs, launches, bw, bench, rates, log,

@@ -44,6 +44,7 @@ from repro_torch.core.sct import SCT, BlobManager, build_sct, pack_width
 from repro_torch.core.stats import StageStats
 from repro_torch.kernels import ops
 from repro_torch.storage.io import FileStore
+from repro_torch.testing.crashpoints import crashpoint
 
 _SEQ_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
 BACKENDS = ("numpy", "jax", "jax_packed")
@@ -158,6 +159,7 @@ def merge_scts(
                 device=device, codec=codec, blob_mgr=blob_mgr,
                 **{source_kw: value})
         outputs.append(out)
+        crashpoint("compact.mid_spill")
     return CompactionResult(outputs, n_in, n_out, n_in - n_out, dict_compares)
 
 

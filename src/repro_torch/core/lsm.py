@@ -27,12 +27,23 @@ Results are bit-identical to the reference engine configured as
 ``LSMConfig(codec=<the same>, filter_backend=<the same>,
 compaction_backend=<the same>)``.
 
-Maintenance is synchronous: flushes and compactions run inline on the
-writer's thread.  MVCC follows the paper's file-snapshot scheme: a snapshot
-pins (seqno, memtable, the current version's runs).  Blob GC is
-copy-on-write: a run whose pointers move is rebuilt and swapped in by a
-replace edit, and a log is deleted only while no live snapshot points into
-it.
+Maintenance is synchronous (the reference's ``maintenance='sync'``):
+flushes and compactions run inline on the writer's thread.  MVCC follows
+the paper's file-snapshot scheme: a snapshot pins (seqno, the memtables,
+the current version's runs).  Blob GC is copy-on-write: a run whose
+pointers move is rebuilt and swapped in by a replace edit, and a log is
+deleted only while no live snapshot points into it.
+
+Durability follows the reference.  With a ``spill_dir`` the store writes
+every SCT and value log there, and the version set appends every edit to
+``MANIFEST.log``; with ``wal_sync`` 'group' or 'every' each write is
+logged to the WAL (``core/wal.py``) before it is applied, the flush seals
+the WAL segment of the memtable it writes and deletes the segments its
+edit covers.  ``LSMTree.restore`` rebuilds the tree after a crash at any
+crash point (``repro_torch.testing``): the manifest's runs come back as
+SCTs on the device, orphaned SCT files are deleted and the WAL tail above
+the manifest's watermark is replayed into the memtable.  The spill format
+is the port's own (``FileStore``); ``from_arrays`` trees stay in memory.
 """
 
 from __future__ import annotations
@@ -57,11 +68,14 @@ from repro_torch.core.sct import (CODECS, SCT, BlobManager, build_sct,
                                   record_disk_bytes, sct_from_arrays)
 from repro_torch.core.stats import StageStats
 from repro_torch.core.version import Version, VersionEdit, VersionSet
+from repro_torch.core.wal import OP_DELETE, OP_PUT, WALWriter
 from repro_torch.query.executor import evaluate_aggregates
 from repro_torch.query.planner import collect_domain, resolve_specs
 from repro_torch.query.spec import (AggPartial, AggResult, AggSpec,
                                     finalize_partial)
+from repro_torch.storage.devices import DeviceModel
 from repro_torch.storage.io import FileStore
+from repro_torch.testing.crashpoints import crashpoint
 
 # the values each configuration field takes in this slice, and the ROADMAP
 # item that ports the others (kernels named by their function); None where
@@ -72,8 +86,8 @@ SUPPORTED = {
     "compaction_backend": (("numpy", "jax", "jax_packed"), None),
     "compaction_policy": (("leveled",), "§1 policy"),
     "policy_autotune": ((False,), "§1 policy"),
-    "maintenance": (("sync",), "§1 durability and maintenance"),
-    "wal_sync": (("off",), "§1 durability and maintenance"),
+    "maintenance": (("sync",), "§1 background maintenance"),
+    "wal_sync": (("off", "group", "every"), None),
     "blob_compress": ((False, True), None),
     "level_modes": ((None,), "§1 policy"),
 }
@@ -132,13 +146,11 @@ class LSMConfig:
 @dataclasses.dataclass
 class Snapshot:
     seqno: int
-    memtable: MemTable
+    # the active memtable and the frozen ones a flush has not installed
+    # yet (one that failed with an exception), newest first
+    mems: List[MemTable]
     runs: List[SCT]
     version: Optional[Version] = None
-
-    @property
-    def mems(self) -> List[MemTable]:
-        return [self.memtable]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -155,10 +167,12 @@ def resolve_device(device=None) -> torch.device:
 
 class LSMTree:
     def __init__(self, cfg: LSMConfig, spill_dir: Optional[str] = None,
-                 device=None):
+                 device=None, store: Optional[FileStore] = None):
+        """``store`` replaces the tree's own ``FileStore(spill_dir)``
+        (``restore`` passes the restored one)."""
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.store = FileStore(spill_dir)
+        self.store = store if store is not None else FileStore(spill_dir)
         # 'blob' keeps its values in logs of the tree's store ('blob_compress'
         # is ignored by the other codecs, as in the reference)
         self.blob_mgr: Optional[BlobManager] = (
@@ -166,7 +180,18 @@ class LSMTree:
                         cfg.blob_gc_threshold)
             if cfg.codec == "blob" else None)
         self.memtable = MemTable(cfg.value_width, cfg.key_bytes)
-        self.versions = VersionSet(cfg.max_levels)
+        self.versions = VersionSet(self.store, cfg.max_levels)
+        # the write-ahead log: segments in the spill directory
+        self.wal: Optional[WALWriter] = None
+        self.wal_replayed = 0
+        if cfg.wal_sync != "off":
+            if not self.store.spill_dir:
+                raise ValueError("wal_sync requires a spill_dir-backed store")
+            self.wal = WALWriter(self.store.spill_dir, sync=cfg.wal_sync,
+                                 group_bytes=cfg.wal_group_bytes)
+        # frozen memtables not installed yet, newest first: empty but
+        # during a flush, or after one that failed with an exception
+        self._immutables: List[MemTable] = []
         self._seqno = 0
         self._cursors: Dict[int, int] = {}  # round-robin compaction cursors
         self.policy: CompactionPolicy = make_policy(cfg)
@@ -175,6 +200,8 @@ class LSMTree:
         self.flush_stats = StageStats()
         self.lookup_stats = StageStats()
         self.agg_stats = StageStats()       # analytics (repro_torch.query)
+        # stages of ``restore``: store, manifest, build, wal_replay
+        self.restore_stats = StageStats()
         self.n_flushes = 0
         self.n_compactions = 0
         self.write_stalls = 0
@@ -222,10 +249,97 @@ class LSMTree:
         lv += [()] * (cfg.max_levels - len(lv))
         for s in (s for runs in lv for s in runs):
             tree.store.write(s, s.disk_bytes, fid=s.file_id)
-        tree.versions = VersionSet(cfg.max_levels, Version(tuple(lv)),
-                                   last_seqno=seqno)
-        tree._seqno = seqno
+        tree.versions.current = Version(tuple(lv))
+        tree.versions.last_seqno = tree._seqno = seqno
         return tree
+
+    # ------------------------------------------------------------------ #
+    # restart
+    # ------------------------------------------------------------------ #
+    @classmethod
+    def restore(cls, cfg: LSMConfig, spill_dir: str,
+                device=None) -> "LSMTree":
+        """Rebuild a tree after a crash or a restart: ``FileStore.restore``
+        recovers the spilled files as host records, the manifest replay
+        the tree shape and the seqno watermark, the runs it keeps are built
+        as SCTs on ``device`` (the card by default) and SCT files a crash
+        stranded between spill and manifest append are deleted.  A 'blob'
+        tree's ``live`` and ``total`` tables are rebuilt from the runs
+        (garbage ratios restart at zero).  With ``cfg.wal_sync != 'off'``
+        the WAL tail is then replayed into the memtable: the records above
+        the manifest's watermark, up to the first torn one, so every
+        acknowledged write survives.  ``restore_stats`` times the stages
+        ``store``, ``manifest`` (the replay), ``build`` and
+        ``wal_replay``."""
+        stats = StageStats()
+        with stats.time("store"):
+            store = FileStore.restore(spill_dir)
+        tree = cls(cfg, device=device, store=store)
+        tree.restore_stats = stats
+        with stats.time("manifest"):
+            tree.versions = VersionSet.recover(store, cfg.max_levels,
+                                               load=tree._build_spilled)
+        stats.seconds["manifest"] -= stats.seconds["build"]
+        tree.versions.gc_orphans()
+        tree._seqno = tree.versions.last_seqno
+        if tree.blob_mgr is not None:
+            live: Dict[int, int] = {}
+            for s in tree.versions.current.all_runs():
+                if s.vfids is None or not s.n:
+                    continue
+                fids, counts = np.unique(s.vfids[s.vfids >= 0],
+                                         return_counts=True)
+                for f, c in zip(fids.tolist(), counts.tolist()):
+                    live[f] = live.get(f, 0) + c
+            tree.blob_mgr.live = dict(live)
+            tree.blob_mgr.total = dict(live)
+        if cfg.wal_sync != "off":
+            with stats.time("wal_replay"):
+                tree._replay_wal()
+        return tree
+
+    def _build_spilled(self, fid: int) -> SCT:
+        """The SCT of restored file ``fid`` built on the tree's device from
+        the fields of its spill record (``SCT.spill_record``), and put back
+        as the file's payload (compaction reads its inputs through the
+        store)."""
+        _tag, fields = self.store.payload(fid)
+        with self.restore_stats.time("build"):
+            sct = sct_from_arrays(fields, self.device, self.blob_mgr)
+        self.store.put_payload(fid, sct)
+        return sct
+
+    def _replay_wal(self) -> None:
+        """Reopen the WAL and replay the records the manifest's watermark
+        does not cover (a crash may have raced the flush's truncation)."""
+        wal, records = WALWriter.restore(
+            self.store.spill_dir, sync=self.cfg.wal_sync,
+            group_bytes=self.cfg.wal_group_bytes)
+        self.wal = wal
+        watermark = self.versions.last_seqno
+        replayed = 0
+        for rec in records:
+            if rec.seqno <= watermark:
+                continue
+            if rec.op == OP_PUT:
+                self.memtable.put(rec.key, rec.value, rec.seqno)
+            else:
+                self.memtable.delete(rec.key, rec.seqno)
+            self._seqno = max(self._seqno, rec.seqno)
+            replayed += 1
+        self.wal_replayed = replayed
+
+    def close(self) -> None:
+        """Planned shutdown: the WAL's tail is synced and its segments kept
+        (the next ``restore`` replays them)."""
+        if self.wal is not None:
+            self.wal.close()
+
+    def __enter__(self) -> "LSMTree":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     # ------------------------------------------------------------------ #
     # geometry
@@ -286,13 +400,21 @@ class LSMTree:
     # ------------------------------------------------------------------ #
     def put(self, key: int, value: bytes) -> None:
         self._seqno += 1
+        if self.wal is not None:
+            # log before apply: the record is on its way to disk before
+            # the memtable can serve it
+            self.wal.append(OP_PUT, key, self._seqno, value)
         self.memtable.put(key, value, self._seqno)
         self._after_write()
 
     def put_batch(self, keys: np.ndarray, values) -> None:
         """Bulk insertion: rows go into the memtable in columnar runs cut
         where the memtable fills, so flushes land exactly where per-row
-        ``put`` calls would put them."""
+        ``put`` calls would put them.  With a WAL each run's records are
+        appended one at a time, in seqno order, before the run is applied,
+        and the whole batch is acknowledged by one sync at the end (the
+        group-commit barrier), as the reference's per-record loop does."""
+        raw = values
         keys = np.asarray(keys, np.uint64)
         values = np.asarray(values, f"S{self.cfg.value_width}")
         rec = self.cfg.key_bytes + 8 + self.cfg.value_width
@@ -300,15 +422,27 @@ class LSMTree:
         while i < keys.shape[0]:
             room = -(-(self.cfg.mem_bytes - self.memtable.approx_bytes) // rec)
             j = min(keys.shape[0], i + max(1, room))
-            seqs = np.arange(self._seqno + 1, self._seqno + 1 + (j - i),
-                             dtype=np.uint64)
-            self.memtable.put_many(keys[i:j], seqs, values[i:j])
-            self._seqno += j - i
+            first = self._seqno + 1
+            if self.wal is not None:
+                vals = raw[i:j]
+                vals = (vals.tolist() if isinstance(vals, np.ndarray)
+                        else [bytes(v) for v in vals])
+                for k, v in zip(keys[i:j].tolist(), vals):
+                    self._seqno += 1
+                    self.wal.append(OP_PUT, k, self._seqno, v)
+            self._seqno = first - 1 + (j - i)
+            self.memtable.put_many(
+                keys[i:j], np.arange(first, self._seqno + 1, dtype=np.uint64),
+                values[i:j])
             self._after_write()
             i = j
+        if self.wal is not None:
+            self.wal.sync()
 
     def delete(self, key: int) -> None:
         self._seqno += 1
+        if self.wal is not None:
+            self.wal.append(OP_DELETE, key, self._seqno)
         self.memtable.delete(key, self._seqno)
         self._after_write()
 
@@ -319,34 +453,76 @@ class LSMTree:
     def flush(self) -> None:
         """Freeze + OPD-encode + write to L0, then compact if L0 is over
         its trigger (the forced write stall)."""
-        if self.memtable.n_versions == 0:
+        if self.memtable.n_versions == 0 and not self._immutables:
             return
-        frozen = self.memtable.freeze()
-        self.memtable = MemTable(self.cfg.value_width, self.cfg.key_bytes)
-        fe = self.file_entries
-        new: List[SCT] = []
-        with self.flush_stats.time("encode"):
-            for lo in range(0, frozen.n, fe):
-                hi = min(lo + fe, frozen.n)
-                new.append(build_sct(
-                    keys=frozen.keys[lo:hi], seqnos=frozen.seqnos[lo:hi],
-                    tombs=frozen.tombs[lo:hi], raw_values=frozen.values[lo:hi],
-                    level=0, key_bytes=self.cfg.key_bytes,
-                    value_width=self.cfg.value_width,
-                    block_bytes=self.cfg.block_bytes,
-                    bloom_bits_per_key=self.cfg.bloom_bits_per_key,
-                    store=self.store, device=self.device,
-                    codec=self.cfg.codec, blob_mgr=self.blob_mgr))
-        # adds listed oldest-chunk-first; L0 prepends them reversed
-        self.versions.apply(VersionEdit(adds=[(0, s) for s in new],
-                                        last_seqno=int(frozen.seqnos.max())))
-        self.n_flushes += 1
+        self._rotate_memtable()
+        while self._flush_oldest_immutable():
+            pass
         if len(self.versions.current.levels[0]) > self._l0_trigger():
             self.write_stalls += 1
             t0 = time.perf_counter()
             self._compact_l0()
             self._cascade()
             self.stall_seconds += time.perf_counter() - t0
+
+    def _rotate_memtable(self) -> None:
+        """Freeze a non-empty active memtable into the queue of frozen ones
+        and seal its WAL segment, so segment k holds exactly memtable k's
+        records."""
+        if self.memtable.n_versions == 0:
+            return
+        self._immutables.insert(0, self.memtable)
+        self.memtable = MemTable(self.cfg.value_width, self.cfg.key_bytes)
+        if self.wal is not None:
+            self.wal.rotate()
+
+    def _flush_oldest_immutable(self) -> bool:
+        """Encode and install the oldest frozen memtable; it leaves the
+        readable queue only after its version is installed."""
+        if not self._immutables:
+            return False
+        frozen = self._immutables[-1].freeze()
+        fe = self.file_entries
+        new: List[SCT] = []
+        try:
+            with self.flush_stats.time("encode"):
+                for lo in range(0, frozen.n, fe):
+                    hi = min(lo + fe, frozen.n)
+                    new.append(build_sct(
+                        keys=frozen.keys[lo:hi], seqnos=frozen.seqnos[lo:hi],
+                        tombs=frozen.tombs[lo:hi],
+                        raw_values=frozen.values[lo:hi],
+                        level=0, key_bytes=self.cfg.key_bytes,
+                        value_width=self.cfg.value_width,
+                        block_bytes=self.cfg.block_bytes,
+                        bloom_bits_per_key=self.cfg.bloom_bits_per_key,
+                        store=self.store, device=self.device,
+                        codec=self.cfg.codec, blob_mgr=self.blob_mgr))
+                    crashpoint("flush.mid_spill")
+        except Exception:
+            # no version references the chunks spilled so far: delete them
+            # before re-raising (the memtable stays queued, and a retry
+            # encodes it whole).  Not on a SimulatedCrash: a kill leaves
+            # them for the restore's orphan collection.
+            for s in new:
+                self.store.delete(s.file_id)
+            raise
+        last = int(frozen.seqnos.max())
+        crashpoint("flush.before_manifest")
+        # adds listed oldest-chunk-first; L0 prepends them reversed
+        self.versions.apply(VersionEdit(adds=[(0, s) for s in new],
+                                        last_seqno=last))
+        crashpoint("flush.after_manifest")
+        self._immutables.pop()
+        if self.wal is not None:
+            # every record <= last is reachable through the manifest now
+            self.wal.truncate_upto(last)
+        self.n_flushes += 1
+        return True
+
+    def drain(self) -> None:
+        """Barrier for queued flushes and compaction debt: with synchronous
+        maintenance nothing is ever queued, so it returns at once."""
 
     def raise_maintenance_errors(self) -> None:
         """Raise a failed background flush or compaction to a read-only
@@ -446,9 +622,14 @@ class LSMTree:
         self.dict_compares += res.dict_compares
         self.compaction_in_bytes += sum(s.disk_bytes for s in inputs)
         self.compaction_out_bytes += sum(s.disk_bytes for s in res.outputs)
+        crashpoint("compact.before_manifest")
         self.versions.apply(VersionEdit(
             adds=[(out_level, s) for s in res.outputs],
             drops=[(lvl, s.file_id) for lvl, gone in drop_in for s in gone]))
+        crashpoint("compact.after_manifest")
+        # inputs leave the store only after the edit is logged: a crash in
+        # between leaves orphans (collected on restore), never a dangling
+        # reference
         for _, gone in drop_in:
             for s in gone:
                 self.store.delete(s.file_id)
@@ -511,6 +692,7 @@ class LSMTree:
             new_vals = np.concatenate(
                 [values[s.vptrs[sel].astype(np.int64)] for _, s, sel in refs])
             new_fid, _ = mgr.append(new_vals)
+            crashpoint("gc.mid_blob")
             replaces, off = [], 0
             for lvl, s, sel in refs:
                 vfids, vptrs = s.vfids.copy(), s.vptrs.copy()
@@ -524,6 +706,7 @@ class LSMTree:
                 self.store.write(new, new.disk_bytes, fid=new.file_id)
                 replaces.append((lvl, s.file_id, new))
             self.versions.apply(VersionEdit(replaces=replaces))
+            crashpoint("gc.after_replace")
             for _, s, _ in refs:
                 self.store.delete(s.file_id)
             mgr.forget(fid)
@@ -536,7 +719,8 @@ class LSMTree:
     # ------------------------------------------------------------------ #
     def snapshot(self) -> Snapshot:
         v = self.versions.current
-        snap = Snapshot(self._seqno, self.memtable, v.all_runs(), version=v)
+        mems = [self.memtable] + self._immutables
+        snap = Snapshot(self._seqno, mems, v.all_runs(), version=v)
         if self.blob_mgr is not None:
             # the registry feeds blob GC's pinning only; pruned on the way
             # in, it never grows past the live snapshots
@@ -550,9 +734,10 @@ class LSMTree:
         snap = snapshot or self.snapshot()
         snap_seq = snap.seqno if snapshot is not None else None
         with self.lookup_stats.time("lookup"):
-            got = snap.memtable.get(key, snap_seq)
-            if got is not None:
-                return got[1]
+            for mem in snap.mems:   # newest first; the first hit decides
+                got = mem.get(key, snap_seq)
+                if got is not None:
+                    return got[1]
             k = np.uint64(key)
             best_seq = -1
             best = None
@@ -663,6 +848,20 @@ class LSMTree:
     # ------------------------------------------------------------------ #
     # reporting
     # ------------------------------------------------------------------ #
+    def io_report(self, device: DeviceModel) -> Dict[str, float]:
+        """The store's I/O counts and their modeled seconds on ``device``
+        (``repro_torch.storage.devices``)."""
+        st = self.store.stats
+        return {
+            "read_bytes": st.bytes_read,
+            "write_bytes": st.bytes_written,
+            "read_ios": st.read_ios,
+            "write_ios": st.write_ios,
+            "modeled_read_s": device.read_seconds(st.bytes_read, st.read_ios),
+            "modeled_write_s": device.write_seconds(st.bytes_written,
+                                                    st.write_ios),
+        }
+
     def shape_report(self) -> Dict[str, object]:
         v = self.versions.current
         return {
@@ -680,6 +879,11 @@ class LSMTree:
             "cascade_truncations": self.cascade_truncations,
             "dict_compares": self.dict_compares,
             "version": v.vid,
+            "n_immutables": len(self._immutables),
             "maintenance": self.cfg.maintenance,
             "wal_sync": self.cfg.wal_sync,
+            "wal_appends": self.wal.appends if self.wal else 0,
+            "wal_syncs": self.wal.syncs if self.wal else 0,
+            "wal_bytes": self.wal.bytes_written if self.wal else 0,
+            "wal_replayed": self.wal_replayed,
         }

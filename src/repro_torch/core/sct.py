@@ -46,6 +46,8 @@ from repro_torch.storage.io import FileStore
 
 SEQNO_BYTES = 8
 PTR_BYTES = 8
+# the tag of an SCT's spill record (``SCT.spill_record``)
+SCT_TAG = "repro_torch.sct"
 CODECS = ("opd", "plain", "heavy", "blob")
 # the reference's estimate of a 'heavy' record's compressed share of its raw
 # bytes (``repro/core/sct.py:288``); it sizes files, not the zlib output
@@ -196,6 +198,11 @@ class SCT:
 
     def overlaps(self, lo: int, hi: int) -> bool:
         return self.n > 0 and not (hi < self.min_key or lo > self.max_key)
+
+    def spill_record(self) -> Tuple[str, Dict[str, object]]:
+        """What ``FileStore`` writes to a spill file for this SCT: the tag
+        ``SCT_TAG`` and ``sct_to_arrays(self)``, host data only."""
+        return SCT_TAG, sct_to_arrays(self)
 
     def codes_at(self, idx: torch.Tensor) -> torch.Tensor:
         """int64 codes of entries ``idx`` (int64, on the card), read straight
@@ -517,3 +524,40 @@ def sct_from_arrays(fields: Dict[str, object], device,
         sct.opd = OPD(np.asarray(fields["opd_values"]))
         sct.live = torch.from_numpy(~tombs).to(device)
     return sct
+
+
+def sct_to_arrays(sct: SCT) -> Dict[str, object]:
+    """The inverse of ``sct_from_arrays``: a plain dict of numpy arrays,
+    bytes and builtins for every codec.  An 'opd' SCT's packed words come
+    back to the host as uint32, with its zones and weight sums (the first
+    copy waits for the card's stream, the others find it idle); nothing of
+    ``facts`` and no ``blob_mgr``: a 'blob' SCT gives its pointers only."""
+    b = sct.blocks
+    out: Dict[str, object] = {
+        "codec": sct.codec, "file_id": sct.file_id, "level": sct.level,
+        "keys": sct.keys, "seqnos": sct.seqnos, "tombs": sct.tombs,
+        "entries_per_block": b.entries_per_block,
+        "first_keys": b.first_keys, "last_keys": b.last_keys,
+        "bloom_words": b.bloom_words, "n_hashes": b.n_hashes,
+        "nbits": b.nbits, "disk_bytes": sct.disk_bytes,
+        "key_bytes": sct.key_bytes, "value_width": sct.value_width}
+    if sct.codec == "plain":
+        out["values"] = sct.values
+    elif sct.codec == "heavy":
+        out["zblocks"] = list(sct.zblocks)
+        out["zblock_entries"] = sct.zblock_entries
+    elif sct.codec == "blob":
+        out["vfids"], out["vptrs"] = sct.vfids, sct.vptrs
+    else:
+        out["packed"] = sct.packed.cpu().numpy().view(np.uint32)
+        out["code_bits"] = sct.code_bits
+        out["opd_values"] = sct.opd.values
+        for f in ("code_lo", "code_hi", "weight_sums"):
+            out[f] = getattr(b, f).cpu().numpy()
+    return out
+
+
+def is_sct_record(obj: object) -> bool:
+    """Whether ``obj`` is an SCT's spill record (a restored store holds
+    these until ``VersionSet.recover`` builds the SCTs)."""
+    return isinstance(obj, tuple) and len(obj) == 2 and obj[0] == SCT_TAG

@@ -18,7 +18,7 @@ batches: each batch takes a new snapshot.
 The reference also serves a ``ShardedLSM``; the shard layer is not ported
 yet (ROADMAP §1 scale-out), so the engine here is the port's ``LSMTree``.
 The reference's ``maintenance`` knob ('background' | 'sync') comes with
-background maintenance (ROADMAP §1 durability and maintenance): the port's
+background maintenance (ROADMAP §1 background maintenance): the port's
 tree maintains synchronously, so every batch sees a fully maintained tree.
 """
 

@@ -1194,3 +1194,56 @@ def test_ssm_scan_takes_more_batch_rows_than_a_grid_dimension(card):
     got = ssm_scan.ssm_scan(*ops_, chunk=4)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_spilled_tree_restores_on_the_card(card, tmp_path):
+    """A tree spilled on the card (WAL 'group') and restored on the card,
+    after a planned close: every SCT equal to its counterpart before the
+    close (the packed words by ``torch.equal`` on the card), ``filter_many``
+    equal, the restored filter through ``fused_zone_filter`` and the next
+    compaction through ``unpack_codes`` and ``remap_pack_codes``."""
+    from repro_torch.core.sct import sct_to_arrays
+
+    cfg = T.LSMConfig(value_width=16, file_bytes=16 * 1024, l0_limit=2,
+                      size_ratio=3, wal_sync="group")
+    tree = T.LSMTree(cfg, spill_dir=str(tmp_path), device=card)
+    rng = np.random.default_rng(12)
+    for _ in range(3):
+        keys = rng.integers(0, 4000, 900).astype(np.uint64)
+        vals = np.asarray([b"c%03d_%05d" % (i % 37, i)
+                           for i in rng.integers(0, 900, 900)], "S16")
+        tree.put_batch(keys, vals)
+        for k in rng.integers(0, 4000, 50).tolist():
+            tree.delete(k)
+    assert tree.n_compactions > 0 and tree.memtable.n_versions > 0
+    preds = [T.Predicate("prefix", b"c00%d" % i) for i in range(8)] + [
+        T.Predicate("range", b"c005", b"c020")]
+    want = tree.filter_many(preds)
+    before = {s.file_id: s for s in tree.all_runs()}
+    tree.close()
+    back = T.LSMTree.restore(cfg, str(tmp_path), device=card)
+    assert back._seqno == tree._seqno and back.wal_replayed > 0
+    assert [[s.file_id for s in lvl] for lvl in back.levels] == \
+        [[s.file_id for s in lvl] for lvl in tree.levels]
+    for s in back.all_runs():
+        old = before[s.file_id]
+        assert s.packed.device.type == "cuda"
+        assert torch.equal(s.packed, old.packed)
+        for f in ("code_lo", "code_hi", "weight_sums"):
+            assert torch.equal(getattr(s.blocks, f), getattr(old.blocks, f))
+        a, b = sct_to_arrays(s), sct_to_arrays(old)
+        for f in ("keys", "seqnos", "tombs", "opd_values", "bloom_words"):
+            assert np.array_equal(a[f], b[f]), f
+    ops.reset_launches()
+    got = back.filter_many(preds)
+    assert ops.LAUNCHES["fused_zone_filter"] > 0
+    for a, b in zip(want, got):
+        assert np.array_equal(a.keys, b.keys) and \
+            np.array_equal(a.values, b.values)
+    back.compact()
+    assert ops.LAUNCHES["unpack_codes"] > 0
+    assert ops.LAUNCHES["remap_pack_codes"] > 0
+    for a, b in zip(want, back.filter_many(preds)):
+        assert np.array_equal(a.keys, b.keys) and \
+            np.array_equal(a.values, b.values)
+    back.close()

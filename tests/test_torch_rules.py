@@ -69,6 +69,8 @@ def test_port_sources_import_neither_jax_nor_repro():
     "repro_torch.core.iterator",
     "repro_torch.kernels.packed_filter, repro_torch.kernels.bloom_probe, "
     "repro_torch.kernels.ssm_scan",
+    "repro_torch.core.wal, repro_torch.storage, repro_torch.testing, "
+    "repro_torch.testing.crash_driver, repro_torch.testing.workload",
 ])
 def test_importing_the_port_loads_neither_jax_nor_repro(modules):
     code = (f"import sys, {modules}\n"
@@ -93,7 +95,7 @@ def test_default_device_is_the_card_and_missing_card_raises(monkeypatch):
 OTHER_VALUES = {"codec": "lz4", "filter_backend": "pallas",
                 "compaction_backend": "packed", "compaction_policy": "tiered",
                 "policy_autotune": True, "maintenance": "background",
-                "wal_sync": "group", "blob_compress": "zstd",
+                "wal_sync": "sometimes", "blob_compress": "zstd",
                 "level_modes": ("L", "T")}
 
 
@@ -109,7 +111,7 @@ def test_unsupported_config_value_raises(field):
 
 
 @pytest.mark.parametrize("value,item", [
-    (("maintenance", "background"), "durability and maintenance"),
+    (("maintenance", "background"), "background maintenance"),
 ])
 def test_rejected_backend_names_its_kernel(value, item):
     """A value that is not ported yet names its ROADMAP item."""
@@ -186,8 +188,25 @@ def test_jax_packed_compaction_builds_the_same_tree_as_packed(backend):
 
 
 def test_spill_dir_raises(tmp_path):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        T.LSMTree(T.LSMConfig(), spill_dir=str(tmp_path), device="cpu")
+    """A WAL needs a spill directory to live in: without one the tree
+    raises, as the reference's does; with one it logs."""
+    with pytest.raises(ValueError, match="spill_dir"):
+        T.LSMTree(T.LSMConfig(wal_sync="group"), device="cpu")
+    tree = T.LSMTree(T.LSMConfig(wal_sync="group"), spill_dir=str(tmp_path),
+                     device="cpu")
+    assert tree.wal is not None
+
+
+@pytest.mark.parametrize("wal", ["off", "group", "every"])
+def test_wal_sync_modes_are_accepted(tmp_path, wal):
+    """Every ``wal_sync`` of the reference is ported: a tree with a spill
+    directory logs under 'group' and 'every' and restores its writes."""
+    cfg = T.LSMConfig(value_width=16, wal_sync=wal)
+    with T.LSMTree(cfg, spill_dir=str(tmp_path), device="cpu") as tree:
+        tree.put(1, b"v")
+        assert (tree.wal is None) == (wal == "off")
+    back = T.LSMTree.restore(cfg, str(tmp_path), device="cpu")
+    assert back.get(1) == (None if wal == "off" else b"v")
 
 
 def _no_plain(*_a, **_k):
