@@ -114,13 +114,42 @@ Phases, each printing JSON lines:
             the restores' seconds by stage (store, manifest, build,
             wal_replay), ingest ops/s with the WAL on and io_report under
             the three device models.
-10. bench:   the kernel micro-bench's entry points
+10. background: the main configuration with maintenance='background',
+            the main phase's generator at 2^20 pairs and 2,048 deletes
+            (``--background-pairs``): put_batch in calls of 2^16 pairs while
+            the flush and compaction workers launch pack_codes,
+            unpack_codes and remap_pack_codes off the writer's thread and
+            a reader thread, from the first flushed run on, drives a
+            ScanServer(maintenance='background') in batches of the 16
+            predicates and 2 selective aggregates, each on its own
+            snapshot and checked against the stream written so far (keys
+            sorted and unique, values satisfying their predicates, every
+            pair one the stream wrote, and every scan and aggregate equal
+            to the host model of the stream's first snapshot-seqno
+            mutations); each batch records whether a flush or compaction
+            job was in flight at its start and end, and the reader's
+            fused_zone_filter must launch at least once while one is.
+            After
+            drain(): filter_many (K=16), 8 range_lookup windows, 1,024
+            gets and the 6 aggregate specs equal to the host model, and one
+            ScanServer(maintenance='sync') batch too; at least one flush
+            and one compaction ran on the workers.  The launch counts are
+            reset before the ingest and read after drain(), so the
+            workers' launches fall inside the window: pack_codes,
+            unpack_codes, remap_pack_codes and fused_zone_filter must each
+            have launched.  background.done carries ingest seconds and
+            ops/s, the workers' flushes and compactions, the throttle's
+            slowdowns and stalls, the reader's batches with their median
+            wall seconds and queue wait, the launches, and the codecs
+            phase's 'opd' ingest (the same configuration in sync mode)
+            beside them.
+11. bench:   the kernel micro-bench's entry points
             (``benchmarks/bench_kernels.py``): range_filter_packed on 2^20
             codes at widths 8 and 16, bloom_probe on a 2^14-bit bloom and
             on the largest documented one (2,048 words, 2^20 keys, no false
             negative), ssm_scan at falcon-mamba-7b's width (d_inner 8192,
             d_state 16, 2,048 tokens), held against host models.
-11. kernels: each kernel against its plain PyTorch version on the card, on
+12. kernels: each kernel against its plain PyTorch version on the card, on
             operands recorded from the main path, the serve phases,
             agg.fast, compact.jax and fig5, and at bench's shapes
             (bit-identical required; ssm_scan within rtol = atol = 1e-4),
@@ -1293,12 +1322,14 @@ def blob_burst(tree, name: str, ref: Reference, preds, probe, before,
           "seconds": time.perf_counter() - t_run})
 
 
-def codecs_phase(args, device: str) -> None:
+def codecs_phase(args, device: str) -> dict:
     """codecs: one seeded stream (the main phase's generator at
     ``--codec-pairs`` pairs) into a tree of the main configuration for
     each of the harness's five systems; the five must give the same
     answers, each equal to the host model, and the four competitors launch
-    no kernel.  Then each blob tree takes its burst (``blob_burst``)."""
+    no kernel.  Then each blob tree takes its burst (``blob_burst``).
+    Returns the 'opd' tree's ingest figures (sync maintenance), which the
+    background phase prints beside its own."""
     t_phase = time.perf_counter()
     rng = np.random.default_rng(args.seed + 3)
     n, cfg = args.codec_pairs, main_config()
@@ -1329,6 +1360,9 @@ def codecs_phase(args, device: str) -> None:
         line, answers, tree = codec_run(cfg, name, stream, ref, preds,
                                         windows, probe[at], device)
         emit(line)
+        if name == "opd":
+            opd_ingest = {k: line[k] for k in ("ops", "ingest_s", "ops_per_s",
+                                               "n_flushes", "n_compactions")}
         if first is None:
             first = answers
         else:
@@ -1344,6 +1378,7 @@ def codecs_phase(args, device: str) -> None:
                        np.random.default_rng(args.seed + 4))
         del tree
     emit({"phase": "codecs.done", "seconds": time.perf_counter() - t_phase})
+    return opd_ingest
 
 
 # --------------------------------------------------------------------------- #
@@ -1587,6 +1622,263 @@ def durable_phase(args, device: str) -> None:
         again.close()
         del back, again, before
         gc.collect()
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+
+
+# --------------------------------------------------------------------------- #
+# background maintenance: the workers launch the kernels off the writer's
+# thread while a reader thread serves batches
+# --------------------------------------------------------------------------- #
+BACKGROUND_BATCH = 1 << 16   # pairs a put_batch call
+
+
+def background_phase(args, recs, sync_ingest: dict, device: str) -> None:
+    """background: the main configuration with ``maintenance='background'``
+    and the main phase's generator at ``--background-pairs``.  The writer
+    ingests with put_batch while a reader thread, once the first flush has
+    installed a run, drives a ``ScanServer(maintenance='background')`` in
+    batches of the 16 predicates and 2 selective aggregates, each batch on
+    its own snapshot and checked against the stream written so far (keys
+    sorted and unique, every value satisfying its predicate, every pair
+    one the stream wrote) and against the host model of the stream's
+    first ``snap.seqno`` mutations (every scan and aggregate equal).  Each
+    batch records whether a flush or compaction job was in flight at its
+    start and end, and each of the reader's fused_zone_filter calls
+    whether one was as it launched: at least one must have been.  After
+    ``drain`` the tree must answer filter_many
+    (K=16), 8 range_lookup windows, 1,024 gets and the 6 aggregate specs
+    as the host model, and so must one ``ScanServer(maintenance='sync')``
+    batch; the scheduler must have run a flush and a compaction.  The
+    launch counts are reset before the ingest and read after ``drain``, so
+    the workers' launches fall inside the window: pack_codes,
+    unpack_codes, remap_pack_codes and fused_zone_filter must each be
+    above 0.  Every Recorder stays off: the workers call the wrappers
+    from their own threads."""
+    import dataclasses
+    import gc
+    import threading
+
+    import torch
+    from repro_torch import LSMTree, Predicate, ScanServer
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    for r in recs.values():
+        r.active = False
+    rng = np.random.default_rng(args.seed + 6)
+    n = args.background_pairs
+    cfg = dataclasses.replace(main_config(), maintenance="background")
+    stream = make_stream(rng, n, cfg.value_width)
+    keys, vocab, vidx, dels = stream
+    preds = make_preds(vocab)
+    space = 4 * n
+    windows = [(i * space // 8 + space // 32,
+                i * space // 8 + space // 32 + space // 64 - 1)
+               for i in range(8)]
+    present, deleted, missing = PROBE_PARTS
+    probe = np.concatenate([rng.choice(keys, present), dels[:deleted],
+                            rng.integers(4 * n, 8 * n, missing,
+                                         dtype=np.uint64)])
+    model = prefix_model(stream, n + dels.shape[0])
+    # a written pair as key * ndv + vocabulary index, with the position of
+    # its first write; a vocabulary value's index by a sorted search
+    ndv = vocab.shape[0]
+    pairs, first = np.unique(keys.astype(np.int64) * ndv + vidx,
+                             return_index=True)
+    order = np.argsort(vocab)
+    sorted_vocab = vocab[order]
+    hits = [vocab_hits(vocab, p) for p in preds]
+    emit({"phase": "background", "reduced": "pairs 6.4e7 -> %.1e (host-side "
+          "ingest beside a reader thread, within the smoke's time limit)" % n,
+          "pairs": n, "deletes": int(dels.shape[0]),
+          "value_width": cfg.value_width, "file_bytes": cfg.file_bytes,
+          "maintenance": cfg.maintenance, "put_batch": BACKGROUND_BATCH,
+          "l0_slowdown": cfg.l0_slowdown_trigger,
+          "l0_stop": cfg.l0_stop_trigger,
+          "max_immutables": cfg.max_immutables})
+
+    def check_batch(out, scan_rids, upto: int, label: str) -> int:
+        """Each scan of a batch against the first ``upto`` puts."""
+        rows = 0
+        for hit, rid in zip(hits, scan_rids):
+            r = out[rid]
+            k = r.keys.astype(np.int64)
+            check(np.all(k[1:] > k[:-1]),
+                  f"{label}: keys not sorted and unique")
+            pos = np.searchsorted(sorted_vocab, r.values)
+            pos = np.minimum(pos, ndv - 1)
+            check(np.array_equal(sorted_vocab[pos], r.values),
+                  f"{label}: a value outside the vocabulary")
+            idx = order[pos]
+            check(bool(hit[idx].all()),
+                  f"{label}: a value fails its predicate")
+            at = np.minimum(np.searchsorted(pairs, k * ndv + idx),
+                            pairs.shape[0] - 1)
+            check(bool(np.all(pairs[at] == k * ndv + idx))
+                  and bool(np.all(first[at] < upto)),
+                  f"{label}: a pair the stream had not written")
+            rows += int(k.shape[0])
+        return rows
+
+    def submit_batch(srv):
+        specs = make_specs(SERVE_AGGS)
+        rids = srv.submit_many([Predicate(*p) for p in preds[:8]])
+        agg_rids = [srv.submit_agg(specs[0])]
+        rids += srv.submit_many([Predicate(*p) for p in preds[8:]])
+        agg_rids.append(srv.submit_agg(specs[1]))
+        return rids, agg_rids
+
+    done = threading.Event()
+    errors, walls, rows = [], [], []
+    # per reader batch: its snapshot's runs and seqno, and whether a flush
+    # or compaction job was in flight on the workers at its start and end
+    runs_seen, seqnos, busy_start, busy_end = [], [], [], []
+    line = {"phase": "background.done"}
+    ops.reset_launches()
+    with LSMTree(cfg, device=device) as tree:
+        srv = ScanServer(tree, max_batch=len(preds) + len(SERVE_AGGS),
+                         maintenance="background")
+        sched = tree._sched
+
+        def busy() -> bool:
+            return bool(sched._flush_inflight or sched._compact_inflight)
+
+        def idle() -> bool:
+            return not (busy() or tree._pending_flushes()
+                        or tree._compaction_debt() > 0.0)
+
+        # the reader's fused_zone_filter calls, each noting whether a
+        # worker job was in flight as it launched (the wrapper the
+        # Recorder holds is called as before)
+        fused = ops.fused_zone_filter
+        beside = []
+
+        def fused_noting(*a, **k):
+            if threading.current_thread().name == "reader":
+                beside.append(busy())
+            return fused(*a, **k)
+
+        def reader():
+            # waits for the first flushed run, then serves until the writer
+            # is done and the fused filter launched beside a worker job
+            # (or the workers are idle, which the checks then refuse)
+            try:
+                while not tree.all_runs() and not (done.is_set()
+                                                   and idle()):
+                    time.sleep(0.005)
+                while not (done.is_set() and (any(beside) or idle())):
+                    rids, agg_rids = submit_batch(srv)
+                    t0 = time.perf_counter()
+                    busy_start.append(busy())
+                    snap = tree.snapshot()
+                    runs_seen.append(len(snap.runs))
+                    seqnos.append(snap.seqno)
+                    out = srv.step(snapshot=snap)
+                    torch.cuda.synchronize()
+                    busy_end.append(busy())
+                    walls.append(time.perf_counter() - t0)
+                    # the snapshot holds exactly the stream's first
+                    # snap.seqno mutations
+                    rows.append(check_batch(out, rids, min(snap.seqno, n),
+                                            "background.reader"))
+                    at = prefix_model(stream, snap.seqno)
+                    check_filters([out[r] for r in rids], at, preds,
+                                  "background.reader")
+                    check_aggs([out[r] for r in agg_rids], vocab,
+                               at.state()[1], SERVE_AGGS,
+                               "background.reader")
+            except BaseException as e:   # SystemExit from check included
+                errors.append(e)
+
+        th = threading.Thread(target=reader, name="reader")
+        ops.fused_zone_filter = fused_noting
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            for i in range(0, n, BACKGROUND_BATCH):
+                j = min(n, i + BACKGROUND_BATCH)
+                tree.put_batch(keys[i:j], vocab[vidx[i:j]])
+                if i == 0:   # the reader's batches never see an empty tree
+                    th.start()
+            for k in dels.tolist():
+                tree.delete(k)
+            torch.cuda.synchronize()
+            ingest_s = time.perf_counter() - t0
+        finally:
+            done.set()
+            if th.is_alive():
+                th.join(timeout=120)
+            ops.fused_zone_filter = fused
+        reader_s = time.perf_counter() - t0
+        check(not th.is_alive(), "background: the reader never stopped")
+        if errors:
+            fail(f"background: the reader failed: {errors[0]!r}")
+        check(any(beside),
+              f"background: the reader's fused_zone_filter never launched "
+              f"beside a worker job ({beside}; runs {runs_seen}, in flight "
+              f"at the start {busy_start} and the end {busy_end})")
+        t1 = time.perf_counter()
+        tree.drain(timeout=300)
+        torch.cuda.synchronize()
+        drain_s = time.perf_counter() - t1
+        launches = dict(ops.LAUNCHES)
+        for kernel in MAIN_KERNELS:
+            check(launches[kernel] > 0,
+                  f"background: {kernel} never launched ({launches}; reader "
+                  f"batches over {runs_seen} runs)")
+        check(sched.n_bg_flushes >= 1 and sched.n_bg_compactions >= 1,
+              f"background: {sched.n_bg_flushes} flushes and "
+              f"{sched.n_bg_compactions} compactions on the workers")
+        check(tree._pending_flushes() == 0
+              and tree._compaction_debt() == 0.0,
+              "background: drain left work behind")
+        _, checks_s = durable_checks(tree, model, preds, windows, probe,
+                                     "background.drained")
+        sync_srv = ScanServer(tree, max_batch=len(preds) + len(SERVE_AGGS),
+                              maintenance="sync")
+        rids, agg_rids = submit_batch(sync_srv)
+        t2 = time.perf_counter()
+        out = sync_srv.step()
+        sync_batch_s = time.perf_counter() - t2
+        check(not sync_srv.queue, "background: the sync batch left requests")
+        check_filters([out[r] for r in rids], model, preds,
+                      "background.sync_server")
+        check_aggs([out[r] for r in agg_rids], vocab, model.state()[1],
+                   SERVE_AGGS, "background.sync_server")
+        shape = tree.shape_report()
+        n_ops = n + int(dels.shape[0])
+        st = srv.stats
+        line.update({
+            "ops": n_ops, "ingest_s": ingest_s, "ops_per_s": n_ops / ingest_s,
+            "reader_until_s": reader_s, "drain_s": drain_s,
+            "n_bg_flushes": sched.n_bg_flushes,
+            "n_bg_compactions": sched.n_bg_compactions,
+            "n_flushes": shape["n_flushes"],
+            "n_compactions": shape["n_compactions"],
+            "write_slowdowns": shape["write_slowdowns"],
+            "slowdown_seconds": shape["slowdown_seconds"],
+            "write_stalls": shape["write_stalls"],
+            "stall_seconds": shape["stall_seconds"],
+            "throttle_s": dict(tree.throttle_stats.seconds),
+            "flush_s": tree.flush_stats.total(),
+            "compaction_stages_s": dict(tree.compaction_stats.seconds),
+            "levels": shape["levels"],
+            "reader": {"batches": st.n_batches, "runs_seen": runs_seen,
+                       "seqnos": seqnos, "busy_start": busy_start,
+                       "busy_end": busy_end,
+                       "fused_calls": len(beside),
+                       "fused_calls_beside_a_worker": sum(beside),
+                       "batch_sizes": sorted(set(st.batch_sizes)),
+                       "wall_s_median": statistics.median(walls),
+                       "wall_s_max": max(walls),
+                       "wait_s_median": statistics.median(st.wait_seconds),
+                       "rows_checked": sum(rows)},
+            "checks_s": checks_s, "sync_batch_s": sync_batch_s,
+            "launches": launches,
+            "sync_codecs_opd_ingest": sync_ingest})
+    del tree, srv, sync_srv
+    gc.collect()
     line["seconds"] = time.perf_counter() - t_phase
     emit(line)
 
@@ -2695,6 +2987,8 @@ def main() -> int:
                     help="pairs of the codecs phase's five trees")
     ap.add_argument("--durable-pairs", type=int, default=1 << 20,
                     help="pairs of the durable phase's stream")
+    ap.add_argument("--background-pairs", type=int, default=1 << 20,
+                    help="pairs of the background phase's stream")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     t_start = time.perf_counter()
@@ -2803,8 +3097,9 @@ def main() -> int:
     range_phase(args, state)
     launches["range_filter_packed"] = fig5_phase(state, recs)
     fig5_example("cuda")
-    codecs_phase(args, "cuda")
+    sync_ingest = codecs_phase(args, "cuda")
     durable_phase(args, "cuda")
+    background_phase(args, recs, sync_ingest, "cuda")
     bench_launches, bench = bench_phase(args)
     launches.update({k: bench_launches[k] for k in ("bloom_probe", "ssm_scan")})
     rows = kernel_phase(recs, launches, bw, bench, rates, log,

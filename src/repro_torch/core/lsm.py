@@ -27,12 +27,28 @@ Results are bit-identical to the reference engine configured as
 ``LSMConfig(codec=<the same>, filter_backend=<the same>,
 compaction_backend=<the same>)``.
 
-Maintenance is synchronous (the reference's ``maintenance='sync'``):
-flushes and compactions run inline on the writer's thread.  MVCC follows
-the paper's file-snapshot scheme: a snapshot pins (seqno, the memtables,
-the current version's runs).  Blob GC is copy-on-write: a run whose
-pointers move is rebuilt and swapped in by a replace edit, and a log is
-deleted only while no live snapshot points into it.
+Maintenance runs in one of the reference's two modes
+(``LSMConfig.maintenance``):
+
+  'sync'        (default) flushes and compactions run inline on the
+                writer's thread.
+  'background'  the active memtable rotates into a queue of frozen (still
+                readable) memtables at ``mem_bytes``; a flush worker drains
+                the queue and a compaction worker pays the compaction debt
+                on a thread pool (``core/maintenance.py``), launching their
+                kernels off the writer's thread.  The writer is throttled
+                in two steps (a short sleep, then a stop) as L0 or the
+                queue grows; ``drain`` waits until both workers are idle
+                and the debt is zero, where every answer equals sync
+                mode's.
+
+MVCC follows the paper's file-snapshot scheme: a snapshot pins (seqno, the
+memtables, the current version's runs), taken under the tree lock with the
+memtables read before the version, so a flush that installs in between
+shows its rows twice (the seqno merges keep one) and never not at all.
+Blob GC is copy-on-write: a run whose pointers move is rebuilt and swapped
+in by a replace edit, and a log is deleted only while no live snapshot
+points into it.
 
 Durability follows the reference.  With a ``spill_dir`` the store writes
 every SCT and value log there, and the version set appends every edit to
@@ -49,6 +65,7 @@ is the port's own (``FileStore``); ``from_arrays`` trees stay in memory.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 import warnings
 import weakref
@@ -61,6 +78,8 @@ from repro_torch.core.compaction import merge_scts
 from repro_torch.core.filter_exec import (FilterResult, evaluate_filter,
                                           evaluate_filter_many)
 from repro_torch.core.iterator import range_scan
+from repro_torch.core.maintenance import (THROTTLE_NONE, THROTTLE_SLOWDOWN,
+                                          THROTTLE_STOP, MaintenanceScheduler)
 from repro_torch.core.memtable import MemTable
 from repro_torch.core.opd import Predicate
 from repro_torch.core.policy import CompactionPolicy, make_policy, run_depth
@@ -86,7 +105,7 @@ SUPPORTED = {
     "compaction_backend": (("numpy", "jax", "jax_packed"), None),
     "compaction_policy": (("leveled",), "§1 policy"),
     "policy_autotune": ((False,), "§1 policy"),
-    "maintenance": (("sync",), "§1 background maintenance"),
+    "maintenance": (("sync", "background"), None),
     "wal_sync": (("off", "group", "every"), None),
     "blob_compress": ((False, True), None),
     "level_modes": ((None,), "§1 policy"),
@@ -142,12 +161,22 @@ class LSMConfig:
     def mem_bytes(self) -> int:
         return self.memtable_bytes or self.file_bytes
 
+    @property
+    def l0_slowdown_trigger(self) -> int:
+        return self.l0_slowdown if self.l0_slowdown is not None \
+            else self.l0_limit + 4
+
+    @property
+    def l0_stop_trigger(self) -> int:
+        return self.l0_stop if self.l0_stop is not None \
+            else self.l0_limit + 8
+
 
 @dataclasses.dataclass
 class Snapshot:
     seqno: int
     # the active memtable and the frozen ones a flush has not installed
-    # yet (one that failed with an exception), newest first
+    # yet, newest first
     mems: List[MemTable]
     runs: List[SCT]
     version: Optional[Version] = None
@@ -167,9 +196,14 @@ def resolve_device(device=None) -> torch.device:
 
 class LSMTree:
     def __init__(self, cfg: LSMConfig, spill_dir: Optional[str] = None,
-                 device=None, store: Optional[FileStore] = None):
+                 device=None, store: Optional[FileStore] = None,
+                 scheduler: Optional[MaintenanceScheduler] = None):
         """``store`` replaces the tree's own ``FileStore(spill_dir)``
-        (``restore`` passes the restored one)."""
+        (``restore`` passes the restored one).  With
+        ``cfg.maintenance='background'`` the tree registers with
+        ``scheduler``, or with a scheduler of its own (closed by
+        ``close``) where none is given; a caller's scheduler is the
+        caller's to close."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.store = store if store is not None else FileStore(spill_dir)
@@ -189,16 +223,35 @@ class LSMTree:
                 raise ValueError("wal_sync requires a spill_dir-backed store")
             self.wal = WALWriter(self.store.spill_dir, sync=cfg.wal_sync,
                                  group_bytes=cfg.wal_group_bytes)
-        # frozen memtables not installed yet, newest first: empty but
-        # during a flush, or after one that failed with an exception
+        # frozen memtables not installed yet, newest first; a flush pops
+        # the oldest once its version is installed
         self._immutables: List[MemTable] = []
+        # guards the memtable swap, the frozen queue and the snapshot and
+        # zombie-log registries against the maintenance workers
+        self._lock = threading.RLock()
         self._seqno = 0
+        # the newest seqno whose write is in the memtable: snapshots read
+        # it, so a write numbered (and logged) but not yet applied stays
+        # out of them rather than showing up partway through a read
+        self._applied = 0
         self._cursors: Dict[int, int] = {}  # round-robin compaction cursors
         self.policy: CompactionPolicy = make_policy(cfg)
+        # the policy tuner comes with ROADMAP §1 policy
+        # (``policy_autotune=True`` is refused until then)
+        self.tuner = None
+        self._owns_sched = False
+        self._sched: Optional[MaintenanceScheduler] = None
+        if cfg.maintenance == "background":
+            if scheduler is None:
+                scheduler = MaintenanceScheduler()
+                self._owns_sched = True
+            scheduler.register(self)
+            self._sched = scheduler
         self.compaction_stats = StageStats()
         self.filter_stats = StageStats()
         self.flush_stats = StageStats()
         self.lookup_stats = StageStats()
+        self.throttle_stats = StageStats()  # 'slowdown' / 'stop' stages
         self.agg_stats = StageStats()       # analytics (repro_torch.query)
         # stages of ``restore``: store, manifest, build, wal_replay
         self.restore_stats = StageStats()
@@ -206,6 +259,8 @@ class LSMTree:
         self.n_compactions = 0
         self.write_stalls = 0
         self.stall_seconds = 0.0
+        self.write_slowdowns = 0
+        self.slowdown_seconds = 0.0
         self.cascade_truncations = 0
         self.compaction_in_bytes = 0
         self.compaction_out_bytes = 0
@@ -250,15 +305,16 @@ class LSMTree:
         for s in (s for runs in lv for s in runs):
             tree.store.write(s, s.disk_bytes, fid=s.file_id)
         tree.versions.current = Version(tuple(lv))
-        tree.versions.last_seqno = tree._seqno = seqno
+        tree.versions.last_seqno = tree._seqno = tree._applied = seqno
         return tree
 
     # ------------------------------------------------------------------ #
     # restart
     # ------------------------------------------------------------------ #
     @classmethod
-    def restore(cls, cfg: LSMConfig, spill_dir: str,
-                device=None) -> "LSMTree":
+    def restore(cls, cfg: LSMConfig, spill_dir: str, device=None,
+                scheduler: Optional[MaintenanceScheduler] = None
+                ) -> "LSMTree":
         """Rebuild a tree after a crash or a restart: ``FileStore.restore``
         recovers the spilled files as host records, the manifest replay
         the tree shape and the seqno watermark, the runs it keeps are built
@@ -270,11 +326,11 @@ class LSMTree:
         the manifest's watermark, up to the first torn one, so every
         acknowledged write survives.  ``restore_stats`` times the stages
         ``store``, ``manifest`` (the replay), ``build`` and
-        ``wal_replay``."""
+        ``wal_replay``.  ``scheduler`` is ``__init__``'s."""
         stats = StageStats()
         with stats.time("store"):
             store = FileStore.restore(spill_dir)
-        tree = cls(cfg, device=device, store=store)
+        tree = cls(cfg, device=device, store=store, scheduler=scheduler)
         tree.restore_stats = stats
         with stats.time("manifest"):
             tree.versions = VersionSet.recover(store, cfg.max_levels,
@@ -296,6 +352,7 @@ class LSMTree:
         if cfg.wal_sync != "off":
             with stats.time("wal_replay"):
                 tree._replay_wal()
+        tree._applied = tree._seqno
         return tree
 
     def _build_spilled(self, fid: int) -> SCT:
@@ -330,8 +387,11 @@ class LSMTree:
         self.wal_replayed = replayed
 
     def close(self) -> None:
-        """Planned shutdown: the WAL's tail is synced and its segments kept
-        (the next ``restore`` replays them)."""
+        """Planned shutdown: an owned scheduler waits for its jobs in
+        flight and stops its threads, then the WAL's tail is synced and its
+        segments kept (the next ``restore`` replays them)."""
+        if self._sched is not None and self._owns_sched:
+            self._sched.close()
         if self.wal is not None:
             self.wal.close()
 
@@ -388,7 +448,9 @@ class LSMTree:
         """The runs' bytes, and a 'blob' tree's logs that runs point into."""
         total = sum(s.disk_bytes for s in self.versions.current.all_runs())
         if self.blob_mgr is not None:
-            total += sum(self.store.size_of(f) for f in self.blob_mgr.live)
+            total += sum(self.store.size_of(f)
+                         for f in self.blob_mgr.live_fids()
+                         if self.store.contains(f))
         return total
 
     def all_runs(self) -> List[SCT]:
@@ -399,12 +461,14 @@ class LSMTree:
     # writes
     # ------------------------------------------------------------------ #
     def put(self, key: int, value: bytes) -> None:
+        self.raise_maintenance_errors()
         self._seqno += 1
         if self.wal is not None:
             # log before apply: the record is on its way to disk before
             # the memtable can serve it
             self.wal.append(OP_PUT, key, self._seqno, value)
         self.memtable.put(key, value, self._seqno)
+        self._applied = self._seqno
         self._after_write()
 
     def put_batch(self, keys: np.ndarray, values) -> None:
@@ -413,7 +477,10 @@ class LSMTree:
         ``put`` calls would put them.  With a WAL each run's records are
         appended one at a time, in seqno order, before the run is applied,
         and the whole batch is acknowledged by one sync at the end (the
-        group-commit barrier), as the reference's per-record loop does."""
+        group-commit barrier), as the reference's per-record loop does.
+        In background mode each cut rotates the memtable and may throttle
+        the writer."""
+        self.raise_maintenance_errors()
         raw = values
         keys = np.asarray(keys, np.uint64)
         values = np.asarray(values, f"S{self.cfg.value_width}")
@@ -434,25 +501,68 @@ class LSMTree:
             self.memtable.put_many(
                 keys[i:j], np.arange(first, self._seqno + 1, dtype=np.uint64),
                 values[i:j])
+            self._applied = self._seqno
             self._after_write()
             i = j
         if self.wal is not None:
             self.wal.sync()
 
     def delete(self, key: int) -> None:
+        self.raise_maintenance_errors()
         self._seqno += 1
         if self.wal is not None:
             self.wal.append(OP_DELETE, key, self._seqno)
         self.memtable.delete(key, self._seqno)
+        self._applied = self._seqno
         self._after_write()
+
+    def raise_maintenance_errors(self, consume: bool = True) -> None:
+        """Raise a background worker's failure as ``MaintenanceError``.
+        Every write runs it first, consuming the failure, rather than
+        accept writes a dead flush pipeline would never persist; a
+        read-only caller (``ScanServer.step``) passes ``consume=False``,
+        so it does not serve over failed maintenance and the writer still
+        sees the failure."""
+        if self._sched is not None:
+            self._sched.check_errors(consume)
 
     def _after_write(self) -> None:
         if self.memtable.approx_bytes >= self.cfg.mem_bytes:
-            self.flush()
+            self._handle_full_memtable()
+
+    def _handle_full_memtable(self) -> None:
+        if self._sched is None:
+            self._sync_flush()
+        else:
+            self._rotate_memtable()
+            self._sched.throttle(self)
+
+    def _rotate_memtable(self) -> None:
+        """Freeze a non-empty active memtable into the queue of frozen ones
+        and seal its WAL segment under the same lock, so segment k holds
+        exactly memtable k's records; in background mode schedule its
+        flush.  A frozen memtable stays readable until its SCTs are in an
+        installed version."""
+        with self._lock:
+            if self.memtable.n_versions == 0:
+                return
+            self._immutables.insert(0, self.memtable)
+            self.memtable = MemTable(self.cfg.value_width, self.cfg.key_bytes)
+            if self.wal is not None:
+                self.wal.rotate()
+        if self._sched is not None:
+            self._sched.schedule_flush(self)
 
     def flush(self) -> None:
-        """Freeze + OPD-encode + write to L0, then compact if L0 is over
-        its trigger (the forced write stall)."""
+        """Sync mode: freeze + OPD-encode + write to L0, then compact if L0
+        is over its trigger (the forced write stall).  Background mode:
+        rotate the active memtable and return; ``drain`` is the barrier."""
+        if self._sched is None:
+            self._sync_flush()
+        else:
+            self._rotate_memtable()
+
+    def _sync_flush(self) -> None:
         if self.memtable.n_versions == 0 and not self._immutables:
             return
         self._rotate_memtable()
@@ -465,23 +575,19 @@ class LSMTree:
             self._cascade()
             self.stall_seconds += time.perf_counter() - t0
 
-    def _rotate_memtable(self) -> None:
-        """Freeze a non-empty active memtable into the queue of frozen ones
-        and seal its WAL segment, so segment k holds exactly memtable k's
-        records."""
-        if self.memtable.n_versions == 0:
-            return
-        self._immutables.insert(0, self.memtable)
-        self.memtable = MemTable(self.cfg.value_width, self.cfg.key_bytes)
-        if self.wal is not None:
-            self.wal.rotate()
+    def _pending_flushes(self) -> int:
+        return len(self._immutables)
 
     def _flush_oldest_immutable(self) -> bool:
-        """Encode and install the oldest frozen memtable; it leaves the
-        readable queue only after its version is installed."""
-        if not self._immutables:
-            return False
-        frozen = self._immutables[-1].freeze()
+        """Encode and install the oldest frozen memtable (inline in sync
+        mode, on the flush worker in background mode); it leaves the
+        readable queue only after its version is installed, so a reader
+        sees its rows in one place or both, never in neither."""
+        with self._lock:
+            if not self._immutables:
+                return False
+            imm = self._immutables[-1]
+        frozen = imm.freeze()
         fe = self.file_entries
         new: List[SCT] = []
         try:
@@ -513,28 +619,40 @@ class LSMTree:
         self.versions.apply(VersionEdit(adds=[(0, s) for s in new],
                                         last_seqno=last))
         crashpoint("flush.after_manifest")
-        self._immutables.pop()
+        with self._lock:
+            self._immutables.pop()
         if self.wal is not None:
             # every record <= last is reachable through the manifest now
             self.wal.truncate_upto(last)
         self.n_flushes += 1
         return True
 
-    def drain(self) -> None:
-        """Barrier for queued flushes and compaction debt: with synchronous
-        maintenance nothing is ever queued, so it returns at once."""
-
-    def raise_maintenance_errors(self) -> None:
-        """Raise a failed background flush or compaction to a read-only
-        caller.  With synchronous maintenance a failure raises on the
-        writer's own call, so there is never one to raise here."""
+    def drain(self, timeout: float = 120.0) -> None:
+        """Barrier: wait until every queued flush is installed and the
+        compaction debt is paid (background mode; ``TimeoutError`` after
+        ``timeout`` seconds).  In sync mode nothing is ever queued, so it
+        returns at once."""
+        if self._sched is not None:
+            self._sched.drain([self], timeout=timeout)
 
     def compact(self) -> None:
-        """Full maintenance pass: flush, fold L0 into L1, cascade."""
+        """Full maintenance pass: flush, fold L0 into L1, cascade.  In
+        background mode the workers are drained first, so the fold runs
+        inline with no worker compacting beside it."""
         self.flush()
+        if self._sched is not None:
+            self._sched.drain([self])
         if self.versions.current.levels[0]:
             self._compact_l0()
         self._cascade()
+        self._maybe_retune()
+
+    def _maybe_retune(self) -> None:
+        """The policy tuner's hook between compaction rounds (sync: the
+        end of ``compact``; background: the compaction worker once the
+        debt is zero); a no-op while the tree has no tuner."""
+        if self.tuner is not None:
+            self.tuner.maybe_retune(self)
 
     # ------------------------------------------------------------------ #
     # compaction scheduling (leveling, paper Figure 2)
@@ -554,6 +672,55 @@ class LSMTree:
         consumed = {s.file_id for s in inputs}
         return all(s.file_id in consumed or not s.n or not s.overlaps(lo, hi)
                    for s in v.levels[out_level])
+
+    def _compaction_debt(self) -> float:
+        """The background scheduler's debt: L0 runs past the trigger (each
+        one a run every read consults) plus each level's pressure."""
+        v = self.versions.current
+        debt = float(max(0, len(v.levels[0]) - self._l0_trigger()))
+        for i in range(1, self.cfg.max_levels - 1):
+            debt += self._level_pressure(i)
+        return debt
+
+    def _compact_one_step(self) -> bool:
+        """One merge of the compaction worker: L0 first when it is over its
+        trigger (it taxes every read), else one step at the level of the
+        highest pressure; False when there is no debt."""
+        v = self.versions.current
+        if len(v.levels[0]) > self._l0_trigger():
+            self._compact_l0()
+            return True
+        best, best_over = None, 0.0
+        for i in range(1, self.cfg.max_levels - 1):
+            over = self._level_pressure(i)
+            if over > best_over:
+                best, best_over = i, over
+        if best is None:
+            return False
+        self._compact_level_step(best)
+        return True
+
+    def _throttle_level(self) -> int:
+        """The writer's graduated backpressure: a stop past
+        ``l0_stop_trigger`` L0 runs or ``max_immutables`` frozen
+        memtables, a slowdown past ``l0_slowdown_trigger`` runs or with
+        half the frozen queue full (so the sleeps hand the GIL to the
+        workers well before the stop).  The gates keep their offsets above
+        the policy's L0 trigger."""
+        if self._sched is None:
+            return THROTTLE_NONE
+        l0_trig = self._l0_trigger()
+        stop_at = l0_trig + (self.cfg.l0_stop_trigger - self.cfg.l0_limit)
+        slow_at = l0_trig + (self.cfg.l0_slowdown_trigger
+                             - self.cfg.l0_limit)
+        n_l0 = len(self.versions.current.levels[0])
+        n_imm = len(self._immutables)
+        if n_l0 >= stop_at or n_imm > self.cfg.max_immutables:
+            return THROTTLE_STOP
+        if n_l0 >= slow_at \
+                or n_imm >= max(1, self.cfg.max_immutables // 2):
+            return THROTTLE_SLOWDOWN
+        return THROTTLE_NONE
 
     def _compact_l0(self) -> None:
         v = self.versions.current
@@ -575,6 +742,8 @@ class LSMTree:
             return
         if run_depth(runs) <= 1:
             victim = self._pick_victim(i)
+            if victim is None:
+                return
             overlaps = [s for s in v.levels[i + 1]
                         if s.overlaps(victim.min_key, victim.max_key)]
             self._run_merge([victim] + overlaps, out_level=i + 1,
@@ -602,8 +771,10 @@ class LSMTree:
                         RuntimeWarning, stacklevel=2)
                     break
 
-    def _pick_victim(self, level: int) -> SCT:
+    def _pick_victim(self, level: int) -> Optional[SCT]:
         runs = self.versions.current.levels[level]
+        if not runs:
+            return None
         cur = self._cursors.get(level, 0) % len(runs)
         self._cursors[level] = cur + 1
         return runs[cur]
@@ -654,9 +825,12 @@ class LSMTree:
 
     def _live_snapshots(self) -> List[Snapshot]:
         """The handed-out snapshots still alive; the registry forgets the
-        others."""
-        snaps = [s for s in (r() for r in self._snapshots) if s is not None]
-        self._snapshots = [weakref.ref(s) for s in snaps]
+        others (under the tree lock: a reader may register one while the
+        compaction worker's GC prunes)."""
+        with self._lock:
+            snaps = [s for s in (r() for r in self._snapshots)
+                     if s is not None]
+            self._snapshots = [weakref.ref(s) for s in snaps]
         return snaps
 
     def _gc_blobs(self) -> None:
@@ -667,12 +841,16 @@ class LSMTree:
         is deleted one pass later, while no snapshot pins it.  A log no run
         points into any more is deleted at once."""
         pinned = self._pinned_blob_fids()
-        zombies, self._zombie_blobs = self._zombie_blobs, []
+        with self._lock:
+            zombies, self._zombie_blobs = self._zombie_blobs, []
+        survivors = []
         for fid in zombies:
             if fid in pinned:
-                self._zombie_blobs.append(fid)
+                survivors.append(fid)
             else:
                 self.store.delete(fid)
+        with self._lock:
+            self._zombie_blobs.extend(survivors)
         mgr = self.blob_mgr
         for fid in mgr.gc_candidates():
             if fid in pinned:
@@ -710,38 +888,56 @@ class LSMTree:
             for _, s, _ in refs:
                 self.store.delete(s.file_id)
             mgr.forget(fid)
-            self._zombie_blobs.append(fid)
+            with self._lock:
+                self._zombie_blobs.append(fid)
             mgr.gc_runs += 1
             mgr.gc_bytes_rewritten += int(new_vals.nbytes)
 
     # ------------------------------------------------------------------ #
     # reads
     # ------------------------------------------------------------------ #
+    def _read_state(self) -> Tuple[int, List[MemTable], Version]:
+        """(the applied seqno, the memtables newest first, the current
+        version), taken under the tree lock with the memtables before the
+        version: a flush installing in between shows its rows in both (the
+        seqno merges keep one), never in neither."""
+        with self._lock:
+            return (self._applied, [self.memtable] + list(self._immutables),
+                    self.versions.current)
+
     def snapshot(self) -> Snapshot:
-        v = self.versions.current
-        mems = [self.memtable] + self._immutables
-        snap = Snapshot(self._seqno, mems, v.all_runs(), version=v)
-        if self.blob_mgr is not None:
-            # the registry feeds blob GC's pinning only; pruned on the way
-            # in, it never grows past the live snapshots
-            self._live_snapshots()
-            self._snapshots.append(weakref.ref(snap))
+        with self._lock:
+            seqno, mems, v = self._read_state()
+            snap = Snapshot(seqno, mems, v.all_runs(), version=v)
+            if self.blob_mgr is not None:
+                # registered in the lock section that read the version:
+                # a compaction and blob GC in between would not see the
+                # snapshot and could delete a log its runs point into.
+                # The registry feeds GC's pinning only; pruned on the way
+                # in, it never grows past the live snapshots
+                self._live_snapshots()
+                self._snapshots.append(weakref.ref(snap))
         return snap
 
     def get(self, key: int, snapshot: Optional[Snapshot] = None) -> Optional[bytes]:
         """point_lookup: memtable, then every candidate run; the newest
         visible version across runs wins."""
-        snap = snapshot or self.snapshot()
-        snap_seq = snap.seqno if snapshot is not None else None
+        if snapshot is not None:
+            snap_seq: Optional[int] = snapshot.seqno
+            mems, runs = snapshot.mems, snapshot.runs
+        else:
+            snap_seq = None
+            _, mems, version = self._read_state()
+            runs = version.all_runs()
         with self.lookup_stats.time("lookup"):
-            for mem in snap.mems:   # newest first; the first hit decides
+            for mem in mems:   # newest first; the first hit decides
                 got = mem.get(key, snap_seq)
                 if got is not None:
                     return got[1]
             k = np.uint64(key)
             best_seq = -1
             best = None
-            for s in snap.runs:
+            for s in runs:
                 if s.n == 0 or not (s.min_key <= key <= s.max_key):
                     continue
                 _b_lo, _b_hi, maybe = s.blocks.probe_range(k)
@@ -876,6 +1072,8 @@ class LSMTree:
             "n_compactions": self.n_compactions,
             "write_stalls": self.write_stalls,
             "stall_seconds": self.stall_seconds,
+            "write_slowdowns": self.write_slowdowns,
+            "slowdown_seconds": self.slowdown_seconds,
             "cascade_truncations": self.cascade_truncations,
             "dict_compares": self.dict_compares,
             "version": v.vid,

@@ -32,6 +32,7 @@ value; one block or one log read) and ``decode_slice`` (the values of
 from __future__ import annotations
 
 import dataclasses
+import threading
 import zlib
 from typing import Dict, List, Optional, Tuple
 
@@ -71,7 +72,13 @@ class BlobManager:
     charges them: a raw log one I/O of ``value_width`` bytes a value read,
     a compressed log its whole size in one I/O, and it is really
     decompressed whole on every read.  ``live`` and ``total`` count each
-    log's values that runs still point to and that it holds."""
+    log's values that runs still point to and that it holds.
+
+    With background maintenance the flush worker appends logs while the
+    compaction worker marks garbage in them and GC rewrites and forgets
+    them, so every access to the liveness tables goes through ``_lock``.
+    Value reads take no lock: a log is immutable once written, and the
+    store guards its own maps."""
 
     def __init__(self, store: FileStore, value_width: int,
                  compress: bool = False, gc_threshold: float = 0.5):
@@ -81,6 +88,7 @@ class BlobManager:
         self.gc_threshold = gc_threshold
         self.live: Dict[int, int] = {}     # log id -> values still pointed to
         self.total: Dict[int, int] = {}    # log id -> values it holds
+        self._lock = threading.Lock()
         self.gc_runs = 0
         self.gc_bytes_rewritten = 0
 
@@ -98,8 +106,9 @@ class BlobManager:
         """Write values as a new log; returns (its id, the values' offsets)."""
         n = values.shape[0]
         fid = self.write_log(values)
-        self.live[fid] = n
-        self.total[fid] = n
+        with self._lock:
+            self.live[fid] = n
+            self.total[fid] = n
         return fid, np.arange(n, dtype=np.uint64)
 
     def log_values(self, fid: int) -> np.ndarray:
@@ -123,25 +132,33 @@ class BlobManager:
         return values[ptrs.astype(np.int64)]
 
     def mark_dead(self, fid: int, count: int) -> None:
-        if fid in self.live:
-            self.live[fid] = max(0, self.live[fid] - int(count))
+        with self._lock:
+            if fid in self.live:
+                self.live[fid] = max(0, self.live[fid] - int(count))
 
     def forget(self, fid: int) -> None:
         """Drop a log from the liveness tables (GC rewrote or freed it)."""
-        self.live.pop(fid, None)
-        self.total.pop(fid, None)
+        with self._lock:
+            self.live.pop(fid, None)
+            self.total.pop(fid, None)
 
     def live_fids(self) -> List[int]:
-        return list(self.live)
+        with self._lock:
+            return list(self.live)
 
     def garbage_ratio(self, fid: int) -> float:
+        with self._lock:
+            return self._garbage_ratio_locked(fid)
+
+    def _garbage_ratio_locked(self, fid: int) -> float:
         t = self.total.get(fid, 0)
         return 0.0 if t == 0 else 1.0 - self.live.get(fid, 0) / t
 
     def gc_candidates(self) -> List[int]:
         """Logs whose garbage ratio is above the threshold, in write order."""
-        return [f for f in self.live
-                if self.garbage_ratio(f) > self.gc_threshold]
+        with self._lock:
+            return [f for f in self.live
+                    if self._garbage_ratio_locked(f) > self.gc_threshold]
 
 
 @dataclasses.dataclass

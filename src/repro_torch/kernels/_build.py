@@ -39,6 +39,9 @@ KERNEL_NAMES = ("pack_codes", "unpack_codes", "fused_zone_filter",
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 _lock = threading.Lock()
+# ``LAUNCHES[k] += 1`` is a read-modify-write: the maintenance workers
+# launch beside the caller's thread, so counts change under this lock
+_count_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 _P = ctypes.c_void_p
@@ -65,8 +68,9 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def on_card(*tensors: torch.Tensor) -> bool:
@@ -184,7 +188,8 @@ def launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
     if rc != 0:
         msg = lib.repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"{kernel} launch failed: CUDA error {rc} ({msg})")
-    LAUNCHES[kernel] += 1
+    with _count_lock:
+        LAUNCHES[kernel] += 1
 
 
 def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype,

@@ -15,11 +15,16 @@ them.  A failing engine call leaves the batch queued for a retry.
 ``drain`` steps until the queue is empty.  Writes may interleave between
 batches: each batch takes a new snapshot.
 
+``maintenance`` sets how batches relate to the tree's maintenance:
+'background' (the default) pins whatever version is current, so flushes
+and compactions overlap with serving; 'sync' drains the tree's pending
+maintenance before each batch, so every batch sees a fully flushed and
+compacted tree.  Each step first raises a failed background worker as
+``MaintenanceError``, and leaves the failure recorded for the tree's
+writer, whose next write raises it too.
+
 The reference also serves a ``ShardedLSM``; the shard layer is not ported
 yet (ROADMAP §1 scale-out), so the engine here is the port's ``LSMTree``.
-The reference's ``maintenance`` knob ('background' | 'sync') comes with
-background maintenance (ROADMAP §1 background maintenance): the port's
-tree maintains synchronously, so every batch sees a fully maintained tree.
 """
 
 from __future__ import annotations
@@ -70,11 +75,15 @@ class ScanServerStats:
 
 
 class ScanServer:
-    def __init__(self, tree: LSMTree, max_batch: int = 16):
+    def __init__(self, tree: LSMTree, max_batch: int = 16,
+                 maintenance: str = "background"):
         if max_batch < 1:
             raise ValueError(f"max_batch must be at least 1, got {max_batch}")
+        if maintenance not in ("background", "sync"):
+            raise ValueError(f"unknown maintenance mode {maintenance!r}")
         self.tree = tree
         self.max_batch = max_batch
+        self.maintenance = maintenance
         self.queue: List[Union[ScanRequest, AggRequest]] = []
         self.stats = ScanServerStats()
         self._next_rid = 0
@@ -116,10 +125,13 @@ class ScanServer:
         """Fill up to ``max_batch`` slots from the queue and execute them
         as ONE batched filter and ONE batched aggregate, both against a
         single pinned snapshot."""
-        # a read-only server must not serve over failed maintenance
-        self.tree.raise_maintenance_errors()
+        # a read-only server must not serve over failed maintenance; the
+        # failure stays recorded for the writer
+        self.tree.raise_maintenance_errors(consume=False)
         if not self.queue:
             return {}
+        if self.maintenance == "sync":
+            self.tree.drain()   # observe a fully maintained tree
         slots = self.queue[: self.max_batch]
         scans = [r for r in slots if isinstance(r, ScanRequest)]
         aggs = [r for r in slots if isinstance(r, AggRequest)]

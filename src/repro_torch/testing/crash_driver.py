@@ -10,9 +10,13 @@ unwinding, no buffered file flushing, no atexit.  The parent then restores
 whatever the dead process left in the spill directory.
 
     python -m repro_torch.testing.crash_driver --spill DIR \\
-        --point flush.before_manifest [--device cpu]
+        --point flush.before_manifest [--maintenance background] \\
+        [--device cpu]
 
-The tree runs on ``--device`` (the card by default).  Acknowledgement
+The tree runs on ``--device`` (the card by default), with its flushes and
+compactions inline (``--maintenance sync``, the default) or on the
+maintenance workers (``background``: a site on a worker kills the process
+from that thread).  Acknowledgement
 protocol: every ``--ack-every`` acknowledged mutations the driver
 atomically rewrites ``ACKS.json`` in the spill directory with
 
@@ -56,6 +60,8 @@ def main(argv=None) -> int:
     ap.add_argument("--spill", required=True)
     ap.add_argument("--codec", default="opd")
     ap.add_argument("--backend", default="numpy")
+    ap.add_argument("--maintenance", default="sync",
+                    choices=["sync", "background"])
     ap.add_argument("--wal", default="every", choices=["group", "every"])
     ap.add_argument("--point", required=True)
     ap.add_argument("--skip", type=int, default=0)
@@ -71,7 +77,8 @@ def main(argv=None) -> int:
     from repro_torch.testing.workload import apply_op, gen_ops
 
     cfg = LSMConfig(codec=args.codec, filter_backend=args.backend,
-                    compaction_backend=args.backend, wal_sync=args.wal,
+                    compaction_backend=args.backend,
+                    maintenance=args.maintenance, wal_sync=args.wal,
                     memtable_bytes=8 * 1024, file_bytes=16 * 1024,
                     l0_limit=2, size_ratio=3, max_levels=5,
                     blob_gc_threshold=0.3)

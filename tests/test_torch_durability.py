@@ -1,4 +1,4 @@
-"""The port's durability in sync mode against the JAX package's, on the CPU.
+"""The port's durability against the JAX package's, on the CPU.
 
 * ``tests/test_filestore_restore.py``'s and ``tests/test_version_set.py``'s
   tests, each run on the reference's store / version set / tree and on the
@@ -26,8 +26,20 @@
   systems only (the others never reach them) and ``split.before_table``
   nowhere (no shard split here).  A torn WAL record and deeper hits
   (``skip``) too.
+* The crash matrix in background mode (``tests/test_wal_recovery.py``'s
+  ``mode='background'`` cases): the port alone, because where a worker
+  meets the armed site depends on thread timing; 'opd' under 'group' on
+  'numpy' backends over the eight tree points, on the port's defaults
+  over the six flush and compaction points, and 'blob' over the two GC
+  points.  A site on a worker reaches the writer as ``MaintenanceError``
+  wrapping ``SimulatedCrash``; the workers are stopped without touching
+  the WAL (``_quiesce``).  The restore must recover a seqno K within
+  [durable floor, issued] and answer as the oracle's first K mutations and
+  as a sync reference tree (the JAX engine) fed them; tree shapes are not
+  compared.
 * The subprocess ``os._exit(137)`` kill through both engines' crash
-  drivers, the port's with ``--device cpu``.
+  drivers, the port's with ``--device cpu``: the same site in sync mode on
+  both, and in background mode each engine's restore checked as above.
 """
 
 import itertools
@@ -52,6 +64,7 @@ from repro.storage.devices import DEVICES as RDEVICES
 from repro.storage.io import FileStore as RStore
 from repro.testing.crashpoints import CRASH as RCRASH
 from repro.testing.crashpoints import SimulatedCrash as RCrash
+from repro_torch.core.maintenance import MaintenanceError
 from repro_torch.query import AggSpec, GroupBy
 from repro_torch.storage.devices import DEVICES as TDEVICES
 from repro_torch.storage.io import FileStore as TStore
@@ -879,6 +892,135 @@ def test_subprocess_kill_and_restore(tmp_path):
     assert assert_same_answers(rb, pb, key_space) == oracle_state(muts, K)
     rb.close()
     pb.close()
+
+
+# --------------------------------------------------------------------------- #
+# background mode: crashes on the writer or on a worker
+# --------------------------------------------------------------------------- #
+WAIT = 30.0
+
+
+def _quiesce(tree):
+    """Stop the owned scheduler's workers without a planned shutdown: the
+    WAL is left as it is (``close`` would sync its tail and defeat the
+    power-loss simulation).  The registry is sticky, so a queued job dies
+    at its first crash site, like a thread of a killed process."""
+    if tree._sched is not None and tree._owns_sched:
+        tree._sched.executor.close()
+
+
+def _ingest_background(tree, ops):
+    """Apply ``ops`` until the armed site fires, on the writer's thread or
+    on a worker (then raised as ``MaintenanceError`` wrapping the crash);
+    a final drain surfaces a crash still pending on a worker."""
+    try:
+        apply_ops(tree, ops)
+        tree.drain(timeout=WAIT)
+    except TCrash:
+        return True
+    except MaintenanceError as e:
+        assert isinstance(e.__cause__, TCrash), e
+        return True
+    return TCRASH.fired is not None
+
+
+def _answers(tree, engine, key_space):
+    res = tree.filter(engine.Predicate("prefix", b"pfx_0"))
+    keys, vals = tree.range_lookup(0, key_space)
+    gets = [tree.get(k) for k in range(0, key_space, 13)]
+    return (res.keys.tolist(), res.values.tolist(), keys.tolist(),
+            vals.tolist(), gets)
+
+
+def check_recovered(back, engine, rkw, ops, floor, key_space):
+    """A recovered tree holds a prefix of at least the durable floor: K
+    within [floor, issued], the answers of a sync reference tree (the JAX
+    engine, WAL off) fed the first K mutations and the oracle's state;
+    then the rest of the stream brings it to the whole oracle."""
+    muts = mutations(ops)
+    K = back._seqno
+    assert floor <= K <= len(muts), \
+        f"recovered seqno {K} outside [{floor}, {len(muts)}]"
+    with R.LSMTree(R.LSMConfig(**dict(rkw, maintenance="sync",
+                                      wal_sync="off"))) as ref:
+        for op in muts[:K]:
+            apply_op(ref, op)
+        ref.flush()
+        want = _answers(ref, R, key_space)
+    got = _answers(back, engine, key_space)
+    assert got == want
+    assert dict(zip(got[2], got[3])) == oracle_state(muts, K)
+    for op in muts[K:]:
+        apply_op(back, op)
+    back.flush()
+    back.drain()
+    state = _answers(back, engine, key_space)
+    assert dict(zip(state[2], state[3])) == oracle_state(muts, len(muts))
+    return K
+
+
+def background_crash(tmp_path, system, point, wal, backend="numpy", n=900,
+                     seed=11):
+    rkw, pkw = _kw(system, wal, backend, maintenance="background")
+    spill = str(tmp_path / "port")
+    ks = _key_space(system)
+    ops = gen_ops(seed, n, ks)
+    tree = T.LSMTree(T.LSMConfig(**pkw), spill_dir=spill, device="cpu")
+    with TCRASH.armed(point):
+        fired = _ingest_background(tree, ops)
+        floor = tree.wal.durable_seqno
+        _quiesce(tree)
+        tree.wal.simulate_power_loss()
+    assert fired, f"the stream never reached {point}"
+    with T.LSMTree.restore(T.LSMConfig(**pkw), spill, device="cpu") as back:
+        return check_recovered(back, T, rkw, ops, floor, ks)
+
+
+FLUSH_COMPACT_POINTS = [p for p in TREE_POINTS
+                        if p.startswith(("flush.", "compact."))]
+BG_MATRIX = ([("opd", p, "numpy") for p in TREE_POINTS]
+             + [("opd", p, "default") for p in FLUSH_COMPACT_POINTS]
+             + [("blob", p, "numpy") for p in ("gc.mid_blob",
+                                               "gc.after_replace")])
+
+
+@pytest.mark.parametrize("system,point,backend", BG_MATRIX,
+                         ids=["-".join(c) for c in BG_MATRIX])
+def test_crash_matrix_background(tmp_path, system, point, backend):
+    background_crash(tmp_path, system, point, "group", backend)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_subprocess_kill_in_background_mode(tmp_path, engine):
+    """A crash driver in background mode killed by ``os._exit(137)`` at
+    ``flush.before_manifest``, which the flush worker reaches; the
+    engine's own restore recovers at least the last acknowledged durable
+    seqno and answers as the sync reference tree of its prefix."""
+    n, seed, key_space = 600, 0, 400
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               JAX_PLATFORMS="cpu")
+    module, extra = {"ref": ("repro.testing.crash_driver", []),
+                     "port": ("repro_torch.testing.crash_driver",
+                              ["--device", "cpu"])}[engine]
+    spill = str(tmp_path / engine)
+    os.makedirs(spill)
+    proc = subprocess.run(
+        [sys.executable, "-m", module, "--spill", spill, "--codec", "opd",
+         "--wal", "every", "--maintenance", "background", "--point",
+         "flush.before_manifest", "--n", str(n), "--seed", str(seed),
+         "--key-space", str(key_space)] + extra,
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 137, proc.stderr
+    acks = json.load(open(os.path.join(spill, "ACKS.json")))
+    kw = dict(codec="opd", wal_sync="every", memtable_bytes=8 * 1024,
+              file_bytes=16 * 1024, l0_limit=2, size_ratio=3, max_levels=5,
+              blob_gc_threshold=0.3, filter_backend="numpy",
+              compaction_backend="numpy", maintenance="background")
+    E = {"ref": R, "port": T}[engine]
+    dev = {} if engine == "ref" else {"device": "cpu"}
+    with E.LSMTree.restore(E.LSMConfig(**kw), spill, **dev) as back:
+        check_recovered(back, E, kw, gen_ops(seed, n, key_space),
+                        acks["durable_seqno"], key_space)
 
 
 def test_workloads_are_the_reference_s():

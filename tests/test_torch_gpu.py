@@ -1247,3 +1247,96 @@ def test_spilled_tree_restores_on_the_card(card, tmp_path):
         assert np.array_equal(a.keys, b.keys) and \
             np.array_equal(a.values, b.values)
     back.close()
+
+
+def test_launch_counts_hold_under_threads(card):
+    """8 threads each launch ``pack_codes`` N times at once: the launch
+    count grows by exactly 8 N (the count is taken under a lock) and every
+    result equals the plain version.  The first launches also race the
+    build, which runs once under its own lock."""
+    import threading
+
+    n_threads, n_calls = 8, 200
+    rng = np.random.default_rng(40)
+    inputs = [_codes(4096 + 97 * t, 16, rng) for t in range(n_threads)]
+    wants = [bitpack.pack_codes_plain(c, 16) for c in inputs]
+    barrier = threading.Barrier(n_threads)
+    errors = []
+
+    def worker(t):
+        try:
+            codes = inputs[t].to(card)
+            barrier.wait(timeout=60)
+            outs = [bitpack.pack_codes(codes, 16) for _ in range(n_calls)]
+            torch.cuda.synchronize()
+            for got in outs:
+                assert torch.equal(got.cpu(), wants[t])
+        except BaseException as e:
+            errors.append(e)
+
+    before = ops.LAUNCHES["pack_codes"]
+    threads = [threading.Thread(target=worker, args=(t,))
+               for t in range(n_threads)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+        assert not th.is_alive()
+    assert not errors, errors[0]
+    assert ops.LAUNCHES["pack_codes"] - before == n_threads * n_calls
+
+
+def test_background_tree_on_the_card_matches_a_sync_tree_on_the_cpu(card):
+    """A background-mode tree on the card, its flushes and compactions on
+    the workers and a reader thread filtering beside the writer: after
+    ``drain`` its answers equal a sync tree's on the CPU, and the workers
+    launched the pack, unpack and remap kernels."""
+    import threading
+
+    kw = dict(value_width=16, file_bytes=16 * 1024, l0_limit=2, size_ratio=3)
+    preds = [T.Predicate("prefix", b"c00%d" % i) for i in range(8)] + [
+        T.Predicate("range", b"c005", b"c020")]
+    rng = np.random.default_rng(13)
+    batches = [(rng.integers(0, 4000, 900).astype(np.uint64),
+                np.asarray([b"c%03d_%05d" % (i % 37, i)
+                            for i in rng.integers(0, 900, 900)], "S16"))
+               for _ in range(6)]
+    sync = T.LSMTree(T.LSMConfig(**kw), device="cpu")
+    stop, errors = threading.Event(), []
+    ops.reset_launches()
+    with T.LSMTree(T.LSMConfig(maintenance="background", **kw),
+                   device=card) as tree:
+
+        def reader():
+            try:
+                while not stop.is_set():
+                    for r in tree.filter_many(preds):
+                        ks = r.keys.tolist()
+                        assert ks == sorted(set(ks))
+            except BaseException as e:
+                errors.append(e)
+
+        th = threading.Thread(target=reader)
+        th.start()
+        try:
+            for keys, vals in batches:
+                tree.put_batch(keys, vals)
+                sync.put_batch(keys, vals)
+        finally:
+            stop.set()
+            th.join(timeout=60)
+        assert not th.is_alive() and not errors, errors
+        tree.flush()
+        sync.flush()
+        tree.drain(timeout=60)
+        assert tree._sched.n_bg_flushes > 0
+        assert tree._sched.n_bg_compactions > 0
+        for name in ("pack_codes", "unpack_codes", "remap_pack_codes",
+                     "fused_zone_filter"):
+            assert ops.LAUNCHES[name] > 0, name
+        for a, b in zip(tree.filter_many(preds), sync.filter_many(preds)):
+            assert np.array_equal(a.keys, b.keys) and \
+                np.array_equal(a.values, b.values)
+        ka, va = tree.range_lookup(0, 4000)
+        kb, vb = sync.range_lookup(0, 4000)
+        assert np.array_equal(ka, kb) and np.array_equal(va, vb)

@@ -94,7 +94,7 @@ def test_default_device_is_the_card_and_missing_card_raises(monkeypatch):
 
 OTHER_VALUES = {"codec": "lz4", "filter_backend": "pallas",
                 "compaction_backend": "packed", "compaction_policy": "tiered",
-                "policy_autotune": True, "maintenance": "background",
+                "policy_autotune": True, "maintenance": "eager",
                 "wal_sync": "sometimes", "blob_compress": "zstd",
                 "level_modes": ("L", "T")}
 
@@ -111,7 +111,7 @@ def test_unsupported_config_value_raises(field):
 
 
 @pytest.mark.parametrize("value,item", [
-    (("maintenance", "background"), "background maintenance"),
+    (("compaction_policy", "tiered"), "policy"),
 ])
 def test_rejected_backend_names_its_kernel(value, item):
     """A value that is not ported yet names its ROADMAP item."""

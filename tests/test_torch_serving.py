@@ -125,8 +125,8 @@ def test_continuous_refill_and_empty_steps():
 
 @pytest.mark.parametrize("bad,err", [
     (dict(max_batch=0), ValueError),
-    # the reference's maintenance knob comes with background maintenance
-    (dict(maintenance="sync"), TypeError),
+    # the reference's maintenance knob takes 'background' and 'sync' only
+    (dict(maintenance="eager"), ValueError),
 ])
 def test_server_rejects_bad_settings(bad, err):
     port = T.LSMTree(T.LSMConfig(**KW), device="cpu")
