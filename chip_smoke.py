@@ -143,13 +143,33 @@ Phases, each printing JSON lines:
             wall seconds and queue wait, the launches, and the codecs
             phase's 'opd' ingest (the same configuration in sync mode)
             beside them.
-11. bench:   the kernel micro-bench's entry points
+11. policy: the main configuration, the main phase's generator at 2^20
+            pairs and 2,048 deletes (``POLICY_PAIRS``).  A tiered tree
+            (tier_runs 4) takes the stream and compact(): a level below L0
+            must hold stacked runs (run depth >= 2); filter_many (K=16), 8
+            range_lookup windows, 1,024 gets and the 6 aggregate specs
+            equal to the host model, a snapshot pinned.  set_policy to
+            leveling and compact(): the stacked level merges whole into the
+            level below, every level at run depth <= 1, the same reads equal
+            to the model now and at the pinned snapshot.  The launch counts
+            are reset before the tiered ingest and read after those checks:
+            pack_codes, unpack_codes, remap_pack_codes and
+            fused_zone_filter must each have launched, a fused_zone_filter
+            launch over the stacked level among them.  Then a tree with
+            policy_autotune: the stream and compact() (a write-only
+            window), 1,024 gets and a filter_many (a scan window) and
+            compact(); the tuner must retune at least twice, each window's
+            reads equal to the model.  policy.done carries each part's
+            seconds, merges and compaction bytes (beside the codecs phase's
+            leveled 'opd' tree), shape_report before and after the
+            migration, the tuner's decisions and the launches.
+12. bench:   the kernel micro-bench's entry points
             (``benchmarks/bench_kernels.py``): range_filter_packed on 2^20
             codes at widths 8 and 16, bloom_probe on a 2^14-bit bloom and
             on the largest documented one (2,048 words, 2^20 keys, no false
             negative), ssm_scan at falcon-mamba-7b's width (d_inner 8192,
             d_state 16, 2,048 tokens), held against host models.
-12. kernels: each kernel against its plain PyTorch version on the card, on
+13. kernels: each kernel against its plain PyTorch version on the card, on
             operands recorded from the main path, the serve phases,
             agg.fast, compact.jax and fig5, and at bench's shapes
             (bit-identical required; ssm_scan within rtol = atol = 1e-4),
@@ -1116,6 +1136,23 @@ PROBE_PARTS = (768, 128, 128)
 READ_PARTS = {"blob_zstd": (48, 8, 8)}
 
 
+def read_plan(rng, stream) -> tuple:
+    """(the 16 predicates, 8 range_lookup windows of 1/64 of the key space,
+    the probe keys: ``PROBE_PARTS`` present, deleted and missing) for a
+    ``make_stream`` stream, whose keys are uniform over [0, 4 n)."""
+    keys, vocab, _vidx, dels = stream
+    n = keys.shape[0]
+    space = 4 * n
+    windows = [(i * space // 8 + space // 32,
+                i * space // 8 + space // 32 + space // 64 - 1)
+               for i in range(8)]
+    present, deleted, missing = PROBE_PARTS
+    probe = np.concatenate([rng.choice(keys, present), dels[:deleted],
+                            rng.integers(4 * n, 8 * n, missing,
+                                         dtype=np.uint64)])
+    return make_preds(vocab), windows, probe
+
+
 def probe_positions(name: str) -> np.ndarray:
     """The positions in the codec probe that codec ``name`` reads."""
     parts = READ_PARTS.get(name, PROBE_PARTS)
@@ -1206,6 +1243,8 @@ def codec_run(cfg, name: str, stream, ref: Reference, preds, windows,
             "compaction_stages_s": dict(tree.compaction_stats.seconds),
             "n_flushes": shape["n_flushes"],
             "n_compactions": shape["n_compactions"],
+            "compaction_in_bytes": tree.compaction_in_bytes,
+            "compaction_out_bytes": tree.compaction_out_bytes,
             "levels": shape["levels"], "level_bytes": shape["level_bytes"],
             "disk_bytes": shape["disk_bytes"], "k": len(preds),
             "rows_matched": n_match,
@@ -1338,15 +1377,7 @@ def codecs_phase(args, device: str) -> dict:
     ref = Reference(vocab)
     ref.put(keys, vidx)
     ref.delete(dels)
-    preds = make_preds(vocab)
-    space = 4 * n                # keys are uniform over [0, 4 n)
-    windows = [(i * space // 8 + space // 32,
-                i * space // 8 + space // 32 + space // 64 - 1)
-               for i in range(8)]
-    present, deleted, missing = PROBE_PARTS
-    probe = np.concatenate([rng.choice(keys, present), dels[:deleted],
-                            rng.integers(4 * n, 8 * n, missing,
-                                         dtype=np.uint64)])
+    preds, windows, probe = read_plan(rng, stream)
     check(pinned_domain(ref) is not None,
           "codecs: a written value has no live row (bucket edges unpinned)")
     emit({"phase": "codecs", "reduced": "pairs 6.4e7 -> %.1e ('heavy' "
@@ -1361,8 +1392,9 @@ def codecs_phase(args, device: str) -> dict:
                                         windows, probe[at], device)
         emit(line)
         if name == "opd":
-            opd_ingest = {k: line[k] for k in ("ops", "ingest_s", "ops_per_s",
-                                               "n_flushes", "n_compactions")}
+            opd_ingest = {k: line[k] for k in (
+                "ops", "ingest_s", "ops_per_s", "n_flushes", "n_compactions",
+                "compaction_in_bytes", "compaction_out_bytes")}
         if first is None:
             first = answers
         else:
@@ -1396,30 +1428,31 @@ def prefix_model(stream, k: int) -> Reference:
 
 
 def durable_checks(tree, model: Reference, preds, windows, probe,
-                   label: str) -> tuple:
+                   label: str, snapshot=None) -> tuple:
     """filter_many (K=16) under 'fused', range_lookup over ``windows``, get
-    over ``probe`` and aggregate_many (``AGG_TABLE``), each held against
-    ``model``; returns (the answers, the seconds)."""
+    over ``probe`` and aggregate_many (``AGG_TABLE``), each at ``snapshot``
+    (the latest when None) and held against ``model``; returns (the
+    answers, the seconds)."""
     import torch
     from repro_torch import Predicate
 
     t0 = time.perf_counter()
-    got = tree.filter_many([Predicate(*p) for p in preds])
+    got = tree.filter_many([Predicate(*p) for p in preds], snapshot=snapshot)
     check_filters(got, model, preds, label)
     live_keys, live_idx = model.state()
     vocab = model.vocab
     ranges = []
     for lo, hi in windows:
-        gk, gv = tree.range_lookup(lo, hi)
+        gk, gv = tree.range_lookup(lo, hi, snapshot=snapshot)
         sel = (live_keys >= np.uint64(lo)) & (live_keys <= np.uint64(hi))
         check(np.array_equal(gk, live_keys[sel]) and gv.dtype == vocab.dtype
               and np.array_equal(gv, vocab[live_idx[sel]]),
               f"{label}: range_lookup [{lo}, {hi}] differs")
         ranges.append((gk, gv))
-    gets = [tree.get(k) for k in probe.tolist()]
+    gets = [tree.get(k, snapshot=snapshot) for k in probe.tolist()]
     for k, g in zip(probe.tolist(), gets):
         check(g == model.get(k), f"{label}: get({k}) = {g!r}")
-    aggs = tree.aggregate_many(make_specs(AGG_TABLE))
+    aggs = tree.aggregate_many(make_specs(AGG_TABLE), snapshot=snapshot)
     check_aggs(aggs, vocab, live_idx, AGG_TABLE, f"{label} agg",
                pinned_domain(model))
     torch.cuda.synchronize()
@@ -1486,15 +1519,7 @@ def durable_phase(args, device: str) -> None:
     stream = make_stream(rng, n, cfg.value_width)
     keys, vocab, vidx, dels = stream
     n_muts = n + dels.shape[0]
-    preds = make_preds(vocab)
-    space = 4 * n
-    windows = [(i * space // 8 + space // 32,
-                i * space // 8 + space // 32 + space // 64 - 1)
-               for i in range(8)]
-    present, deleted, missing = PROBE_PARTS
-    probe = np.concatenate([rng.choice(keys, present), dels[:deleted],
-                            rng.integers(4 * n, 8 * n, missing,
-                                         dtype=np.uint64)])
+    preds, windows, probe = read_plan(rng, stream)
     emit({"phase": "durable", "reduced": "pairs 6.4e7 -> %.1e (host-side "
           "ingest with a WAL record per write, twice restored, within the "
           "smoke's time limit; halved from 2^21 to keep the whole smoke "
@@ -1671,15 +1696,7 @@ def background_phase(args, recs, sync_ingest: dict, device: str) -> None:
     cfg = dataclasses.replace(main_config(), maintenance="background")
     stream = make_stream(rng, n, cfg.value_width)
     keys, vocab, vidx, dels = stream
-    preds = make_preds(vocab)
-    space = 4 * n
-    windows = [(i * space // 8 + space // 32,
-                i * space // 8 + space // 32 + space // 64 - 1)
-               for i in range(8)]
-    present, deleted, missing = PROBE_PARTS
-    probe = np.concatenate([rng.choice(keys, present), dels[:deleted],
-                            rng.integers(4 * n, 8 * n, missing,
-                                         dtype=np.uint64)])
+    preds, windows, probe = read_plan(rng, stream)
     model = prefix_model(stream, n + dels.shape[0])
     # a written pair as key * ndv + vocabulary index, with the position of
     # its first write; a vocabulary value's index by a sorted search
@@ -1880,6 +1897,163 @@ def background_phase(args, recs, sync_ingest: dict, device: str) -> None:
     del tree, srv, sync_srv
     gc.collect()
     line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+
+
+# --------------------------------------------------------------------------- #
+# compaction policies: a tiered tree, its migration to leveling, the tuner
+# --------------------------------------------------------------------------- #
+# pairs of the policy stream: 2^20 make 8 memtable rotations, and two
+# stacked L1 runs under tier_runs=4 need more than 4, so no flag lowers it
+POLICY_PAIRS = 1 << 20
+
+
+def policy_phase(args, recs, leveled: dict, device: str) -> None:
+    """policy: the main configuration and the main phase's generator at
+    ``POLICY_PAIRS``.  (a) A tiered tree (``tier_runs=4``) takes the
+    stream and ``compact()``: some level below L0 must hold stacked runs
+    (run depth >= 2); filter_many (K=16), 8 range_lookup windows, 1,024
+    gets and the 6 aggregate specs (the general path) must equal the host
+    model, and a snapshot is pinned.  (b) ``set_policy`` to leveling and
+    ``compact()``: the whole stacked level merges into the level below,
+    every level ends at run depth <= 1 and the same reads equal the model,
+    now and at the snapshot pinned in (a).  The launch counts are reset
+    before (a)'s ingest and read after (b)'s checks: pack_codes,
+    unpack_codes, remap_pack_codes and fused_zone_filter must each have
+    launched, and a fused_zone_filter launch must have read the stacked
+    level.  (c) A tree with ``policy_autotune`` takes the stream and
+    ``compact()`` (a write-only window), then 1,024 gets and one
+    filter_many checked against the model and ``compact()`` (a scan
+    window): the tuner must have retuned at least twice, and the reads
+    after it equal the model.  policy.done carries each part's wall
+    seconds, merges and compaction bytes beside the codecs phase's leveled
+    'opd' tree (``leveled``), ``shape_report`` before and after the
+    migration, the tuner's decisions and the launches."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch import LSMTree, Predicate
+    from repro_torch.core import CompactionPolicy
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    for r in recs.values():
+        r.active = False
+    rng = np.random.default_rng(args.seed + 7)
+    n, base = POLICY_PAIRS, main_config()
+    stream = make_stream(rng, n, base.value_width)
+    dels = stream[3]
+    preds, windows, probe = read_plan(rng, stream)
+    model = prefix_model(stream, n + dels.shape[0])
+    cfg = dataclasses.replace(base, compaction_policy="tiered", tier_runs=4)
+    emit({"phase": "policy", "reduced": "pairs 6.4e7 -> %.1e (host-side "
+          "ingest of three trees within the smoke's time limit)" % n,
+          "pairs": n, "deletes": int(dels.shape[0]),
+          "value_width": cfg.value_width, "file_bytes": cfg.file_bytes,
+          "policy": cfg.compaction_policy, "tier_runs": cfg.tier_runs,
+          "l0_limit": cfg.l0_limit, "size_ratio": cfg.size_ratio})
+
+    def merges(tree) -> dict:
+        return {"n_flushes": tree.n_flushes,
+                "n_compactions": tree.n_compactions,
+                "compaction_in_bytes": tree.compaction_in_bytes,
+                "compaction_out_bytes": tree.compaction_out_bytes}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # the fused_level_filter calls that read a run of the stacked level
+    stacked_ids = set()
+    stacked_reads = []
+    fused_level = ops.fused_level_filter
+
+    def fused_noting(packed_list, *a, **k):
+        hit = sum(id(p) in stacked_ids for p in packed_list)
+        if hit:
+            stacked_reads.append(hit)
+        return fused_level(packed_list, *a, **k)
+
+    line = {"phase": "policy.done"}
+
+    def tiered_then_leveled():
+        tree = LSMTree(cfg, device=device)
+        out = {"ingest_s": ingest(tree, stream), "ingest": merges(tree)}
+        _, out["compact_s"] = timed(tree.compact)
+        out["tiered"] = merges(tree)
+        shape = tree.shape_report()
+        out["shape_tiered"] = shape
+        deep = [i for i, d in enumerate(shape["run_depths"]) if i and d >= 2]
+        check(bool(deep), f"policy: no level below L0 stacked runs "
+              f"(run depths {shape['run_depths']})")
+        out["stacked_level"] = deep[0]
+        stacked_ids.update(id(s.packed) for s in tree.levels[deep[0]])
+        ops.fused_level_filter = fused_noting
+        try:
+            answers, out["tiered_checks_s"] = durable_checks(
+                tree, model, preds, windows, probe, "policy.tiered")
+        finally:
+            ops.fused_level_filter = fused_level
+        snap = tree.snapshot()
+        tree.set_policy(CompactionPolicy(kind="leveled"))
+        _, out["migrate_s"] = timed(tree.compact)
+        out["migrated"] = merges(tree)
+        shape = tree.shape_report()
+        out["shape_leveled"] = shape
+        check(max(shape["run_depths"]) <= 1, f"policy: run depths "
+              f"{shape['run_depths']} after the migration")
+        now, out["leveled_checks_s"] = durable_checks(
+            tree, model, preds, windows, probe, "policy.migrated")
+        pinned, out["snapshot_checks_s"] = durable_checks(
+            tree, model, preds, windows, probe, "policy.snapshot",
+            snapshot=snap)
+        check(same_answers(answers, now) and same_answers(answers, pinned),
+              "policy: answers moved across the migration")
+        return out
+
+    out, launches = launch_window(tiered_then_leveled)
+    for kernel in MAIN_KERNELS:
+        check(launches[kernel] > 0,
+              f"policy: {kernel} never launched ({launches})")
+    check(bool(stacked_reads),
+          "policy: no fused_zone_filter launch read the stacked level")
+    gc.collect()
+
+    tree = LSMTree(dataclasses.replace(base, policy_autotune=True),
+                   device=device)
+    tuner = {"ingest_s": ingest(tree, stream)}
+    _, tuner["write_window_compact_s"] = timed(tree.compact)
+    tuner["after_write_window"] = tree.policy.describe()
+
+    def scans():
+        gets = [tree.get(k) for k in probe.tolist()]
+        for k, g in zip(probe.tolist(), gets):
+            check(g == model.get(k), f"policy.tuner: get({k}) = {g!r}")
+        check_filters(tree.filter_many([Predicate(*p) for p in preds]),
+                      model, preds, "policy.tuner")
+
+    _, tuner["scan_window_s"] = timed(scans)
+    _, tuner["scan_window_compact_s"] = timed(tree.compact)
+    _, tuner["final_checks_s"] = timed(scans)
+    shape = tree.shape_report()
+    check(shape["n_retunes"] >= 2,
+          f"policy.tuner: {shape['n_retunes']} retunes")
+    tuner.update({"decisions": [dataclasses.asdict(d)
+                                for d in tree.tuner.history],
+                  "n_retunes": shape["n_retunes"],
+                  "n_policy_switches": shape["n_policy_switches"],
+                  "policy": shape["policy"], "levels": shape["levels"],
+                  "run_depths": shape["run_depths"], **merges(tree)})
+    del tree
+    gc.collect()
+    line.update({**out, "fused_launches_reading_the_stacked_level":
+                 len(stacked_reads), "stacked_runs_per_launch": stacked_reads,
+                 "launches": launches, "tuner": tuner, "leveled": leveled,
+                 "seconds": time.perf_counter() - t_phase})
     emit(line)
 
 
@@ -3100,6 +3274,7 @@ def main() -> int:
     sync_ingest = codecs_phase(args, "cuda")
     durable_phase(args, "cuda")
     background_phase(args, recs, sync_ingest, "cuda")
+    policy_phase(args, recs, sync_ingest, "cuda")
     bench_launches, bench = bench_phase(args)
     launches.update({k: bench_launches[k] for k in ("bloom_probe", "ssm_scan")})
     rows = kernel_phase(recs, launches, bw, bench, rates, log,

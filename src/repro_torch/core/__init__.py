@@ -6,7 +6,8 @@ from repro_torch.core.lsm import LSMConfig, LSMTree, Snapshot
 from repro_torch.core.maintenance import (MaintenanceError,
                                           MaintenanceScheduler)
 from repro_torch.core.opd import OPD, Predicate, as_fixed_bytes
-from repro_torch.core.policy import CompactionPolicy, run_depth
+from repro_torch.core.policy import (CompactionPolicy, PolicyTuner,
+                                     run_depth)
 from repro_torch.core.sct import (SCT, pack_width, sct_from_arrays,
                                   sct_to_arrays)
 from repro_torch.core.stats import StageStats
@@ -16,7 +17,7 @@ from repro_torch.core.wal import WALError, WALRecord, WALWriter
 __all__ = [
     "LSMConfig", "LSMTree", "Snapshot", "MaintenanceError",
     "MaintenanceScheduler", "OPD", "Predicate", "as_fixed_bytes",
-    "CompactionPolicy", "run_depth", "SCT", "pack_width", "sct_from_arrays",
-    "sct_to_arrays", "StageStats", "Version", "VersionEdit", "VersionSet",
+    "CompactionPolicy", "PolicyTuner", "run_depth", "SCT", "pack_width",
+    "sct_from_arrays", "sct_to_arrays", "StageStats", "Version", "VersionEdit", "VersionSet",
     "WALError", "WALRecord", "WALWriter",
 ]

@@ -4,8 +4,12 @@ Port of ``repro/core/lsm.py`` for the paper's main loop on one tree:
 ``put`` / ``put_batch`` / ``delete`` go into the memtable; a flush writes
 OPD-encoded SCTs whose packed words and zone maps live on the card;
 ``filter`` / ``filter_many`` run the zone-gated fused scan on the packed
-words, one launch per level; leveled compaction merges the dictionaries on
-the host and rewrites the codes, packed on the card; ``get`` is the point
+words, one launch per level; compaction merges the dictionaries on the
+host and rewrites the codes, packed on the card, shaped by the compaction
+policy (``core/policy.py``: leveled by default, or tiered, lazy-leveled or
+hybrid, whose tiered levels stack overlapping runs; ``set_policy`` swaps
+it on a live tree and ``policy_autotune`` lets a ``PolicyTuner`` do so
+between compaction rounds); ``get`` is the point
 lookup and ``range_lookup`` the merged range scan; ``aggregate`` /
 ``aggregate_many`` compute COUNT, SUM, MIN/MAX and GROUP BY on the packed
 codes (``repro_torch.query``).  ``filter_backend`` 'jax_packed' (one
@@ -82,7 +86,8 @@ from repro_torch.core.maintenance import (THROTTLE_NONE, THROTTLE_SLOWDOWN,
                                           THROTTLE_STOP, MaintenanceScheduler)
 from repro_torch.core.memtable import MemTable
 from repro_torch.core.opd import Predicate
-from repro_torch.core.policy import CompactionPolicy, make_policy, run_depth
+from repro_torch.core.policy import (POLICY_KINDS, CompactionPolicy,
+                                     PolicyTuner, make_policy, run_depth)
 from repro_torch.core.sct import (CODECS, SCT, BlobManager, build_sct,
                                   record_disk_bytes, sct_from_arrays)
 from repro_torch.core.stats import StageStats
@@ -96,27 +101,27 @@ from repro_torch.storage.devices import DeviceModel
 from repro_torch.storage.io import FileStore
 from repro_torch.testing.crashpoints import crashpoint
 
-# the values each configuration field takes in this slice, and the ROADMAP
-# item that ports the others (kernels named by their function); None where
-# the port takes every value the reference takes
+# the values each enumerated configuration field takes (every value the
+# reference takes); ``level_modes`` (None here) takes any vector of 'L' /
+# 'T': ``make_policy`` checks it with ``compaction_policy`` and
+# ``tier_runs``, raising the reference's errors
 SUPPORTED = {
-    "codec": (CODECS, None),
-    "filter_backend": (("fused", "jax_packed", "jax", "numpy"), None),
-    "compaction_backend": (("numpy", "jax", "jax_packed"), None),
-    "compaction_policy": (("leveled",), "§1 policy"),
-    "policy_autotune": ((False,), "§1 policy"),
-    "maintenance": (("sync", "background"), None),
-    "wal_sync": (("off", "group", "every"), None),
-    "blob_compress": ((False, True), None),
-    "level_modes": ((None,), "§1 policy"),
+    "codec": CODECS,
+    "filter_backend": ("fused", "jax_packed", "jax", "numpy"),
+    "compaction_backend": ("numpy", "jax", "jax_packed"),
+    "compaction_policy": POLICY_KINDS,
+    "policy_autotune": (False, True),
+    "maintenance": ("sync", "background"),
+    "wal_sync": ("off", "group", "every"),
+    "blob_compress": (False, True),
+    "level_modes": None,
 }
 
 
 @dataclasses.dataclass(frozen=True)
 class LSMConfig:
-    """The reference's configuration fields; values outside this slice
-    raise ``ValueError`` naming the ROADMAP item that will port them, and
-    values the reference does not take raise as well."""
+    """The reference's configuration fields; a value the reference does
+    not take raises ``ValueError``."""
 
     codec: str = "opd"
     key_bytes: int = 16                # S_K
@@ -145,17 +150,12 @@ class LSMConfig:
     wal_group_bytes: int = 64 * 1024
 
     def __post_init__(self):
-        for name, (accepted, item) in SUPPORTED.items():
+        for name, accepted in SUPPORTED.items():
             got = getattr(self, name)
-            if got in accepted:
-                continue
-            takes = " or ".join(map(repr, accepted))
-            if item is None:
+            if accepted is not None and got not in accepted:
                 raise ValueError(f"LSMConfig.{name}={got!r} is not one of "
-                                 f"{takes}")
-            raise ValueError(
-                f"LSMConfig.{name}={got!r} is not ported yet (this port "
-                f"supports {takes}); see ROADMAP {item}")
+                                 + " or ".join(map(repr, accepted)))
+        make_policy(self)
 
     @property
     def mem_bytes(self) -> int:
@@ -235,10 +235,12 @@ class LSMTree:
         # out of them rather than showing up partway through a read
         self._applied = 0
         self._cursors: Dict[int, int] = {}  # round-robin compaction cursors
+        # the compaction policy: an immutable value the trigger, victim and
+        # output hooks consult; ``set_policy`` swaps it and later
+        # compactions move the tree toward the new shape
         self.policy: CompactionPolicy = make_policy(cfg)
-        # the policy tuner comes with ROADMAP §1 policy
-        # (``policy_autotune=True`` is refused until then)
-        self.tuner = None
+        self.tuner: Optional[PolicyTuner] = (
+            PolicyTuner() if cfg.policy_autotune else None)
         self._owns_sched = False
         self._sched: Optional[MaintenanceScheduler] = None
         if cfg.maintenance == "background":
@@ -265,6 +267,8 @@ class LSMTree:
         self.compaction_in_bytes = 0
         self.compaction_out_bytes = 0
         self.dict_compares = 0  # cumulative D_i terms across compactions
+        self.ingest_bytes = 0   # logical bytes written (the tuner's signal)
+        self.n_policy_switches = 0  # set_policy calls
         # weak references to handed-out snapshots: blob GC must not delete
         # a log a live snapshot can still read
         self._snapshots: List["weakref.ref[Snapshot]"] = []
@@ -418,19 +422,48 @@ class LSMTree:
         return self.versions.current.level_bytes(i)
 
     def level_capacity(self, i: int) -> int:
-        return self.cfg.file_bytes * self.cfg.size_ratio ** i
+        """L1 holds T files, each deeper level T times more; T is the
+        policy's (the tuner varies it), by default the configuration's."""
+        return self.cfg.file_bytes * (
+            self.policy.ratio(self.cfg.size_ratio) ** i)
+
+    # ------------------------------------------------------------------ #
+    # compaction policy hooks
+    # ------------------------------------------------------------------ #
+    def set_policy(self, policy: CompactionPolicy) -> None:
+        """Swap the compaction policy.  The installed version is untouched:
+        later triggers and merges rewrite the tree toward the new shape
+        (stacked levels drain through whole-level merges, leveled ones
+        start stacking); every read path is seqno-correct over
+        overlapping runs, so readers are unaffected."""
+        with self._lock:
+            self.policy = policy
+            self.n_policy_switches += 1
+
+    def _mode(self, level: int) -> str:
+        """'L' (one sorted run) or 'T' (stacked runs) for one level."""
+        return self.policy.mode(level, self.cfg.max_levels)
 
     def _l0_trigger(self) -> int:
         return self.policy.l0_trigger(self.cfg.l0_limit)
 
     def _level_pressure(self, i: int) -> float:
-        """Compaction urgency of leveled level i: bytes over capacity, plus
-        any run depth past 1 (overlapping runs, e.g. from ``from_arrays``)."""
+        """Compaction urgency of level i under the policy (0: in shape).
+        Leveled: bytes over capacity, plus any run depth past 1 (stacked
+        runs a migration left, or ``from_arrays``'s).  Tiered: run depth
+        past K-1, plus bytes past 4x capacity (a safety valve against a
+        mis-sized K)."""
         v = self.versions.current
         if not v.levels[i]:
             return 0.0
-        pressure = max(0.0, self.level_bytes(i) / self.level_capacity(i) - 1.0)
+        over = self.level_bytes(i) / self.level_capacity(i) - 1.0
         depth = run_depth(v.levels[i])
+        if self._mode(i) == "T":
+            pressure = float(max(0, depth - (self.policy.tier_runs - 1)))
+            if over > 3.0:
+                pressure += over - 3.0
+            return pressure
+        pressure = max(0.0, over)
         if depth > 1:
             pressure += float(depth - 1)
         return pressure
@@ -463,6 +496,7 @@ class LSMTree:
     def put(self, key: int, value: bytes) -> None:
         self.raise_maintenance_errors()
         self._seqno += 1
+        self.ingest_bytes += self.cfg.key_bytes + 8 + self.cfg.value_width
         if self.wal is not None:
             # log before apply: the record is on its way to disk before
             # the memtable can serve it
@@ -485,6 +519,7 @@ class LSMTree:
         keys = np.asarray(keys, np.uint64)
         values = np.asarray(values, f"S{self.cfg.value_width}")
         rec = self.cfg.key_bytes + 8 + self.cfg.value_width
+        self.ingest_bytes += keys.shape[0] * rec
         i = 0
         while i < keys.shape[0]:
             room = -(-(self.cfg.mem_bytes - self.memtable.approx_bytes) // rec)
@@ -510,6 +545,7 @@ class LSMTree:
     def delete(self, key: int) -> None:
         self.raise_maintenance_errors()
         self._seqno += 1
+        self.ingest_bytes += self.cfg.key_bytes + 8
         if self.wal is not None:
             self.wal.append(OP_DELETE, key, self._seqno)
         self.memtable.delete(key, self._seqno)
@@ -655,11 +691,13 @@ class LSMTree:
             self.tuner.maybe_retune(self)
 
     # ------------------------------------------------------------------ #
-    # compaction scheduling (leveling, paper Figure 2)
+    # compaction scheduling (policy-driven; paper Figure 2 for leveling)
     # ------------------------------------------------------------------ #
     def _merge_is_bottom(self, inputs: List[SCT], out_level: int) -> bool:
         """Tombstones may be dropped only if no run outside the inputs can
-        hold an older version of an input key."""
+        hold an older version of an input key: every deeper level is empty
+        and no surviving run at ``out_level`` overlaps the inputs' key span
+        (a stacked run left beside a tiered merge keeps them)."""
         v = self.versions.current
         if any(len(v.levels[j])
                for j in range(out_level + 1, self.cfg.max_levels)):
@@ -727,6 +765,12 @@ class LSMTree:
         inputs = list(v.levels[0])
         if not inputs:
             return
+        if self._mode(1) == "T":
+            # tiering: the merged L0 runs become one new run stacked on L1;
+            # nothing at L1 is consumed (the write saving)
+            self._run_merge(inputs, out_level=1, drop_in=[(0, inputs)],
+                            stacked=True)
+            return
         lo = min(s.min_key for s in inputs)
         hi = max(s.max_key for s in inputs)
         overlaps = [s for s in v.levels[1] if s.overlaps(lo, hi)]
@@ -734,13 +778,17 @@ class LSMTree:
                         drop_in=[(0, inputs), (1, overlaps)])
 
     def _compact_level_step(self, i: int) -> None:
-        """One step at level i: a round-robin victim file + its overlaps
-        below; a level holding overlapping runs merges whole."""
+        """One step at level i, shaped by the policy.  A leveled level of
+        one sorted run: a round-robin victim file and its overlaps below.
+        A tiered level, or a leveled one still holding stacked runs from a
+        migration: the whole level merged K-way into one run below, stacked
+        there if that level is tiered (and not the last), else folded into
+        its sorted run."""
         v = self.versions.current
         runs = list(v.levels[i])
         if not runs:
             return
-        if run_depth(runs) <= 1:
+        if not (self._mode(i) == "T" or run_depth(runs) > 1):
             victim = self._pick_victim(i)
             if victim is None:
                 return
@@ -748,6 +796,10 @@ class LSMTree:
                         if s.overlaps(victim.min_key, victim.max_key)]
             self._run_merge([victim] + overlaps, out_level=i + 1,
                             drop_in=[(i, [victim]), (i + 1, overlaps)])
+            return
+        if self._mode(i + 1) == "T" and i + 1 < self.cfg.max_levels - 1:
+            self._run_merge(runs, out_level=i + 1, drop_in=[(i, runs)],
+                            stacked=True)
             return
         lo = min(s.min_key for s in runs if s.n)
         hi = max(s.max_key for s in runs if s.n)
@@ -780,7 +832,10 @@ class LSMTree:
         return runs[cur]
 
     def _run_merge(self, inputs: List[SCT], out_level: int,
-                   drop_in: List[tuple]) -> None:
+                   drop_in: List[tuple], stacked: bool = False) -> None:
+        """K-way merge ``inputs`` into ``out_level``; ``stacked`` installs
+        the output as one new run prepended (newest first) at a tiered
+        level instead of folding it into the sorted layout."""
         res = merge_scts(
             inputs, out_level=out_level,
             is_bottom=self._merge_is_bottom(inputs, out_level),
@@ -796,7 +851,8 @@ class LSMTree:
         crashpoint("compact.before_manifest")
         self.versions.apply(VersionEdit(
             adds=[(out_level, s) for s in res.outputs],
-            drops=[(lvl, s.file_id) for lvl, gone in drop_in for s in gone]))
+            drops=[(lvl, s.file_id) for lvl, gone in drop_in for s in gone],
+            stacked=[out_level] if stacked else []))
         crashpoint("compact.after_manifest")
         # inputs leave the store only after the edit is logged: a crash in
         # between leaves orphans (collected on restore), never a dangling
@@ -1065,6 +1121,8 @@ class LSMTree:
             "level_bytes": [v.level_bytes(i) for i in range(self.cfg.max_levels)],
             "run_depths": [run_depth(l) for l in v.levels],
             "policy": self.policy.describe(),
+            "n_policy_switches": self.n_policy_switches,
+            "n_retunes": self.tuner.n_retunes if self.tuner else 0,
             "n_files": self.n_files,
             "disk_bytes": self.disk_bytes,
             "dict_bytes": self.dict_bytes,

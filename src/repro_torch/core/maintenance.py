@@ -16,9 +16,14 @@ two jobs are in flight:
                      is zero; on an 'opd' tree each merge unpacks its
                      inputs and remaps and packs its output with the
                      ``unpack_codes`` and ``remap_pack_codes`` kernels
-                     ('jax_packed').  When the debt reaches zero it calls
-                     the tree's retune hook (``_maybe_retune``), which does
-                     nothing until the policy tuner is ported.
+                     ('jax_packed').  The debt follows the tree's
+                     compaction policy (bytes over capacity at leveled
+                     levels, run depth past K-1 at tiered ones).  When the
+                     debt reaches zero it calls the tree's retune hook
+                     (``_maybe_retune``): a tree with
+                     ``policy_autotune`` lets its ``PolicyTuner`` refit the
+                     workload and switch the policy, off the writer's
+                     thread.
 
 The workers launch their kernels on the device's current stream of their
 own thread, the default stream, as the writer and the readers do, so every

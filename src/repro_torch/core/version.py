@@ -9,9 +9,14 @@ manifest log in the spill directory, so ``VersionSet.recover`` can replay
 the log over ``FileStore.restore`` and rebuild the exact tree shape a
 crashed process left behind.  L0 runs are newest first (adds prepend, the
 first-listed add ends up newest); L1+ runs are kept sorted by
-``min_key``; a replaced run keeps its position.  The stacked (tiered) edit
-is not ported yet (ROADMAP §1 policy), so no record carries a
-``"stacked"`` key, as the reference writes none for a leveled tree.
+``min_key``, except at a level an edit marks ``stacked`` (a tiered run):
+there the adds prepend as at L0 and the level is not re-sorted, so it may
+hold overlapping runs, newest first.  A replaced run keeps its position.
+The manifest records the stacked levels under ``"stacked"`` (only when
+there are some, so a leveled tree's records carry no such key), and the
+replay keeps the replayed order of every level that ever received a
+stacked add, as the reference's does: such a level is re-sorted by the
+live tree on its next leveled add, but not after a replay.
 
 A restored store holds each SCT as its spill record (host arrays):
 ``recover`` resolves the runs the manifest keeps through its ``load``
@@ -65,12 +70,16 @@ class Version:
                            for s in levels[lvl]]
         for lvl, fid in edit.drops:
             levels[lvl] = [s for s in levels[lvl] if s.file_id != fid]
-        adds0 = [s for lvl, s in edit.adds if lvl == 0]
-        levels[0] = list(reversed(adds0)) + levels[0]
+        stacked = set(edit.stacked) | {0}
+        for i in sorted(stacked):
+            adds_i = [s for lvl, s in edit.adds if lvl == i]
+            # stacked levels (L0, tiered L1+) prepend reversed(adds): the
+            # first-listed add ends up newest
+            levels[i] = list(reversed(adds_i)) + levels[i]
         for lvl, s in edit.adds:
-            if lvl:
+            if lvl not in stacked:
                 levels[lvl].append(s)
-        for i in {lvl for lvl, _ in edit.adds if lvl}:
+        for i in {lvl for lvl, _ in edit.adds} - stacked:
             levels[i].sort(key=lambda s: s.min_key)
         return Version(tuple(tuple(lvl) for lvl in levels), vid=vid)
 
@@ -81,19 +90,24 @@ class VersionEdit:
     (level, old file_id, new sct), an in-place swap that keeps the run's
     position (copy-on-write blob GC must not perturb L0's recency order);
     ``last_seqno`` the highest seqno this edit makes durable (manifest
-    replay restores the engine's seqno watermark from the running max)."""
+    replay restores the engine's seqno watermark from the running max);
+    ``stacked`` the levels whose adds in this edit are a stacked (tiered)
+    run: prepended newest first like L0's, the level not re-sorted."""
 
     adds: List[Tuple[int, SCT]] = dataclasses.field(default_factory=list)
     drops: List[Tuple[int, int]] = dataclasses.field(default_factory=list)
     replaces: List[Tuple[int, int, SCT]] = dataclasses.field(
         default_factory=list)
     last_seqno: Optional[int] = None
+    stacked: List[int] = dataclasses.field(default_factory=list)
 
     def record(self) -> Dict[str, object]:
         """The manifest line's object, keys in the reference's order."""
         rec: Dict[str, object] = {}
         if self.adds:
             rec["adds"] = [[lvl, s.file_id] for lvl, s in self.adds]
+        if self.stacked:
+            rec["stacked"] = [int(i) for i in self.stacked]
         if self.drops:
             rec["drops"] = [[lvl, fid] for lvl, fid in self.drops]
         if self.replaces:
@@ -150,13 +164,17 @@ class VersionSet:
         path = vs._manifest_path
         if path is None or not os.path.exists(path):
             return vs
-        fid_levels, last_seqno, vid = _replay(path, max_levels)
+        fid_levels, stacked_ever, last_seqno, vid = _replay(path,
+                                                            max_levels)
         load = load or store.payload
         levels = [[load(fid) for fid in lvl] for lvl in fid_levels]
         for i in range(1, max_levels):
-            # append order during replay is arbitrary; L1+ runs do not
-            # overlap, so a min_key sort restores the layout
-            levels[i].sort(key=lambda s: s.min_key)
+            # append order during replay is arbitrary; the runs of a level
+            # that never held a stacked run do not overlap, so a min_key
+            # sort restores the layout.  A level that did keeps its replay
+            # order (its recency layout), as the reference's replay does
+            if i not in stacked_ever:
+                levels[i].sort(key=lambda s: s.min_key)
         vs.current = Version(tuple(tuple(lvl) for lvl in levels), vid=vid)
         vs.last_seqno = last_seqno
         return vs
@@ -167,17 +185,20 @@ class VersionSet:
         return gc_orphan_scts(self.store, [self.current])
 
 
-def _replay(path: str, max_levels: int) -> Tuple[List[List[int]], int, int]:
+def _replay(path: str, max_levels: int
+            ) -> Tuple[List[List[int]], set, int, int]:
     """The manifest's edits over file ids only (an early add may name a
     file a later drop deleted from disk; payloads resolve afterwards, for
-    the runs that survive the whole log) -> (file ids per level, the seqno
-    watermark, the number of edits).  Walks byte offsets, not lines: a
+    the runs that survive the whole log) -> (file ids per level, the levels
+    that ever received a stacked add, L0 among them, the seqno watermark,
+    the number of edits).  Walks byte offsets, not lines: a
     crash mid-append leaves a torn final line (no newline, or garbage with
     nothing after it), which is dropped and truncated away so that later
     appends do not land on it; garbage with complete edits after it is
     not a torn tail and raises, because dropping those edits would bring
     back deleted files or lose installed ones."""
     fid_levels: List[List[int]] = [[] for _ in range(max_levels)]
+    stacked_ever = {0}
     last_seqno = vid = 0
     with open(path, "rb") as f:
         data = f.read()
@@ -213,15 +234,18 @@ def _replay(path: str, max_levels: int) -> Tuple[List[List[int]], int, int]:
         for lvl, fid in rec.get("drops", ()):
             fid_levels[lvl] = [f for f in fid_levels[lvl] if f != fid]
         adds = rec.get("adds", ())
-        adds0 = [fid for lvl, fid in adds if lvl == 0]
-        fid_levels[0] = list(reversed(adds0)) + fid_levels[0]
+        stacked = set(rec.get("stacked", ())) | {0}
+        stacked_ever |= stacked
+        for i in sorted(stacked):
+            adds_i = [fid for lvl, fid in adds if lvl == i]
+            fid_levels[i] = list(reversed(adds_i)) + fid_levels[i]
         for lvl, fid in adds:
-            if lvl:
+            if lvl not in stacked:
                 fid_levels[lvl].append(fid)
     if torn:
         with open(path, "r+b") as f:
             f.truncate(good)
-    return fid_levels, last_seqno, vid
+    return fid_levels, stacked_ever, last_seqno, vid
 
 
 def gc_orphan_scts(store: FileStore, versions: List[Version]) -> List[int]:

@@ -1340,3 +1340,67 @@ def test_background_tree_on_the_card_matches_a_sync_tree_on_the_cpu(card):
         ka, va = tree.range_lookup(0, 4000)
         kb, vb = sync.range_lookup(0, 4000)
         assert np.array_equal(ka, kb) and np.array_equal(va, vb)
+
+
+def test_tiered_tree_on_the_card_matches_the_cpu(card):
+    """A tiered tree on the card with two stacked runs at L1 (run depth 2):
+    'fused' ``filter_many`` reads the stacked level through
+    ``fused_zone_filter`` and equals the same tree on the CPU; a migration
+    to leveling then merges the whole level into L2 through
+    ``unpack_codes`` and ``remap_pack_codes``, and every SCT equals the
+    CPU's (the packed words by ``torch.equal``)."""
+    from repro_torch.core.sct import sct_to_arrays
+
+    cfg = T.LSMConfig(value_width=16, file_bytes=16 * 1024, l0_limit=2,
+                      size_ratio=3, compaction_policy="tiered", tier_runs=3)
+    preds = [T.Predicate("prefix", b"c00%d" % i) for i in range(8)] + [
+        T.Predicate("range", b"c005", b"c020")]
+    rng = np.random.default_rng(14)
+    batches = [(rng.integers(0, 4000, 900).astype(np.uint64),
+                np.asarray([b"c%03d_%05d" % (i % 37, i)
+                            for i in rng.integers(0, 900, 900)], "S16"),
+                rng.integers(0, 4000, 40).tolist()) for _ in range(2)]
+    trees = [T.LSMTree(cfg, device=dev) for dev in (card, "cpu")]
+    for tree in trees:
+        for keys, vals, dels in batches:
+            tree.put_batch(keys, vals)
+            for k in dels:
+                tree.delete(k)
+            tree.compact()
+
+    def same_trees():
+        ids = [[[s.file_id for s in lvl] for lvl in t.levels] for t in trees]
+        assert ids[0] == ids[1]
+        for a, b in zip(trees[0].all_runs(), trees[1].all_runs()):
+            assert a.packed.device.type == "cuda"
+            assert torch.equal(a.packed.cpu(), b.packed)
+            for f in ("code_lo", "code_hi", "weight_sums"):
+                assert torch.equal(getattr(a.blocks, f).cpu(),
+                                   getattr(b.blocks, f))
+            x, y = sct_to_arrays(a), sct_to_arrays(b)
+            for f in ("keys", "seqnos", "tombs", "opd_values", "bloom_words"):
+                assert np.array_equal(x[f], y[f]), f
+
+    def same_reads():
+        for a, b in zip(*(t.filter_many(preds) for t in trees)):
+            assert np.array_equal(a.keys, b.keys) and \
+                np.array_equal(a.values, b.values)
+        ka, va = trees[0].range_lookup(0, 4000)
+        kb, vb = trees[1].range_lookup(0, 4000)
+        assert np.array_equal(ka, kb) and np.array_equal(va, vb)
+
+    assert trees[0].shape_report()["run_depths"][1] == 2
+    same_trees()
+    ops.reset_launches()
+    same_reads()
+    assert ops.LAUNCHES["fused_zone_filter"] > 0
+    for tree in trees:
+        tree.set_policy(T.CompactionPolicy(kind="leveled"))
+        tree.compact()
+    assert ops.LAUNCHES["unpack_codes"] > 0
+    assert ops.LAUNCHES["remap_pack_codes"] > 0
+    rep = trees[0].shape_report()
+    assert rep["levels"][1] == 0 and rep["levels"][2] > 0
+    assert max(rep["run_depths"]) <= 1
+    same_trees()
+    same_reads()

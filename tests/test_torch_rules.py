@@ -7,11 +7,11 @@
   not carry on on the CPU.
 * A kernel wrapper handed tensors on the card launches its kernel or
   raises: it never falls back to its plain version.
-* Configuration values outside the ported slice (``codec='blob'`` among
-  them; 'plain' and 'heavy' are ported) raise ``ValueError`` naming their
-  ROADMAP item, and values the reference does not take (the
-  retired ``compaction_backend='packed'``, ``filter_backend='pallas'``)
-  raise naming the accepted ones; the compaction backends ``'numpy'`` and
+* Configuration values the reference does not take (the retired
+  ``compaction_backend='packed'``, ``filter_backend='pallas'``, an unknown
+  compaction policy, a level-mode vector with a letter other than 'L' and
+  'T') raise ``ValueError`` naming the accepted ones or, for the policy
+  fields, with the reference's message; the compaction backends ``'numpy'`` and
   ``'jax'`` build the same tree as ``'jax_packed'``, and the filter
   backends ``'jax_packed'``, ``'jax'`` and ``'numpy'`` build the same tree
   as ``'fused'``.
@@ -93,30 +93,22 @@ def test_default_device_is_the_card_and_missing_card_raises(monkeypatch):
 
 
 OTHER_VALUES = {"codec": "lz4", "filter_backend": "pallas",
-                "compaction_backend": "packed", "compaction_policy": "tiered",
-                "policy_autotune": True, "maintenance": "eager",
+                "compaction_backend": "packed", "compaction_policy": "nope",
+                "policy_autotune": "yes", "maintenance": "eager",
                 "wal_sync": "sometimes", "blob_compress": "zstd",
-                "level_modes": ("L", "T")}
+                "level_modes": ("L", "X")}
 
 
 @pytest.mark.parametrize("field", sorted(SUPPORTED))
 def test_unsupported_config_value_raises(field):
-    """An unported value names its ROADMAP item; where the port takes every
-    value of the reference, a value outside them names the accepted ones."""
-    accepted, item = SUPPORTED[field]
-    want = "ROADMAP" if item is not None else \
+    """A value outside an enumerated field's accepted ones names them;
+    ``level_modes`` is checked by ``make_policy`` with the reference's
+    message."""
+    accepted = SUPPORTED[field]
+    want = "bad level_modes" if accepted is None else \
         " or ".join(repr(v) for v in accepted)
     with pytest.raises(ValueError, match=re.escape(want)):
         T.LSMConfig(**{field: OTHER_VALUES[field]})
-
-
-@pytest.mark.parametrize("value,item", [
-    (("compaction_policy", "tiered"), "policy"),
-])
-def test_rejected_backend_names_its_kernel(value, item):
-    """A value that is not ported yet names its ROADMAP item."""
-    with pytest.raises(ValueError, match=item):
-        T.LSMConfig(**dict([value]))
 
 
 @pytest.mark.parametrize("codec", ["plain", "heavy"])
