@@ -163,13 +163,38 @@ Phases, each printing JSON lines:
             seconds, merges and compaction bytes (beside the codecs phase's
             leveled 'opd' tree), shape_report before and after the
             migration, the tuner's decisions and the launches.
-12. bench:   the kernel micro-bench's entry points
+12. sharded: the range-sharded engine (``repro_torch.shard``) in the main
+            configuration, every shard on the one card.  sharded.engine:
+            4 shards over [0, 4 n), 4 workers, the codecs phase's stream
+            (2^20 pairs, 2,048 deletes) through ``put_batch`` and
+            ``compact_all()``: filter_many (K=16), aggregate_many (the 6
+            specs, bucket edges resolved once over every shard), 8
+            range_lookup windows (2 across a shard boundary) and 1,024
+            gets equal to the host model, and a ``ScanServer`` on
+            'jax_packed' (16 scans, 2 aggregates) too.  sharded.splits: 2
+            shards with a spill directory, wal_sync='group' and a
+            ``RebalanceConfig`` (32 MiB, skew 1.5, at most 4 shards), 2^18
+            puts in put_batch calls of 2^16, 3/4 of the keys in the lowest
+            1/8 of the key space, a snapshot pinned after the first
+            quarter: at least one hot-shard split (``merge_scts`` under a
+            key range a half), the reads at the snapshot equal to the
+            model of that quarter and the current ones to the model of
+            the stream, then ``close()``, ``ShardedLSM.restore`` on the
+            card and the current reads again.  Each part resets the launch
+            counts before its ingest and reads them after its checks;
+            pack_codes, unpack_codes, remap_pack_codes, fused_zone_filter,
+            fused_zone_agg, zone_histogram and multi_range_filter_packed
+            must each launch in the phase.  Each part's line carries its
+            seconds, the shapes (shards, splits, boundaries, levels per
+            shard), its launches and the card; sharded.done the phase's
+            seconds.
+13. bench:   the kernel micro-bench's entry points
             (``benchmarks/bench_kernels.py``): range_filter_packed on 2^20
             codes at widths 8 and 16, bloom_probe on a 2^14-bit bloom and
             on the largest documented one (2,048 words, 2^20 keys, no false
             negative), ssm_scan at falcon-mamba-7b's width (d_inner 8192,
             d_state 16, 2,048 tokens), held against host models.
-13. kernels: each kernel against its plain PyTorch version on the card, on
+14. kernels: each kernel against its plain PyTorch version on the card, on
             operands recorded from the main path, the serve phases,
             agg.fast, compact.jax and fig5, and at bench's shapes
             (bit-identical required; ssm_scan within rtol = atol = 1e-4),
@@ -2058,6 +2083,230 @@ def policy_phase(args, recs, leveled: dict, device: str) -> None:
 
 
 # --------------------------------------------------------------------------- #
+# range sharding: a sharded engine on the card, a hot-shard split, restore
+# --------------------------------------------------------------------------- #
+SHARD_KERNELS = ("pack_codes", "unpack_codes", "remap_pack_codes",
+                 "fused_zone_filter", "fused_zone_agg", "zone_histogram",
+                 "multi_range_filter_packed")
+SPLIT_PAIRS = 1 << 18        # part (b)'s puts
+SPLIT_BATCH = 1 << 16        # pairs a put_batch call in part (b)
+SPLIT_THRESHOLD = 32 << 20   # ingest bytes since a shard's last split
+
+
+def shard_windows(space: int, boundaries) -> list:
+    """6 of ``read_plan``'s windows of 1/64 of the key space and 2 of that
+    width centred on the first and the last inner shard boundary."""
+    w = space // 64
+    windows = [(i * space // 8 + space // 32,
+                i * space // 8 + space // 32 + w - 1) for i in range(6)]
+    return windows + [(b - w // 2, b + w // 2 - 1)
+                      for b in (boundaries[0], boundaries[-2])]
+
+
+def shard_probe(rng, keys: np.ndarray, dels: np.ndarray, space: int):
+    """``PROBE_PARTS`` probe keys (present, deleted, missing) inside the
+    engine's key space: the router takes no key past ``key_max``."""
+    present, deleted, missing = PROBE_PARTS
+    pool = rng.integers(0, space, 4 * missing, dtype=np.uint64)
+    pool = pool[~np.isin(pool, keys)][:missing]
+    gone = dels[:deleted] if dels.shape[0] else np.zeros(0, np.uint64)
+    return np.concatenate([rng.choice(keys, present), gone, pool])
+
+
+def shard_shape(eng) -> dict:
+    rep = eng.shape_report()
+    return {"n_shards": rep["n_shards"], "n_splits": rep["n_splits"],
+            "boundaries": rep["boundaries"],
+            "levels": [s["levels"] for s in rep["per_shard"]],
+            "n_flushes": rep["n_flushes"],
+            "n_compactions": rep["n_compactions"],
+            "disk_bytes": rep["disk_bytes"]}
+
+
+def sharded_phase(args, recs, card: str, device: str) -> None:
+    """sharded: the range-sharded engine (``repro_torch.shard``) in the
+    main configuration, all shards on the one card.  (a) sharded.engine:
+    4 shards over [0, 4 n) with 4 workers take the codecs phase's stream
+    (``--codec-pairs`` pairs, 2,048 deletes) through ``put_batch`` and
+    ``compact_all()``; filter_many (K=16), aggregate_many (the 6 specs,
+    the bucket edges resolved once over every shard), 8 range_lookup
+    windows (2 across a shard boundary) and 1,024 gets must equal the host
+    model, and a ``ScanServer`` over the engine on 'jax_packed' (16 scans,
+    2 aggregates) too.  (b) sharded.splits: 2 shards with a spill
+    directory, ``wal_sync='group'`` and a ``RebalanceConfig`` (threshold
+    32 MiB, skew 1.5, at most 4 shards) take ``SPLIT_PAIRS`` puts in
+    ``put_batch`` calls of ``SPLIT_BATCH``, 3/4 of the keys in the lowest
+    1/8 of the key space, a snapshot pinned after the first quarter; at
+    least one split must run, the reads at the snapshot equal the model of
+    that quarter and the current ones the model of the stream; then
+    ``close()``, ``ShardedLSM.restore`` on the card and the current reads
+    again.  Each part resets the launch counts before its ingest and reads
+    them after its checks; over the phase, each of ``SHARD_KERNELS`` must
+    have launched."""
+    import dataclasses
+    import gc
+    import tempfile
+
+    import torch
+    from repro_torch import Predicate, ScanServer
+    from repro_torch.shard import RebalanceConfig, ShardedLSM
+
+    t_phase = time.perf_counter()
+    for r in recs.values():
+        r.active = False
+    cfg = main_config()
+    total = collections.Counter()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (a) 4 shards, the codecs phase's stream
+    rng = np.random.default_rng(args.seed + 3)
+    n = args.codec_pairs
+    stream = make_stream(rng, n, cfg.value_width)
+    keys, vocab, vidx, dels = stream
+    model = prefix_model(stream, n + dels.shape[0])
+    preds = make_preds(vocab)
+    space = 4 * n
+    eng = ShardedLSM(cfg, n_shards=4, key_max=space, n_workers=4,
+                     device=device)
+    windows = shard_windows(space, eng.router.uppers)
+    probe = shard_probe(np.random.default_rng(args.seed + 8), keys, dels,
+                        space)
+    line = {"phase": "sharded.engine", "card": card, "pairs": n,
+            "deletes": int(dels.shape[0]), "key_max": space,
+            "n_workers": 4, "reduced": "pairs 6.4e7 -> %.1e (the smoke's "
+            "time limit)" % n}
+
+    def engine_part():
+        out = {"ingest_s": ingest(eng, stream)}
+        _, out["compact_all_s"] = timed(eng.compact_all)
+        _, out["checks_s"] = durable_checks(
+            eng, model, preds, windows, probe, "sharded.engine")
+        fused_cfg = eng.cfg
+        packed_cfg = dataclasses.replace(fused_cfg,
+                                         filter_backend="jax_packed")
+        eng.cfg = packed_cfg
+        for t in eng.shards:
+            t.cfg = packed_cfg
+        srv = ScanServer(eng, max_batch=16)
+        rids = srv.submit_many([Predicate(*p) for p in preds])
+        aids = srv.submit_aggs(make_specs(SERVE_AGGS))
+        got, out["server_s"] = timed(srv.drain)
+        eng.cfg = fused_cfg
+        for t in eng.shards:
+            t.cfg = fused_cfg
+        check_filters([got[r] for r in rids], model, preds,
+                      "sharded.engine server")
+        check_aggs([got[r] for r in aids], vocab, model.state()[1],
+                   SERVE_AGGS, "sharded.engine server")
+        check(srv.stats.batch_sizes == [16, 2],
+              f"sharded.engine: server batches {srv.stats.batch_sizes}")
+        out["server_batches"] = srv.stats.batch_sizes
+        return out
+
+    t0 = time.perf_counter()
+    out, launches = launch_window(engine_part)
+    line.update(out)
+    line.update({"seconds": time.perf_counter() - t0, **shard_shape(eng),
+                 "agg_counts": agg_counts(eng),
+                 "windows": windows, "launches": launches})
+    check(eng.n_shards == 4 and all(s["levels"][0] == 0 for s in
+                                    eng.shape_report()["per_shard"]),
+          "sharded.engine: compact_all left L0 runs")
+    total.update(launches)
+    emit(line)
+    eng.close()
+    del eng
+    gc.collect()
+
+    # (b) 2 shards, a skewed stream, a split, a restore
+    rng = np.random.default_rng(args.seed + 9)
+    n = SPLIT_PAIRS
+    space = 4 * n
+    vocab = make_vocab(max(1, int(n * 0.01)), cfg.value_width, rng)
+    hot = rng.random(n) < 0.75
+    keys = np.where(hot, rng.integers(0, space // 8, n),
+                    rng.integers(0, space, n)).astype(np.uint64)
+    vidx = rng.integers(0, vocab.shape[0], n)
+    dels = np.zeros(0, np.uint64)
+    stream = (keys, vocab, vidx, dels)
+    preds = make_preds(vocab)
+    probe = shard_probe(np.random.default_rng(args.seed + 10), keys, dels,
+                        space)
+    wal_cfg = dataclasses.replace(cfg, wal_sync="group")
+    reb = RebalanceConfig(split_threshold_bytes=SPLIT_THRESHOLD,
+                          skew_factor=1.5, max_shards=4)
+    pin_at = n // 4
+    line = {"phase": "sharded.splits", "card": card, "pairs": n,
+            "batch": SPLIT_BATCH, "key_max": space, "hot_share": 0.75,
+            "hot_keys": space // 8, "wal_sync": wal_cfg.wal_sync,
+            "rebalance": dataclasses.asdict(reb), "pinned_after": pin_at,
+            "reduced": "pairs 6.4e7 -> %.1e (the smoke's time limit)" % n}
+
+    def split_part(spill):
+        out = {}
+        eng = ShardedLSM(wal_cfg, n_shards=2, key_max=space,
+                         rebalance=reb, spill_dir=spill, device=device)
+        snap = None
+        t0 = time.perf_counter()
+        for i in range(0, n, SPLIT_BATCH):
+            eng.put_batch(keys[i:i + SPLIT_BATCH],
+                          vocab[vidx[i:i + SPLIT_BATCH]])
+            if i + SPLIT_BATCH == pin_at:
+                snap = eng.snapshot()
+                out["splits_at_pin"] = eng.n_splits
+        torch.cuda.synchronize()
+        out["ingest_s"] = time.perf_counter() - t0
+        out.update(shard_shape(eng))
+        check(eng.n_splits >= 1, "sharded.splits: no split ran")
+        check(out["splits_at_pin"] < eng.n_splits,
+              f"sharded.splits: every split ({eng.n_splits}) ran before "
+              "the pin, so the pinned reads cross none")
+        win = shard_windows(space, eng.router.uppers)
+        out["windows"] = win
+        pinned = prefix_model(stream, pin_at)
+        now = prefix_model(stream, n)
+        _, out["snapshot_checks_s"] = durable_checks(
+            eng, pinned, preds, win, probe, "sharded.splits pinned",
+            snapshot=snap)
+        answers, out["checks_s"] = durable_checks(
+            eng, now, preds, win, probe, "sharded.splits")
+        del snap
+        eng.close()
+        back, out["restore_s"] = timed(
+            lambda: ShardedLSM.restore(wal_cfg, spill, device=device))
+        check(back.router.uppers == out["boundaries"],
+              "sharded.splits: restored boundaries differ")
+        out["wal_replayed"] = sum(t.wal_replayed for t in back.shards)
+        again, out["restored_checks_s"] = durable_checks(
+            back, now, preds, win, probe, "sharded.splits restored")
+        check(same_answers(answers, again),
+              "sharded.splits: answers moved across the restore")
+        back.close()
+        return out
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="sharded-") as spill:
+        out, launches = launch_window(lambda: split_part(spill))
+    line.update({**out, "seconds": time.perf_counter() - t0,
+                 "launches": launches})
+    total.update(launches)
+    emit(line)
+    gc.collect()
+    for kernel in SHARD_KERNELS:
+        check(total[kernel] > 0,
+              f"sharded: {kernel} never launched ({dict(total)})")
+    emit({"phase": "sharded.done", "card": card,
+          "seconds": time.perf_counter() - t_phase,
+          "launches": dict(total)})
+
+
+# --------------------------------------------------------------------------- #
 # the paper's Figure-5 pipeline: one planned range evaluated three ways
 # --------------------------------------------------------------------------- #
 def fig5_pipeline(tree, vocab: np.ndarray, preds, label: str) -> dict:
@@ -3275,6 +3524,7 @@ def main() -> int:
     durable_phase(args, "cuda")
     background_phase(args, recs, sync_ingest, "cuda")
     policy_phase(args, recs, sync_ingest, "cuda")
+    sharded_phase(args, recs, card, "cuda")
     bench_launches, bench = bench_phase(args)
     launches.update({k: bench_launches[k] for k in ("bloom_probe", "ssm_scan")})
     rows = kernel_phase(recs, launches, bw, bench, rates, log,

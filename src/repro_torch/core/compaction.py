@@ -72,9 +72,16 @@ def merge_scts(
     block_bytes: int = 4096,
     bloom_bits_per_key: int = 10,
     backend: str = "jax_packed",
+    key_range: Optional[Tuple[int, int]] = None,
 ) -> CompactionResult:
     """Merge ``inputs`` (one codec) into ``out_level``; 'blob' inputs need
-    their tree's ``blob_mgr``, whose garbage counts the merge updates."""
+    their tree's ``blob_mgr``, whose garbage counts the merge updates.
+    ``key_range`` (half-open ``[lo, hi)``) keeps only the keys inside it:
+    the shard split rebuilds each half of a tree with one such merge over
+    all of the tree's runs.  Entries outside the range belong to the
+    sibling merge, so they are neither counted (``n_in`` counts the
+    range's entries) nor dropped nor marked as blob garbage, and never
+    reach the remap: each half's dictionaries hold its own values."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown compaction backend {backend!r} (one of "
                          f"{', '.join(map(repr, BACKENDS))})")
@@ -108,6 +115,10 @@ def merge_scts(
         keep[1:] = keys[1:] != keys[:-1]   # newest version per key survives
         if is_bottom:
             keep &= ~tombs  # physical delete at the deepest level
+        if key_range is not None:
+            in_range = _range_mask(keys, key_range)
+            n_in = int(in_range.sum())  # only this half's entries count
+            keep &= in_range
         keys, seqnos, tombs = keys[keep], seqnos[keep], tombs[keep]
         srcs, idxs = srcs[keep], idxs[keep]
     n_out = int(keys.shape[0])
@@ -115,7 +126,7 @@ def merge_scts(
     blob = codec == "blob"
     if blob:
         assert blob_mgr is not None, "a 'blob' merge needs its blob_mgr"
-        _mark_blob_garbage(inputs, srcs, idxs, blob_mgr)
+        _mark_blob_garbage(inputs, srcs, idxs, blob_mgr, key_range)
     outputs: List[SCT] = []
     dict_compares = 0
     host = backend == "numpy"
@@ -260,17 +271,30 @@ def _gather(cols: List[np.ndarray], c_src: np.ndarray, c_idx: np.ndarray,
     return out
 
 
+def _range_mask(keys: np.ndarray, key_range: Tuple[int, int]) -> np.ndarray:
+    """Keys in the half-open ``[lo, hi)``; ``hi >= 2**64`` (the top shard's
+    unbounded range) is no uint64 and means no upper cap."""
+    lo, hi = key_range
+    mask = keys >= np.uint64(lo)
+    if hi < 2 ** 64:
+        mask &= keys < np.uint64(hi)
+    return mask
+
+
 def _mark_blob_garbage(inputs: List[SCT], srcs: np.ndarray, idxs: np.ndarray,
-                       blob_mgr: BlobManager) -> None:
+                       blob_mgr: BlobManager,
+                       key_range: Optional[Tuple[int, int]] = None) -> None:
     """Entries the merge dropped leave garbage in the logs they point into.
-    (The reference's ``key_range`` restriction, for its shard split, is not
-    ported.)"""
+    Under a ``key_range`` only the range's drops are garbage: the entries
+    outside it stay live in the sibling half's output."""
     starts = np.zeros(len(inputs) + 1, np.int64)
     np.cumsum([s.n for s in inputs], out=starts[1:])
     kept = np.zeros(int(starts[-1]), np.bool_)
     kept[starts[srcs] + idxs] = True
     for i, s in enumerate(inputs):
         dead = ~kept[starts[i]:starts[i + 1]] & (s.vfids >= 0)
+        if key_range is not None:
+            dead &= _range_mask(s.keys, key_range)
         if dead.any():
             fids, counts = np.unique(s.vfids[dead], return_counts=True)
             for fid, count in zip(fids.tolist(), counts.tolist()):

@@ -92,7 +92,7 @@ from repro_torch.core.sct import (CODECS, SCT, BlobManager, build_sct,
                                   record_disk_bytes, sct_from_arrays)
 from repro_torch.core.stats import StageStats
 from repro_torch.core.version import Version, VersionEdit, VersionSet
-from repro_torch.core.wal import OP_DELETE, OP_PUT, WALWriter
+from repro_torch.core.wal import OP_DELETE, OP_PUT, WALWriter, wal_prefix_for
 from repro_torch.query.executor import evaluate_aggregates
 from repro_torch.query.planner import collect_domain, resolve_specs
 from repro_torch.query.spec import (AggPartial, AggResult, AggSpec,
@@ -197,9 +197,15 @@ def resolve_device(device=None) -> torch.device:
 class LSMTree:
     def __init__(self, cfg: LSMConfig, spill_dir: Optional[str] = None,
                  device=None, store: Optional[FileStore] = None,
-                 scheduler: Optional[MaintenanceScheduler] = None):
+                 scheduler: Optional[MaintenanceScheduler] = None,
+                 blob_mgr: Optional[BlobManager] = None,
+                 manifest: Optional[str] = None):
         """``store`` replaces the tree's own ``FileStore(spill_dir)``
-        (``restore`` passes the restored one).  With
+        (``restore`` passes the restored one; the sharded engine one store
+        for all its shards) and ``blob_mgr`` a 'blob' tree's own manager.
+        ``manifest`` names the tree's manifest log in the store's spill
+        directory (shard trees sharing one need distinct names); its WAL
+        segments take a prefix derived from it (``wal_prefix_for``).  With
         ``cfg.maintenance='background'`` the tree registers with
         ``scheduler``, or with a scheduler of its own (closed by
         ``close``) where none is given; a caller's scheduler is the
@@ -209,20 +215,23 @@ class LSMTree:
         self.store = store if store is not None else FileStore(spill_dir)
         # 'blob' keeps its values in logs of the tree's store ('blob_compress'
         # is ignored by the other codecs, as in the reference)
-        self.blob_mgr: Optional[BlobManager] = (
-            BlobManager(self.store, cfg.value_width, cfg.blob_compress,
-                        cfg.blob_gc_threshold)
-            if cfg.codec == "blob" else None)
+        if blob_mgr is None and cfg.codec == "blob":
+            blob_mgr = BlobManager(self.store, cfg.value_width,
+                                   cfg.blob_compress, cfg.blob_gc_threshold)
+        self.blob_mgr: Optional[BlobManager] = blob_mgr
         self.memtable = MemTable(cfg.value_width, cfg.key_bytes)
-        self.versions = VersionSet(self.store, cfg.max_levels)
+        self.versions = VersionSet(self.store, cfg.max_levels,
+                                   manifest=manifest)
         # the write-ahead log: segments in the spill directory
         self.wal: Optional[WALWriter] = None
         self.wal_replayed = 0
         if cfg.wal_sync != "off":
             if not self.store.spill_dir:
                 raise ValueError("wal_sync requires a spill_dir-backed store")
-            self.wal = WALWriter(self.store.spill_dir, sync=cfg.wal_sync,
-                                 group_bytes=cfg.wal_group_bytes)
+            self.wal = WALWriter(
+                self.store.spill_dir,
+                prefix=wal_prefix_for(self.versions.manifest_name),
+                sync=cfg.wal_sync, group_bytes=cfg.wal_group_bytes)
         # frozen memtables not installed yet, newest first; a flush pops
         # the oldest once its version is installed
         self._immutables: List[MemTable] = []
@@ -317,8 +326,10 @@ class LSMTree:
     # ------------------------------------------------------------------ #
     @classmethod
     def restore(cls, cfg: LSMConfig, spill_dir: str, device=None,
-                scheduler: Optional[MaintenanceScheduler] = None
-                ) -> "LSMTree":
+                scheduler: Optional[MaintenanceScheduler] = None,
+                manifest: Optional[str] = None,
+                store: Optional[FileStore] = None,
+                gc_orphans: bool = True) -> "LSMTree":
         """Rebuild a tree after a crash or a restart: ``FileStore.restore``
         recovers the spilled files as host records, the manifest replay
         the tree shape and the seqno watermark, the runs it keeps are built
@@ -330,17 +341,26 @@ class LSMTree:
         the manifest's watermark, up to the first torn one, so every
         acknowledged write survives.  ``restore_stats`` times the stages
         ``store``, ``manifest`` (the replay), ``build`` and
-        ``wal_replay``.  ``scheduler`` is ``__init__``'s."""
+        ``wal_replay``.  ``scheduler`` and ``manifest`` are
+        ``__init__``'s.  A sharded restore passes the one ``store`` it
+        restored for all its shards (``store`` then times nothing) and
+        ``gc_orphans=False``: another shard's live files are not this
+        tree's orphans, so the engine collects over every shard's version
+        at once."""
         stats = StageStats()
         with stats.time("store"):
-            store = FileStore.restore(spill_dir)
-        tree = cls(cfg, device=device, store=store, scheduler=scheduler)
+            if store is None:
+                store = FileStore.restore(spill_dir)
+        tree = cls(cfg, device=device, store=store, scheduler=scheduler,
+                   manifest=manifest)
         tree.restore_stats = stats
         with stats.time("manifest"):
             tree.versions = VersionSet.recover(store, cfg.max_levels,
-                                               load=tree._build_spilled)
+                                               load=tree._build_spilled,
+                                               manifest=manifest)
         stats.seconds["manifest"] -= stats.seconds["build"]
-        tree.versions.gc_orphans()
+        if gc_orphans:
+            tree.versions.gc_orphans()
         tree._seqno = tree.versions.last_seqno
         if tree.blob_mgr is not None:
             live: Dict[int, int] = {}
@@ -374,8 +394,9 @@ class LSMTree:
         """Reopen the WAL and replay the records the manifest's watermark
         does not cover (a crash may have raced the flush's truncation)."""
         wal, records = WALWriter.restore(
-            self.store.spill_dir, sync=self.cfg.wal_sync,
-            group_bytes=self.cfg.wal_group_bytes)
+            self.store.spill_dir,
+            prefix=wal_prefix_for(self.versions.manifest_name),
+            sync=self.cfg.wal_sync, group_bytes=self.cfg.wal_group_bytes)
         self.wal = wal
         watermark = self.versions.last_seqno
         replayed = 0
@@ -678,10 +699,16 @@ class LSMTree:
         self.flush()
         if self._sched is not None:
             self._sched.drain([self])
+        self._force_compact_inline()
+        self._maybe_retune()
+
+    def _force_compact_inline(self) -> None:
+        """Fold L0 into L1 and cascade, inline.  A background caller drains
+        first, so no worker job compacts the tree beside it
+        (``ShardedLSM.compact_all``)."""
         if self.versions.current.levels[0]:
             self._compact_l0()
         self._cascade()
-        self._maybe_retune()
 
     def _maybe_retune(self) -> None:
         """The policy tuner's hook between compaction rounds (sync: the

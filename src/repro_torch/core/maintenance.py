@@ -2,8 +2,9 @@
 scheduler and graduated write throttling.
 
 Port of ``repro/core/maintenance.py``.  One ``MaintenanceScheduler`` may
-drive several trees on one ``ShardExecutor`` thread pool; per tree at most
-two jobs are in flight:
+drive several trees on one ``ShardExecutor`` thread pool (the sharded
+engine's shards, on the engine's pool); per tree at most two jobs are in
+flight:
 
   flush worker       drains the tree's queue of frozen memtables oldest
                      first (L0's recency order depends on it), installing
@@ -50,9 +51,10 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import List, Optional
+from typing import TYPE_CHECKING, List, Optional
 
-from repro_torch.shard.executor import ShardExecutor
+if TYPE_CHECKING:
+    from repro_torch.shard.executor import ShardExecutor
 
 THROTTLE_NONE = 0
 THROTTLE_SLOWDOWN = 1
@@ -65,9 +67,18 @@ class MaintenanceError(RuntimeError):
 
 
 class MaintenanceScheduler:
-    def __init__(self):
-        # one flush and one compaction worker: a tree's two jobs at once
-        self.executor = ShardExecutor(2)
+    def __init__(self, executor: Optional["ShardExecutor"] = None):
+        """``executor``: the pool the workers run on (the sharded engine
+        passes its own, so one pool serves its scans and every shard's
+        maintenance; ``close`` leaves a given pool open).  Without one the
+        scheduler owns a pool of two threads: one flush and one compaction
+        worker, a tree's two jobs at once."""
+        self._owns_executor = executor is None
+        if executor is None:
+            # imported here: the shard package imports the engine
+            from repro_torch.shard.executor import ShardExecutor
+            executor = ShardExecutor(2)
+        self.executor = executor
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._flush_inflight: set = set()     # id(tree)
@@ -84,6 +95,12 @@ class MaintenanceScheduler:
         with self._lock:
             if all(t is not tree for t in self._trees):
                 self._trees.append(tree)
+
+    def unregister(self, tree) -> None:
+        """Stop driving ``tree`` (a shard retired by a split); a job in
+        flight for it runs to its end."""
+        with self._lock:
+            self._trees = [t for t in self._trees if t is not tree]
 
     # ------------------------------------------------------------------ #
     # scheduling
@@ -238,8 +255,10 @@ class MaintenanceScheduler:
         self.check_errors()
 
     def close(self) -> None:
-        """Wait for the jobs in flight and stop the pool's threads."""
-        self.executor.close()
+        """Wait for the jobs in flight and stop the pool's threads, where
+        the pool is the scheduler's own."""
+        if self._owns_executor:
+            self.executor.close()
 
     def __enter__(self) -> "MaintenanceScheduler":
         return self

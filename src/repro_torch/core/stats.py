@@ -10,7 +10,8 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict, Iterator
+from typing import Dict, Iterable, Iterator
+
 
 class StageStats:
     def __init__(self) -> None:
@@ -28,6 +29,22 @@ class StageStats:
 
     def total(self) -> float:
         return sum(self.seconds.values())
+
+    def merged(self, other: "StageStats") -> "StageStats":
+        return StageStats.merge_all((self, other))
+
+    @staticmethod
+    def merge_all(many: Iterable["StageStats"]) -> "StageStats":
+        """Per-stage seconds and counts summed over components: the sharded
+        engine's report, one stage row over every shard tree and every
+        tree a split retired."""
+        out = StageStats()
+        for st in many:
+            for k, v in st.seconds.items():
+                out.seconds[k] += v
+            for k, v in st.counts.items():
+                out.counts[k] += v
+        return out
 
     def __repr__(self) -> str:
         parts = ", ".join(f"{k}={v * 1e3:.2f}ms"

@@ -125,13 +125,18 @@ class VersionSet:
 
     MANIFEST = "MANIFEST.log"
 
-    def __init__(self, store: FileStore, max_levels: int):
+    def __init__(self, store: FileStore, max_levels: int,
+                 manifest: Optional[str] = None):
+        """``manifest`` names the log inside the store's spill directory
+        (``MANIFEST`` by default); trees sharing one directory, the sharded
+        engine's shards, each take their own."""
         self.store = store
         self._lock = threading.Lock()
         self.current = Version.empty(max_levels)
         self.last_seqno = 0
+        self.manifest_name = manifest or self.MANIFEST
         self._manifest_path = (
-            os.path.join(store.spill_dir, self.MANIFEST)
+            os.path.join(store.spill_dir, self.manifest_name)
             if store.spill_dir else None)
 
     def apply(self, edit: VersionEdit) -> Version:
@@ -152,15 +157,15 @@ class VersionSet:
 
     @classmethod
     def recover(cls, store: FileStore, max_levels: int,
-                load: Optional[Callable[[int], SCT]] = None
-                ) -> "VersionSet":
-        """Replay the manifest over a restored store: rebuild the exact
-        tree shape (and seqno watermark) the logged edits describe, each
-        run the log keeps given by ``load(fid)`` (``store.payload`` by
-        default).  A torn final line (a crash mid-append) is dropped and
+                load: Optional[Callable[[int], SCT]] = None,
+                manifest: Optional[str] = None) -> "VersionSet":
+        """Replay the manifest (``manifest``, as in ``__init__``) over a
+        restored store: rebuild the exact tree shape (and seqno watermark)
+        the logged edits describe, each run the log keeps given by
+        ``load(fid)`` (``store.payload`` by default).  A torn final line (a crash mid-append) is dropped and
         physically truncated; corruption with more edits after it
         raises."""
-        vs = cls(store, max_levels)
+        vs = cls(store, max_levels, manifest=manifest)
         path = vs._manifest_path
         if path is None or not os.path.exists(path):
             return vs

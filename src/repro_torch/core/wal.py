@@ -80,6 +80,16 @@ _SEG_FMT = "{prefix}-{segno:08d}.wal"
 _SEG_RE = r"-(\d{8})\.wal$"
 
 
+def wal_prefix_for(manifest_name: str) -> str:
+    """Per-tree WAL file prefix, derived from the tree's manifest name
+    so shard trees sharing one spill dir never collide:
+    ``MANIFEST.log -> WAL``, ``MANIFEST-0007.log -> WAL-0007``."""
+    base = manifest_name.rsplit(".", 1)[0]
+    if base.startswith("MANIFEST"):
+        return "WAL" + base[len("MANIFEST"):]
+    return "WAL-" + base
+
+
 @dataclasses.dataclass(frozen=True)
 class WALRecord:
     op: int
@@ -258,6 +268,22 @@ class WALWriter:
                 else:
                     keep.append(seg)
             self._sealed = keep
+
+    def discard(self) -> None:
+        """Remove every segment file (a shard tree retired by a split:
+        its data was flushed and drained before the halves took over)."""
+        with self._lock:
+            if self._f is not None:
+                self._f.close()
+                self._f = None
+            for path in ([s.path for s in self._sealed]
+                         + ([self._path] if self._path else [])):
+                try:
+                    os.remove(path)
+                except FileNotFoundError:
+                    pass
+            self._sealed = []
+            self._path = None
 
     def close(self) -> None:
         """Planned shutdown: make the tail durable, keep the files (a

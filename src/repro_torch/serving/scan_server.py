@@ -1,8 +1,8 @@
 """Continuous-batching scan server over the LSM-OPD engine.
 
-Port of ``repro/serving/scan_server.py`` for one ``LSMTree``.  The server
-keeps up to ``max_batch`` request slots busy and drains them through the
-tree's batched calls: every scan slot of a batch rides one
+Port of ``repro/serving/scan_server.py``.  The server keeps up to
+``max_batch`` request slots busy and drains them through the engine's
+batched calls: every scan slot of a batch rides one
 ``LSMTree.filter_many`` (on 'jax_packed', one ``multi_range_filter_packed``
 launch per run, amortized over the batch) and every aggregate slot one
 ``aggregate_many``.
@@ -23,8 +23,12 @@ compacted tree.  Each step first raises a failed background worker as
 ``MaintenanceError``, and leaves the failure recorded for the tree's
 writer, whose next write raises it too.
 
-The reference also serves a ``ShardedLSM``; the shard layer is not ported
-yet (ROADMAP §1 scale-out), so the engine here is the port's ``LSMTree``.
+The engine is an ``LSMTree`` or a ``ShardedLSM``: both expose the same
+``snapshot`` / ``filter_many`` / ``aggregate_many`` surface.  Over a
+sharded engine each batch pins ONE cross-shard snapshot vector and rides
+one ``filter_many`` per shard (on 'jax_packed', one
+``multi_range_filter_packed`` launch per shard and run), so batching and
+sharding compose.
 """
 
 from __future__ import annotations
@@ -37,6 +41,10 @@ from repro_torch.core.filter_exec import FilterResult
 from repro_torch.core.lsm import LSMTree, Snapshot
 from repro_torch.core.opd import Predicate
 from repro_torch.query import AggResult, AggSpec
+from repro_torch.shard.sharded_lsm import ShardedLSM, ShardSnapshot
+
+ScanEngine = Union[LSMTree, ShardedLSM]
+AnySnapshot = Union[Snapshot, ShardSnapshot]
 
 
 @dataclasses.dataclass
@@ -75,7 +83,7 @@ class ScanServerStats:
 
 
 class ScanServer:
-    def __init__(self, tree: LSMTree, max_batch: int = 16,
+    def __init__(self, tree: ScanEngine, max_batch: int = 16,
                  maintenance: str = "background"):
         if max_batch < 1:
             raise ValueError(f"max_batch must be at least 1, got {max_batch}")
@@ -120,7 +128,7 @@ class ScanServer:
     # ------------------------------------------------------------------ #
     # server side
     # ------------------------------------------------------------------ #
-    def step(self, snapshot: Optional[Snapshot] = None
+    def step(self, snapshot: Optional[AnySnapshot] = None
              ) -> Dict[int, QueryResult]:
         """Fill up to ``max_batch`` slots from the queue and execute them
         as ONE batched filter and ONE batched aggregate, both against a

@@ -26,7 +26,7 @@ be exercised at several depths of the same workload.
 
 The reference's replication faults (its ``REPLICA_FAULT_SITES``, and the
 partition and lag kinds that ``inject`` / ``injected`` arm and query) come
-with the replicas (ROADMAP §1 scale-out).
+with the replicas (ROADMAP §1 item 4(b)).
 """
 
 from __future__ import annotations
@@ -37,8 +37,8 @@ import threading
 from typing import Dict, Iterator, Optional
 
 #: Every instrumented site, in rough write-path order; the reference's
-#: tuple, so a crash matrix names the same sites on both engines.  The
-#: port has no shard split yet, so nothing reaches ``split.before_table``.
+#: tuple, so a crash matrix names the same sites on both engines.
+#: ``split.before_table`` is reached by ``ShardedLSM``'s hot-shard split.
 CRASH_POINTS = (
     "wal.after_append",        # record in the segment file, fsync pending
     "wal.after_sync",          # fsync returned: the record is durable

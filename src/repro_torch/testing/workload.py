@@ -60,7 +60,8 @@ def mutations(ops: List[Op]) -> List[Op]:
 
 
 def apply_op(eng, op: Op) -> None:
-    """Apply one op to an LSMTree."""
+    """Apply one op to an LSMTree or a ShardedLSM (which compacts through
+    ``compact_all``)."""
     kind = op[0]
     if kind == "put":
         eng.put(op[1], op[2])
@@ -69,7 +70,10 @@ def apply_op(eng, op: Op) -> None:
     elif kind == "flush":
         eng.flush()
     elif kind == "compact":
-        eng.compact()
+        if hasattr(eng, "compact"):
+            eng.compact()
+        else:
+            eng.compact_all()
     else:  # pragma: no cover - generator bug
         raise ValueError(f"unknown op {op!r}")
 

@@ -1404,3 +1404,143 @@ def test_tiered_tree_on_the_card_matches_the_cpu(card):
     assert max(rep["run_depths"]) <= 1
     same_trees()
     same_reads()
+
+
+def _shard_stream(seed, n_batches=6, key_space=8000):
+    """Batches of puts skewed to the lowest eighth of the keys (so that a
+    rebalancing engine splits), with a few deletes each."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_batches):
+        keys = np.concatenate([
+            rng.integers(0, key_space // 8, 700),
+            rng.integers(0, key_space, 200)]).astype(np.uint64)
+        vals = np.asarray([b"c%03d_%05d" % (i % 37, i)
+                           for i in rng.integers(0, 900, 900)], "S16")
+        out.append((keys, vals, rng.integers(0, key_space, 30).tolist()))
+    return out
+
+
+def _shard_reads(eng, preds, key_space=8000):
+    aggs = [AggSpec("count"), AggSpec("sum"), AggSpec("min"),
+            # resolved edges: shared by every shard and tree shape
+            AggSpec("group_count", group=GroupBy(
+                "bucket", n_buckets=6,
+                edges=(b"c005", b"c012", b"c020", b"c027", b"c033"))),
+            AggSpec("group_count", group=GroupBy("prefix", prefix_len=3),
+                    top_k=5)]
+    got = [(r.keys.tolist(), r.values.tolist()) for r in eng.filter_many(preds)]
+    k, v = eng.range_lookup(0, key_space)
+    return (got, k.tolist(), v.tolist(),
+            [(r.count, r.total, r.min_value, r.groups)
+             for r in eng.aggregate_many(aggs)],
+            [eng.get(x) for x in range(0, key_space, 37)])
+
+
+SHARD_PREDS = [T.Predicate("prefix", b"c00%d" % i) for i in range(8)] + [
+    T.Predicate("range", b"c005", b"c020")]
+
+
+def test_sharded_engine_with_a_split_on_the_card(card):
+    """A 4-shard engine on the card that splits a hot shard, compacted:
+    every shard tree's runs on the card, its answers (filter_many, the
+    range scan, aggregates with one set of bucket edges for every shard,
+    gets) equal to a one-shard engine's of the same stream, and the
+    split's merges launched ``unpack_codes`` and ``remap_pack_codes``."""
+    from repro_torch.shard import RebalanceConfig, ShardedLSM
+
+    cfg = T.LSMConfig(value_width=16, file_bytes=16 * 1024, l0_limit=2,
+                      size_ratio=3)
+    reb = RebalanceConfig(split_threshold_bytes=64 * 1024, skew_factor=1.5,
+                          max_shards=5)
+    stream = _shard_stream(15)
+    with ShardedLSM(cfg, n_shards=4, key_max=8000, rebalance=reb,
+                    device=card) as eng, \
+            ShardedLSM(cfg, n_shards=1, key_max=8000, device=card) as one:
+        ops.reset_launches()
+        for keys, vals, dels in stream:
+            for e in (eng, one):
+                e.put_batch(keys, vals)
+                for k in dels:
+                    e.delete(k)
+        assert eng.n_splits == 1 and eng.n_shards == 5
+        assert ops.LAUNCHES["unpack_codes"] > 0
+        assert ops.LAUNCHES["remap_pack_codes"] > 0
+        for e in (eng, one):
+            e.compact_all()
+        assert all(s.packed.device.type == "cuda"
+                   for t in eng.shards for s in t.all_runs())
+        assert _shard_reads(eng, SHARD_PREDS) == _shard_reads(one, SHARD_PREDS)
+        assert ops.LAUNCHES["fused_zone_agg"] > 0
+        assert ops.LAUNCHES["zone_histogram"] > 0
+
+
+def test_background_sharded_engine_on_the_card_matches_sync(card):
+    """A background 4-shard engine on the card, one scheduler on its pool
+    for every shard: drained, it answers as its sync twin; its workers
+    launched the pack, unpack and remap kernels."""
+    from repro_torch.shard import ShardedLSM
+
+    kw = dict(value_width=16, file_bytes=16 * 1024, l0_limit=2,
+              size_ratio=3)
+    stream = _shard_stream(16)
+    ops.reset_launches()
+    with ShardedLSM(T.LSMConfig(maintenance="background", **kw),
+                    n_shards=4, key_max=8000, n_workers=4,
+                    device=card) as bg, \
+            ShardedLSM(T.LSMConfig(**kw), n_shards=4, key_max=8000,
+                       device=card) as sync:
+        assert all(t._sched is bg.scheduler for t in bg.shards)
+        for keys, vals, dels in stream:
+            for e in (bg, sync):
+                e.put_batch(keys, vals)
+                for k in dels:
+                    e.delete(k)
+        bg.flush()
+        sync.flush()
+        bg.drain(timeout=60)
+        assert bg.scheduler.n_bg_flushes > 0
+        assert bg.scheduler.n_bg_compactions > 0
+        for name in ("pack_codes", "unpack_codes", "remap_pack_codes"):
+            assert ops.LAUNCHES[name] > 0, name
+        assert _shard_reads(bg, SHARD_PREDS) == \
+            _shard_reads(sync, SHARD_PREDS)
+
+
+def test_sharded_restore_on_the_card(card, tmp_path):
+    """A spilled sharded engine on the card (WAL 'group', a split in the
+    stream), closed and ``ShardedLSM.restore``d on the card: the boundary
+    table, every shard's runs (the packed words by ``torch.equal`` on the
+    card) and the answers equal the engine's before the close."""
+    from repro_torch.shard import RebalanceConfig, ShardedLSM
+
+    cfg = T.LSMConfig(value_width=16, file_bytes=16 * 1024, l0_limit=2,
+                      size_ratio=3, wal_sync="group")
+    reb = RebalanceConfig(split_threshold_bytes=64 * 1024, skew_factor=1.5,
+                          max_shards=3)
+    eng = ShardedLSM(cfg, n_shards=2, key_max=8000, rebalance=reb,
+                     spill_dir=str(tmp_path), device=card)
+    for keys, vals, dels in _shard_stream(17):
+        eng.put_batch(keys, vals)
+        for k in dels:
+            eng.delete(k)
+    assert eng.n_splits == 1
+    want = _shard_reads(eng, SHARD_PREDS)
+    before = {s.file_id: s for t in eng.shards for s in t.all_runs()}
+    uppers = eng.router.uppers
+    eng.close()
+    back = ShardedLSM.restore(cfg, str(tmp_path), device=card)
+    try:
+        assert back.router.uppers == uppers
+        assert back.device.type == "cuda"
+        assert sum(t.wal_replayed for t in back.shards) > 0
+        for t in back.shards:
+            assert t.device.type == "cuda"
+            for s in t.all_runs():
+                assert s.packed.device.type == "cuda"
+                assert torch.equal(s.packed, before[s.file_id].packed)
+        ops.reset_launches()
+        assert _shard_reads(back, SHARD_PREDS) == want
+        assert ops.LAUNCHES["fused_zone_filter"] > 0
+    finally:
+        back.close()

@@ -71,6 +71,8 @@ def test_port_sources_import_neither_jax_nor_repro():
     "repro_torch.kernels.ssm_scan",
     "repro_torch.core.wal, repro_torch.storage, repro_torch.testing, "
     "repro_torch.testing.crash_driver, repro_torch.testing.workload",
+    "repro_torch.shard, repro_torch.shard.router, "
+    "repro_torch.shard.rebalance, repro_torch.shard.sharded_lsm",
 ])
 def test_importing_the_port_loads_neither_jax_nor_repro(modules):
     code = (f"import sys, {modules}\n"
