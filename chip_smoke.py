@@ -188,13 +188,41 @@ Phases, each printing JSON lines:
             seconds, the shapes (shards, splits, boundaries, levels per
             shard), its launches and the card; sharded.done the phase's
             seconds.
-13. bench:   the kernel micro-bench's entry points
+13. replica: a ``ReplicatedShard`` (``repro_torch.replica``) of the main
+            configuration with wal_sync='group': a leader and 2 followers
+            on the card, ReadPolicy(max_lag_seqnos=0), auto_pump off.
+            2^17 puts (``REPLICA_PAIRS``, seed + 11) in put_batch calls of
+            2^14, each followed by a pump() timed apart, link 2
+            partitioned for the middle four batches, then n / 512
+            deletes: every watermark at the head, link 2 blocked and
+            resumed once, every replica flushed on the card.  A routed
+            snapshot from a follower at lag 0: filter_many (K=16), 8
+            range_lookup windows, 1,024 gets and the 6 aggregate specs
+            equal to the host model, and a ScanServer batch.
+            kill_leader() + promote(best_follower()): nothing acknowledged
+            lost, EPOCH.json at epoch 2 with leader 1, downtime_ms from
+            the kill to the first routed snapshot, a server batch.
+            compact() on the new leader, the reads routed to the follower
+            and, with prefer_follower off, to the compacted leader (the
+            aggregates' fast path).  resync_follower(0) (LSMTree.restore
+            on the card), 2^14 more puts shipped, every replica equal to
+            the leader and to the model; close(), ReplicatedShard.restore
+            on the card at epoch 2 with leader 1, the reads again.  The
+            launch counts are reset before the ingest and read after the
+            checks: pack_codes, unpack_codes, remap_pack_codes,
+            fused_zone_filter, fused_zone_agg and zone_histogram must each
+            have launched, and the phase must end within 30 s.
+            replica.done carries the leader's ingest seconds and ops/s,
+            the shipping seconds, each follower's records applied, the
+            retention log, the downtime, the compact, resync and restore
+            seconds, the shapes and the launches.
+14. bench:   the kernel micro-bench's entry points
             (``benchmarks/bench_kernels.py``): range_filter_packed on 2^20
             codes at widths 8 and 16, bloom_probe on a 2^14-bit bloom and
             on the largest documented one (2,048 words, 2^20 keys, no false
             negative), ssm_scan at falcon-mamba-7b's width (d_inner 8192,
             d_state 16, 2,048 tokens), held against host models.
-14. kernels: each kernel against its plain PyTorch version on the card, on
+15. kernels: each kernel against its plain PyTorch version on the card, on
             operands recorded from the main path, the serve phases,
             agg.fast, compact.jax and fig5, and at bench's shapes
             (bit-identical required; ssm_scan within rtol = atol = 1e-4),
@@ -2307,6 +2335,237 @@ def sharded_phase(args, recs, card: str, device: str) -> None:
 
 
 # --------------------------------------------------------------------------- #
+# replication: a leader and two followers on the card, failover, resync
+# --------------------------------------------------------------------------- #
+REPLICA_KERNELS = ("pack_codes", "unpack_codes", "remap_pack_codes",
+                   "fused_zone_filter", "fused_zone_agg", "zone_histogram")
+REPLICA_PAIRS = 1 << 17      # 1.1 memtables of 32 MiB: one flush a replica
+REPLICA_BATCH = 1 << 14      # pairs a put_batch call, pumped after each
+REPLICA_LIMIT_S = 30.0       # the phase's own time limit
+
+
+def replica_phase(args, recs, card: str, device: str) -> None:
+    """replica: a ``ReplicatedShard`` (``repro_torch.replica``) of the main
+    configuration with ``wal_sync='group'``, a leader and 2 followers on
+    the one card in a temporary root, ``ReadPolicy(max_lag_seqnos=0)``,
+    ``auto_pump=False``.  ``REPLICA_PAIRS`` puts of the main phase's
+    generator (seed + 11) in ``put_batch`` calls of ``REPLICA_BATCH``, each
+    followed by a ``pump()`` timed apart, link 2 partitioned for the middle
+    four batches, then n / 512 deletes: every watermark reaches the head,
+    link 2 shows blocked pumps and one resume.  Reads (filter_many K=16, 8
+    range_lookup windows, 1,024 gets, the 6 aggregate specs) at a routed
+    snapshot must come from a follower at lag 0 and equal the host model,
+    and a ``ScanServer`` batch over the group too.  ``kill_leader()`` and
+    ``promote(best_follower())``: nothing acknowledged lost, the EPOCH file
+    at epoch 2 with leader 1, ``downtime_ms`` from the kill to the first
+    routed snapshot (``benchmarks/bench_replica.py``'s), a server batch
+    on the new epoch.  ``compact()`` on the new leader (its flush, then an
+    L0 -> L1 merge) and the reads again, routed to the follower and, under
+    ``ReadPolicy(prefer_follower=False)``, to the compacted leader (the
+    aggregates' fast path).  ``resync_follower(0)`` (a copy of the
+    leader's directory, ``LSMTree.restore`` on the card), ``REPLICA_BATCH``
+    more puts shipped to both followers, and every replica's reads equal to
+    the leader's and to the model.  ``close()``, ``ReplicatedShard.restore``
+    on the card: epoch 2, leader 1, the reads again.  The launch counts are
+    reset before the ingest and read after the checks: each of
+    ``REPLICA_KERNELS`` must have launched.  Cut from the harness's 6.4e7
+    pairs to ``REPLICA_PAIRS`` (the phase's 30 s): three replicas share one
+    card and one host, and the phase claims no scaling."""
+    import dataclasses
+    import gc
+    import json
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch import Predicate, ScanServer
+    from repro_torch.replica import EPOCH_FILE, ReadPolicy, ReplicatedShard
+
+    t_phase = time.perf_counter()
+    for r in recs.values():
+        r.active = False
+    cfg = dataclasses.replace(main_config(), wal_sync="group")
+    rng = np.random.default_rng(args.seed + 11)
+    n = REPLICA_PAIRS
+    stream = make_stream(rng, n, cfg.value_width)
+    keys, vocab, vidx, dels = stream
+    n_muts = n + dels.shape[0]
+    preds, windows, probe = read_plan(rng, stream)
+    extra_keys = rng.integers(0, 4 * n, REPLICA_BATCH, dtype=np.uint64)
+    extra_idx = rng.integers(0, vocab.shape[0], REPLICA_BATCH)
+    model = prefix_model(stream, n_muts)
+    policy = ReadPolicy(max_lag_seqnos=0)
+    on = torch.device(device).type
+    line = {"phase": "replica.done", "card": card, "pairs": n,
+            "deletes": int(dels.shape[0]), "batch": REPLICA_BATCH,
+            "n_followers": 2, "wal_sync": cfg.wal_sync,
+            "read_policy": dataclasses.asdict(policy),
+            "reduced": "pairs 6.4e7 -> %.1e (the phase's %.0f s; one flush "
+            "a replica)" % (n, REPLICA_LIMIT_S)}
+
+    def synced(fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def routed_checks(grp, label, want_follower=True):
+        snap = grp.snapshot()
+        check(snap.follower == want_follower and snap.lag == 0,
+              f"{label}: routed to replica {snap.replica} (follower "
+              f"{snap.follower}) at lag {snap.lag}")
+        got, dt = durable_checks(grp, model, preds, windows, probe, label,
+                                 snapshot=snap)
+        return got, dt, snap.replica
+
+    def serve(grp, label):
+        srv = ScanServer(grp, max_batch=16)
+        rids = srv.submit_many([Predicate(*p) for p in preds])
+        aids = srv.submit_aggs(make_specs(SERVE_AGGS))
+        got, dt = synced(srv.drain)
+        check_filters([got[r] for r in rids], model, preds, label)
+        check_aggs([got[r] for r in aids], vocab, model.state()[1],
+                   SERVE_AGGS, label)
+        check(srv.stats.batch_sizes == [16, 2],
+              f"{label}: server batches {srv.stats.batch_sizes}")
+        return dt
+
+    def part(root):
+        out = {}
+        grp = ReplicatedShard(cfg, root, n_followers=2, read_policy=policy,
+                              auto_pump=False, device=device)
+        ingest_s = ship_s = 0.0
+        n_batches = n // REPLICA_BATCH
+        for b, i in enumerate(range(0, n, REPLICA_BATCH)):
+            _, dt = synced(grp.put_batch, keys[i:i + REPLICA_BATCH],
+                           vocab[vidx[i:i + REPLICA_BATCH]])
+            ingest_s += dt
+            if b == n_batches // 2 - 2:
+                grp.links[2].partition()
+            _, dt = synced(grp.pump)
+            ship_s += dt
+            if b == n_batches // 2 + 1:
+                grp.links[2].heal()
+        t0 = time.perf_counter()
+        for k in dels.tolist():
+            grp.delete(k)
+        torch.cuda.synchronize()
+        ingest_s += time.perf_counter() - t0
+        _, dt = synced(grp.pump)
+        ship_s += dt
+        rep = grp.replication_report()
+        out.update({"ingest_s": ingest_s,
+                    "ingest_ops_per_s": n_muts / ingest_s, "ship_s": ship_s,
+                    "applied": {i: lk.shipped for i, lk in grp.links.items()},
+                    "links": rep["links"], "log_retained": rep["log_retained"],
+                    "log_floor": rep["log_floor"],
+                    "n_flushes": {i: t.n_flushes
+                                  for i, t in grp.replicas.items()}})
+        check(rep["head_seqno"] == n_muts and
+              set(rep["watermarks"].values()) == {n_muts},
+              f"replica: watermarks {rep['watermarks']} != head {n_muts}")
+        check(rep["links"][2]["blocked"] > 0 and
+              rep["links"][2]["resumes"] == 1,
+              f"replica: partitioned link 2 reports {rep['links'][2]}")
+        check(all(t.n_flushes >= 1 for t in grp.replicas.values()),
+              f"replica: a replica never flushed ({out['n_flushes']})")
+        # (2) a routed read at lag 0, and a server batch, before the kill
+        answers, out["follower_checks_s"], out["follower_read_by"] = \
+            routed_checks(grp, "replica.follower")
+        check(grp.read_stats.counts["read_lag_max"] == 0,
+              "replica: a follower read saw lag")
+        out["server_before_s"] = serve(grp, "replica.server before")
+        # (3) failover
+        t_kill = time.perf_counter()
+        out["killed"] = grp.kill_leader()
+        best = grp.best_follower()
+        w, out["promote_s"] = synced(grp.promote, best)
+        grp.snapshot()   # the first routed read on the new epoch
+        out["downtime_ms"] = (time.perf_counter() - t_kill) * 1e3
+        check(w == n_muts, f"replica: promote lost {n_muts - w} acked "
+              "mutations")
+        with open(os.path.join(root, EPOCH_FILE)) as f:
+            epoch = json.load(f)
+        check(epoch["epoch"] == 2 and epoch["leader"] == 1 == best,
+              f"replica: EPOCH {epoch}, best follower {best}")
+        out["epoch_file"] = epoch
+        out["server_after_s"] = serve(grp, "replica.server after")
+        # (4) the new leader compacts on the card
+        _, out["compact_s"] = synced(grp.compact)
+        lvl = grp.leader.shape_report()["levels"]
+        check(lvl[0] == 0 and lvl[1] > 0,
+              f"replica: the compacted leader holds levels {lvl}")
+        got, out["compacted_follower_checks_s"], _ = routed_checks(
+            grp, "replica.compacted follower")
+        check(same_answers(answers, got), "replica: answers moved across "
+              "the promote")
+        grp.read_policy = ReadPolicy(prefer_follower=False)
+        got, out["compacted_leader_checks_s"], _ = routed_checks(
+            grp, "replica.compacted leader", want_follower=False)
+        check(same_answers(answers, got), "replica: the compacted leader "
+              "answers otherwise")
+        grp.read_policy = policy
+        out["leader_agg_counts"] = agg_counts(grp.leader)
+        # (5) the old leader back through a snapshot resync, more writes
+        t, out["resync_s"] = synced(grp.resync_follower, 0)
+        check(all(s.packed.device.type == on for s in t.all_runs()),
+              "replica: the resynced follower's runs are not on the card")
+        grp.put_batch(extra_keys, vocab[extra_idx])
+        model.put(extra_keys, extra_idx)
+        _, out["ship_extra_s"] = synced(grp.pump)
+        head = grp.leader._seqno
+        check(head == n_muts + REPLICA_BATCH and all(
+            grp.replicas[i]._seqno == head for i in (0, 1, 2)),
+              f"replica: after the resync {grp.replication_report()}")
+        per = {}
+        for i in (1, 0, 2):
+            got, per[i] = durable_checks(grp.replicas[i], model, preds,
+                                         windows, probe, f"replica.r{i}")
+            if i == 1:
+                answers = got
+            check(same_answers(answers, got),
+                  f"replica: r{i} answers otherwise than the leader")
+        out["replica_checks_s"] = per
+        out["report"] = grp.replication_report()
+        out["levels"] = {i: t.shape_report()["levels"]
+                         for i, t in grp.replicas.items()}
+        # (6) the group closed and restored on the card
+        grp.close()
+        del grp
+        back, out["restore_s"] = synced(
+            lambda: ReplicatedShard.restore(cfg, root, read_policy=policy,
+                                            auto_pump=False, device=device))
+        check(back.epoch == 2 and back.leader_idx == 1 and
+              back.live_followers() == [0, 2],
+              f"replica: restored at epoch {back.epoch}, leader "
+              f"{back.leader_idx}, followers {back.live_followers()}")
+        check(all(s.packed.device.type == on
+                  for t in back.replicas.values() for s in t.all_runs()),
+              "replica: a restored run is not on the card")
+        got, out["restored_checks_s"], _ = routed_checks(
+            back, "replica.restored")
+        check(same_answers(answers, got),
+              "replica: answers moved across the group restore")
+        out["reads"] = dict(back.read_stats.counts)
+        back.close()
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="replica-") as root:
+        out, launches = launch_window(lambda: part(root))
+    gc.collect()
+    seconds = time.perf_counter() - t_phase
+    line.update({**out, "launches": launches, "seconds": seconds})
+    emit(line)
+    for kernel in REPLICA_KERNELS:
+        check(launches.get(kernel, 0) > 0,
+              f"replica: {kernel} never launched ({launches})")
+    check(seconds <= REPLICA_LIMIT_S,
+          f"replica: the phase took {seconds:.1f} s of its "
+          f"{REPLICA_LIMIT_S:.0f} s")
+
+
+# --------------------------------------------------------------------------- #
 # the paper's Figure-5 pipeline: one planned range evaluated three ways
 # --------------------------------------------------------------------------- #
 def fig5_pipeline(tree, vocab: np.ndarray, preds, label: str) -> dict:
@@ -3525,6 +3784,7 @@ def main() -> int:
     background_phase(args, recs, sync_ingest, "cuda")
     policy_phase(args, recs, sync_ingest, "cuda")
     sharded_phase(args, recs, card, "cuda")
+    replica_phase(args, recs, card, "cuda")
     bench_launches, bench = bench_phase(args)
     launches.update({k: bench_launches[k] for k in ("bloom_probe", "ssm_scan")})
     rows = kernel_phase(recs, launches, bw, bench, rates, log,

@@ -583,6 +583,51 @@ class LSMTree:
         if self._sched is not None:
             self._sched.check_errors(consume)
 
+    # ------------------------------------------------------------------ #
+    # replication apply (follower side; repro_torch.replica)
+    # ------------------------------------------------------------------ #
+    def replicate(self, records) -> int:
+        """Follower apply path: install the leader's WAL records through
+        this tree's own WAL, memtable, flush and compaction.
+
+        Seqnos come from the leader (a follower assigns none of its own),
+        so ``_seqno`` is the follower's contiguous applied watermark.
+        Records at or below it are skipped (a resume after a partition
+        re-ships from the watermark, and duplicates must be harmless); a
+        gap above it raises, since applying past a hole would break the
+        prefix every failover differential holds.  Each record sets
+        ``_applied`` as well, so a snapshot of the follower sees it.
+        Returns the number of records newly applied."""
+        applied = 0
+        for rec in records:
+            if rec.seqno <= self._seqno:
+                continue   # duplicate from a resume: already applied
+            if rec.seqno != self._seqno + 1:
+                raise ValueError(
+                    f"replication gap: applied through {self._seqno}, "
+                    f"next shipped record is {rec.seqno}")
+            self.raise_maintenance_errors()
+            crashpoint("apply.record")
+            if self.wal is not None:
+                self.wal.append(rec.op, rec.key, rec.seqno, rec.value)
+            if rec.op == OP_PUT:
+                self.ingest_bytes += (self.cfg.key_bytes + 8
+                                      + self.cfg.value_width)
+                self.memtable.put(rec.key, rec.value, rec.seqno)
+            elif rec.op == OP_DELETE:
+                self.ingest_bytes += self.cfg.key_bytes + 8
+                self.memtable.delete(rec.key, rec.seqno)
+            else:
+                raise ValueError(f"unknown WAL op {rec.op!r}")
+            self._seqno = self._applied = rec.seqno
+            applied += 1
+            self._after_write()
+        if applied and self.wal is not None:
+            # one group barrier per shipped batch: the follower's durable
+            # watermark (its promotion floor) advances with delivery
+            self.wal.sync()
+        return applied
+
     def _after_write(self) -> None:
         if self.memtable.approx_bytes >= self.cfg.mem_bytes:
             self._handle_full_memtable()

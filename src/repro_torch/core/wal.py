@@ -58,7 +58,7 @@ import re
 import struct
 import threading
 import zlib
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 from repro_torch.testing.crashpoints import crashpoint
 
@@ -156,6 +156,11 @@ class WALWriter:
         self._max_seq: Optional[int] = None  # highest seqno in active seg
         self._sealed: List[_Sealed] = []
         self._poisoned: Optional[BaseException] = None  # first fsync failure
+        # optional replication tap: called under the writer lock with every
+        # appended record, in seqno order.  The leader of a replicated
+        # group (repro_torch.replica) registers its retention log here, so
+        # the replication stream is the durability stream, bit for bit
+        self.tap: Optional[Callable[[int, int, int, bytes], None]] = None
         # cumulative, across segments
         self.durable_seqno = 0   # highest seqno covered by an fsync
         self.appends = 0
@@ -188,6 +193,8 @@ class WALWriter:
             self._max_seq = seqno
             self.appends += 1
             self.bytes_written += len(rec)
+            if self.tap is not None:
+                self.tap(op, seqno, key, value)
             crashpoint("wal.after_append")
             if self.mode == "every" or (
                     self._written - self._durable >= self.group_bytes):

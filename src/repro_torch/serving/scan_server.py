@@ -28,7 +28,10 @@ The engine is an ``LSMTree`` or a ``ShardedLSM``: both expose the same
 sharded engine each batch pins ONE cross-shard snapshot vector and rides
 one ``filter_many`` per shard (on 'jax_packed', one
 ``multi_range_filter_packed`` launch per shard and run), so batching and
-sharding compose.
+sharding compose.  Over a ``ReplicatedShard`` each batch pins one routed
+snapshot: the freshest follower within the group's read policy serves it,
+and a promote between batches re-points the same server to the new
+leader.
 """
 
 from __future__ import annotations
@@ -41,10 +44,11 @@ from repro_torch.core.filter_exec import FilterResult
 from repro_torch.core.lsm import LSMTree, Snapshot
 from repro_torch.core.opd import Predicate
 from repro_torch.query import AggResult, AggSpec
+from repro_torch.replica.replicated import ReplicaSnapshot, ReplicatedShard
 from repro_torch.shard.sharded_lsm import ShardedLSM, ShardSnapshot
 
-ScanEngine = Union[LSMTree, ShardedLSM]
-AnySnapshot = Union[Snapshot, ShardSnapshot]
+ScanEngine = Union[LSMTree, ShardedLSM, ReplicatedShard]
+AnySnapshot = Union[Snapshot, ShardSnapshot, ReplicaSnapshot]
 
 
 @dataclasses.dataclass

@@ -419,7 +419,10 @@ class ShardedLSM:
             for s in old_runs:
                 self.store.delete(s.file_id)
 
-    def _retire(self, tree: LSMTree) -> None:
+    def _fold(self, tree: LSMTree) -> None:
+        """Fold a tree leaving the engine into the engine's stage stats and
+        counters (so its reports stay monotonic) and unregister it from
+        the shared scheduler."""
         for name in _STAGE_STATS:
             self._engine_stages[name] = (
                 self._engine_stages[name].merged(getattr(tree, name)))
@@ -427,10 +430,31 @@ class ShardedLSM:
             self._retired_counts[c] += getattr(tree, c)
         if self.scheduler is not None:
             self.scheduler.unregister(tree)
+
+    def _retire(self, tree: LSMTree) -> None:
+        self._fold(tree)
         if tree.wal is not None:
             # the split flushed and drained the tree, so its WAL holds
             # nothing above the manifest's watermark: drop the segments
             tree.wal.discard()
+
+    def replace_shard(self, i: int, tree: LSMTree) -> LSMTree:
+        """Swap shard ``i``'s tree for ``tree`` and return the old one: the
+        serving-side failover hook (``repro_torch.replica``), which
+        re-points routing to a promoted follower without touching the
+        boundary table.
+
+        This is a routing swap in the process, not a durable change of
+        topology: the incoming tree keeps its own spill directory,
+        manifest and WAL (the replica group's EPOCH file owns that
+        durability), so ``SHARDS.json`` is not rewritten and the old
+        tree's WAL is not discarded (it may be a demoted leader whose
+        segments are its recovery record).  The old tree's stats fold into
+        the engine's, as across a split."""
+        old = self.shards[i]
+        self._fold(old)
+        self.shards[i] = tree
+        return old
 
     def raise_maintenance_errors(self, consume: bool = True) -> None:
         """Raise a background worker's failure as ``MaintenanceError``.

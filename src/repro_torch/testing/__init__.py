@@ -9,15 +9,27 @@ subprocess crash driver must be importable as
 from repro_torch.testing.crashpoints import (
     CRASH,
     CRASH_POINTS,
+    FAULT_KINDS,
+    FAULT_SITES,
+    FAULTS,
+    REPLICA_FAULT_SITES,
     CrashPointRegistry,
+    FaultRegistry,
     SimulatedCrash,
     crashpoint,
+    fault_at,
 )
 
 __all__ = [
     "CRASH",
     "CRASH_POINTS",
+    "FAULT_KINDS",
+    "FAULT_SITES",
+    "FAULTS",
+    "REPLICA_FAULT_SITES",
     "CrashPointRegistry",
+    "FaultRegistry",
     "SimulatedCrash",
     "crashpoint",
+    "fault_at",
 ]

@@ -1544,3 +1544,59 @@ def test_sharded_restore_on_the_card(card, tmp_path):
         assert ops.LAUNCHES["fused_zone_filter"] > 0
     finally:
         back.close()
+
+
+def test_replicated_group_on_the_card(card, tmp_path):
+    """A leader and 2 followers on the card (WAL 'group'): the followers'
+    flushes launch ``pack_codes`` while the leader's writes are shipped,
+    every follower answers as the leader; a kill, a promote and
+    ``compact()`` on the new leader launch ``unpack_codes`` and
+    ``remap_pack_codes``; the old leader resynced on the card and the
+    group restored on the card answer alike."""
+    from repro_torch.replica import ReadPolicy, ReplicatedShard
+
+    cfg = T.LSMConfig(value_width=16, memtable_bytes=32 * 1024,
+                      file_bytes=16 * 1024, l0_limit=2, size_ratio=3,
+                      wal_sync="group")
+    root = str(tmp_path)
+    grp = ReplicatedShard(cfg, root, n_followers=2, auto_pump=False,
+                          read_policy=ReadPolicy(max_lag_seqnos=0),
+                          device=card)
+    flushes = 0
+    for keys, vals, dels in _shard_stream(18):
+        grp.put_batch(keys, vals)
+        for k in dels:
+            grp.delete(k)
+        before = ops.LAUNCHES["pack_codes"]
+        grp.pump()
+        torch.cuda.synchronize()
+        flushes += ops.LAUNCHES["pack_codes"] - before
+    assert flushes > 0
+    assert all(t.n_flushes > 0 for t in grp.replicas.values())
+    assert all(s.packed.device.type == "cuda"
+               for t in grp.replicas.values() for s in t.all_runs())
+    want = _shard_reads(grp.leader, SHARD_PREDS)
+    for i in (1, 2):
+        assert _shard_reads(grp.replicas[i], SHARD_PREDS) == want
+    snap = grp.snapshot()
+    assert snap.follower and snap.lag == 0
+    grp.kill_leader()
+    assert grp.promote(grp.best_follower()) == grp.replicas[0]._seqno
+    ops.reset_launches()
+    grp.compact()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["unpack_codes"] > 0
+    assert ops.LAUNCHES["remap_pack_codes"] > 0
+    assert _shard_reads(grp.leader, SHARD_PREDS) == want
+    t = grp.resync_follower(0)
+    assert t.device.type == "cuda"
+    assert _shard_reads(t, SHARD_PREDS) == want
+    grp.close()
+    back = ReplicatedShard.restore(cfg, root, device=card)
+    try:
+        assert (back.epoch, back.leader_idx) == (2, 1)
+        assert all(t.device.type == "cuda" for t in back.replicas.values())
+        for t in back.replicas.values():
+            assert _shard_reads(t, SHARD_PREDS) == want
+    finally:
+        back.close()

@@ -73,6 +73,8 @@ def test_port_sources_import_neither_jax_nor_repro():
     "repro_torch.testing.crash_driver, repro_torch.testing.workload",
     "repro_torch.shard, repro_torch.shard.router, "
     "repro_torch.shard.rebalance, repro_torch.shard.sharded_lsm",
+    "repro_torch.replica, repro_torch.replica.link, "
+    "repro_torch.replica.replicated",
 ])
 def test_importing_the_port_loads_neither_jax_nor_repro(modules):
     code = (f"import sys, {modules}\n"
