@@ -216,13 +216,36 @@ Phases, each printing JSON lines:
             the shipping seconds, each follower's records applied, the
             retention log, the downtime, the compact, resync and restore
             seconds, the shapes and the launches.
-14. bench:   the kernel micro-bench's entry points
+14. lm:      the serve path of examples/htap_serve.py on the port.  A
+            TokenStore on the card (2^18 samples, meta_width 48, the five
+            domains of tests/test_pipeline.py, payloads of 64-256 token
+            ids, 1/16 then deleted or re-ingested): its flushes and
+            compactions must launch pack_codes, unpack_codes and
+            remap_pack_codes; select(prefix 'code/') for each of 4 ranks
+            equal to the host model, disjoint and complete, launching
+            fused_zone_filter; batches equal to the host model give the
+            prompts.  A PrefixCacheIndex on the card (2^14 prefixes of 32
+            tokens, two tenants, hot and cold tags, retags and evictions):
+            keys, lookups, scans and eviction candidates equal to a host
+            dictionary, the scans launching fused_zone_filter.  llama3-8b
+            at its published widths: 2 layers in float32 (TF32 off),
+            decode logits within 2e-4 of forward logits at 16 positions;
+            then 32 layers in bfloat16 drawn on the card from a seeded
+            generator, a ServingEngine (4 slots, max_seq 64) serving 8
+            requests of 16-token prompts and 16 new tokens, the first four
+            checked against forward and a teacher-forced decode replay.
+            lm.done carries the weights' GB, init seconds, peak memory,
+            the median decode-step ms beside its bound (weight bytes over
+            the card's bandwidth), a profiled step's device busy share,
+            tokens/s, the stores' figures and launches, the card and the
+            build's seconds; the phase within 60 s.
+15. bench:   the kernel micro-bench's entry points
             (``benchmarks/bench_kernels.py``): range_filter_packed on 2^20
             codes at widths 8 and 16, bloom_probe on a 2^14-bit bloom and
             on the largest documented one (2,048 words, 2^20 keys, no false
             negative), ssm_scan at falcon-mamba-7b's width (d_inner 8192,
             d_state 16, 2,048 tokens), held against host models.
-15. kernels: each kernel against its plain PyTorch version on the card, on
+16. kernels: each kernel against its plain PyTorch version on the card, on
             operands recorded from the main path, the serve phases,
             agg.fast, compact.jax and fig5, and at bench's shapes
             (bit-identical required; ssm_scan within rtol = atol = 1e-4),
@@ -2566,6 +2589,419 @@ def replica_phase(args, recs, card: str, device: str) -> None:
 
 
 # --------------------------------------------------------------------------- #
+# lm: the engine's two consumers feeding a dense LM served at full width
+# --------------------------------------------------------------------------- #
+LM_ARCH = "llama3-8b"
+LM_DOMAINS = (b"web/high", b"web/low", b"code/high", b"code/low",
+              b"math/high")                # tests/test_pipeline.py's
+LM_SAMPLES = 1 << 18         # TokenStore samples
+LM_PREFIXES = 1 << 14        # PrefixCacheIndex prefixes of LM_PREFIX_LEN
+LM_PREFIX_LEN = 32
+LM_DP = 4                    # data-parallel ranks of the selection
+LM_PROMPT, LM_NEW, LM_REQUESTS = 16, 16, 8
+LM_SLOTS, LM_MAX_SEQ = 4, 64
+LM_F32_LAYERS, LM_F32_TOL = 2, 2e-4   # tests/test_models_smoke.py's 2e-4
+# A served token must equal the forward's argmax wherever the forward's
+# top-two margin exceeds this (logits, bf16).  It is twice the largest
+# |decode - forward| logit difference a bf16 run may show, which the phase
+# measures on the same sequences and checks: bf16 rounds logits of 4-8 to
+# steps of 2^-5, and 32 layers of bf16 products add to that.
+LM_BF16_TOL = 0.5
+LM_LIMIT_S = 60.0
+# the store's flushes and compactions ('jax_packed')
+LM_INGEST_KERNELS = ("pack_codes", "unpack_codes", "remap_pack_codes")
+
+
+def np_splitmix64(x: np.ndarray) -> np.ndarray:
+    """splitmix64's finalizer over uint64, the host model of the stores'
+    key hash."""
+    x = np.asarray(x, np.uint64)
+    with np.errstate(over="ignore"):
+        x = x + np.uint64(0x9E3779B97F4A7C15)
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        return x ^ (x >> np.uint64(31))
+
+
+def lm_store_part(rng, vocab: int, device: str):
+    """A TokenStore on the card: LM_SAMPLES samples (payloads of 64-256
+    token ids), 1/16 of them then deleted or re-ingested; ``select`` per
+    rank and ``batches`` against the host model.  Returns (the line's
+    fields, the store's first batch of LM_DP rank 0: the prompts)."""
+    import torch
+    from repro_torch.core import Predicate
+    from repro_torch.pipeline import TokenStore
+
+    n = LM_SAMPLES
+    lens = rng.integers(64, 257, n)
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    flat = rng.integers(0, vocab, int(offs[-1])).astype(np.int32)
+    dom = rng.integers(0, len(LM_DOMAINS), n)
+    churn = rng.choice(n, n // 16, replace=False)
+    redo = rng.random(churn.shape[0]) < 0.5
+    new_dom = rng.integers(0, len(LM_DOMAINS), churn.shape[0])
+    new_src = rng.integers(0, n, churn.shape[0])
+    payload = {i: (offs[i], offs[i + 1]) for i in range(n)}
+    meta = dom.copy()
+    live = np.ones(n, bool)
+
+    store = TokenStore(device=device)
+
+    def ingest():
+        for i in range(n):
+            store.put_sample(i, flat[offs[i]:offs[i + 1]], LM_DOMAINS[dom[i]])
+        for j, i in enumerate(churn.tolist()):
+            if redo[j]:
+                s = int(new_src[j])
+                store.put_sample(i, flat[offs[s]:offs[s + 1]],
+                                 LM_DOMAINS[new_dom[j]])
+                payload[i] = (offs[s], offs[s + 1])
+                meta[i], live[i] = new_dom[j], True
+            else:
+                store.delete_sample(i)
+                payload.pop(i, None)
+                live[i] = False
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    _, ingest_launches = launch_window(ingest)
+    ingest_s = time.perf_counter() - t0
+    for kernel in LM_INGEST_KERNELS:
+        check(ingest_launches.get(kernel, 0) > 0,
+              f"lm.store: the ingest never launched {kernel} "
+              f"({ingest_launches})")
+    check(len(store) == int(live.sum()),
+          f"lm.store: {len(store)} samples, the model {int(live.sum())}")
+
+    ids = np.arange(n, dtype=np.uint64)
+    code = live & np.isin(meta, [2, 3])          # b"code/..." domains
+    owner = np_splitmix64(ids) % np.uint64(LM_DP)
+    pred = Predicate("prefix", b"code/")
+    t0 = time.perf_counter()
+    parts, sel = launch_window(
+        lambda: [store.select(pred, r, LM_DP) for r in range(LM_DP)])
+    torch.cuda.synchronize()
+    select_s = time.perf_counter() - t0
+    for r, got in enumerate(parts):
+        want = ids[code & (owner == np.uint64(r))]
+        check(got.dtype == np.uint64 and np.array_equal(got, want),
+              f"lm.store: rank {r} selected {got.shape[0]} keys, the model "
+              f"{want.shape[0]}")
+    union = np.concatenate(parts)
+    check(np.unique(union).shape[0] == union.shape[0] == int(code.sum()),
+          "lm.store: the ranks' selections are not disjoint and complete")
+    check(sel.get("fused_zone_filter", 0) > 0,
+          f"lm.store: select launched no fused_zone_filter ({sel})")
+
+    batch = next(store.batches(pred, LM_REQUESTS, LM_PROMPT, dp_rank=0,
+                               dp_size=LM_DP, seed=1))
+    keys = parts[0].copy()
+    np.random.default_rng(1).shuffle(keys)
+    need = LM_REQUESTS * (LM_PROMPT + 1)
+    stream, total = [], 0
+    for k in keys.tolist():
+        a, b = payload[k]
+        stream.append(flat[a:b])
+        total += b - a
+        if total >= need:
+            break
+    block = np.concatenate(stream)[:need].reshape(LM_REQUESTS, LM_PROMPT + 1)
+    check(np.array_equal(batch["tokens"], block[:, :-1]) and
+          np.array_equal(batch["labels"], block[:, 1:]),
+          "lm.store: batches differ from the host model")
+    fields = {"samples": n, "churn": int(churn.shape[0]),
+              "deleted": int((~redo).sum()), "store_ingest_s": ingest_s,
+              "store_select_s": select_s,
+              "selected": [int(p.shape[0]) for p in parts],
+              "store_flushes": store.lsm.n_flushes,
+              "store_compactions": store.lsm.n_compactions,
+              "store_levels": store.lsm.shape_report()["levels"],
+              "store_ingest_launches": ingest_launches,
+              "store_select_launches": sel}
+    return fields, batch["tokens"]
+
+
+def lm_prefix_part(rng, vocab: int, device: str) -> dict:
+    """A PrefixCacheIndex on the card: LM_PREFIXES prefixes, two tenants,
+    hot and cold tags; lookups, retags, evictions, ``scan`` and
+    ``eviction_candidates`` against a host dictionary."""
+    import torch
+    from repro_torch.core import Predicate
+    from repro_torch.serving.prefix_cache import PrefixCacheIndex
+
+    n = LM_PREFIXES
+    prompts = rng.integers(0, vocab, (n, LM_PREFIX_LEN))
+    h = np.full(n, 0xCBF29CE484222325, np.uint64)
+    for t in range(LM_PREFIX_LEN):
+        h = np_splitmix64(h ^ prompts[:, t].astype(np.uint64))
+    tags = [b"tenantA/hot", b"tenantA/cold", b"tenantB/hot", b"tenantB/cold"]
+    tag = rng.integers(0, 4, n)
+    idx = PrefixCacheIndex(device=device)
+    t0 = time.perf_counter()
+    for i in range(n):
+        k = idx.admit(prompts[i], [2 * i, 2 * i + 1], tags[tag[i]])
+        check(k == int(h[i]), f"lm.prefix: key of prefix {i} is {k}, the "
+              f"host model's {int(h[i])}")
+    admit_s = time.perf_counter() - t0
+    demote = rng.choice(np.flatnonzero(tag % 2 == 0), 256, replace=False)
+    for i in demote.tolist():
+        idx.retag(prompts[i], tags[tag[i] + 1])
+        tag[i] += 1
+    evicted = rng.choice(n, 512, replace=False)
+    idx.evict_prefixes(list(prompts[evicted]))
+    live = np.ones(n, bool)
+    live[evicted] = False
+
+    t0 = time.perf_counter()
+    for i in rng.choice(n, 1024, replace=False).tolist():
+        want = (tags[tag[i]], [2 * i, 2 * i + 1]) if live[i] else None
+        check(idx.lookup(prompts[i]) == want, f"lm.prefix: lookup {i}")
+    check(idx.lookup(rng.integers(0, vocab, LM_PREFIX_LEN)) is None,
+          "lm.prefix: an unknown prefix was found")
+    lookup_s = time.perf_counter() - t0
+
+    def window():
+        got = {}
+        for pre in (b"tenantA/", b"tenantB/hot"):
+            got[pre] = idx.scan(Predicate("prefix", pre))
+        got["cold"] = idx.eviction_candidates(b"tenantA/cold")
+        return got
+
+    t0 = time.perf_counter()
+    got, launches = launch_window(window)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    name = np.asarray([t.decode() for t in tags])[tag]
+    for pre in (b"tenantA/", b"tenantB/hot"):
+        want = np.sort(h[live & np.char.startswith(name, pre.decode())])
+        check(np.array_equal(got[pre], want),
+              f"lm.prefix: scan {pre!r} found {got[pre].shape[0]}, the "
+              f"host model {want.shape[0]}")
+    cold = live & (name == "tenantA/cold")
+    order = np.argsort(h[cold])
+    want = [[2 * i, 2 * i + 1] for i in np.flatnonzero(cold)[order].tolist()]
+    check(got["cold"] == want, "lm.prefix: eviction candidates differ")
+    check(launches.get("fused_zone_filter", 0) > 0,
+          f"lm.prefix: the scans launched no fused_zone_filter ({launches})")
+    stats = idx.stats
+    check(stats["prefixes"] == int(live.sum()), f"lm.prefix: {stats}")
+    return {"prefixes": n, "retagged": int(demote.shape[0]),
+            "evicted": int(evicted.shape[0]), "prefix_admit_s": admit_s,
+            "prefix_lookup_s": lookup_s, "prefix_scan_s": scan_s,
+            "prefix_flushes": idx.lsm.n_flushes, "prefix_stats": stats,
+            "prefix_scan_launches": launches}
+
+
+def lm_f32_check(cfg, seed: int, device: str) -> dict:
+    """LM_F32_LAYERS layers at the published widths in float32 (TF32 off):
+    decode logits against forward logits at every position of a 16-token
+    sequence, within the reference test's LM_F32_TOL."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import build_model, transformer
+
+    cfg32 = dataclasses.replace(cfg, n_layers=LM_F32_LAYERS, dtype="float32")
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        model = build_model(cfg32)
+        params = model.init(torch.Generator(device=device).manual_seed(seed),
+                            device=device)
+        tok = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab, (2, LM_PROMPT))).to(device)
+        with torch.inference_mode():
+            full, _ = transformer.forward(params, tok, cfg32)
+            cache = model.init_cache(2, LM_PROMPT, device=device)
+            worst, err = 0.0, 0.0
+            for t in range(LM_PROMPT):
+                lg, cache = model.decode_step(params, cache, tok[:, t:t + 1], t)
+                diff = (lg - full[:, t]).abs()
+                err = max(err, float(diff.max()))
+                worst = max(worst, float((diff - LM_F32_TOL * full[:, t].abs())
+                                         .max()))
+    finally:
+        torch.set_float32_matmul_precision(precision)
+    check(worst <= LM_F32_TOL,
+          f"lm.f32: decode and forward logits differ by {err} (past "
+          f"rtol = atol = {LM_F32_TOL})")
+    out = {"f32_layers": LM_F32_LAYERS, "f32_positions": LM_PROMPT,
+           "f32_max_abs_err": err, "f32_tol": LM_F32_TOL,
+           "f32_logit_max": float(full.abs().max())}
+    del params, full, cache
+    return out
+
+
+def lm_phase(args, recs, card: str, device: str, bw: float,
+             build_s: float) -> None:
+    """lm: the serve path of ``examples/htap_serve.py`` on the port: an
+    LSM-OPD store whose selection scans run on packed codes feeds prompts
+    to a served LM.  (1) A ``TokenStore`` on the card (LM_SAMPLES samples,
+    ``meta_width`` 48, the five domains of tests/test_pipeline.py,
+    payloads of 64-256 token ids, 1/16 deleted or re-ingested): its
+    flushes and compactions launch pack, unpack and remap-pack;
+    ``select(prefix 'code/')`` for each of LM_DP ranks equal to the host
+    model, disjoint and complete, launching ``fused_zone_filter``;
+    ``batches`` (rank 0) equal to the host model gives the prompts.  (2) A
+    ``PrefixCacheIndex`` on the card (LM_PREFIXES prefixes of 32 tokens,
+    two tenants, hot and cold tags, 256 demoted, 512 evicted): every key
+    equal to the host hash, 1,024 lookups, the scans and
+    ``eviction_candidates`` equal to a host dictionary, the scans
+    launching ``fused_zone_filter``.  (3) llama3-8b at its published
+    widths: LM_F32_LAYERS layers in float32 with decode logits against
+    forward logits within 2e-4; then all 32 layers in bfloat16, drawn on
+    the card from a seeded generator one leaf at a time, served by
+    ``ServingEngine(batch_size=4, max_seq=64)``: 8 requests of 16-token
+    prompts, 16 new tokens each.  The four requests served from pos 0 in
+    fresh slots are rerun through ``forward`` on prompt + output and
+    through teacher-forced ``decode_step`` (the same computation as the
+    served one, whose argmax must give every served token): their largest
+    logit difference must stay within half LM_BF16_TOL, and every served
+    token must equal the forward's argmax wherever the forward's top-two
+    margin exceeds LM_BF16_TOL; positions under the margin are counted.
+    One more decode step runs under torch.profiler (the card's busy share).  lm.done carries the weights' GB, init
+    seconds, the peak allocated memory, the median decode-step ms beside
+    the step's bound (weight bytes over the card's bandwidth), tokens/s,
+    the requests served, the launches of the store and prefix parts, the
+    card and the build's seconds; the phase within LM_LIMIT_S."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, transformer
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    t_phase = time.perf_counter()
+    for r in recs.values():
+        r.active = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    cfg = get_config(LM_ARCH)
+    rng = np.random.default_rng(args.seed + 12)
+    line = {"phase": "lm.done", "card": card, "arch": LM_ARCH,
+            "build_s": build_s, "held_before_gb": held_gb,
+            "reduced": f"depth 32 kept; {LM_F32_LAYERS} of 32 layers for "
+            "the float32 check; random weights (the repository holds none)"}
+
+    store_fields, prompts = lm_store_part(rng, cfg.vocab, device)
+    line.update(store_fields)
+    line.update(lm_prefix_part(rng, cfg.vocab, device))
+    line.update(lm_f32_check(cfg, args.seed + 13, device))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device)
+                        .manual_seed(args.seed + 14), device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    want = sum(int(np.prod(s)) for s in transformer.leaf_shapes(cfg).values())
+    check(n_params == want, f"lm: {n_params} parameters, the model's "
+          f"leaves hold {want}")
+    on = torch.device(device).type
+    check(all(p.dtype == torch.bfloat16 and p.device.type == on
+              for p in params.parameters()),
+          "lm: a weight is not bf16 on the card")
+
+    engine = ServingEngine(cfg, params, batch_size=LM_SLOTS,
+                           max_seq=LM_MAX_SEQ, device=device)
+    step_s = []
+    decode = engine.model.decode_step
+
+    def timed_step(*a):
+        t = time.perf_counter()
+        out = decode(*a)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    engine.model.decode_step = timed_step
+    reqs = [Request(rid=i, prompt=prompts[i].astype(np.int32),
+                    max_new_tokens=LM_NEW) for i in range(LM_REQUESTS)]
+    t0 = time.perf_counter()
+    served = engine.run(reqs)
+    serve_s = time.perf_counter() - t0
+    engine.model.decode_step = decode
+    check(sorted(served) == list(range(LM_REQUESTS)) and
+          all(len(v) == LM_NEW for v in served.values()),
+          f"lm: served {({k: len(v) for k, v in served.items()})}")
+    check(all(0 <= t < cfg.padded_vocab for v in served.values() for t in v),
+          "lm: a served token lies outside the padded vocabulary")
+
+    # the first LM_SLOTS requests ran from pos 0 in fresh slots
+    seq = np.stack([np.concatenate([prompts[i], served[i]])
+                    for i in range(LM_SLOTS)])
+    tok = torch.from_numpy(seq).to(device)
+    n_pos = seq.shape[1] - 1
+    with torch.inference_mode():
+        full = transformer.forward(params, tok, cfg)[0][:, :n_pos].float()
+        cache = model.init_cache(LM_SLOTS, LM_MAX_SEQ, device=device)
+        steps = []
+        for t in range(n_pos):
+            lg, cache = model.decode_step(params, cache, tok[:, t:t + 1], t)
+            steps.append(lg.float())
+        replay = torch.stack(steps, 1)
+        bf16_err = float((replay - full).abs().max())
+        replay = replay[:, LM_PROMPT - 1:].argmax(-1).cpu().numpy()
+        top2 = full[:, LM_PROMPT - 1:].topk(2, dim=-1)
+        margin = (top2.values[..., 0] - top2.values[..., 1]).cpu().numpy()
+        argmax = top2.indices[..., 0].cpu().numpy()
+        # one more step, profiled: the card's share of a decode step
+        profiled = device_busy(lambda: model.decode_step(
+            params, cache, tok[:, n_pos:], n_pos), top=8)
+    out = seq[:, LM_PROMPT:]
+    clear = margin > LM_BF16_TOL
+    mismatch = int(((out != argmax) & clear).sum())
+    del full, cache, steps, params, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gen_tokens = sum(len(v) for v in served.values())
+    step_ms = statistics.median(step_s) * 1e3
+    seconds = time.perf_counter() - t_phase
+    line.update({
+        "layers": cfg.n_layers, "d_model": cfg.d_model, "heads": cfg.n_heads,
+        "kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+        "dtype": cfg.dtype, "params": n_params,
+        "param_count_without_norms": cfg.param_count()[0],
+        "weights_gb": weight_bytes / 1e9, "init_s": init_s,
+        "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "requests": len(served), "slots": LM_SLOTS, "max_seq": LM_MAX_SEQ,
+        "decode_steps": len(step_s), "serve_s": serve_s,
+        "decode_step_ms_median": step_ms,
+        "decode_step_ms_min": min(step_s) * 1e3,
+        "decode_step_bound_ms": weight_bytes / bw * 1e3,
+        "bandwidth_Bps": bw, "tokens_generated": gen_tokens,
+        "tokens_per_s": gen_tokens / serve_s,
+        "bf16_decode_vs_forward_max_abs": bf16_err,
+        "bf16_margin_tol": LM_BF16_TOL,
+        "checked_positions": int(clear.sum()),
+        "positions_under_margin": int((~clear).sum()),
+        "mismatches_under_margin": int(((out != argmax) & ~clear).sum()),
+        "top2_margin_quantiles": np.quantile(margin, [0.1, 0.5, 0.9]).tolist(),
+        "replay_mismatches": int((out != replay).sum()),
+        "decode_step_profiled": profiled,
+        "seconds": seconds})
+    emit(line)
+    check(np.array_equal(out, replay), "lm: served tokens differ from a "
+          "teacher-forced replay of the same decode steps")
+    check(bf16_err <= LM_BF16_TOL / 2,
+          f"lm: bf16 decode and forward logits differ by {bf16_err}, past "
+          f"half the margin tolerance {LM_BF16_TOL}")
+    check(mismatch == 0, f"lm: {mismatch} served tokens differ from the "
+          f"forward's argmax where its margin exceeds {LM_BF16_TOL}")
+    check(seconds <= LM_LIMIT_S,
+          f"lm: the phase took {seconds:.1f} s of its {LM_LIMIT_S:.0f} s")
+
+
+# --------------------------------------------------------------------------- #
 # the paper's Figure-5 pipeline: one planned range evaluated three ways
 # --------------------------------------------------------------------------- #
 def fig5_pipeline(tree, vocab: np.ndarray, preds, label: str) -> dict:
@@ -2921,10 +3357,16 @@ def event_median_ms(fn, inner: int, reps: int = 21, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_busy(fn) -> dict:
+def device_busy(fn, top: int = 0) -> dict:
     """Wall seconds of one call and the seconds the card spent in kernels
-    during it (torch.profiler's CUDA activity, summed per kernel)."""
+    during it: torch.profiler's device-side events, as its own table totals
+    them.  A host event carries the time of the kernels it launched as
+    well, so the sum over every event (``all_events_device_s``, kept for
+    comparison with figures taken that way) counts each kernel twice.
+    With ``top``, the kernels that took the most device time (name, ms,
+    launches)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2932,10 +3374,20 @@ def device_busy(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy = sum(getattr(e, "self_device_time_total", 0) or 0
-               for e in prof.key_averages()) / 1e6
-    return {"profiled_wall_s": wall, "device_busy_s": busy,
-            "device_idle_share": 1.0 - busy / wall}
+    events = prof.key_averages()
+    dev = [e for e in events
+           if e.device_type != DeviceType.CPU and not e.is_user_annotation]
+    busy = sum(e.self_device_time_total for e in dev) / 1e6
+    out = {"profiled_wall_s": wall, "device_busy_s": busy,
+           "device_idle_share": 1.0 - busy / wall,
+           "kernels": sum(e.count for e in dev),
+           "all_events_device_s": sum(e.self_device_time_total
+                                      for e in events) / 1e6}
+    if top:
+        dev.sort(key=lambda e: -e.self_device_time_total)
+        out["top_kernels"] = [[e.key[:80], e.self_device_time_total / 1e3,
+                               e.count] for e in dev[:top]]
+    return out
 
 
 def profiled_device_ms(fn, symbol: str, reps: int = 20, tries: int = 3):
@@ -3785,6 +4237,8 @@ def main() -> int:
     policy_phase(args, recs, sync_ingest, "cuda")
     sharded_phase(args, recs, card, "cuda")
     replica_phase(args, recs, card, "cuda")
+    del state       # the main trees: the lm phase needs the card's memory
+    lm_phase(args, recs, card, "cuda", bw, build_s)
     bench_launches, bench = bench_phase(args)
     launches.update({k: bench_launches[k] for k in ("bloom_probe", "ssm_scan")})
     rows = kernel_phase(recs, launches, bw, bench, rates, log,

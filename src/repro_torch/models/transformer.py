@@ -1,0 +1,273 @@
+"""Decoder-only LM, the dense and vlm families:
+
+    x += attn(ln1 x);  x += mlp(ln2 x)
+
+Parameters keep the reference's tree and leaf names, stacked ``[L, ...]``
+(``layers.attn.wq`` is ``[L, D, H, dh]``), held by ``DecoderLM`` as
+``nn.Parameter``s; the functions here take that module or the nested dict
+of its tensors.  A loop over layers stands where the reference scans.  The
+moe, ssm and hybrid families (ROADMAP §1 item 5(c)) and the
+encoder-decoder (item 5(d)) raise ``ValueError``; the mesh specs wait for
+item 5(g).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import flags
+from repro_torch.models.layers import dense_init, embed_init, rms_norm, swiglu
+
+Tree = Dict[str, Any]
+
+
+def check_family(cfg: ArchConfig) -> None:
+    """Raise for a configuration whose family the port does not run yet."""
+    if cfg.enc_dec:
+        raise ValueError(f"{cfg.name}: the encoder-decoder family is not "
+                         "ported yet (ROADMAP §1 item 5(d))")
+    if cfg.moe is not None or cfg.ssm is not None:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family is not "
+                         "ported yet (ROADMAP §1 item 5(c))")
+
+
+def dtype_of(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def leaf_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    """Every parameter leaf by its dotted name, with its shape."""
+    check_family(cfg)
+    L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Vp = cfg.padded_vocab
+    shapes = {
+        "embed": (Vp, D),
+        "layers.ln1": (L, D),
+        "layers.attn.wq": (L, D, H, dh),
+        "layers.attn.wk": (L, D, Hkv, dh),
+        "layers.attn.wv": (L, D, Hkv, dh),
+        "layers.attn.wo": (L, H, dh, D),
+        "layers.mlp.wg": (L, D, F),
+        "layers.mlp.wu": (L, D, F),
+        "layers.mlp.wd": (L, F, D),
+        "layers.ln2": (L, D),
+        "final_norm": (D,),
+    }
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (Vp, D)
+    return shapes
+
+
+def flatten_tree(tree: Tree, prefix: str = "") -> Dict[str, Any]:
+    flat: Dict[str, Any] = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            flat.update(flatten_tree(val, f"{prefix}{key}."))
+        else:
+            flat[prefix + key] = val
+    return flat
+
+
+def nest_tree(flat: Dict[str, Any]) -> Tree:
+    tree: Tree = {}
+    for name, val in flat.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = val
+    return tree
+
+
+# --------------------------------------------------------------------------- #
+# parameters
+# --------------------------------------------------------------------------- #
+def init_params(cfg: ArchConfig, gen: torch.Generator) -> Tree:
+    """Random parameters on ``gen``'s device, one leaf at a time (each drawn
+    in float32, then cast to the config's dtype)."""
+    dt = dtype_of(cfg)
+    fan_in = {"wq": cfg.d_model, "wk": cfg.d_model, "wv": cfg.d_model,
+              "wo": cfg.n_heads * cfg.head_dim, "wg": cfg.d_model,
+              "wu": cfg.d_model, "wd": cfg.d_ff}
+    flat = {}
+    for name, shape in leaf_shapes(cfg).items():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("ln1", "ln2", "final_norm"):
+            flat[name] = torch.ones(shape, dtype=dt, device=gen.device)
+        elif leaf in ("embed", "lm_head"):
+            flat[name] = embed_init(gen, shape, dt)
+        else:
+            flat[name] = dense_init(gen, shape, fan_in[leaf], dt)
+    return nest_tree(flat)
+
+
+class DecoderLM(nn.Module):
+    """The parameters under the reference's names (``named_parameters``
+    gives ``layers.attn.wq`` and so on).  They do not require grad: the
+    port serves, and training waits for ROADMAP §1 item 5(e)."""
+
+    def __init__(self, cfg: ArchConfig, tree: Tree):
+        super().__init__()
+        self.cfg = cfg
+        _attach(self, tree)
+
+    def tree(self) -> Tree:
+        return _tree_of(self)
+
+
+def _attach(module: nn.Module, tree: Tree) -> None:
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            sub = nn.Module()
+            module.add_module(key, sub)
+            _attach(sub, val)
+        else:
+            module.register_parameter(key, nn.Parameter(val, requires_grad=False))
+
+
+def _tree_of(module: nn.Module) -> Tree:
+    out: Tree = dict(module._parameters)
+    for key, sub in module._modules.items():
+        out[key] = _tree_of(sub)
+    return out
+
+
+Params = Union[DecoderLM, Tree]
+
+
+def as_tree(params: Params) -> Tree:
+    return params.tree() if isinstance(params, nn.Module) else params
+
+
+def _layer(tree: Tree, i: int) -> Tree:
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def _head(p: Tree, cfg: ArchConfig, dt: torch.dtype) -> torch.Tensor:
+    return (p["embed"] if cfg.tie_embeddings else p["lm_head"]).to(dt)
+
+
+# --------------------------------------------------------------------------- #
+# forward (training / prefill)
+# --------------------------------------------------------------------------- #
+def _layer_fwd(x, lp, cfg: ArchConfig, positions) -> torch.Tensor:
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = attn_mod.qkv_proj(h, lp["attn"], cfg.rope_theta, positions)
+    o = attn_mod.attention(q, k, v, positions, positions, causal=True,
+                           window=cfg.attn_window)
+    x = x + attn_mod.out_proj(o, lp["attn"])
+    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + swiglu(h2, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"])
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
+            positions: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B,S] -> (logits [B,S,Vp], aux loss 0 for the dense family)."""
+    check_family(cfg)
+    p = as_tree(params)
+    B, S = tokens.shape
+    dt = dtype_of(cfg)
+    x = p["embed"][tokens].to(dt)
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+    for i in range(cfg.n_layers):
+        x = _layer_fwd(x, _layer(p["layers"], i), cfg, positions)
+    x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+    logits = torch.einsum("bsd,vd->bsv", x, _head(p, cfg, dt))
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def lm_loss(params: Params, batch, cfg: ArchConfig
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy; batch = {'tokens', 'labels', 'mask'}."""
+    logits, aux = forward(params, batch["tokens"], cfg)
+    return _xent(logits, batch, aux, cfg)
+
+
+def _xent(logits, batch, aux, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    labels = batch["labels"].long()[..., None]
+    mask = batch.get("mask")
+    if flags.xent_impl == "fused":
+        # the shift in the logits' dtype, exp and sum in float32
+        m = logits.amax(-1)
+        z = torch.exp((logits - m[..., None]).float()).sum(-1)
+        lse = m.float() + torch.log(z)
+        gold = logits.gather(-1, labels)[..., 0].float()
+    else:
+        lf = logits.float()
+        lse = torch.logsumexp(lf, -1)
+        gold = lf.gather(-1, labels)[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        denom = torch.clamp(mask.sum(), min=1.0)
+        loss = (nll * mask).sum() / denom
+    else:
+        loss = nll.mean()
+    total = loss + 0.01 * aux
+    return total, {"loss": loss, "aux": aux}
+
+
+# --------------------------------------------------------------------------- #
+# serving: cache init / prefill / decode
+# --------------------------------------------------------------------------- #
+def cache_len_for(cfg: ArchConfig, seq_len: int) -> int:
+    if cfg.attn_window > 0:
+        return min(cfg.attn_window, seq_len)
+    return seq_len
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
+               device: torch.device) -> Dict[str, torch.Tensor]:
+    """Zero K/V and positions -1, leading L."""
+    check_family(cfg)
+    dt = dtype_of(cfg)
+    L, Sc = cfg.n_layers, cache_len_for(cfg, seq_len)
+    Hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((L, batch, Sc, Hkv, dh), dtype=dt, device=device),
+        "v": torch.zeros((L, batch, Sc, Hkv, dh), dtype=dt, device=device),
+        "pos": torch.full((L, batch, Sc), -1, dtype=torch.int32, device=device),
+    }
+
+
+def _layer_decode(x, lp, cache_l, pos: int, cfg: ArchConfig) -> torch.Tensor:
+    """x [B,1,D]; cache_l = the layer's cache views, written in place."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    posv = torch.full((x.shape[0], 1), pos, dtype=torch.int64, device=x.device)
+    q, k, v = attn_mod.qkv_proj(h, lp["attn"], cfg.rope_theta, posv)
+    ck, cv, cp = attn_mod.cache_update(cache_l["k"], cache_l["v"],
+                                       cache_l["pos"], k, v, pos)
+    o = attn_mod.decode_attention(q, ck, cv, cp, window=cfg.attn_window)
+    x = x + attn_mod.out_proj(o, lp["attn"])
+    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + swiglu(h2, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"])
+
+
+def decode_step(params: Params, cache: Dict[str, torch.Tensor],
+                token: torch.Tensor, pos, cfg: ArchConfig):
+    """token [B,1], pos an int -> (logits [B,Vp], the cache, updated in
+    place: the reference returns a new one)."""
+    check_family(cfg)
+    p = as_tree(params)
+    pos = int(pos)
+    dt = dtype_of(cfg)
+    x = p["embed"][token].to(dt)
+    for i in range(cfg.n_layers):
+        x = _layer_decode(x, _layer(p["layers"], i), _layer(cache, i), pos, cfg)
+    x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+    logits = torch.einsum("bsd,vd->bsv", x, _head(p, cfg, dt))[:, 0]
+    return logits, cache
+
+
+def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig):
+    """Prefill = forward; the last position's logits (the serving engine
+    fills its cache by teacher-forced decode steps)."""
+    return forward(params, tokens, cfg)[0][:, -1]

@@ -1600,3 +1600,124 @@ def test_replicated_group_on_the_card(card, tmp_path):
             assert _shard_reads(t, SHARD_PREDS) == want
     finally:
         back.close()
+
+
+# --------------------------------------------------------------------------- #
+# the engine's consumers and the dense decoder on the card
+# --------------------------------------------------------------------------- #
+def _fill_store(store, n, seed):
+    rng = np.random.default_rng(seed)
+    domains = [b"web/high", b"web/low", b"code/high", b"code/low",
+               b"math/high"]
+    for i in range(n):
+        toks = rng.integers(0, 1000, int(rng.integers(50, 300)))
+        store.put_sample(i, toks.astype(np.int32),
+                         domains[int(rng.integers(0, len(domains)))])
+        if i % 16 == 5:
+            j = int(rng.integers(0, i + 1))
+            if i % 32 == 5:
+                store.delete_sample(j)
+            else:
+                store.put_sample(j, toks[:60].astype(np.int32), b"code/low")
+
+
+def test_consumers_on_the_card_match_the_cpu(card):
+    """A TokenStore and a PrefixCacheIndex on the card answer as the same
+    on the CPU, I/O counters included, and their selection scans launch
+    ``fused_zone_filter``."""
+    from repro_torch.core import Predicate
+    from repro_torch.pipeline import TokenStore, TokenStoreConfig
+    from repro_torch.serving.prefix_cache import (PrefixCacheConfig,
+                                                  PrefixCacheIndex)
+
+    cfg = TokenStoreConfig(file_bytes=32 * 1024)
+    stores = [TokenStore(cfg, device=d) for d in (card, "cpu")]
+    for s in stores:
+        _fill_store(s, 3000, seed=3)
+    assert stores[0].lsm.n_compactions == stores[1].lsm.n_compactions > 0
+    pred = Predicate("prefix", b"code/")
+    ops.reset_launches()
+    got = [stores[0].select(pred, dp_rank=r, dp_size=4) for r in range(4)]
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_zone_filter"] > 0
+    for r in range(4):
+        assert np.array_equal(got[r], stores[1].select(pred, r, 4))
+    a, b = (list(s.batches(pred, 4, 32, seed=2, max_batches=6))
+            for s in stores)
+    assert len(a) == len(b) == 6
+    assert all(np.array_equal(x[k], y[k]) for x, y in zip(a, b) for k in x)
+    io = [vars(s.lsm.store.stats) for s in stores]
+    assert {k: v for k, v in io[0].items() if k != "_lock"} == \
+        {k: v for k, v in io[1].items() if k != "_lock"}
+
+    idx = [PrefixCacheIndex(PrefixCacheConfig(file_bytes=8 * 1024,
+                                              l0_limit=2), device=d)
+           for d in (card, "cpu")]
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 50_000, 16) for _ in range(2000)]
+    for i, p in enumerate(prompts):
+        for x in idx:
+            x.admit(p, [i], b"tenantA/hot" if i % 3 else b"tenantB/cold")
+    for x in idx:
+        x.retag(prompts[1], b"tenantB/cold")
+        x.evict_prefixes(prompts[10:50])
+    ops.reset_launches()
+    cands = idx[0].eviction_candidates(b"tenantB/cold")
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_zone_filter"] > 0
+    assert cands == idx[1].eviction_candidates(b"tenantB/cold")
+    assert [1] in cands
+    assert np.array_equal(idx[0].scan(Predicate("prefix", b"tenantA/")),
+                          idx[1].scan(Predicate("prefix", b"tenantA/")))
+    for p in prompts[::37]:
+        assert idx[0].lookup(p) == idx[1].lookup(p)
+    assert idx[0].stats == idx[1].stats
+
+
+def _reduced_dense(card, monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_config("llama3-8b").reduced()
+    model = build_model(cfg)
+    cpu = model.init(0, device="cpu")
+    on_card = model.init(0, device="cpu").to(card)
+    return cfg, model, cpu, on_card
+
+
+def test_dense_model_on_the_card_matches_the_cpu(card, monkeypatch):
+    """The reduced dense model's forward and decode logits (float32, TF32
+    off) on the card within 1e-4 of the same parameters on the CPU."""
+    from repro_torch.models import transformer
+
+    cfg, model, cpu, on_card = _reduced_dense(card, monkeypatch)
+    tok = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab, (2, 12)))
+    want, _ = transformer.forward(cpu, tok, cfg)
+    got, _ = transformer.forward(on_card, tok.to(card), cfg)
+    assert got.device.type == card.type
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    caches = [model.init_cache(2, 12, device=d) for d in ("cpu", card)]
+    for t in range(12):
+        a, caches[0] = model.decode_step(cpu, caches[0], tok[:, t:t + 1], t)
+        b, caches[1] = model.decode_step(on_card, caches[1],
+                                         tok[:, t:t + 1].to(card), t)
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(b.cpu(), want[:, t], rtol=2e-4, atol=2e-4)
+
+
+def test_serving_engine_on_the_card_matches_the_cpu(card, monkeypatch):
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg, _, cpu, on_card = _reduced_dense(card, monkeypatch)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, 8).astype(np.int32)
+               for _ in range(10)]
+    out = []
+    for params, device in ((cpu, "cpu"), (on_card, card)):
+        eng = ServingEngine(cfg, params, batch_size=4, max_seq=48,
+                            device=device)
+        out.append(eng.run([Request(i, p, 8) for i, p in enumerate(prompts)]))
+    assert out[0] == out[1]
+    assert sorted(out[1]) == list(range(10))

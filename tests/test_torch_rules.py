@@ -75,6 +75,13 @@ def test_port_sources_import_neither_jax_nor_repro():
     "repro_torch.shard.rebalance, repro_torch.shard.sharded_lsm",
     "repro_torch.replica, repro_torch.replica.link, "
     "repro_torch.replica.replicated",
+    "repro_torch.configs, repro_torch.configs.base, "
+    "repro_torch.configs.llama3_8b, repro_torch.configs.whisper_small",
+    "repro_torch.models, repro_torch.models.flags, repro_torch.models.layers, "
+    "repro_torch.models.attention, repro_torch.models.transformer, "
+    "repro_torch.models.registry, repro_torch.models.weights",
+    "repro_torch.serving.engine, repro_torch.serving.prefix_cache, "
+    "repro_torch.pipeline, repro_torch.pipeline.tokenstore",
 ])
 def test_importing_the_port_loads_neither_jax_nor_repro(modules):
     code = (f"import sys, {modules}\n"
@@ -94,6 +101,38 @@ def test_default_device_is_the_card_and_missing_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         T.LSMTree(T.LSMConfig(), device="cuda")
     assert T.LSMTree(T.LSMConfig(), device="cpu").device.type == "cpu"
+
+
+def _consumers_and_model():
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.pipeline import TokenStore
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.prefix_cache import PrefixCacheIndex
+
+    cfg = get_config("llama3-8b").reduced()
+    return {
+        "TokenStore": lambda device=None: TokenStore(device=device),
+        "PrefixCacheIndex": lambda device=None: PrefixCacheIndex(device=device),
+        "build_model(cfg).init": lambda device=None: build_model(cfg).init(
+            0, device=device),
+        "ServingEngine": lambda device=None: ServingEngine(
+            cfg, build_model(cfg).init(0, device="cpu"), device=device),
+    }
+
+
+@pytest.mark.parametrize("entry", ["TokenStore", "PrefixCacheIndex",
+                                   "build_model(cfg).init", "ServingEngine"])
+def test_model_and_consumer_entry_points_need_the_card(monkeypatch, entry):
+    """The consumers, the model's init and the serving engine run on the
+    card by default and raise without one; ``device='cpu'`` runs them on
+    the CPU."""
+    make = _consumers_and_model()[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make(device)
+    assert make("cpu") is not None
 
 
 OTHER_VALUES = {"codec": "lz4", "filter_backend": "pallas",
