@@ -1,5 +1,7 @@
-# The dense decoder LM (the dense and vlm families) in plain PyTorch: the
-# reference's model stack reaches no Pallas kernel, so neither does this.
+# The decoder-only LM (the dense, vlm, moe, ssm and hybrid families) in
+# PyTorch.  The mamba block's full-sequence scan launches the ssm_scan
+# kernel on the card (models/ssm.py); the rest is plain PyTorch, as the
+# reference's model stack reaches no other Pallas kernel.
 from repro_torch.models.registry import ModelAPI, build_model
 from repro_torch.models.transformer import DecoderLM
 from repro_torch.models.weights import params_from_reference

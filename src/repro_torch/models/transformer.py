@@ -1,14 +1,17 @@
-"""Decoder-only LM, the dense and vlm families:
+"""Decoder-only LM covering the dense / moe / hybrid / ssm / vlm families.
 
-    x += attn(ln1 x);  x += mlp(ln2 x)
+One parameterized block type; per-family composition:
+  dense|vlm :  x += attn(ln1 x);  x += mlp(ln2 x)
+  moe       :  x += attn(ln1 x);  x += moe(ln2 x)
+  ssm       :  x += mamba(ln1 x)                       (attention-free)
+  hybrid    :  x += (attn(ln1 x) + mamba(ln1 x)) / 2;  x += mlp(ln2 x)
 
 Parameters keep the reference's tree and leaf names, stacked ``[L, ...]``
 (``layers.attn.wq`` is ``[L, D, H, dh]``), held by ``DecoderLM`` as
 ``nn.Parameter``s; the functions here take that module or the nested dict
 of its tensors.  A loop over layers stands where the reference scans.  The
-moe, ssm and hybrid families (ROADMAP §1 item 5(c)) and the
-encoder-decoder (item 5(d)) raise ``ValueError``; the mesh specs wait for
-item 5(g).
+encoder-decoder (ROADMAP §1 item 5(d)) raises ``ValueError``; the mesh
+specs wait for item 5(g), the reference's ``scan_impl`` for item 5(e).
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import flags
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import dense_init, embed_init, rms_norm, swiglu
 
 Tree = Dict[str, Any]
@@ -31,9 +36,6 @@ def check_family(cfg: ArchConfig) -> None:
     if cfg.enc_dec:
         raise ValueError(f"{cfg.name}: the encoder-decoder family is not "
                          "ported yet (ROADMAP §1 item 5(d))")
-    if cfg.moe is not None or cfg.ssm is not None:
-        raise ValueError(f"{cfg.name}: the {cfg.family} family is not "
-                         "ported yet (ROADMAP §1 item 5(c))")
 
 
 def dtype_of(cfg: ArchConfig) -> torch.dtype:
@@ -46,19 +48,44 @@ def leaf_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     Vp = cfg.padded_vocab
-    shapes = {
-        "embed": (Vp, D),
-        "layers.ln1": (L, D),
-        "layers.attn.wq": (L, D, H, dh),
-        "layers.attn.wk": (L, D, Hkv, dh),
-        "layers.attn.wv": (L, D, Hkv, dh),
-        "layers.attn.wo": (L, H, dh, D),
-        "layers.mlp.wg": (L, D, F),
-        "layers.mlp.wu": (L, D, F),
-        "layers.mlp.wd": (L, F, D),
-        "layers.ln2": (L, D),
-        "final_norm": (D,),
-    }
+    shapes = {"embed": (Vp, D), "layers.ln1": (L, D)}
+    if cfg.has_attn:
+        shapes.update({
+            "layers.attn.wq": (L, D, H, dh),
+            "layers.attn.wk": (L, D, Hkv, dh),
+            "layers.attn.wv": (L, D, Hkv, dh),
+            "layers.attn.wo": (L, H, dh, D),
+        })
+    if cfg.moe is not None:
+        E = cfg.moe.n_experts
+        shapes.update({
+            "layers.moe.router": (L, D, E),
+            "layers.moe.wg": (L, E, D, F),
+            "layers.moe.wu": (L, E, D, F),
+            "layers.moe.wd": (L, E, F, D),
+            "layers.ln2": (L, D),
+        })
+    elif cfg.has_mlp:
+        shapes.update({
+            "layers.mlp.wg": (L, D, F),
+            "layers.mlp.wu": (L, D, F),
+            "layers.mlp.wd": (L, F, D),
+            "layers.ln2": (L, D),
+        })
+    if cfg.has_ssm:
+        di, N, dtr, dk = cfg.d_inner, cfg.ssm.d_state, cfg.dt_rank, cfg.ssm.d_conv
+        shapes.update({
+            "layers.ssm.in_proj": (L, D, 2 * di),
+            "layers.ssm.conv_w": (L, dk, di),
+            "layers.ssm.conv_b": (L, di),
+            "layers.ssm.x_proj": (L, di, dtr + 2 * N),
+            "layers.ssm.dt_proj": (L, dtr, di),
+            "layers.ssm.dt_bias": (L, di),
+            "layers.ssm.A_log": (L, di, N),
+            "layers.ssm.D": (L, di),
+            "layers.ssm.out_proj": (L, di, D),
+        })
+    shapes["final_norm"] = (D,)
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (Vp, D)
     return shapes
@@ -92,14 +119,20 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Tree:
     """Random parameters on ``gen``'s device, one leaf at a time (each drawn
     in float32, then cast to the config's dtype)."""
     dt = dtype_of(cfg)
-    fan_in = {"wq": cfg.d_model, "wk": cfg.d_model, "wv": cfg.d_model,
-              "wo": cfg.n_heads * cfg.head_dim, "wg": cfg.d_model,
-              "wu": cfg.d_model, "wd": cfg.d_ff}
+    D, di = cfg.d_model, cfg.d_inner
+    fan_in = {"wq": D, "wk": D, "wv": D, "wo": cfg.n_heads * cfg.head_dim,
+              "wg": D, "wu": D, "wd": cfg.d_ff, "router": D, "in_proj": D,
+              "conv_w": cfg.ssm.d_conv if cfg.has_ssm else 0, "x_proj": di,
+              "dt_proj": cfg.dt_rank, "out_proj": di}
     flat = {}
     for name, shape in leaf_shapes(cfg).items():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("ln1", "ln2", "final_norm"):
+        if leaf in ("ln1", "ln2", "final_norm", "D"):
             flat[name] = torch.ones(shape, dtype=dt, device=gen.device)
+        elif leaf in ("conv_b", "dt_bias"):
+            flat[name] = torch.zeros(shape, dtype=dt, device=gen.device)
+        elif leaf == "A_log":
+            flat[name] = ssm_mod.a_log_init(shape, dt, gen.device)
         elif leaf in ("embed", "lm_head"):
             flat[name] = embed_init(gen, shape, dt)
         else:
@@ -157,20 +190,36 @@ def _head(p: Tree, cfg: ArchConfig, dt: torch.dtype) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 # forward (training / prefill)
 # --------------------------------------------------------------------------- #
-def _layer_fwd(x, lp, cfg: ArchConfig, positions) -> torch.Tensor:
+def _layer_fwd(x, lp, cfg: ArchConfig, positions
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block; returns (x, aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    q, k, v = attn_mod.qkv_proj(h, lp["attn"], cfg.rope_theta, positions)
-    o = attn_mod.attention(q, k, v, positions, positions, causal=True,
-                           window=cfg.attn_window)
-    x = x + attn_mod.out_proj(o, lp["attn"])
-    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + swiglu(h2, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"])
+    branch = None
+    if cfg.has_attn:
+        q, k, v = attn_mod.qkv_proj(h, lp["attn"], cfg.rope_theta, positions)
+        o = attn_mod.attention(q, k, v, positions, positions, causal=True,
+                               window=cfg.attn_window)
+        branch = attn_mod.out_proj(o, lp["attn"])
+    if cfg.has_ssm:
+        m = ssm_mod.mamba_block(h, lp["ssm"], cfg)
+        branch = m if branch is None else (branch + m) * 0.5
+    x = x + branch
+    if cfg.moe is not None:
+        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        y, aux = moe_mod.moe_ffn(h2, lp["moe"], cfg.moe)
+        x = x + y
+    elif cfg.has_mlp:
+        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + swiglu(h2, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"])
+    return x, aux
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
             positions: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B,S] -> (logits [B,S,Vp], aux loss 0 for the dense family)."""
+    """tokens [B,S] -> (logits [B,S,Vp], aux loss: the moe layers' sum, 0
+    for the other families)."""
     check_family(cfg)
     p = as_tree(params)
     B, S = tokens.shape
@@ -178,11 +227,13 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
     x = p["embed"][tokens].to(dt)
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x = _layer_fwd(x, _layer(p["layers"], i), cfg, positions)
+        x, a = _layer_fwd(x, _layer(p["layers"], i), cfg, positions)
+        aux = aux + a
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
     logits = torch.einsum("bsd,vd->bsv", x, _head(p, cfg, dt))
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def lm_loss(params: Params, batch, cfg: ArchConfig
@@ -226,29 +277,53 @@ def cache_len_for(cfg: ArchConfig, seq_len: int) -> int:
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
                device: torch.device) -> Dict[str, torch.Tensor]:
-    """Zero K/V and positions -1, leading L."""
+    """Leading L: zero K/V and positions -1 (attention), a zero conv
+    window in the model's dtype and a zero float32 SSM state (mamba)."""
     check_family(cfg)
     dt = dtype_of(cfg)
-    L, Sc = cfg.n_layers, cache_len_for(cfg, seq_len)
-    Hkv, dh = cfg.n_kv_heads, cfg.head_dim
-    return {
-        "k": torch.zeros((L, batch, Sc, Hkv, dh), dtype=dt, device=device),
-        "v": torch.zeros((L, batch, Sc, Hkv, dh), dtype=dt, device=device),
-        "pos": torch.full((L, batch, Sc), -1, dtype=torch.int32, device=device),
-    }
+    L = cfg.n_layers
+    cache: Dict[str, torch.Tensor] = {}
+    if cfg.has_attn:
+        Sc = cache_len_for(cfg, seq_len)
+        Hkv, dh = cfg.n_kv_heads, cfg.head_dim
+        cache["k"] = torch.zeros((L, batch, Sc, Hkv, dh), dtype=dt, device=device)
+        cache["v"] = torch.zeros((L, batch, Sc, Hkv, dh), dtype=dt, device=device)
+        cache["pos"] = torch.full((L, batch, Sc), -1, dtype=torch.int32,
+                                  device=device)
+    if cfg.has_ssm:
+        di, N, dk = cfg.d_inner, cfg.ssm.d_state, cfg.ssm.d_conv
+        cache["conv"] = torch.zeros((L, batch, dk - 1, di), dtype=dt,
+                                    device=device)
+        cache["ssm"] = torch.zeros((L, batch, di, N), dtype=torch.float32,
+                                   device=device)
+    return cache
 
 
 def _layer_decode(x, lp, cache_l, pos: int, cfg: ArchConfig) -> torch.Tensor:
     """x [B,1,D]; cache_l = the layer's cache views, written in place."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    posv = torch.full((x.shape[0], 1), pos, dtype=torch.int64, device=x.device)
-    q, k, v = attn_mod.qkv_proj(h, lp["attn"], cfg.rope_theta, posv)
-    ck, cv, cp = attn_mod.cache_update(cache_l["k"], cache_l["v"],
-                                       cache_l["pos"], k, v, pos)
-    o = attn_mod.decode_attention(q, ck, cv, cp, window=cfg.attn_window)
-    x = x + attn_mod.out_proj(o, lp["attn"])
-    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + swiglu(h2, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"])
+    branch = None
+    if cfg.has_attn:
+        posv = torch.full((x.shape[0], 1), pos, dtype=torch.int64,
+                          device=x.device)
+        q, k, v = attn_mod.qkv_proj(h, lp["attn"], cfg.rope_theta, posv)
+        ck, cv, cp = attn_mod.cache_update(cache_l["k"], cache_l["v"],
+                                           cache_l["pos"], k, v, pos)
+        o = attn_mod.decode_attention(q, ck, cv, cp, window=cfg.attn_window)
+        branch = attn_mod.out_proj(o, lp["attn"])
+    if cfg.has_ssm:
+        m, _, _ = ssm_mod.mamba_decode_step(h, lp["ssm"], cfg,
+                                            cache_l["conv"], cache_l["ssm"])
+        branch = m if branch is None else (branch + m) * 0.5
+    x = x + branch
+    if cfg.moe is not None:
+        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        y, _ = moe_mod.moe_ffn(h2, lp["moe"], cfg.moe, dropless=True)
+        x = x + y
+    elif cfg.has_mlp:
+        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + swiglu(h2, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"])
+    return x
 
 
 def decode_step(params: Params, cache: Dict[str, torch.Tensor],

@@ -6,9 +6,10 @@ teacher-forced decode steps, then decodes greedily until
 queue.  The slot, refill and stop rules are the reference's, traps
 included (ROADMAP §3): one ``pos`` is shared by every slot, so a request
 refilled mid-run starts at that ``pos`` over its predecessor's KV entries,
-and an empty slot goes on decoding its last token (0 if it never held a
-request) into the cache.  ``decode_step`` runs
-eagerly, one step a token for the whole batch.
+conv window and SSM state, and an empty slot goes on decoding its last
+token (0 if it never held a request) into the cache.  ``decode_step`` runs
+eagerly, one step a token for the whole batch, for every decoder-only
+family (dense, vlm, moe, ssm, hybrid).
 """
 
 from __future__ import annotations

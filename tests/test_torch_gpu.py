@@ -1721,3 +1721,113 @@ def test_serving_engine_on_the_card_matches_the_cpu(card, monkeypatch):
         out.append(eng.run([Request(i, p, 8) for i, p in enumerate(prompts)]))
     assert out[0] == out[1]
     assert sorted(out[1]) == list(range(10))
+
+
+# --------------------------------------------------------------------------- #
+# the moe, ssm and hybrid families on the card
+# --------------------------------------------------------------------------- #
+FAMILY_ARCHS = ["falcon-mamba-7b", "granite-moe-1b-a400m", "hymba-1.5b",
+                "phi3.5-moe-42b-a6.6b"]
+
+
+def _reduced_family(arch, card, monkeypatch):
+    """The reduced model of ``arch`` on the CPU and the same parameters on
+    the card, TF32 off for the matmuls and cuDNN's convolutions."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    cpu = model.init(0, device="cpu")
+    return cfg, model, cpu, model.init(0, device="cpu").to(card)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_model_on_the_card_matches_the_cpu(card, monkeypatch, arch):
+    """Forward logits and aux, and every decode step, on the card within
+    1e-4 of the same parameters on the CPU (decode against forward within
+    2e-4); the SSM layers scan with the kernel, the CPU with its plain
+    version."""
+    from repro_torch.models import transformer
+
+    cfg, model, cpu, on_card = _reduced_family(arch, card, monkeypatch)
+    tok = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab, (2, 12)))
+    want, want_aux = transformer.forward(cpu, tok, cfg)
+    got, aux = transformer.forward(on_card, tok.to(card), cfg)
+    assert got.device.type == card.type
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-4, atol=1e-4)
+    caches = [model.init_cache(2, 12, device=d) for d in ("cpu", card)]
+    for t in range(12):
+        a, caches[0] = model.decode_step(cpu, caches[0], tok[:, t:t + 1], t)
+        b, caches[1] = model.decode_step(on_card, caches[1],
+                                         tok[:, t:t + 1].to(card), t)
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(b.cpu(), want[:, t], rtol=2e-4, atol=2e-4)
+    for name, leaf in caches[1].items():
+        torch.testing.assert_close(leaf.cpu(), caches[0][name], rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_serving_engine_on_the_card_matches_the_cpu(card, monkeypatch,
+                                                           arch):
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg, _, cpu, on_card = _reduced_family(arch, card, monkeypatch)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, 8).astype(np.int32)
+               for _ in range(10)]
+    out = []
+    for params, device in ((cpu, "cpu"), (on_card, card)):
+        eng = ServingEngine(cfg, params, batch_size=4, max_seq=48,
+                            device=device)
+        out.append(eng.run([Request(i, p, 8) for i, p in enumerate(prompts)]))
+    assert out[0] == out[1]
+    assert sorted(out[1]) == list(range(10))
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
+def test_ssm_forward_on_the_card_launches_the_scan_once_a_layer(card,
+                                                               monkeypatch,
+                                                               arch):
+    from repro_torch.models import transformer
+
+    cfg, _, _, on_card = _reduced_family(arch, card, monkeypatch)
+    tok = torch.from_numpy(
+        np.random.default_rng(2).integers(0, cfg.vocab, (3, 21))).to(card)
+    ops.reset_launches()
+    transformer.forward(on_card, tok, cfg)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssm_scan"] == cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_moe_decode_step_on_the_card_gives_the_same_bits_twice(card,
+                                                              monkeypatch,
+                                                              arch):
+    """The combine adds each token's contributions in a fixed order (no
+    float atomics): one decode step run twice from equal caches gives
+    bit-equal logits, in float32 and in bf16."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+
+    cfg, _, _, on_card = _reduced_family(arch, card, monkeypatch)
+    tok = torch.from_numpy(
+        np.random.default_rng(3).integers(0, cfg.vocab, (4, 6))).to(card)
+    for dtype in ("float32", "bfloat16"):
+        model = build_model(dataclasses.replace(cfg, dtype=dtype))
+        params = on_card.to(getattr(torch, dtype))
+        logits = []
+        for _ in range(2):
+            cache = model.init_cache(4, 8, device=card)
+            for t in range(6):
+                lg, cache = model.decode_step(params, cache, tok[:, t:t + 1], t)
+            logits.append(lg)
+        assert logits[0].dtype == getattr(torch, dtype)
+        assert torch.equal(logits[0], logits[1])

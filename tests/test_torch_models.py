@@ -1,5 +1,6 @@
 """The port's dense decoder (``repro_torch.models``) held against the JAX
-package's on the CPU, for the dense and vlm architectures, all
+package's on the CPU, for the dense and vlm architectures (the moe, ssm
+and hybrid ones in test_torch_moe.py and test_torch_ssm.py), all
 ``reduced()`` in float32: forward logits, ``lm_loss`` under both
 ``xent_impl``s, ``prefill``, the flash path and a sliding window, each
 within rtol = atol = 1e-4 of the reference run on the same parameters
@@ -151,11 +152,12 @@ def test_params_from_reference_checks_leaves_and_shapes():
 
 @pytest.mark.parametrize("arch", OTHER)
 def test_other_families_raise(arch):
-    """moe, ssm, hybrid and the encoder-decoder are not ported yet: every
-    entry point raises naming the ROADMAP item, none computes something
-    else."""
+    """The encoder-decoder is not ported yet: every entry point raises
+    naming the ROADMAP item, none computes something else (the moe, ssm
+    and hybrid families run since item 5(c): test_torch_ssm.py,
+    test_torch_moe.py)."""
     _, cfg = configs(arch)
-    item = "5\\(d\\)" if cfg.enc_dec else "5\\(c\\)"
+    item = "5\\(d\\)"
     with pytest.raises(ValueError, match=item):
         build_model(cfg)
     for call in (lambda: transformer.leaf_shapes(cfg),

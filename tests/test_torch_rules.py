@@ -82,6 +82,7 @@ def test_port_sources_import_neither_jax_nor_repro():
     "repro_torch.models.registry, repro_torch.models.weights",
     "repro_torch.serving.engine, repro_torch.serving.prefix_cache, "
     "repro_torch.pipeline, repro_torch.pipeline.tokenstore",
+    "repro_torch.models.moe, repro_torch.models.ssm",
 ])
 def test_importing_the_port_loads_neither_jax_nor_repro(modules):
     code = (f"import sys, {modules}\n"
