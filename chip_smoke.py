@@ -273,13 +273,38 @@ Phases, each printing JSON lines:
             step's device busy time and top kernels) and
             lm.families.done (the phase's seconds beside the build's); the
             phase within 90 s.
-16. bench:   the kernel micro-bench's entry points
+16. lm.encdec: the encoder-decoder on the port, after lm.families with
+            its weights freed: whisper-small at its published widths and
+            depth (12 + 12 layers, d_model 768), 4 slots, frames standing
+            in for the conv frontend as in both packages ([4, 1500, 768]
+            from the seed: whisper's 30 s window) beside a teacher-forced
+            prefix of dec_len_for(1500) = 187 tokens.  In float32 (TF32
+            off): prefill fills the cross K/V, then 187 decode steps, each
+            within 2e-4 of decode_train.  In bf16, weights drawn on the
+            card from a seeded generator: prefill timed beside its bound
+            (bytes, or bf16, float32 and exp operations over their rates),
+            the 187 steps on the prefilled cache timed beside theirs (the
+            decoder's weights, the head and the cache over the bandwidth),
+            held by lm's bf16 checks against decode_train in bf16 and
+            float32 (one float32-argmax position or more); then a
+            ServingEngine (4 slots, max_seq 64) serving lm's 8 requests of
+            16 + 16 tokens as the reference's engine does (no prefill: zero
+            cross K/V, enc_len 64, a self cache of 16 slots that rolls),
+            the served tokens equal to a teacher-forced replay on that
+            cache; then ``repro_torch.launch.serve.main`` for whisper-small
+            on the card (its [serve] line).  The line carries init seconds,
+            peak memory, prefill and step ms beside their bounds, a
+            profiled step's device busy time and top kernels, tokens/s and
+            the card; the phase within 40 s.  The path launches none of the
+            repository's kernels (its einsums and attention are plain
+            PyTorch, as the reference's are outside Pallas).
+17. bench:   the kernel micro-bench's entry points
             (``benchmarks/bench_kernels.py``): range_filter_packed on 2^20
             codes at widths 8 and 16, bloom_probe on a 2^14-bit bloom and
             on the largest documented one (2,048 words, 2^20 keys, no false
             negative), ssm_scan at falcon-mamba-7b's width (d_inner 8192,
             d_state 16, 2,048 tokens), held against host models.
-17. kernels: each kernel against its plain PyTorch version on the card, on
+18. kernels: each kernel against its plain PyTorch version on the card, on
             operands recorded from the main path, the serve phases,
             agg.fast, compact.jax and fig5, and at bench's shapes
             (bit-identical required; ssm_scan within rtol = atol = 1e-4),
@@ -357,6 +382,9 @@ BANDWIDTH = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
              ("H100", 3.35e12))
 # float32 rate outside the tensor cores (FLOP/s), from the same data sheets
 FP32_RATE = (("H100 PCIe", 51.2e12), ("H200", 67e12), ("H100", 67e12))
+# dense bf16 tensor-core rate without sparsity (FLOP/s), from the same sheets
+BF16_RATE = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H200", 989e12),
+             ("H100", 989e12))
 # results per clock per SM on compute capability 9.0 (the CUDA C++
 # Programming Guide's arithmetic throughput table): exp2 (expf costs one)
 # and 32-bit integer add, multiply, shift and logic
@@ -3005,13 +3033,31 @@ def bf16_checks(params, tok, cfg, out, label: str,
         steps.append(lg.float())
     replay = torch.stack(steps, 1)
     truth = f32_forward(as_f32(params), tok, cfg)[:, :n_pos]
+    fields, checks, mine = logit_checks(
+        full, replay, truth, out, LM_PROMPT - 1, tol,
+        f"{label} ({cfg.n_layers} layers)")
+    fields = {"check_layers": cfg.n_layers, **fields}
+    if cfg.has_ssm:
+        fields["forward_ssm_scan_launches"] = fwd_launches.get("ssm_scan", 0)
+    return {"fields": fields, "checks": checks, "tokens": mine,
+            "cache": cache}
+
+
+def logit_checks(full, replay, truth, out, gen_from: int, tol: float,
+                 at: str):
+    """lm's bf16 verdict on float32 views of [B, n_pos, V] logits: the bf16
+    forward ``full``, the teacher-forced bf16 decode ``replay`` and the
+    float32 forward ``truth`` of the same weights.  ``out`` are the tokens
+    held at positions ``gen_from`` on (None: the decode's own).  Returns
+    (the fields, the checks as (condition, message) pairs, the decode's
+    argmax from ``gen_from`` on); the checks are ``bf16_checks``'."""
     err = float((replay - full).abs().max())
     fwd = float((full - truth).abs().max())
     dec = float((replay - truth).abs().max())
     tokens = replay.argmax(-1)
-    mine = tokens[:, LM_PROMPT - 1:].cpu().numpy()
+    mine = tokens[:, gen_from:].cpu().numpy()
     out = mine if out is None else out
-    top2 = full[:, LM_PROMPT - 1:].topk(2, dim=-1)
+    top2 = full[:, gen_from:].topk(2, dim=-1)
     margin = (top2.values[..., 0] - top2.values[..., 1]).cpu().numpy()
     argmax = top2.indices[..., 0].cpu().numpy()
     clear = margin > tol
@@ -3022,7 +3068,6 @@ def bf16_checks(params, tok, cfg, out, label: str,
     f32_mismatch = int(((tokens != t2.indices[..., 0]) & f32_clear).sum())
     n_f32 = int(f32_clear.sum())
     fields = {
-        "check_layers": cfg.n_layers,
         "bf16_decode_vs_forward_max_abs": err,
         "bf16_forward_vs_f32_max_abs": fwd,
         "bf16_decode_vs_f32_max_abs": dec,
@@ -3032,11 +3077,8 @@ def bf16_checks(params, tok, cfg, out, label: str,
         "positions_under_margin": int((~clear).sum()),
         "mismatches_under_margin": int(((out != argmax) & ~clear).sum()),
         "top2_margin_quantiles": np.quantile(margin, [0.1, 0.5, 0.9]).tolist(),
-        "f32_checked_positions": n_f32, "f32_positions": B * n_pos,
+        "f32_checked_positions": n_f32, "f32_positions": tokens.numel(),
         "f32_mismatches": f32_mismatch}
-    if cfg.has_ssm:
-        fields["forward_ssm_scan_launches"] = fwd_launches.get("ssm_scan", 0)
-    at = f"{label} ({cfg.n_layers} layers)"
     checks = [
         (err <= tol / 2,
          f"{at}: bf16 decode and forward logits differ by {err}, past half "
@@ -3049,8 +3091,7 @@ def bf16_checks(params, tok, cfg, out, label: str,
          f"{at}: {f32_mismatch} of {n_f32} decoded tokens differ from the "
          "float32 forward's argmax where its margin exceeds twice the bf16 "
          "forward's distance")]
-    return {"fields": fields, "checks": checks, "tokens": mine,
-            "cache": cache}
+    return fields, checks, mine
 
 
 def lm_serve_part(cfg, params, prompts: np.ndarray, device: str, bw: float,
@@ -3471,6 +3512,333 @@ def families_phase(args, prompts: np.ndarray, card: str, device: str,
     check(seconds <= FAMILY_LIMIT_S, f"lm.families: the phase took "
           f"{seconds:.1f} s of its {FAMILY_LIMIT_S:.0f} s")
     return {"ssm_scan_launches": scan_launches, "path": path}
+
+
+# --------------------------------------------------------------------------- #
+# lm.encdec: the encoder-decoder (whisper-small) at full width
+# --------------------------------------------------------------------------- #
+ENCDEC_ARCH = "whisper-small"
+ENCDEC_FRAMES = 1500         # whisper's 30 s window after its stride-2 conv
+ENCDEC_LIMIT_S = 40.0
+
+
+def encdec_f32_check(cfg, frames, tok, seed: int, device: str,
+                     label: str) -> dict:
+    """``cfg`` at its published widths and depth in float32 (TF32 off):
+    ``prefill`` fills the cross K/V of a cache of ``frames.shape[1]``
+    frames, then teacher-forced ``decode_step`` over ``tok`` (the cache's
+    ``dec_len`` positions), each step's logits within LM_F32_TOL of
+    ``decode_train`` on the prefill's ``enc_out``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import build_model, encdec
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    B, S = tok.shape
+    with no_tf32(), torch.inference_mode():
+        model = build_model(cfg32)
+        params = model.init(torch.Generator(device=device).manual_seed(seed),
+                            device=device)
+        enc_out, xk, xv = model.prefill(params, {"frames": frames})
+        full = encdec.decode_train(params, tok, enc_out, cfg32)
+        cache = model.init_cache(B, frames.shape[1], device=device)
+        check(cache["k"].shape[2] == S, f"{label}.f32: a self cache of "
+              f"{cache['k'].shape[2]} slots, not {S}")
+        cache["xk"], cache["xv"] = xk, xv
+        worst, err = 0.0, 0.0
+        for t in range(S):
+            lg, cache = model.decode_step(params, cache, tok[:, t:t + 1], t)
+            diff = (lg - full[:, t]).abs()
+            err = max(err, float(diff.max()))
+            worst = max(worst, float((diff - LM_F32_TOL * full[:, t].abs())
+                                     .max()))
+    check(worst <= LM_F32_TOL,
+          f"{label}.f32: decode and decode_train logits differ by {err} "
+          f"(past rtol = atol = {LM_F32_TOL})")
+    out = {"f32_layers": [cfg.n_enc_layers, cfg.n_layers],
+           "f32_decode_steps": S, "f32_max_abs_err": err, "f32_tol": LM_F32_TOL,
+           "f32_logit_max": float(full.abs().max())}
+    del params, full, cache, enc_out, xk, xv
+    return out
+
+
+def prefill_bound(cfg, B: int, S: int, bw: float, rates: dict) -> dict:
+    """The least time of ``prefill`` on B x S frames: the bytes (the
+    encoder's and the cross projections' weights and the frames read once,
+    enc_out, xk and xv written once) over the bandwidth, or the operations
+    over the card's rate for their type, whichever is larger.  Counted as
+    the port computes them: the projections, the MLP and P.V in bf16, the
+    scores Q.K in float32 (TF32 off), one exp a score; the flash path's
+    padding past S frames is not work the frames need."""
+    D, F, H, dh = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.head_dim
+    Le, Ld = cfg.n_enc_layers, cfg.n_layers
+    proj = 2 * B * S * D * H * dh
+    bf16 = Le * (4 * proj + 3 * 2 * B * S * D * F + 2 * B * H * S * S * dh) \
+        + Ld * 2 * proj
+    fp32 = Le * 2 * B * H * S * S * dh
+    exps = Le * B * H * S * S
+    weights = Le * (4 * D * H * dh + 3 * D * F + 2 * D) + D \
+        + Ld * 2 * D * H * dh
+    nbytes = 2 * weights + 4 * B * S * D + 2 * B * S * D * (1 + 2 * Ld)
+    times = {"bytes": nbytes / bw * 1e3,
+             "bf16": bf16 / rates["bf16_flops"] * 1e3,
+             "fp32": fp32 / rates["fp32_flops"] * 1e3,
+             "exp": exps / rates["exp_per_s"] * 1e3}
+    by = max(times, key=times.get)
+    return {"prefill_bound_ms": times[by], "prefill_bound_by": by,
+            "prefill_bound_parts_ms": times, "prefill_bf16_flop": bf16,
+            "prefill_fp32_flop": fp32, "prefill_bytes": nbytes}
+
+
+def step_bytes(params, cache) -> int:
+    """Bytes a decode step must move: the decoder's weights, its final
+    norm, the head and a row of the embedding a slot, and the whole cache
+    (self K/V and positions, cross K/V) read once."""
+    from repro_torch.models import transformer
+
+    tree = transformer.as_tree(params)
+    dec = transformer.flatten_tree(tree["dec_layers"])
+    slots = cache["k"].shape[1]
+    return (sum(t.numel() * t.element_size() for t in dec.values())
+            + sum(tree[k].numel() * tree[k].element_size()
+                  for k in ("dec_norm", "lm_head"))
+            + slots * tree["embed"].shape[1] * tree["embed"].element_size()
+            + sum(t.numel() * t.element_size() for t in cache.values()))
+
+
+def encdec_real_path(cfg, params, frames, tok, device: str, bw: float,
+                     rates: dict, label: str):
+    """The encoder-decoder's own path in bf16: ``prefill`` (timed beside
+    ``prefill_bound``), then teacher-forced ``decode_step`` over ``tok``
+    on the prefilled cache (each step timed; the median beside its bytes
+    over the bandwidth), held by lm's bf16 verdict (``logit_checks``)
+    against ``decode_train`` in bf16 and in float32 (TF32 off, a float32
+    copy of the same weights, enc_out from the float32 encoder); then one
+    more step under torch.profiler.  Returns (the fields, the checks)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import build_model, encdec
+
+    model = build_model(cfg)
+    B, S = tok.shape
+    batch = {"frames": frames}
+    (enc_out, xk, xv), launches = launch_window(
+        lambda: model.prefill(params, batch))
+    prefill_ms = event_median_ms(lambda: model.prefill(params, batch),
+                                 inner=1, reps=11)
+    prefill_busy = device_busy(lambda: model.prefill(params, batch))
+    cache = model.init_cache(B, frames.shape[1], device=device)
+    cache["xk"], cache["xv"] = xk, xv
+    steps, step_s = [], []
+    for t in range(S):
+        t0 = time.perf_counter()
+        lg, cache = model.decode_step(params, cache, tok[:, t:t + 1], t)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        steps.append(lg.float())
+    replay = torch.stack(steps, 1)
+    full = encdec.decode_train(params, tok, enc_out, cfg).float()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = as_f32(params)
+    with no_tf32():
+        truth = encdec.decode_train(p32, tok, encdec.encode(p32, frames, cfg32),
+                                    cfg32)
+    del p32
+    fields, checks, _ = logit_checks(
+        full, replay, truth, None, 0, LM_BF16_TOL,
+        f"{label} ({cfg.n_enc_layers} + {cfg.n_layers} layers)")
+    nbytes = step_bytes(params, cache)
+    flop = 2 * B * sum(p.numel() for n, p in params.named_parameters()
+                       if n.startswith("dec_layers.") or n == "lm_head")
+    profiled = device_busy(lambda: model.decode_step(
+        params, cache, tok[:, -1:], S), top=8)
+    fields.update({
+        "frames": frames.shape[1], "dec_len": S, "slots": B,
+        "repo_kernel_launches": {k: v for k, v in launches.items() if v},
+        "enc_out_dtype": str(enc_out.dtype).split(".")[-1],
+        "prefill_ms_median": prefill_ms,
+        "prefill_device_busy_ms": prefill_busy["device_busy_s"] * 1e3,
+        "prefill_kernels": prefill_busy["kernels"],
+        **prefill_bound(cfg, B, frames.shape[1], bw, rates),
+        "decode_steps": S,
+        "decode_step_ms_median": statistics.median(step_s) * 1e3,
+        "decode_step_ms_min": min(step_s) * 1e3,
+        "decode_step_bytes": nbytes,
+        "decode_step_bound_ms": max(nbytes / bw,
+                                    flop / rates["bf16_flops"]) * 1e3,
+        "decode_step_bound_by": "bytes" if nbytes / bw >=
+        flop / rates["bf16_flops"] else "operations",
+        "decode_step_profiled": profiled})
+    del cache, enc_out, xk, xv, full, replay, truth
+    return fields, checks
+
+
+def encdec_served(cfg, params, prompts: np.ndarray, device: str, bw: float,
+                  label: str):
+    """``ServingEngine(batch_size=LM_SLOTS, max_seq=LM_MAX_SEQ)`` serving
+    ``cfg`` as the reference's engine does (no prefill: zero cross K/V over
+    ``enc_len = max_seq``, a self cache of ``dec_len_for(max_seq)`` slots
+    that rolls): LM_REQUESTS requests of the LM_PROMPT-token ``prompts``,
+    LM_NEW new tokens each, the steps timed.  The LM_SLOTS requests served
+    from pos 0 in fresh slots must equal a teacher-forced replay of
+    ``decode_step`` on the cache the engine builds.  Returns (the fields,
+    the checks)."""
+    import torch
+    from repro_torch.models.encdec import dec_len_for
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    engine = ServingEngine(cfg, params, batch_size=LM_SLOTS,
+                           max_seq=LM_MAX_SEQ, device=device)
+    decode, step_s = engine.model.decode_step, []
+
+    def timed_step(*a):
+        t = time.perf_counter()
+        out = decode(*a)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    engine.model.decode_step = timed_step
+    reqs = [Request(rid=i, prompt=prompts[i].astype(np.int32),
+                    max_new_tokens=LM_NEW) for i in range(LM_REQUESTS)]
+    t0 = time.perf_counter()
+    served = engine.run(reqs)
+    serve_s = time.perf_counter() - t0
+    model = engine.model
+    model.decode_step = decode
+    check(sorted(served) == list(range(LM_REQUESTS)) and
+          all(len(v) == LM_NEW for v in served.values()),
+          f"{label}: served {({k: len(v) for k, v in served.items()})}")
+    seq = np.stack([np.concatenate([prompts[i], served[i]])
+                    for i in range(LM_SLOTS)])
+    tok = torch.from_numpy(seq).to(device)
+    cache = model.init_cache(LM_SLOTS, LM_MAX_SEQ, device=device)
+    replay = []
+    for t in range(seq.shape[1] - 1):
+        lg, cache = model.decode_step(params, cache, tok[:, t:t + 1], t)
+        replay.append(lg.argmax(-1))
+    mine = torch.stack(replay, 1)[:, LM_PROMPT - 1:].cpu().numpy()
+    out = seq[:, LM_PROMPT:]
+    gen = sum(len(v) for v in served.values())
+    nbytes = step_bytes(params, cache)
+    fields = {"served_requests": len(served), "served_max_seq": LM_MAX_SEQ,
+              "served_enc_len": cache["xk"].shape[2],
+              "served_dec_len": cache["k"].shape[2],
+              "served_dec_len_for": dec_len_for(LM_MAX_SEQ),
+              "served_cross_kv_zero": not (cache["xk"].any() or
+                                           cache["xv"].any()),
+              "served_steps": len(step_s), "serve_s": serve_s,
+              "served_step_ms_median": statistics.median(step_s) * 1e3,
+              "served_step_bound_ms": nbytes / bw * 1e3,
+              "tokens_generated": gen, "tokens_per_s": gen / serve_s,
+              "replay_mismatches": int((out != mine).sum())}
+    checks = [(np.array_equal(out, mine), f"{label}: served tokens differ "
+               "from a teacher-forced replay of the same decode steps"),
+              (fields["served_cross_kv_zero"], f"{label}: the engine's "
+               "cross K/V are not zero")]
+    return fields, checks
+
+
+def encdec_phase(args, prompts: np.ndarray, card: str, device: str,
+                 bw: float, rates: dict, build_s: float) -> None:
+    """lm.encdec: whisper-small at its published widths and depth (12 + 12
+    layers, d_model 768), after lm.families with its weights freed.  The
+    frames stub whisper's conv frontend as both packages do: [LM_SLOTS,
+    ENCDEC_FRAMES, 768] drawn from the seed, beside a teacher-forced
+    prefix of ``dec_len_for(ENCDEC_FRAMES)`` tokens.  (1) In float32 (TF32
+    off): prefill, then decode against ``decode_train`` within LM_F32_TOL
+    (``encdec_f32_check``).  (2) In bf16, weights drawn on the card from a
+    seeded generator: the real path (``encdec_real_path``: prefill and
+    decode timed beside their bounds, lm's bf16 verdict against the bf16
+    and float32 ``decode_train``), (3) the served path
+    (``encdec_served``: 8 requests of lm's prompts modulo the vocabulary,
+    16 + 16 tokens, equal to their replay), (4) the launcher,
+    ``repro_torch.launch.serve.main``, at full width on the card.  One
+    line; the phase within ENCDEC_LIMIT_S."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.models.encdec import dec_len_for, leaf_shapes
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    cfg = get_config(ENCDEC_ARCH)
+    label = "lm.encdec"
+    line = {"phase": label, "card": card, "arch": ENCDEC_ARCH,
+            "family": cfg.family, "source": cfg.source, "build_s": build_s,
+            "held_before_gb": held_gb, "layers": [cfg.n_enc_layers,
+                                                  cfg.n_layers],
+            "d_model": cfg.d_model, "heads": cfg.n_heads, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab, "padded_vocab": cfg.padded_vocab,
+            "dtype": cfg.dtype,
+            "reduced": "depth 12 + 12 kept; random weights (the repository "
+            "holds none); the conv frontend stubbed by frames drawn from the "
+            "seed, as in both packages"}
+    rng = np.random.default_rng(args.seed + 30)
+    S = dec_len_for(ENCDEC_FRAMES)
+    frames = torch.from_numpy(rng.standard_normal(
+        (LM_SLOTS, ENCDEC_FRAMES, cfg.d_model), dtype=np.float32)).to(device)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (LM_SLOTS, S))).to(device)
+    line.update(encdec_f32_check(cfg, frames, tok, args.seed + 31, device,
+                                 label))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(
+        torch.Generator(device=device).manual_seed(args.seed + 32),
+        device=device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    want = sum(int(np.prod(s)) for s in leaf_shapes(cfg).values())
+    check(n_params == want, f"{label}: {n_params} parameters, the model's "
+          f"leaves hold {want}")
+    on = torch.device(device).type
+    check(all(p.dtype == torch.bfloat16 and p.device.type == on
+              for p in params.parameters()),
+          f"{label}: a weight is not bf16 on the card")
+    line.update({"init_s": time.perf_counter() - t0, "params": n_params,
+                 "param_count_without_norms": cfg.param_count()[0],
+                 "weights_gb": 2 * n_params / 1e9})
+    with torch.inference_mode():
+        fields, checks = encdec_real_path(cfg, params, frames, tok, device,
+                                          bw, rates, label)
+        line.update(fields)
+        fields, more = encdec_served(cfg, params, prompts % cfg.vocab,
+                                     device, bw, label)
+        line.update(fields)
+        checks += more
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    t0 = time.perf_counter()
+    launched = serve.main(["--arch", ENCDEC_ARCH, "--device", device])
+    line.update({"launcher_s": time.perf_counter() - t0,
+                 "launcher_requests": len(launched),
+                 "launcher_tokens": sum(len(v) for v in launched.values())})
+    checks.append((sorted(launched) == list(range(8)) and
+                   all(len(v) == 16 for v in launched.values()),
+                   f"{label}: the launcher served "
+                   f"{({k: len(v) for k, v in launched.items()})}"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["seconds"] = seconds = time.perf_counter() - t_phase
+    emit(line)
+    for cond, msg in checks:
+        check(cond, msg)
+    check(seconds <= ENCDEC_LIMIT_S, f"{label}: the phase took "
+          f"{seconds:.1f} s of its {ENCDEC_LIMIT_S:.0f} s")
 
 
 # --------------------------------------------------------------------------- #
@@ -4625,7 +4993,8 @@ def main() -> int:
     rates = {"sm_count": sms,
              "exp_per_s": EXP_PER_CLOCK_PER_SM * sms * max_mhz * 1e6,
              "int32_ops": INT32_PER_CLOCK_PER_SM * sms * max_mhz * 1e6,
-             "fp32_flops": next(r for key, r in FP32_RATE if key in device_name)}
+             "fp32_flops": next(r for key, r in FP32_RATE if key in device_name),
+             "bf16_flops": next(r for key, r in BF16_RATE if key in device_name)}
 
     t0 = time.perf_counter()
     lib = _build.build()
@@ -4712,6 +5081,7 @@ def main() -> int:
     del state       # the main trees: the lm phase needs the card's memory
     prompts = lm_phase(args, recs, card, "cuda", bw, build_s)
     families = families_phase(args, prompts, card, "cuda", bw, rates, build_s)
+    encdec_phase(args, prompts, card, "cuda", bw, rates, build_s)
     bench_launches, bench = bench_phase(args)
     launches["bloom_probe"] = bench_launches["bloom_probe"]
     # the scan's main path is now the SSM models' forwards (lm.families)

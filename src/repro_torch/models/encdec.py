@@ -1,0 +1,254 @@
+"""Encoder-decoder backbone (whisper-small).
+
+The conv audio frontend is a stub, as in the reference: the encoder
+consumes precomputed frame embeddings [B, S_enc, d_model].  Sinusoidal
+positions stand in for Whisper's learned/sinusoidal tables.  The decoder
+is a causal LM with per-layer cross-attention over the encoder output;
+decode carries a self-attention cache, written in place and rolling at
+``pos % dec_len``, plus static cross-attention K/V that ``prefill``
+computes once.
+
+Parameters keep the reference's tree and leaf names, stacked ``[L, ...]``
+(``enc_layers.attn.wq`` is ``[Le, D, H, dh]``, ``dec_layers.xattn.wv``
+``[Ld, D, H, dh]``), held by ``EncDecLM``.  Every attention here has H
+key/value heads and no rope.  A loop over layers stands where the
+reference scans; the mesh specs (``param_specs``, ``cache_specs``) wait
+for ROADMAP §1 item 5(g).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import (dense_init, embed_init, rms_norm,
+                                       sinusoidal_pos, swiglu)
+from repro_torch.models.transformer import (Params, Tree, _attach, _layer,
+                                            _tree_of, _xent, as_tree,
+                                            dtype_of, nest_tree)
+
+# decoder token length = encoder frames / TOKEN_RATIO for train/prefill
+TOKEN_RATIO = 8
+
+
+def dec_len_for(seq_len: int) -> int:
+    return max(16, seq_len // TOKEN_RATIO)
+
+
+def leaf_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    """Every parameter leaf by its dotted name, with its shape."""
+    if not cfg.enc_dec:
+        raise ValueError(f"{cfg.name}: a decoder-only config; use "
+                         "repro_torch.models.transformer")
+    Le, Ld = cfg.n_enc_layers, cfg.n_layers
+    D, F, H, dh = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.head_dim
+    Vp = cfg.padded_vocab
+
+    def attn(prefix, L):
+        return {f"{prefix}.wq": (L, D, H, dh), f"{prefix}.wk": (L, D, H, dh),
+                f"{prefix}.wv": (L, D, H, dh), f"{prefix}.wo": (L, H, dh, D)}
+
+    def mlp(prefix, L):
+        return {f"{prefix}.wg": (L, D, F), f"{prefix}.wu": (L, D, F),
+                f"{prefix}.wd": (L, F, D)}
+
+    return {
+        "embed": (Vp, D),
+        **attn("enc_layers.attn", Le), **mlp("enc_layers.mlp", Le),
+        "enc_layers.ln1": (Le, D), "enc_layers.ln2": (Le, D),
+        **attn("dec_layers.attn", Ld), **attn("dec_layers.xattn", Ld),
+        **mlp("dec_layers.mlp", Ld),
+        "dec_layers.ln1": (Ld, D), "dec_layers.ln2": (Ld, D),
+        "dec_layers.ln3": (Ld, D),
+        "enc_norm": (D,), "dec_norm": (D,), "lm_head": (Vp, D),
+    }
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator) -> Tree:
+    """Random parameters on ``gen``'s device, one leaf at a time (each drawn
+    in float32, then cast to the config's dtype); norms are ones."""
+    dt = dtype_of(cfg)
+    D = cfg.d_model
+    fan_in = {"wq": D, "wk": D, "wv": D, "wo": cfg.n_heads * cfg.head_dim,
+              "wg": D, "wu": D, "wd": cfg.d_ff}
+    flat = {}
+    for name, shape in leaf_shapes(cfg).items():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in fan_in:
+            flat[name] = dense_init(gen, shape, fan_in[leaf], dt)
+        elif leaf in ("embed", "lm_head"):
+            flat[name] = embed_init(gen, shape, dt)
+        else:
+            flat[name] = torch.ones(shape, dtype=dt, device=gen.device)
+    return nest_tree(flat)
+
+
+class EncDecLM(nn.Module):
+    """The parameters under the reference's names (``named_parameters``
+    gives ``enc_layers.attn.wq`` ... ``lm_head``).  They do not require
+    grad: the port serves, and training waits for ROADMAP §1 item 5(e)."""
+
+    def __init__(self, cfg: ArchConfig, tree: Tree):
+        super().__init__()
+        self.cfg = cfg
+        _attach(self, tree)
+
+    def tree(self) -> Tree:
+        return _tree_of(self)
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, device=device).expand(B, S)
+
+
+def _cross_kv(enc_out, lp) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer's cross-attention K/V [B, Se, H, dh] (no rope)."""
+    kx = torch.einsum("bsd,dhk->bshk", enc_out, lp["xattn"]["wk"].to(enc_out.dtype))
+    vx = torch.einsum("bsd,dhk->bshk", enc_out, lp["xattn"]["wv"].to(enc_out.dtype))
+    return kx, vx
+
+
+def _cross_q(h, lp) -> torch.Tensor:
+    return torch.einsum("bsd,dhk->bshk", h, lp["xattn"]["wq"].to(h.dtype))
+
+
+def _mlp(x, lp, norm: str, cfg: ArchConfig) -> torch.Tensor:
+    h = rms_norm(x, lp[norm], cfg.norm_eps)
+    return x + swiglu(h, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"])
+
+
+# --------------------------------------------------------------------------- #
+# forward
+# --------------------------------------------------------------------------- #
+def encode(params: Params, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """frames [B, Se, D] -> enc_out [B, Se, D] in the model's dtype:
+    non-causal self-attention (the blocked flash path past
+    ``flags.kv_block`` frames)."""
+    p = as_tree(params)
+    B, S, D = frames.shape
+    dt = dtype_of(cfg)
+    x = frames.to(dt) + sinusoidal_pos(S, D, frames.device)[None].to(dt)
+    pos = _positions(B, S, frames.device)
+    for i in range(cfg.n_enc_layers):
+        lp = _layer(p["enc_layers"], i)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = attn_mod.qkv_proj(h, lp["attn"], 0.0, pos)
+        o = attn_mod.attention(q, k, v, pos, pos, causal=False)
+        x = x + attn_mod.out_proj(o, lp["attn"])
+        x = _mlp(x, lp, "ln2", cfg)
+    return rms_norm(x, p["enc_norm"], cfg.norm_eps)
+
+
+def decode_train(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
+                 cfg: ArchConfig) -> torch.Tensor:
+    """tokens [B, S], enc_out [B, Se, D] -> logits [B, S, Vp]: causal
+    self-attention, cross-attention over ``enc_out``, then the MLP."""
+    p = as_tree(params)
+    B, S = tokens.shape
+    dt = dtype_of(cfg)
+    x = p["embed"][tokens].to(dt)
+    x = x + sinusoidal_pos(S, cfg.d_model, x.device)[None].to(dt)
+    pos = _positions(B, S, x.device)
+    pos_e = _positions(B, enc_out.shape[1], x.device)
+    for i in range(cfg.n_layers):
+        lp = _layer(p["dec_layers"], i)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = attn_mod.qkv_proj(h, lp["attn"], 0.0, pos)
+        o = attn_mod.attention(q, k, v, pos, pos, causal=True)
+        x = x + attn_mod.out_proj(o, lp["attn"])
+        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        kx, vx = _cross_kv(enc_out, lp)
+        ox = attn_mod.attention(_cross_q(h2, lp), kx, vx, pos, pos_e,
+                                causal=False)
+        x = x + attn_mod.out_proj(ox, lp["xattn"])
+        x = _mlp(x, lp, "ln3", cfg)
+    x = rms_norm(x, p["dec_norm"], cfg.norm_eps)
+    return torch.einsum("bsd,vd->bsv", x, p["lm_head"].to(dt))
+
+
+def lm_loss(params: Params, batch, cfg: ArchConfig
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy; batch = {'frames', 'tokens', 'labels',
+    'mask'}; aux is 0."""
+    enc_out = encode(params, batch["frames"], cfg)
+    logits = decode_train(params, batch["tokens"], enc_out, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return _xent(logits, batch, aux, cfg)
+
+
+# --------------------------------------------------------------------------- #
+# serving
+# --------------------------------------------------------------------------- #
+def init_cache(cfg: ArchConfig, batch: int, enc_len: int, dec_len: int = 0,
+               device=None) -> Dict[str, torch.Tensor]:
+    """Leading Ld: a zero self cache of ``dec_len`` slots (default
+    ``dec_len_for(enc_len)``) with positions -1, and zero cross K/V of
+    ``enc_len`` frames, until ``prefill``'s fill them."""
+    dt = dtype_of(cfg)
+    Ld, H, dh = cfg.n_layers, cfg.n_heads, cfg.head_dim
+    dec_len = dec_len or dec_len_for(enc_len)
+
+    def zeros(S):
+        return torch.zeros((Ld, batch, S, H, dh), dtype=dt, device=device)
+
+    return {"k": zeros(dec_len), "v": zeros(dec_len),
+            "pos": torch.full((Ld, batch, dec_len), -1, dtype=torch.int32,
+                              device=device),
+            "xk": zeros(enc_len), "xv": zeros(enc_len)}
+
+
+@functools.lru_cache(maxsize=8)
+def _pos_table(Sd: int, D: int, dt: torch.dtype, device) -> torch.Tensor:
+    """``sinusoidal_pos(Sd, D)`` in the model's dtype, kept for the decode
+    steps (read only)."""
+    return sinusoidal_pos(Sd, D, device).to(dt)
+
+
+def decode_step(params: Params, cache: Dict[str, torch.Tensor],
+                token: torch.Tensor, pos, cfg: ArchConfig):
+    """token [B, 1], pos an int -> (logits [B, Vp], the cache with the self
+    K/V written in place at ``pos % dec_len``: the reference returns a new
+    one).  The position embedding wraps at ``pos % dec_len`` too."""
+    p = as_tree(params)
+    pos = int(pos)
+    dt = dtype_of(cfg)
+    B = token.shape[0]
+    x = p["embed"][token].to(dt)
+    Sd = cache["k"].shape[2]
+    x = x + _pos_table(Sd, cfg.d_model, dt, x.device)[pos % Sd]
+    posv = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    Se = cache["xk"].shape[2]
+    xpos = _positions(B, Se, x.device)
+    for i in range(cfg.n_layers):
+        lp = _layer(p["dec_layers"], i)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = attn_mod.qkv_proj(h, lp["attn"], 0.0, posv)
+        ck, cv, cp = attn_mod.cache_update(cache["k"][i], cache["v"][i],
+                                           cache["pos"][i], k, v, pos)
+        o = attn_mod.decode_attention(q, ck, cv, cp)
+        x = x + attn_mod.out_proj(o, lp["attn"])
+        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        ox = attn_mod.decode_attention(_cross_q(h2, lp), cache["xk"][i],
+                                       cache["xv"][i], xpos)
+        x = x + attn_mod.out_proj(ox, lp["xattn"])
+        x = _mlp(x, lp, "ln3", cfg)
+    x = rms_norm(x, p["dec_norm"], cfg.norm_eps)
+    logits = torch.einsum("bsd,vd->bsv", x, p["lm_head"].to(dt))[:, 0]
+    return logits, cache
+
+
+def prefill(params: Params, frames: torch.Tensor, cfg: ArchConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Encode, then every decoder layer's cross-attention K/V: (enc_out
+    [B, Se, D], xk, xv [Ld, B, Se, H, dh]), all in the model's dtype."""
+    p = as_tree(params)
+    enc_out = encode(p, frames, cfg)
+    kv = [_cross_kv(enc_out, _layer(p["dec_layers"], i))
+          for i in range(cfg.n_layers)]
+    return (enc_out, torch.stack([k for k, _ in kv]),
+            torch.stack([v for _, v in kv]))

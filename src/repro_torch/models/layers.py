@@ -1,9 +1,11 @@
-"""Shared model layers: norms, RoPE, SwiGLU MLP, init."""
+"""Shared model layers: norms, RoPE, sinusoidal positions, SwiGLU MLP,
+init."""
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -45,6 +47,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos(seq_len: int, d_model: int, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal position embeddings [seq_len, d_model]
+    (the encoder-decoder family): computed in numpy float64, then cast to
+    float32, so they equal the reference's bit for bit."""
+    pos = np.arange(seq_len)[:, None]
+    dim = np.arange(d_model // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * dim / d_model)
+    table = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(table.astype(np.float32)).to(device)
 
 
 # --------------------------------------------------------------------------- #

@@ -1,5 +1,7 @@
 """A uniform model API over the ported families: ``build_model(cfg)``
-returns a ModelAPI whose functions close over the config.  The reference's
+returns a ModelAPI whose functions close over the config, dispatching on
+``cfg.enc_dec`` as the reference does (``encdec`` for whisper-small,
+``transformer`` for the decoder-only families).  The reference's
 ``param_specs``, ``cache_specs``, ``input_specs`` and ``batch_pspec`` are
 mesh and dry-run code; they wait for ROADMAP §1 item 5(g)."""
 
@@ -9,25 +11,31 @@ import dataclasses
 from typing import Any, Callable, Dict, Tuple, Union
 
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.lsm import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import DecoderLM
 
 
 @dataclasses.dataclass
 class ModelAPI:
     cfg: ArchConfig
-    init: Callable[..., DecoderLM]
+    init: Callable[..., nn.Module]
     loss: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
     init_cache: Callable[..., Any]
     decode_step: Callable[..., Tuple[torch.Tensor, Any]]
     prefill: Callable[..., Any]
 
 
+def _family(cfg: ArchConfig):
+    return encdec if cfg.enc_dec else transformer
+
+
 def init_model(cfg: ArchConfig, seed: Union[int, torch.Generator],
-               device=None) -> DecoderLM:
+               device=None) -> Union[DecoderLM, EncDecLM]:
     """Random parameters drawn from ``seed`` (an int, or a generator on
     ``device``) on ``device``: the card unless the caller asks for the CPU."""
     dev = resolve_device(device)
@@ -38,18 +46,19 @@ def init_model(cfg: ArchConfig, seed: Union[int, torch.Generator],
         gen = seed
     else:
         gen = torch.Generator(device=dev).manual_seed(int(seed))
-    return DecoderLM(cfg, transformer.init_params(cfg, gen))
+    module = EncDecLM if cfg.enc_dec else DecoderLM
+    return module(cfg, _family(cfg).init_params(cfg, gen))
 
 
 def build_model(cfg: ArchConfig) -> ModelAPI:
-    transformer.check_family(cfg)
+    fam = _family(cfg)
+    inputs = "frames" if cfg.enc_dec else "tokens"    # what prefill takes
     return ModelAPI(
         cfg=cfg,
         init=lambda seed, device=None: init_model(cfg, seed, device),
-        loss=lambda p, b: transformer.lm_loss(p, b, cfg),
-        init_cache=lambda batch, seq_len, device=None: transformer.init_cache(
-            cfg, batch, seq_len, resolve_device(device)),
-        decode_step=lambda p, c, t, pos: transformer.decode_step(
-            p, c, t, pos, cfg),
-        prefill=lambda p, b: transformer.prefill(p, b["tokens"], cfg),
+        loss=lambda p, b: fam.lm_loss(p, b, cfg),
+        init_cache=lambda batch, seq_len, device=None: fam.init_cache(
+            cfg, batch, seq_len, device=resolve_device(device)),
+        decode_step=lambda p, c, t, pos: fam.decode_step(p, c, t, pos, cfg),
+        prefill=lambda p, b: fam.prefill(p, b[inputs], cfg),
     )

@@ -9,9 +9,11 @@ One parameterized block type; per-family composition:
 Parameters keep the reference's tree and leaf names, stacked ``[L, ...]``
 (``layers.attn.wq`` is ``[L, D, H, dh]``), held by ``DecoderLM`` as
 ``nn.Parameter``s; the functions here take that module or the nested dict
-of its tensors.  A loop over layers stands where the reference scans.  The
-encoder-decoder (ROADMAP §1 item 5(d)) raises ``ValueError``; the mesh
-specs wait for item 5(g), the reference's ``scan_impl`` for item 5(e).
+of its tensors.  A loop over layers stands where the reference scans.  An
+encoder-decoder config raises ``ValueError`` here: ``models/encdec.py``
+runs it, and ``registry.build_model`` dispatches on ``cfg.enc_dec``.  The
+mesh specs wait for ROADMAP §1 item 5(g), the reference's ``scan_impl``
+for item 5(e).
 """
 
 from __future__ import annotations
@@ -32,10 +34,10 @@ Tree = Dict[str, Any]
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise for a configuration whose family the port does not run yet."""
+    """Raise for a configuration that is not decoder-only."""
     if cfg.enc_dec:
-        raise ValueError(f"{cfg.name}: the encoder-decoder family is not "
-                         "ported yet (ROADMAP §1 item 5(d))")
+        raise ValueError(f"{cfg.name}: an encoder-decoder config; use "
+                         "repro_torch.models.encdec")
 
 
 def dtype_of(cfg: ArchConfig) -> torch.dtype:

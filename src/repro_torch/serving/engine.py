@@ -8,8 +8,14 @@ included (ROADMAP §3): one ``pos`` is shared by every slot, so a request
 refilled mid-run starts at that ``pos`` over its predecessor's KV entries,
 conv window and SSM state, and an empty slot goes on decoding its last
 token (0 if it never held a request) into the cache.  ``decode_step`` runs
-eagerly, one step a token for the whole batch, for every decoder-only
-family (dense, vlm, moe, ssm, hybrid).
+eagerly, one step a token for the whole batch, for every family.
+
+The encoder-decoder (whisper-small) is served as the reference serves it,
+traps included (ROADMAP §3): the engine never calls ``prefill``, so the
+cross-attention K/V stay zero (a uniform softmax over zero values adds
+nothing); the cache is ``init_cache(B, max_seq)``, so ``enc_len`` is
+``max_seq`` and the self cache holds ``dec_len_for(max_seq)`` slots,
+rolling at ``pos % dec_len`` as the decoder's position embedding wraps.
 """
 
 from __future__ import annotations
@@ -38,8 +44,8 @@ class Request:
 class ServingEngine:
     def __init__(self, cfg: ArchConfig, params: Params, batch_size: int = 4,
                  max_seq: int = 128, device=None):
-        """``params`` must lie on ``device`` (the card unless the caller
-        asks for the CPU)."""
+        """``params`` (a ``DecoderLM``, an ``EncDecLM`` or their tree) must
+        lie on ``device`` (the card unless the caller asks for the CPU)."""
         self.cfg = cfg
         self.model = build_model(cfg)
         self.device = resolve_device(device)

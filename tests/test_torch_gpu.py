@@ -1831,3 +1831,88 @@ def test_moe_decode_step_on_the_card_gives_the_same_bits_twice(card,
             logits.append(lg)
         assert logits[0].dtype == getattr(torch, dtype)
         assert torch.equal(logits[0], logits[1])
+
+
+# --------------------------------------------------------------------------- #
+# the encoder-decoder (whisper-small) on the card
+# --------------------------------------------------------------------------- #
+def _reduced_whisper(card, monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_config("whisper-small").reduced()
+    model = build_model(cfg)
+    cpu = model.init(0, device="cpu")
+    return cfg, model, cpu, model.init(0, device="cpu").to(card)
+
+
+@pytest.mark.parametrize("kv_block", [1024, 8])
+def test_encdec_decode_on_the_card_matches_decode_train(card, monkeypatch,
+                                                       kv_block):
+    """float32, TF32 off: prefill (enc_out, xk, xv) and decode_train on the
+    card within 1e-4 of the CPU's on the same parameters, and 20
+    teacher-forced decode steps over the prefilled cache (dec_len 16, so
+    the last 4 roll) each within 1e-4 of the CPU's step; the first 16
+    within 2e-4 of decode_train.  kv_block 8 puts every attention of the
+    forward on the flash path."""
+    from repro_torch.models import encdec, flags
+
+    monkeypatch.setattr(flags, "kv_block", kv_block)
+    cfg, model, cpu, on_card = _reduced_whisper(card, monkeypatch)
+    rng = np.random.default_rng(1)
+    frames = torch.from_numpy(rng.normal(size=(2, 24, cfg.d_model))
+                              .astype(np.float32))
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 20)))
+    caches, outs = [], []
+    for params, dev in ((cpu, "cpu"), (on_card, card)):
+        enc_out, xk, xv = model.prefill(params, {"frames": frames.to(dev)})
+        full = encdec.decode_train(params, tok[:, :16].to(dev), enc_out, cfg)
+        cache = model.init_cache(2, 24, device=dev)
+        cache["xk"], cache["xv"] = xk, xv
+        caches.append(cache)
+        outs.append((enc_out, xk, xv, full))
+    for a, b in zip(*outs):
+        assert b.device.type == card.type
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
+    full = outs[1][3]
+    for t in range(20):
+        a, caches[0] = model.decode_step(cpu, caches[0], tok[:, t:t + 1], t)
+        b, caches[1] = model.decode_step(on_card, caches[1],
+                                         tok[:, t:t + 1].to(card), t)
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
+        if t < 16:
+            torch.testing.assert_close(b, full[:, t], rtol=2e-4, atol=2e-4)
+    for name, leaf in caches[1].items():
+        torch.testing.assert_close(leaf.cpu(), caches[0][name], rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_encdec_serving_engine_on_the_card_matches_its_replay(card,
+                                                              monkeypatch):
+    """The engine on the card gives the CPU engine's tokens, and each of the
+    first four requests (served from pos 0 in fresh slots) equals a
+    teacher-forced replay of ``decode_step`` on the engine's cache: no
+    prefill, enc_len max_seq, a self cache of dec_len_for(max_seq) slots
+    that rolls."""
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg, model, cpu, on_card = _reduced_whisper(card, monkeypatch)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, 8).astype(np.int32)
+               for _ in range(10)]
+    out = []
+    for params, device in ((cpu, "cpu"), (on_card, card)):
+        eng = ServingEngine(cfg, params, batch_size=4, max_seq=40,
+                            device=device)
+        out.append(eng.run([Request(i, p, 8) for i, p in enumerate(prompts)]))
+    assert out[0] == out[1]
+    seq = torch.from_numpy(np.stack([np.concatenate([prompts[i], out[1][i]])
+                                     for i in range(4)])).to(card)
+    cache = model.init_cache(4, 40, device=card)
+    assert cache["k"].shape[2] == 16
+    replay = []
+    for t in range(seq.shape[1] - 1):
+        lg, cache = model.decode_step(on_card, cache, seq[:, t:t + 1], t)
+        replay.append(lg.argmax(-1))
+    assert torch.equal(torch.stack(replay, 1)[:, 7:], seq[:, 8:])

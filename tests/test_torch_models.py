@@ -152,20 +152,27 @@ def test_params_from_reference_checks_leaves_and_shapes():
 
 @pytest.mark.parametrize("arch", OTHER)
 def test_other_families_raise(arch):
-    """The encoder-decoder is not ported yet: every entry point raises
-    naming the ROADMAP item, none computes something else (the moe, ssm
-    and hybrid families run since item 5(c): test_torch_ssm.py,
-    test_torch_moe.py)."""
+    """The encoder-decoder runs through ``models/encdec.py``:
+    ``build_model`` dispatches on ``cfg.enc_dec`` and gives every entry
+    point (test_torch_encdec.py holds them against the reference).  The
+    decoder-only functions of ``transformer`` raise for its config, naming
+    ``encdec``, and compute nothing else."""
     _, cfg = configs(arch)
-    item = "5\\(d\\)"
-    with pytest.raises(ValueError, match=item):
-        build_model(cfg)
+    model = build_model(cfg)
+    for name in ("init", "loss", "init_cache", "decode_step", "prefill"):
+        assert callable(getattr(model, name))
+    assert sorted(model.init_cache(1, 16, device="cpu")) == \
+        ["k", "pos", "v", "xk", "xv"]
+    tok = torch.zeros((1, 2), dtype=torch.int64)
     for call in (lambda: transformer.leaf_shapes(cfg),
-                 lambda: transformer.forward({}, torch.zeros((1, 2), dtype=torch.int64), cfg),
+                 lambda: transformer.forward({}, tok, cfg),
                  lambda: transformer.init_cache(cfg, 1, 4, torch.device("cpu")),
-                 lambda: params_from_reference(cfg, {}, device="cpu")):
-        with pytest.raises(ValueError, match=item):
+                 lambda: transformer.decode_step({}, {}, tok[:, :1], 0, cfg),
+                 lambda: transformer.init_params(cfg, torch.Generator())):
+        with pytest.raises(ValueError, match="encdec"):
             call()
+    with pytest.raises(ValueError, match="leaves missing"):
+        params_from_reference(cfg, {}, device="cpu")
 
 
 def test_init_draws_from_the_seed_on_the_device(monkeypatch):

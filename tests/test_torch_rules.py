@@ -83,6 +83,7 @@ def test_port_sources_import_neither_jax_nor_repro():
     "repro_torch.serving.engine, repro_torch.serving.prefix_cache, "
     "repro_torch.pipeline, repro_torch.pipeline.tokenstore",
     "repro_torch.models.moe, repro_torch.models.ssm",
+    "repro_torch.models.encdec, repro_torch.launch, repro_torch.launch.serve",
 ])
 def test_importing_the_port_loads_neither_jax_nor_repro(modules):
     code = (f"import sys, {modules}\n"
@@ -106,12 +107,14 @@ def test_default_device_is_the_card_and_missing_card_raises(monkeypatch):
 
 def _consumers_and_model():
     from repro_torch.configs import get_config
+    from repro_torch.launch import serve
     from repro_torch.models import build_model
     from repro_torch.pipeline import TokenStore
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.prefix_cache import PrefixCacheIndex
 
     cfg = get_config("llama3-8b").reduced()
+    whisper = get_config("whisper-small").reduced()
     return {
         "TokenStore": lambda device=None: TokenStore(device=device),
         "PrefixCacheIndex": lambda device=None: PrefixCacheIndex(device=device),
@@ -119,15 +122,26 @@ def _consumers_and_model():
             0, device=device),
         "ServingEngine": lambda device=None: ServingEngine(
             cfg, build_model(cfg).init(0, device="cpu"), device=device),
+        "build_model(whisper).init": lambda device=None: build_model(
+            whisper).init(0, device=device),
+        "ServingEngine(whisper)": lambda device=None: ServingEngine(
+            whisper, build_model(whisper).init(0, device="cpu"),
+            device=device),
+        "launch.serve.main": lambda device=None: serve.main(
+            ["--arch", "whisper-small", "--reduced", "--requests", "1",
+             "--new-tokens", "1"] + (["--device", device] if device else [])),
     }
 
 
 @pytest.mark.parametrize("entry", ["TokenStore", "PrefixCacheIndex",
-                                   "build_model(cfg).init", "ServingEngine"])
+                                   "build_model(cfg).init", "ServingEngine",
+                                   "build_model(whisper).init",
+                                   "ServingEngine(whisper)",
+                                   "launch.serve.main"])
 def test_model_and_consumer_entry_points_need_the_card(monkeypatch, entry):
-    """The consumers, the model's init and the serving engine run on the
-    card by default and raise without one; ``device='cpu'`` runs them on
-    the CPU."""
+    """The consumers, the models' init, the serving engine and the serving
+    launcher run on the card by default and raise without one;
+    ``device='cpu'`` runs them on the CPU."""
     make = _consumers_and_model()[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for device in (None, "cuda"):
