@@ -5,7 +5,8 @@
 
 Phases, each printing JSON lines:
 
-1. build:   nvcc builds the twelve CUDA kernels from ``src/repro_torch``;
+1. build:   nvcc builds the thirteen CUDA kernels from ``src/repro_torch``
+            (the twelve ports of the Pallas kernels and ssm_scan_bwd);
             prints build seconds, the card (nvidia-smi), torch and CUDA.
 2. main:    the port's main path through ``LSMTree`` at the paper's
             section 5.1 shapes (16-byte keys, 256-byte values from a
@@ -298,13 +299,40 @@ Phases, each printing JSON lines:
             the card; the phase within 40 s.  The path launches none of the
             repository's kernels (its einsums and attention are plain
             PyTorch, as the reference's are outside Pallas).
-17. bench:   the kernel micro-bench's entry points
+17. train: hymba-1.5b trained on the port, after lm.encdec with its
+            weights freed, through ``make_train_state``,
+            ``make_train_step``, ``train.loop.run`` and
+            ``launch.train.main``: (a) 2 of 32 layers at full width in
+            float32 (TF32 off), one step of B 2 x S 256 in 2 microbatches,
+            its gradients through ssm_scan / ssm_scan_bwd against
+            ssm_scan_plain under autograd (loss and every leaf within 1e-4
+            of its largest magnitude), the launches counted (forward and
+            remat's recompute each launch ssm_scan once a layer a
+            microbatch, the backward ssm_scan_bwd once); (b) full width and
+            depth in bf16: a TokenStore of repeated motifs whose batches
+            launch fused_zone_filter, then 8 steps of B 4 x S 1,024 in 2
+            microbatches (AdamW lr 1e-3, warmup 2) on one batch, the loss
+            dropping by 0.3 or more, every metric finite, every leaf's
+            moment nonzero and every leaf changed unless a unit step rounds
+            back in bf16; the step's median ms beside its bound, the last
+            step profiled, peak memory, tokens/s; (c) ssm_scan_bwd against
+            ssm_scan_bwd_plain on the first layer's scan operands and dy
+            from (b) (B 2, L 1,024, D 3,200, N 16) within 1e-4 of each
+            output's magnitude, the same bits twice, both timed beside the
+            bound; (d) 2 of 32 layers in bf16 through ``train.loop.run``
+            with AsyncCheckpointer every 3 steps and failures injected at
+            steps 2 (before the first checkpoint) and 5, the final loss
+            within rtol 1e-4 of a failure-free run, the last checkpoint
+            restored onto the card bit for bit the live state; (e) the
+            launcher on the reduced config for 4 steps.  One line with the
+            phase's seconds beside the build's; within 60 s.
+18. bench:   the kernel micro-bench's entry points
             (``benchmarks/bench_kernels.py``): range_filter_packed on 2^20
             codes at widths 8 and 16, bloom_probe on a 2^14-bit bloom and
             on the largest documented one (2,048 words, 2^20 keys, no false
             negative), ssm_scan at falcon-mamba-7b's width (d_inner 8192,
             d_state 16, 2,048 tokens), held against host models.
-18. kernels: each kernel against its plain PyTorch version on the card, on
+19. kernels: each kernel against its plain PyTorch version on the card, on
             operands recorded from the main path, the serve phases,
             agg.fast, compact.jax and fig5, and at bench's shapes
             (bit-identical required; ssm_scan within rtol = atol = 1e-4),
@@ -349,7 +377,8 @@ Phases, each printing JSON lines:
             forwards of lm.families (its model path; bench's one is
             bench_launches), and its row carries lm.families' ``path``:
             the kernel against plain at falcon-mamba-7b's first layer in
-            the served forward.
+            the served forward.  ssm_scan_bwd's row is train's part (c),
+            its launches those of train.full's 8 steps.
 
 A ``total`` line gives the run's wall seconds.  The last three lines are
 the card (nvidia-smi name, power limit), the kernel table ``{"kernels": [...]}`` and ``{"ok": true, "device": ...}``.
@@ -416,6 +445,10 @@ KERNELS = {
                     "src/repro/kernels/bloom_probe.py:73"),
     "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
                  "src/repro/kernels/ssm_scan.py:83"),
+    # no Pallas counterpart: the backward of row ssm_scan, which the
+    # reference takes by XLA's autodiff of selective_scan_seq
+    "ssm_scan_bwd": ("src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+                     "src/repro/models/ssm.py:40"),
 }
 MAIN_KERNELS = ("pack_codes", "unpack_codes", "fused_zone_filter",
                 "remap_pack_codes")
@@ -431,7 +464,8 @@ SYMBOLS = {"pack_codes": "pack_codes_kernel",
            "remap_codes": "remap_codes_kernel",
            "range_filter_packed": "range_filter_packed_kernel",
            "bloom_probe": "bloom_probe_kernel",
-           "ssm_scan": "ssm_scan_kernel"}
+           "ssm_scan": "ssm_scan_kernel",
+           "ssm_scan_bwd": "ssm_scan_bwd_kernel"}
 INT32_MAX = 2**31 - 1
 NO_LIBRARY = ("no single PyTorch call computes this bit-field function; "
               "its plain version is several calls")
@@ -445,7 +479,10 @@ LIBRARY_WHY = {"range_filter_codes": (
         "plain version is several calls per hash"),
     "ssm_scan": (
         "no single PyTorch call computes a selective scan (sequential in L); "
-        "its plain version is several calls per time step")}
+        "its plain version is several calls per time step"),
+    "ssm_scan_bwd": (
+        "no single PyTorch call computes a selective scan's gradient; its "
+        "plain version is several calls per time step, both ways")}
 
 
 def emit(obj) -> None:
@@ -3842,6 +3879,541 @@ def encdec_phase(args, prompts: np.ndarray, card: str, device: str,
 
 
 # --------------------------------------------------------------------------- #
+# train: hymba-1.5b trained at full width through the port's entry points
+# --------------------------------------------------------------------------- #
+TRAIN_ARCH = "hymba-1.5b"
+TRAIN_LIMIT_S = 60.0
+TRAIN_CUT_LAYERS = 2         # parts (a) and (d): 2 of the model's 32 layers
+TRAIN_F32_SHAPE = (2, 256)   # part (a): B x S
+TRAIN_SHAPE = (4, 1024)      # part (b): B x S, 2 microbatches
+TRAIN_STEPS = 8
+TRAIN_DROP = 0.3             # tests/test_train.py's margin over its steps
+TRAIN_GRAD_TOL = 1e-4        # (a): of each gradient leaf's largest magnitude
+TRAIN_BWD_TOL = 1e-4         # (c): of each output's largest magnitude
+TRAIN_LOOP_SHAPE = (4, 256)  # part (d): B x S
+TRAIN_LOOP_STEPS, TRAIN_LOOP_EVERY = 6, 3
+TRAIN_LOOP_FAILS = (2, 5)    # one step before the first checkpoint, one after
+
+
+class PlainScan:
+    """Stands in for ``ssm_scan.SSMScan`` in part (a): ``ssm_scan_plain``
+    under autograd, the reference's kind of gradient (autodiff of the
+    step-by-step recurrence)."""
+
+    @staticmethod
+    def apply(u, dt, A, Bm, Cm, chunk):
+        from repro_torch.kernels import ssm_scan
+
+        return ssm_scan.ssm_scan_plain(u, dt, A, Bm, Cm, chunk)[0]
+
+
+def train_batch(rng, vocab: int, B: int, S: int, device: str) -> dict:
+    import torch
+
+    toks = rng.integers(0, vocab, (B, S + 1))
+    return {"tokens": torch.from_numpy(toks[:, :-1].astype(np.int32)).to(device),
+            "labels": torch.from_numpy(toks[:, 1:].astype(np.int32)).to(device),
+            "mask": torch.ones((B, S), dtype=torch.float32, device=device)}
+
+
+def train_f32_part(cfg, seed: int, device: str) -> tuple:
+    """(a) TRAIN_CUT_LAYERS layers at full width in float32 (TF32 off): one
+    ``make_train_step`` (2 microbatches) on the card, then its gradients
+    (``step.grads``) through the kernels and through ``PlainScan``: the
+    loss within TRAIN_GRAD_TOL relative, every leaf within TRAIN_GRAD_TOL
+    of its largest magnitude.  Returns (fields, checks)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import ssm_scan as scan_kernel
+    from repro_torch.models import build_model
+    from repro_torch.train import tree as T
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_state, make_train_step
+
+    cfg32 = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS,
+                                dtype="float32")
+    model = build_model(cfg32)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=2)
+    B, S = TRAIN_F32_SHAPE
+    n_mb = 2
+    with no_tf32():
+        state = make_train_state(
+            model, ocfg, torch.Generator(device=device).manual_seed(seed),
+            device=device)
+        batch = train_batch(np.random.default_rng(seed), cfg.vocab, B, S,
+                            device)
+        step = make_train_step(model, ocfg, num_microbatches=n_mb)
+        (new, metrics), launches = launch_window(lambda: step(state, batch))
+        torch.cuda.synchronize()
+        loss_k, _, g_k = step.grads(state["params"], batch)
+        kernel_scan = scan_kernel.SSMScan
+        scan_kernel.SSMScan = PlainScan
+        try:
+            loss_p, _, g_p = step.grads(state["params"], batch)
+        finally:
+            scan_kernel.SSMScan = kernel_scan
+    paths, gk = T.flatten(g_k)
+    gp = T.leaves(g_p)
+    worst, worst_leaf = 0.0, None
+    for path, a, b in zip(paths, gk, gp):
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if rel >= worst:
+            worst, worst_leaf = rel, "__".join(path)
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    want = {"ssm_scan": 2 * TRAIN_CUT_LAYERS * n_mb,
+            "ssm_scan_bwd": TRAIN_CUT_LAYERS * n_mb}
+    got = {k: launches.get(k, 0) for k in want}
+    fields = {"f32_layers": TRAIN_CUT_LAYERS, "f32_shape": [B, S],
+              "f32_microbatches": n_mb,
+              "f32_loss": float(loss_k), "f32_loss_plain": float(loss_p),
+              "f32_loss_rel_err": loss_rel,
+              "f32_grad_max_rel_err": worst, "f32_grad_worst_leaf": worst_leaf,
+              "f32_grad_tol": TRAIN_GRAD_TOL,
+              "f32_step_metrics_finite": all(
+                  np.isfinite(float(v)) for v in metrics.values()),
+              "f32_step_launches": got,
+              "f32_step_launches_note": "ssm_scan: forward and remat's "
+              "recompute, one each a layer a microbatch; ssm_scan_bwd: one a "
+              "layer a microbatch"}
+    checks = [(loss_rel <= TRAIN_GRAD_TOL, f"train.f32: loss {float(loss_k)} "
+               f"through the kernels, {float(loss_p)} through plain"),
+              (worst <= TRAIN_GRAD_TOL, f"train.f32: gradient {worst_leaf} "
+               f"{worst} of its magnitude from plain's (past "
+               f"{TRAIN_GRAD_TOL})"),
+              (got == want, f"train.f32: the step launched {got}, not {want}"),
+              (fields["f32_step_metrics_finite"], "train.f32: a metric of "
+               "the step is not finite")]
+    del state, new, g_k, g_p
+    return fields, checks
+
+
+def bwd_recorder(n_calls: int):
+    """Wrap ``ssm_scan.ssm_scan_bwd``, keeping the operands of its
+    ``n_calls``-th call (a microbatch's backward calls it last layer first,
+    so call n_layers is layer 0's).  Returns (kept, restore)."""
+    from repro_torch.kernels import ssm_scan as scan_kernel
+
+    wrapper, kept, seen = scan_kernel.ssm_scan_bwd, [], [0]
+
+    def record(*args):
+        seen[0] += 1
+        if seen[0] == n_calls:
+            kept.append(tuple(t.detach().clone() for t in args))
+        return wrapper(*args)
+
+    scan_kernel.ssm_scan_bwd = record
+    return kept, lambda: setattr(scan_kernel, "ssm_scan_bwd", wrapper)
+
+
+def train_step_bound(cfg, n_params: int, B: int, S: int, bw: float,
+                     rates: dict) -> dict:
+    """The least time of one step: 8 x parameters x tokens FLOP (forward 2,
+    remat's recompute 2, backward 4) at the bf16 rate, the causal
+    attention's Q.K (float32 in the port) and P.V (bf16) at their rates,
+    4 times (forward, recompute, backward twice), plus AdamW's bytes
+    (bf16 parameters read and written, float32 gradients read, float32
+    moments read and written: 24 a parameter) over the bandwidth."""
+    tokens = B * S
+    dense = 8 * n_params * tokens
+    pairs = B * cfg.n_heads * S * (S + 1) // 2
+    attn = 4 * 2 * pairs * cfg.head_dim * cfg.n_layers    # each of Q.K, P.V
+    opt_bytes = 24 * n_params
+    parts = {"dense_bf16_ms": dense / rates["bf16_flops"] * 1e3,
+             "attn_qk_fp32_ms": attn / rates["fp32_flops"] * 1e3,
+             "attn_pv_bf16_ms": attn / rates["bf16_flops"] * 1e3,
+             "adamw_bytes_ms": opt_bytes / bw * 1e3}
+    return {"step_bound_ms": sum(parts.values()), "step_bound_parts_ms": parts,
+            "step_dense_flop": dense, "step_attn_flop_each": attn,
+            "step_adamw_bytes": opt_bytes}
+
+
+def below_bf16_step(p, ocfg) -> bool:
+    """Whether a unit AdamW step (|mhat| / sqrt(vhat) = 1, plus the decay on
+    leaves of 2 dims or more) at the peak lr rounds back to every element
+    of the bf16 leaf ``p``: lr x (1 + weight decay x |p|) under the
+    element's half spacing downwards (bf16 keeps 8 significant bits)."""
+    import torch
+
+    x = p.float().abs()
+    m, e = torch.frexp(x)                 # x = m 2^e, m in [0.5, 1)
+    half = torch.ldexp(torch.ones_like(x),
+                       (e - torch.where(m == 0.5, 10, 9)).to(torch.int32))
+    half = torch.where(x == 0, torch.zeros_like(x), half)
+    wd = ocfg.weight_decay if p.dim() >= 2 else 0.0
+    return bool((ocfg.lr * (1 + wd * x) < half).all())
+
+
+def train_full_part(cfg, seed: int, device: str, bw: float,
+                    rates: dict) -> tuple:
+    """(b) ``cfg`` at full width and depth in bf16: a TokenStore of
+    repeated motifs (``tests/test_system.py``'s store) whose ``batches``
+    launch ``fused_zone_filter``, then TRAIN_STEPS steps of
+    ``make_train_step`` (2 microbatches; AdamW lr 1e-3, warmup 2) on one
+    batch of TRAIN_SHAPE, the last one profiled.  Returns (fields, checks,
+    the first layer's scan operands and dy from the first microbatch,
+    the steps' launches)."""
+    import torch
+    from repro_torch.core.opd import Predicate
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.pipeline.tokenstore import TokenStore, TokenStoreConfig
+    from repro_torch.train import tree as T
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_state, make_train_step
+
+    B, S = TRAIN_SHAPE
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    store = TokenStore(TokenStoreConfig(file_bytes=64 * 1024), device=device)
+    motif = rng.integers(0, cfg.vocab, 16)
+    for i in range(64):
+        store.put_sample(i, np.tile(motif, 20).astype(np.int32), b"web/high")
+    store.lsm.flush()        # the selection then scans an SCT on the card
+    batches, store_launches = launch_window(lambda: list(store.batches(
+        Predicate("prefix", b"web/high"), B, S, max_batches=1)))
+    store_s = time.perf_counter() - t0
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batches[0].items()}
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=2)
+    state = make_train_state(
+        model, ocfg, torch.Generator(device=device).manual_seed(seed + 1),
+        device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in T.leaves(state["params"]))
+    step = make_train_step(model, ocfg, num_microbatches=2)
+    start = [t.clone() for t in T.leaves(state["params"])]
+    torch.cuda.reset_peak_memory_stats()
+    kept, restore = bwd_recorder(cfg.n_layers)
+    losses, secs, metrics = [], [], []
+    ops.reset_launches()
+    try:
+        for i in range(TRAIN_STEPS - 1):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(m["loss_total"].item())
+            secs.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+    finally:
+        restore()
+    box = {}
+
+    def last_step():
+        box["state"], box["m"] = step(state, batch)
+        box["m"]["loss_total"].item()
+
+    t0 = time.perf_counter()
+    profiled = device_busy(last_step, top=8, host=False)
+    profile_s = time.perf_counter() - t0
+    state, m = box["state"], box["m"]
+    launches = {k: v for k, v in dict(ops.LAUNCHES).items() if v}
+    losses.append(float(m["loss_total"]))
+    metrics.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    paths, end = T.flatten(state["params"])
+    mus = T.leaves(state["opt"]["mu"])
+    stayed = [("__".join(p), a, mu) for p, a, b, mu in
+              zip(paths, end, start, mus) if torch.equal(a, b)]
+    frozen = [(name, below_bf16_step(a, ocfg), bool(mu.any()))
+              for name, a, mu in stayed]
+    del start
+    med = statistics.median(secs)
+    fields = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+              "d_inner": cfg.d_inner, "d_state": cfg.ssm.d_state,
+              "vocab": cfg.vocab, "dtype": cfg.dtype, "params": n_params,
+              "param_count_without_norms": cfg.param_count()[0],
+              "init_s": init_s, "store_s": store_s,
+              "store_launches": {k: v for k, v in store_launches.items() if v},
+              "batch_shape": [B, S], "microbatches": 2, "steps": TRAIN_STEPS,
+              "adamw": {"lr": ocfg.lr, "warmup_steps": ocfg.warmup_steps,
+                        "weight_decay": ocfg.weight_decay,
+                        "grad_clip": ocfg.grad_clip},
+              "losses": losses, "loss_drop": losses[0] - losses[-1],
+              "grad_norms": [x["grad_norm"] for x in metrics],
+              "lrs": [x["lr"] for x in metrics],
+              "step_s": secs, "step_ms_median": med * 1e3,
+              "step_ms_min": min(secs) * 1e3,
+              "tokens_per_s": B * S / med,
+              **train_step_bound(cfg, n_params, B, S, bw, rates),
+              "step_profiled": profiled, "profile_s": profile_s,
+              "steps_launches": launches,
+              "peak_allocated_gb": peak,
+              "leaves": len(end), "leaves_changed": len(end) - len(stayed),
+              "leaves_unchanged": [[n, f, g] for n, f, g in frozen],
+              "leaves_unchanged_note": "[leaf, a unit AdamW step at the peak "
+              "lr rounds back to every element in bf16, its first moment "
+              "nonzero]",
+              "moments_zero": ["__".join(n) for n, mu in zip(paths, mus)
+                               if not bool(mu.any())]}
+    want = {"ssm_scan": TRAIN_STEPS * 2 * cfg.n_layers * 2,
+            "ssm_scan_bwd": TRAIN_STEPS * cfg.n_layers * 2}
+    checks = [
+        (losses[0] - losses[-1] >= TRAIN_DROP, f"train.full: the loss went "
+         f"{losses[0]} -> {losses[-1]} over {TRAIN_STEPS} steps, a drop "
+         f"under {TRAIN_DROP}"),
+        (all(np.isfinite(v) for x in metrics for v in x.values()),
+         f"train.full: a metric is not finite: {metrics}"),
+        (all(f and g for _, f, g in frozen), f"train.full: parameter "
+         f"leaves unchanged after {TRAIN_STEPS} steps where a unit update "
+         f"shows in bf16, or with zero moments: {frozen}"),
+        (not fields["moments_zero"], f"train.full: no gradient reached "
+         f"{fields['moments_zero']}"),
+        (store_launches.get("fused_zone_filter", 0) > 0, "train.full: the "
+         "TokenStore's batches launched no fused_zone_filter"),
+        ({k: launches.get(k, 0) for k in want} == want, f"train.full: the "
+         f"steps launched {launches}, not {want}"),
+        (len(kept) == 1, "train.full: no scan backward was recorded")]
+    del state, m, box, batch
+    return fields, checks, kept[0] if kept else None, launches
+
+
+def train_bwd_row(operands, bw: float, rates: dict, launches: int) -> dict:
+    """(c) ``ssm_scan_bwd`` against ``ssm_scan_bwd_plain`` on the operands
+    and dy the first layer's scan took in (b)'s first microbatch (bf16 u,
+    delta, B, C; float32 A and dy): every output within TRAIN_BWD_TOL of
+    its largest magnitude, the same bits on a rerun, both timed, beside
+    the bound: two exps a (b, t, d, n) at the card's exp rate, or the
+    bytes of u, delta, dy, du and ddelta (float32) over the bandwidth."""
+    import torch
+    from repro_torch.kernels import ops, ssm_scan
+
+    u, dt, A, Bm, Cm, dy = operands
+    Bt, L, D = u.shape
+    N = A.shape[1]
+    before = ops.LAUNCHES["ssm_scan_bwd"]
+    got = ssm_scan.ssm_scan_bwd(*operands)
+    again = ssm_scan.ssm_scan_bwd(*operands)
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES["ssm_scan_bwd"] == before + 2,
+          "ssm_scan_bwd: the kernel did not launch")
+    want = ssm_scan.ssm_scan_bwd_plain(*operands)
+    names = ("du", "ddelta", "dA", "dB", "dC")
+    errs, rels = {}, {}
+    for name, g, w in zip(names, got, want):
+        errs[name] = float((g - w).abs().max())
+        rels[name] = errs[name] / max(float(w.abs().max()), 1e-30)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    exp_ms = 2 * Bt * L * D * N / rates["exp_per_s"] * 1e3
+    nbytes = 5 * 4 * Bt * L * D
+    bytes_ms = nbytes / bw * 1e3
+    ms = event_median_ms(lambda: ssm_scan.ssm_scan_bwd(*operands), inner=5)
+    plain_ms = event_median_ms(lambda: ssm_scan.ssm_scan_bwd_plain(*operands),
+                               inner=1, reps=2, warmup=0)
+    src, rep = KERNELS["ssm_scan_bwd"]
+    row = {"name": "ssm_scan_bwd", "route": "cuda", "source": src,
+           "replaces": rep, "launches": launches,
+           "max_abs_err": max(errs.values()), "ms": ms,
+           "device_ms": profiled_device_ms(
+               lambda: ssm_scan.ssm_scan_bwd(*operands),
+               SYMBOLS["ssm_scan_bwd"]),
+           "plain_ms": plain_ms, "bound_ms": max(exp_ms, bytes_ms),
+           "bound_by": "operations" if exp_ms > bytes_ms else "bytes",
+           "exp_ms": exp_ms, "bytes": nbytes, "bytes_ms": bytes_ms,
+           "library_ms": None, "library_why": LIBRARY_WHY["ssm_scan_bwd"],
+           "max_abs_err_by_output": errs, "max_rel_err_by_output": rels,
+           "tolerance": TRAIN_BWD_TOL, "rerun_bit_equal": same,
+           "bwd_steps": ssm_scan.BWD_STEPS, "state_lanes":
+           ssm_scan.bwd_layout(N),
+           "shape": f"B={Bt} L={L} D={D} N={N} ({TRAIN_ARCH}'s first layer, "
+           "first microbatch of the first step in train.full; bf16 u, "
+           "delta, B, C)"}
+    check(max(rels.values()) <= TRAIN_BWD_TOL, f"ssm_scan_bwd: {rels} of "
+          f"each output's magnitude from plain (past {TRAIN_BWD_TOL})")
+    check(same, "ssm_scan_bwd: a rerun gave other bits")
+    return row
+
+
+def train_loop_part(cfg, batches, seed: int, device: str) -> tuple:
+    """(d) TRAIN_CUT_LAYERS layers at full width in bf16 through
+    ``train.loop.run`` with ``AsyncCheckpointer`` (every TRAIN_LOOP_EVERY
+    steps) and failures injected at TRAIN_LOOP_FAILS (before the first
+    checkpoint: a restart from init_state; after it: a restore and
+    replay), against a failure-free run over the same batches: the final
+    loss within rtol 1e-4, and ``ckpt.restore`` of the last checkpoint onto
+    the card bit for bit the live state.  Returns (fields, checks)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.models import build_model
+    from repro_torch.runtime.fault import FailureInjector
+    from repro_torch.train import tree as T
+    from repro_torch.train.loop import LoopConfig, run
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_state, make_train_step
+
+    cfg2 = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+    model = build_model(cfg2)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=2)
+    init = make_train_state(
+        model, ocfg, torch.Generator(device=device).manual_seed(seed),
+        device=device)
+    step = make_train_step(model, ocfg, num_microbatches=2)
+    ckpt_bytes = sum(t.numel() * t.element_size() for t in T.leaves(init))
+    saves, save, log = [], ckpt.save, []
+
+    def timed_save(*a, **k):
+        t0 = time.perf_counter()
+        out = save(*a, **k)
+        saves.append(time.perf_counter() - t0)
+        return out
+
+    ckpt.save = timed_save
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            res = run(step, init, lambda s: batches[s % len(batches)],
+                      LoopConfig(total_steps=TRAIN_LOOP_STEPS,
+                                 ckpt_dir=f"{tmp}/faulty",
+                                 ckpt_every=TRAIN_LOOP_EVERY),
+                      injector=FailureInjector(fail_at_steps=TRAIN_LOOP_FAILS),
+                      log_every=100, logger=log.append)
+            faulty_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            clean = run(step, init, lambda s: batches[s % len(batches)],
+                        LoopConfig(total_steps=TRAIN_LOOP_STEPS,
+                                   ckpt_dir=f"{tmp}/clean", ckpt_every=100,
+                                   async_ckpt=False),
+                        log_every=100, logger=log.append)
+            clean_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            last, back = ckpt.restore(f"{tmp}/faulty", init, device=device)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            steps_on_disk = ckpt.all_steps(f"{tmp}/faulty")
+    finally:
+        ckpt.save = save
+    equal = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+                zip(T.leaves(back), T.leaves(res.state)))
+    a = res.metrics_history[-1]["loss_total"]
+    b = clean.metrics_history[-1]["loss_total"]
+    fields = {"loop_layers": TRAIN_CUT_LAYERS,
+              "loop_shape": list(batches[0]["tokens"].shape),
+              "loop_steps": TRAIN_LOOP_STEPS, "loop_ckpt_every":
+              TRAIN_LOOP_EVERY, "loop_fail_at": list(TRAIN_LOOP_FAILS),
+              "loop_restarts": res.restarts, "loop_log": log,
+              "loop_final_loss": a, "loop_clean_final_loss": b,
+              "loop_loss_rel_diff": abs(a - b) / abs(b),
+              "loop_s": faulty_s, "loop_clean_s": clean_s,
+              "ckpt_bytes": ckpt_bytes, "ckpt_save_s": saves,
+              "ckpt_restore_s": restore_s, "ckpt_steps_on_disk": steps_on_disk,
+              "ckpt_restored_step": last, "ckpt_restore_bit_equal": equal}
+    checks = [(res.restarts == len(TRAIN_LOOP_FAILS), f"train.loop: "
+               f"{res.restarts} restarts"),
+              (int(res.state["step"]) == TRAIN_LOOP_STEPS, "train.loop: "
+               f"ended at step {int(res.state['step'])}"),
+              (abs(a - b) <= 1e-4 * abs(b), f"train.loop: final loss {a}, "
+               f"failure-free {b} (past rtol 1e-4)"),
+              (last == TRAIN_LOOP_STEPS and equal, "train.loop: the restored "
+               "checkpoint is not the live state bit for bit")]
+    del init, res, clean, back
+    return fields, checks
+
+
+def train_phase(args, card: str, device: str, bw: float, rates: dict,
+                build_s: float) -> dict:
+    """train: TRAIN_ARCH trained on the card through the port's entry
+    points (``make_train_state``, ``make_train_step``, ``train.loop.run``,
+    ``launch.train.main``), after lm.encdec with its weights freed:
+    (a) ``train_f32_part``, (b) ``train_full_part`` at full width and
+    depth, (c) ``train_bwd_row`` on (b)'s first-layer scan, (d)
+    ``train_loop_part``, (e) the launcher on the reduced config.  One line,
+    the phase within TRAIN_LIMIT_S.  Returns the ssm_scan_bwd row and the
+    launches of (b)'s steps."""
+    import gc
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_launch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    cfg = get_config(TRAIN_ARCH)
+    seed = args.seed + 40
+    line = {"phase": "train", "card": card, "arch": TRAIN_ARCH,
+            "family": cfg.family, "source": cfg.source, "build_s": build_s,
+            "held_before_gb": held_gb,
+            "reduced": f"(b) at full width and depth; (a) and (d) on "
+            f"{TRAIN_CUT_LAYERS} of {cfg.n_layers} layers at full width; "
+            "random weights (the repository holds none); (e) reduced()"}
+    t0 = time.perf_counter()
+    fields, checks = train_f32_part(cfg, seed, device)
+    line.update(fields, f32_s=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    fields, more, operands, launches = train_full_part(cfg, seed + 2, device,
+                                                       bw, rates)
+    line.update(fields, full_s=time.perf_counter() - t0)
+    checks += more
+    gc.collect()
+    torch.cuda.empty_cache()
+    for cond, msg in checks:
+        check(cond, msg)
+
+    t0 = time.perf_counter()
+    row = train_bwd_row(operands, bw, rates, launches.get("ssm_scan_bwd", 0))
+    del operands
+    line.update(bwd_s=time.perf_counter() - t0,
+                bwd_ms=row["ms"], bwd_bound_ms=row["bound_ms"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    from repro_torch.core.opd import Predicate
+    from repro_torch.pipeline.tokenstore import TokenStore, TokenStoreConfig
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 4)
+    store = TokenStore(TokenStoreConfig(file_bytes=64 * 1024), device=device)
+    motif = rng.integers(0, cfg.vocab, 16)
+    for i in range(32):
+        store.put_sample(i, np.tile(motif, 20).astype(np.int32), b"web/high")
+    store.lsm.flush()
+    B, S = TRAIN_LOOP_SHAPE
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
+               for b in store.batches(Predicate("prefix", b"web/high"), B, S,
+                                      max_batches=3)]
+    fields, checks = train_loop_part(cfg, batches, seed + 5, device)
+    line.update(fields, loop_part_s=time.perf_counter() - t0)
+    del batches, store
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = train_launch.main(["--arch", TRAIN_ARCH, "--reduced", "--steps",
+                                 "4", "--ckpt", tmp, "--device", device])
+    line.update(launcher_s=time.perf_counter() - t0,
+                launcher_step=int(res.state["step"]),
+                launcher_losses=[m["loss_total"] for m in
+                                 res.metrics_history])
+    checks.append((int(res.state["step"]) == 4 and
+                   all(np.isfinite(line["launcher_losses"])),
+                   f"train: the launcher ended at step "
+                   f"{int(res.state['step'])}, losses "
+                   f"{line['launcher_losses']}"))
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["seconds"] = seconds = time.perf_counter() - t_phase
+    emit(line)
+    for cond, msg in checks:
+        check(cond, msg)
+    check(seconds <= TRAIN_LIMIT_S, f"train: the phase took {seconds:.1f} s "
+          f"of its {TRAIN_LIMIT_S:.0f} s")
+    return {"row": row, "launches": launches}
+
+
+# --------------------------------------------------------------------------- #
 # the paper's Figure-5 pipeline: one planned range evaluated three ways
 # --------------------------------------------------------------------------- #
 def fig5_pipeline(tree, vocab: np.ndarray, preds, label: str) -> dict:
@@ -4197,19 +4769,22 @@ def event_median_ms(fn, inner: int, reps: int = 21, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_busy(fn, top: int = 0) -> dict:
+def device_busy(fn, top: int = 0, host: bool = True) -> dict:
     """Wall seconds of one call and the seconds the card spent in kernels
     during it: torch.profiler's device-side events, as its own table totals
     them.  A host event carries the time of the kernels it launched as
     well, so the sum over every event (``all_events_device_s``, kept for
     comparison with figures taken that way) counts each kernel twice.
     With ``top``, the kernels that took the most device time (name, ms,
-    launches)."""
+    launches).  ``host=False`` traces the card alone (a train step's tens
+    of thousands of host events take the profiler longer to total than
+    the step itself)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    kinds = [ProfilerActivity.CPU] if host else []
+    with profile(activities=kinds + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -5082,6 +5657,7 @@ def main() -> int:
     prompts = lm_phase(args, recs, card, "cuda", bw, build_s)
     families = families_phase(args, prompts, card, "cuda", bw, rates, build_s)
     encdec_phase(args, prompts, card, "cuda", bw, rates, build_s)
+    train = train_phase(args, card, "cuda", bw, rates, build_s)
     bench_launches, bench = bench_phase(args)
     launches["bloom_probe"] = bench_launches["bloom_probe"]
     # the scan's main path is now the SSM models' forwards (lm.families)
@@ -5091,7 +5667,9 @@ def main() -> int:
     for r in rows:
         if r["name"] == "ssm_scan":
             r.update(bench_launches=bench_launches["ssm_scan"],
-                     path=families["path"])
+                     path=families["path"],
+                     train_launches=train["launches"]["ssm_scan"])
+    rows.append(train["row"])
     for r in rows:
         emit({"phase": "kernel", **r})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

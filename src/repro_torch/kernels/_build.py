@@ -35,7 +35,7 @@ KERNEL_NAMES = ("pack_codes", "unpack_codes", "fused_zone_filter",
                 "remap_pack_codes", "fused_zone_agg", "zone_histogram",
                 "multi_range_filter_packed", "range_filter_codes",
                 "remap_codes", "range_filter_packed", "bloom_probe",
-                "ssm_scan")
+                "ssm_scan", "ssm_scan_bwd")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 _lock = threading.Lock()
@@ -64,6 +64,7 @@ _SIGNATURES = {
     "repro_bloom_probe": [_P, _I64, _U32, _U32, _INT, _INT, _P, _I64, _INT,
                           _P, _P],
     "repro_ssm_scan": [_P] * 7 + [_I64] + [_INT] * 4 + [_P],
+    "repro_ssm_scan_bwd": [_P] * 12 + [_I64] + [_INT] * 4 + [_P],
 }
 
 
@@ -112,6 +113,7 @@ def _flags() -> list:
         f"-DREPRO_REMAP_GROUPS={merge_remap.REMAP_GROUPS}",
         f"-DREPRO_SSM_STATES={ssm_scan.STATES_PER_LANE}",
         f"-DREPRO_SSM_ROUND={ssm_scan.STEPS_PER_ROUND}",
+        f"-DREPRO_SSM_BWD_STEPS={ssm_scan.BWD_STEPS}",
         f"-DREPRO_FILTER_THREADS={packed_filter.FILTER_THREADS}",
         f"-DREPRO_FILTER_LOADS={packed_filter.FILTER_LOADS}"]
 

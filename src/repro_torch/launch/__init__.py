@@ -1,3 +1,3 @@
 # Entry points of the port: launch/serve.py serves a model with
-# ServingEngine.  The reference's mesh, train and dry-run launchers wait
-# for ROADMAP §1 item 5(e) and 5(g).
+# ServingEngine, launch/train.py trains one through train.loop.  The
+# reference's mesh and dry-run launchers wait for ROADMAP §1 item 5(g).

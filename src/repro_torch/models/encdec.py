@@ -12,8 +12,9 @@ Parameters keep the reference's tree and leaf names, stacked ``[L, ...]``
 (``enc_layers.attn.wq`` is ``[Le, D, H, dh]``, ``dec_layers.xattn.wv``
 ``[Ld, D, H, dh]``), held by ``EncDecLM``.  Every attention here has H
 key/value heads and no rope.  A loop over layers stands where the
-reference scans; the mesh specs (``param_specs``, ``cache_specs``) wait
-for ROADMAP §1 item 5(g).
+reference scans, each layer under ``transformer.remat`` with
+``cfg.remat`` (the reference's ``jax.checkpoint``); the mesh specs
+(``param_specs``, ``cache_specs``) wait for ROADMAP §1 item 5(g).
 """
 
 from __future__ import annotations
@@ -29,8 +30,9 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (dense_init, embed_init, rms_norm,
                                        sinusoidal_pos, swiglu)
 from repro_torch.models.transformer import (Params, Tree, _attach, _layer,
-                                            _tree_of, _xent, as_tree,
-                                            dtype_of, nest_tree)
+                                            _tree_of, _unstack, _xent,
+                                            as_tree, dtype_of, nest_tree,
+                                            remat)
 
 # decoder token length = encoder frames / TOKEN_RATIO for train/prefill
 TOKEN_RATIO = 8
@@ -91,7 +93,8 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Tree:
 class EncDecLM(nn.Module):
     """The parameters under the reference's names (``named_parameters``
     gives ``enc_layers.attn.wq`` ... ``lm_head``).  They do not require
-    grad: the port serves, and training waits for ROADMAP §1 item 5(e)."""
+    grad, so serving builds no autograd graph; the train step
+    differentiates through detached aliases of the leaves that do."""
 
     def __init__(self, cfg: ArchConfig, tree: Tree):
         super().__init__()
@@ -134,14 +137,17 @@ def encode(params: Params, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tenso
     dt = dtype_of(cfg)
     x = frames.to(dt) + sinusoidal_pos(S, D, frames.device)[None].to(dt)
     pos = _positions(B, S, frames.device)
-    for i in range(cfg.n_enc_layers):
-        lp = _layer(p["enc_layers"], i)
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = attn_mod.qkv_proj(h, lp["attn"], 0.0, pos)
-        o = attn_mod.attention(q, k, v, pos, pos, causal=False)
-        x = x + attn_mod.out_proj(o, lp["attn"])
-        x = _mlp(x, lp, "ln2", cfg)
+    for lp in _unstack(p["enc_layers"], cfg.n_enc_layers):
+        x = remat(cfg.remat, _enc_layer, x, lp, pos, cfg)
     return rms_norm(x, p["enc_norm"], cfg.norm_eps)
+
+
+def _enc_layer(x, lp, pos, cfg: ArchConfig) -> torch.Tensor:
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = attn_mod.qkv_proj(h, lp["attn"], 0.0, pos)
+    o = attn_mod.attention(q, k, v, pos, pos, causal=False)
+    x = x + attn_mod.out_proj(o, lp["attn"])
+    return _mlp(x, lp, "ln2", cfg)
 
 
 def decode_train(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
@@ -155,26 +161,30 @@ def decode_train(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
     x = x + sinusoidal_pos(S, cfg.d_model, x.device)[None].to(dt)
     pos = _positions(B, S, x.device)
     pos_e = _positions(B, enc_out.shape[1], x.device)
-    for i in range(cfg.n_layers):
-        lp = _layer(p["dec_layers"], i)
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = attn_mod.qkv_proj(h, lp["attn"], 0.0, pos)
-        o = attn_mod.attention(q, k, v, pos, pos, causal=True)
-        x = x + attn_mod.out_proj(o, lp["attn"])
-        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        kx, vx = _cross_kv(enc_out, lp)
-        ox = attn_mod.attention(_cross_q(h2, lp), kx, vx, pos, pos_e,
-                                causal=False)
-        x = x + attn_mod.out_proj(ox, lp["xattn"])
-        x = _mlp(x, lp, "ln3", cfg)
+    for lp in _unstack(p["dec_layers"], cfg.n_layers):
+        x = remat(cfg.remat, _dec_layer, x, lp, enc_out, pos, pos_e, cfg)
     x = rms_norm(x, p["dec_norm"], cfg.norm_eps)
     return torch.einsum("bsd,vd->bsv", x, p["lm_head"].to(dt))
 
 
-def lm_loss(params: Params, batch, cfg: ArchConfig
+def _dec_layer(x, lp, enc_out, pos, pos_e, cfg: ArchConfig) -> torch.Tensor:
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = attn_mod.qkv_proj(h, lp["attn"], 0.0, pos)
+    o = attn_mod.attention(q, k, v, pos, pos, causal=True)
+    x = x + attn_mod.out_proj(o, lp["attn"])
+    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    kx, vx = _cross_kv(enc_out, lp)
+    ox = attn_mod.attention(_cross_q(h2, lp), kx, vx, pos, pos_e,
+                            causal=False)
+    x = x + attn_mod.out_proj(ox, lp["xattn"])
+    return _mlp(x, lp, "ln3", cfg)
+
+
+def lm_loss(params: Params, batch, cfg: ArchConfig, scan_impl: str = "seq"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy; batch = {'frames', 'tokens', 'labels',
-    'mask'}; aux is 0."""
+    'mask'}; aux is 0.  ``scan_impl`` is taken as the reference takes it
+    and unused: the family has no SSM."""
     enc_out = encode(params, batch["frames"], cfg)
     logits = decode_train(params, batch["tokens"], enc_out, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=logits.device)

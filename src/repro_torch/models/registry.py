@@ -1,7 +1,9 @@
 """A uniform model API over the ported families: ``build_model(cfg)``
 returns a ModelAPI whose functions close over the config, dispatching on
 ``cfg.enc_dec`` as the reference does (``encdec`` for whisper-small,
-``transformer`` for the decoder-only families).  The reference's
+``transformer`` for the decoder-only families).  ``loss`` keeps the
+reference's signature ``loss(p, b, ctx=None, scan_impl='seq')``; ``ctx``,
+the reference's mesh context, is taken only as None.  The reference's
 ``param_specs``, ``cache_specs``, ``input_specs`` and ``batch_pspec`` are
 mesh and dry-run code; they wait for ROADMAP §1 item 5(g)."""
 
@@ -50,13 +52,24 @@ def init_model(cfg: ArchConfig, seed: Union[int, torch.Generator],
     return module(cfg, _family(cfg).init_params(cfg, gen))
 
 
+def _no_mesh(ctx) -> None:
+    if ctx is not None:
+        raise ValueError("ctx, the reference's mesh context, has no meaning "
+                         "on one card (ROADMAP §1 item 5(g)); pass None")
+
+
 def build_model(cfg: ArchConfig) -> ModelAPI:
     fam = _family(cfg)
     inputs = "frames" if cfg.enc_dec else "tokens"    # what prefill takes
+
+    def loss(p, b, ctx=None, scan_impl="seq"):
+        _no_mesh(ctx)
+        return fam.lm_loss(p, b, cfg, scan_impl)
+
     return ModelAPI(
         cfg=cfg,
         init=lambda seed, device=None: init_model(cfg, seed, device),
-        loss=lambda p, b: fam.lm_loss(p, b, cfg),
+        loss=loss,
         init_cache=lambda batch, seq_len, device=None: fam.init_cache(
             cfg, batch, seq_len, device=resolve_device(device)),
         decode_step=lambda p, c, t, pos: fam.decode_step(p, c, t, pos, cfg),

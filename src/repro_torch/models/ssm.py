@@ -1,14 +1,15 @@
 """Mamba1 selective-SSM block (falcon-mamba, hymba's parallel heads).
 
 The full-sequence block (forward, prefill, loss) runs its selective scan
-through ``repro_torch.kernels.ssm_scan.ssm_scan``: the CUDA kernel
-``csrc/ssm_scan.cu`` for tensors on the card, its plain version for
-tensors on the CPU.  The reference scans with ``lax.scan`` ('seq') or a
-chunked associative scan ('chunked'); both are the recurrence the kernel
-runs.  The 'chunked' form is a TPU training option and waits for ROADMAP
-§1 item 5(e).  The kernel needs ``d_inner % 128 == 0``: every published
-and ``reduced()`` config meets it, and any other raises its
-``ValueError``.
+through ``repro_torch.kernels.ssm_scan.SSMScan``: forward through the
+wrapper ``ssm_scan`` (the CUDA kernel ``csrc/ssm_scan.cu`` for tensors on
+the card, its plain version for tensors on the CPU), backward through
+``ssm_scan_bwd`` (``csrc/ssm_scan_bwd.cu``, or its plain version).  The
+reference scans with ``lax.scan`` ('seq') or a chunked associative scan
+('chunked'); both are the recurrence the kernel runs, so ``scan_impl``
+takes either and raises on anything else.  The kernel needs
+``d_inner % 128 == 0``: every published and ``reduced()`` config meets
+it, and any other raises its ``ValueError``.
 
 Decode is one recurrence step carrying (conv window, SSM state), both
 written in place into the caller's cache (the reference returns copies).
@@ -89,13 +90,20 @@ def mamba_features(x: torch.Tensor, p, cfg: ArchConfig):
     return u, dt, A, Bm, Cm, z
 
 
-def mamba_block(x: torch.Tensor, p, cfg: ArchConfig) -> torch.Tensor:
-    """Full-sequence mamba block (forward / prefill).  The scan's chunk
+SCAN_IMPLS = ("seq", "chunked")
+
+
+def mamba_block(x: torch.Tensor, p, cfg: ArchConfig,
+                scan_impl: str = "seq") -> torch.Tensor:
+    """Full-sequence mamba block (training / prefill).  The scan's chunk
     divides L, so a prompt of any length runs; the kernel steps through L
     whatever the chunk."""
+    if scan_impl not in SCAN_IMPLS:
+        raise ValueError(f"scan_impl must be 'seq' or 'chunked', got "
+                         f"{scan_impl!r}")
     u, dt, A, Bm, Cm, z = mamba_features(x, p, cfg)
     chunk = math.gcd(x.shape[1], scan_kernel.DEFAULT_CHUNK)
-    y, _ = scan_kernel.ssm_scan(u, dt, A, Bm, Cm, chunk=chunk)
+    y = scan_kernel.SSMScan.apply(u, dt, A, Bm, Cm, chunk)
     y = y.to(x.dtype) + p["D"].to(x.dtype) * u
     y = y * F.silu(z)
     return y @ p["out_proj"].to(x.dtype)

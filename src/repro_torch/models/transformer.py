@@ -9,19 +9,23 @@ One parameterized block type; per-family composition:
 Parameters keep the reference's tree and leaf names, stacked ``[L, ...]``
 (``layers.attn.wq`` is ``[L, D, H, dh]``), held by ``DecoderLM`` as
 ``nn.Parameter``s; the functions here take that module or the nested dict
-of its tensors.  A loop over layers stands where the reference scans.  An
-encoder-decoder config raises ``ValueError`` here: ``models/encdec.py``
-runs it, and ``registry.build_model`` dispatches on ``cfg.enc_dec``.  The
-mesh specs wait for ROADMAP §1 item 5(g), the reference's ``scan_impl``
-for item 5(e).
+of its tensors.  A loop over layers stands where the reference scans;
+with ``cfg.remat`` and grad enabled each layer runs under
+``torch.utils.checkpoint`` (non-reentrant), as the reference wraps its
+layer body in ``jax.checkpoint``, so its activations are recomputed in the
+backward.  An encoder-decoder config raises ``ValueError`` here:
+``models/encdec.py`` runs it, and ``registry.build_model`` dispatches on
+``cfg.enc_dec``.  The mesh specs and the ``remat_policy`` flag wait for
+ROADMAP §1 item 5(g).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
@@ -144,8 +148,10 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Tree:
 
 class DecoderLM(nn.Module):
     """The parameters under the reference's names (``named_parameters``
-    gives ``layers.attn.wq`` and so on).  They do not require grad: the
-    port serves, and training waits for ROADMAP §1 item 5(e)."""
+    gives ``layers.attn.wq`` and so on).  They do not require grad, so
+    serving builds no autograd graph; the train step differentiates
+    through detached aliases of the leaves that do
+    (``train/train_step.py``)."""
 
     def __init__(self, cfg: ArchConfig, tree: Tree):
         super().__init__()
@@ -185,6 +191,22 @@ def _layer(tree: Tree, i: int) -> Tree:
             for k, v in tree.items()}
 
 
+def _unstack(tree: Tree, n: int) -> List[Tree]:
+    """The ``n`` per-layer trees of ``[L, ...]`` leaves, by ``unbind``:
+    views, whose gradients autograd stacks once per leaf."""
+    flat = {k: v.unbind(0) for k, v in flatten_tree(tree).items()}
+    return [nest_tree({k: v[i] for k, v in flat.items()}) for i in range(n)]
+
+
+def remat(enabled: bool, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``enabled``
+    (``cfg.remat``) and grad is: its activations are recomputed in the
+    backward."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _head(p: Tree, cfg: ArchConfig, dt: torch.dtype) -> torch.Tensor:
     return (p["embed"] if cfg.tie_embeddings else p["lm_head"]).to(dt)
 
@@ -192,7 +214,7 @@ def _head(p: Tree, cfg: ArchConfig, dt: torch.dtype) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 # forward (training / prefill)
 # --------------------------------------------------------------------------- #
-def _layer_fwd(x, lp, cfg: ArchConfig, positions
+def _layer_fwd(x, lp, cfg: ArchConfig, positions, scan_impl: str = "seq"
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block; returns (x, aux loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -204,7 +226,7 @@ def _layer_fwd(x, lp, cfg: ArchConfig, positions
                                window=cfg.attn_window)
         branch = attn_mod.out_proj(o, lp["attn"])
     if cfg.has_ssm:
-        m = ssm_mod.mamba_block(h, lp["ssm"], cfg)
+        m = ssm_mod.mamba_block(h, lp["ssm"], cfg, scan_impl)
         branch = m if branch is None else (branch + m) * 0.5
     x = x + branch
     if cfg.moe is not None:
@@ -218,10 +240,12 @@ def _layer_fwd(x, lp, cfg: ArchConfig, positions
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
-            positions: Optional[torch.Tensor] = None
+            positions: Optional[torch.Tensor] = None, scan_impl: str = "seq"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B,S] -> (logits [B,S,Vp], aux loss: the moe layers' sum, 0
-    for the other families)."""
+    for the other families).  ``scan_impl`` ('seq' or 'chunked', the
+    reference's two scans of the same recurrence) goes to the mamba
+    block."""
     check_family(cfg)
     p = as_tree(params)
     B, S = tokens.shape
@@ -230,18 +254,18 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, a = _layer_fwd(x, _layer(p["layers"], i), cfg, positions)
+    for lp in _unstack(p["layers"], cfg.n_layers):
+        x, a = remat(cfg.remat, _layer_fwd, x, lp, cfg, positions, scan_impl)
         aux = aux + a
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
     logits = torch.einsum("bsd,vd->bsv", x, _head(p, cfg, dt))
     return logits, aux
 
 
-def lm_loss(params: Params, batch, cfg: ArchConfig
+def lm_loss(params: Params, batch, cfg: ArchConfig, scan_impl: str = "seq"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy; batch = {'tokens', 'labels', 'mask'}."""
-    logits, aux = forward(params, batch["tokens"], cfg)
+    logits, aux = forward(params, batch["tokens"], cfg, scan_impl=scan_impl)
     return _xent(logits, batch, aux, cfg)
 
 
@@ -249,8 +273,9 @@ def _xent(logits, batch, aux, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor
     labels = batch["labels"].long()[..., None]
     mask = batch.get("mask")
     if flags.xent_impl == "fused":
-        # the shift in the logits' dtype, exp and sum in float32
-        m = logits.amax(-1)
+        # the shift in the logits' dtype, exp and sum in float32; no
+        # gradient through the shift, as the reference stops it
+        m = logits.detach().amax(-1)
         z = torch.exp((logits - m[..., None]).float()).sum(-1)
         lse = m.float() + torch.log(z)
         gold = logits.gather(-1, labels)[..., 0].float()
@@ -344,7 +369,8 @@ def decode_step(params: Params, cache: Dict[str, torch.Tensor],
     return logits, cache
 
 
-def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig):
+def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
+            scan_impl: str = "seq"):
     """Prefill = forward; the last position's logits (the serving engine
     fills its cache by teacher-forced decode steps)."""
-    return forward(params, tokens, cfg)[0][:, -1]
+    return forward(params, tokens, cfg, scan_impl=scan_impl)[0][:, -1]

@@ -10,6 +10,7 @@ JAX:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -1916,3 +1917,136 @@ def test_encdec_serving_engine_on_the_card_matches_its_replay(card,
         lg, cache = model.decode_step(on_card, cache, seq[:, t:t + 1], t)
         replay.append(lg.argmax(-1))
     assert torch.equal(torch.stack(replay, 1)[:, 7:], seq[:, 8:])
+
+
+# --------------------------------------------------------------------------- #
+# training: the scan's backward kernel, train steps, checkpoints
+# --------------------------------------------------------------------------- #
+def _close_to_plain(got, want, tol=1e-4):
+    """Each output within ``tol`` of the plain version's largest magnitude:
+    the kernel sums over states, channels and steps in another order."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        assert float((g - w).abs().max()) <= tol * max(scale, 1.0)
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 37, 128, 1), (3, 50, 256, 16), (1, 33, 128, 32), (2, 20, 128, 40),
+    (1, 16, 256, 3), (4, 100, 384, 16), (2, 1024, 128, 16), (1, 7, 128, 64)])
+def test_ssm_scan_bwd_matches_plain_and_repeats_its_bits(card, shape):
+    """N 1, 3, 16, 32, 40 and 64 (past 32 in passes), L not a multiple of
+    the kernel's 16-step chunk, several batch rows: the kernel's du,
+    ddelta, dA, dB, dC within 1e-4 of the plain backward's largest
+    magnitude on the card, one launch, and the same bits on a rerun."""
+    ops_ = [t.to(card) for t in _ssm_operands(shape, sum(shape) + 7)]
+    dy = torch.randn(ops_[0].shape, generator=torch.Generator().manual_seed(
+        sum(shape))).to(card)
+    want = ssm_scan.ssm_scan_bwd_plain(*ops_, dy)
+    before = ops.LAUNCHES["ssm_scan_bwd"]
+    got = ssm_scan.ssm_scan_bwd(*ops_, dy)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssm_scan_bwd"] == before + 1
+    _close_to_plain(got, want)
+    again = ssm_scan.ssm_scan_bwd(*ops_, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_ssm_scan_autograd_on_the_card_matches_the_cpu(card):
+    """``SSMScan`` on bf16 u, delta, B, C and float32 A (the model path):
+    gradients in the inputs' dtypes, within bf16 rounding of the CPU's."""
+    ops_ = _ssm_operands((2, 45, 256, 16), 3)
+    leaves = {}
+    for dev in ("cpu", card):
+        xs = [t.to(dev, torch.float32 if i == 2 else torch.bfloat16)
+              .detach().requires_grad_(True) for i, t in enumerate(ops_)]
+        y = ssm_scan.SSMScan.apply(*xs, 5)
+        y.square().sum().backward()
+        leaves[str(dev)] = [x.grad for x in xs]
+    for g, w, x in zip(leaves[str(card)], leaves["cpu"], ops_):
+        assert g.dtype == w.dtype
+        scale = float(w.float().abs().max())
+        assert float((g.cpu().float() - w.float()).abs().max()) <= \
+            2e-2 * scale
+
+
+def _state_on(state, device):
+    from repro_torch.train import tree as T
+
+    return T.map_tree(lambda t: t.to(device), state)
+
+
+@pytest.mark.parametrize("arch,n_mb", [
+    ("llama3-8b", 1), ("hymba-1.5b", 2), ("falcon-mamba-7b", 1),
+    ("granite-moe-1b-a400m", 2), ("whisper-small", 1)])
+def test_train_step_on_the_card_matches_the_cpu(card, monkeypatch, arch,
+                                               n_mb):
+    """A reduced float32 train step (TF32 off) of each family on the card
+    against the same step on the CPU: loss and metrics within 1e-4, every
+    updated parameter within 2e-4 (AdamW's first step divides each
+    gradient element by its own magnitude, so an element near zero turns
+    small differences into up to 1 lr of update: atol 1e-3 = lr)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import tree as T
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_state, make_train_step
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    model = build_model(cfg)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=0)
+    state = make_train_state(model, ocfg, 0, device="cpu")
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab, (4, 17))
+    batch = {"tokens": toks[:, :-1].astype(np.int32),
+             "labels": toks[:, 1:].astype(np.int32),
+             "mask": np.ones((4, 16), np.float32)}
+    if cfg.enc_dec:
+        batch["frames"] = rng.normal(size=(4, 24, cfg.d_model)).astype(
+            np.float32)
+    step = make_train_step(model, ocfg, num_microbatches=n_mb)
+    want_state, want = step(state, batch)
+    ops.reset_launches()
+    got_state, got = step(_state_on(state, card), batch)
+    torch.cuda.synchronize()
+    if cfg.has_ssm:     # forward, remat's recompute, backward: a layer a mb
+        assert ops.LAUNCHES["ssm_scan"] == 2 * cfg.n_layers * n_mb
+        assert ops.LAUNCHES["ssm_scan_bwd"] == cfg.n_layers * n_mb
+    for k, v in want.items():
+        torch.testing.assert_close(got[k].cpu(), v, rtol=1e-4, atol=1e-4)
+    for g, w in zip(T.leaves(got_state), T.leaves(want_state)):
+        assert g.device.type == card.type
+        torch.testing.assert_close(g.cpu(), w, rtol=2e-4, atol=1e-3)
+    if cfg.has_ssm:     # a replayed step gives the same bits
+        again, _ = step(_state_on(state, card), batch)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(T.leaves(again), T.leaves(got_state)))
+
+
+def test_checkpoint_round_trips_onto_the_card(card, tmp_path):
+    """A bf16 state with float32 moments saved from the card restores onto
+    the card bit for bit, by default and through ``AsyncCheckpointer``."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import tree as T
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_state
+
+    cfg = get_config("hymba-1.5b").reduced()
+    state = make_train_state(build_model(cfg), AdamWConfig(), 3, device=card)
+    state["opt"]["mu"] = T.map_tree(lambda t: torch.randn_like(t.float()),
+                                    state["opt"]["mu"])
+    ckpt.save(str(tmp_path / "a"), 5, state)
+    writer = ckpt.AsyncCheckpointer(str(tmp_path / "b"))
+    writer.submit(6, state)
+    writer.wait()
+    writer.close()
+    for d, want_step in (("a", 5), ("b", 6)):
+        step, back = ckpt.restore(str(tmp_path / d), state)
+        assert step == want_step
+        for a, b in zip(T.leaves(back), T.leaves(state)):
+            assert a.device.type == card.type and a.dtype == b.dtype
+            assert torch.equal(a, b)

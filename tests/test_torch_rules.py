@@ -84,6 +84,11 @@ def test_port_sources_import_neither_jax_nor_repro():
     "repro_torch.pipeline, repro_torch.pipeline.tokenstore",
     "repro_torch.models.moe, repro_torch.models.ssm",
     "repro_torch.models.encdec, repro_torch.launch, repro_torch.launch.serve",
+    "repro_torch.train, repro_torch.train.tree, repro_torch.train.optimizer, "
+    "repro_torch.train.train_step, repro_torch.train.loop",
+    "repro_torch.checkpoint, repro_torch.checkpoint.ckpt, "
+    "repro_torch.runtime, repro_torch.runtime.fault, "
+    "repro_torch.launch.train",
 ])
 def test_importing_the_port_loads_neither_jax_nor_repro(modules):
     code = (f"import sys, {modules}\n"
@@ -105,16 +110,20 @@ def test_default_device_is_the_card_and_missing_card_raises(monkeypatch):
     assert T.LSMTree(T.LSMConfig(), device="cpu").device.type == "cpu"
 
 
-def _consumers_and_model():
+def _consumers_and_model(tmp_path):
+    from repro_torch.checkpoint import ckpt
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import build_model
     from repro_torch.pipeline import TokenStore
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.prefix_cache import PrefixCacheIndex
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_state
 
     cfg = get_config("llama3-8b").reduced()
     whisper = get_config("whisper-small").reduced()
+    ckpt.save(str(tmp_path / "ck"), 1, {"w": torch.ones(2)})
     return {
         "TokenStore": lambda device=None: TokenStore(device=device),
         "PrefixCacheIndex": lambda device=None: PrefixCacheIndex(device=device),
@@ -130,6 +139,14 @@ def _consumers_and_model():
         "launch.serve.main": lambda device=None: serve.main(
             ["--arch", "whisper-small", "--reduced", "--requests", "1",
              "--new-tokens", "1"] + (["--device", device] if device else [])),
+        "make_train_state": lambda device=None: make_train_state(
+            build_model(cfg), AdamWConfig(), 0, device=device),
+        "ckpt.restore": lambda device=None: ckpt.restore(
+            str(tmp_path / "ck"), {"w": torch.zeros(2)}, device=device),
+        "launch.train.main": lambda device=None: train.main(
+            ["--arch", "llama3-8b", "--reduced", "--steps", "1",
+             "--ckpt", str(tmp_path / f"train_{device}")]
+            + (["--device", device] if device else [])),
     }
 
 
@@ -137,12 +154,15 @@ def _consumers_and_model():
                                    "build_model(cfg).init", "ServingEngine",
                                    "build_model(whisper).init",
                                    "ServingEngine(whisper)",
-                                   "launch.serve.main"])
-def test_model_and_consumer_entry_points_need_the_card(monkeypatch, entry):
-    """The consumers, the models' init, the serving engine and the serving
+                                   "launch.serve.main", "make_train_state",
+                                   "ckpt.restore", "launch.train.main"])
+def test_model_and_consumer_entry_points_need_the_card(monkeypatch, tmp_path,
+                                                       entry):
+    """The consumers, the models' init, the serving engine, the serving
+    launcher, the train state, a checkpoint restore and the training
     launcher run on the card by default and raise without one;
     ``device='cpu'`` runs them on the CPU."""
-    make = _consumers_and_model()[entry]
+    make = _consumers_and_model(tmp_path)[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for device in (None, "cuda"):
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -279,7 +299,8 @@ def pretend_card(monkeypatch):
                       (opd_filter, "code_range_filter_plain"),
                       (packed_filter, "packed_range_filter_plain"),
                       (bloom_probe, "bloom_probe_plain"),
-                      (ssm_scan, "ssm_scan_plain")):
+                      (ssm_scan, "ssm_scan_plain"),
+                      (ssm_scan, "ssm_scan_bwd_plain")):
         monkeypatch.setattr(mod, name, _no_plain)
     monkeypatch.setattr(_build, "_lib", None)
     monkeypatch.setattr(_build, "find_nvcc", lambda: (_ for _ in ()).throw(
@@ -312,6 +333,9 @@ def test_card_requests_raise_instead_of_falling_back(pretend_card, tmp_path,
         lambda: ops.bloom_probe(i32, 2048, i32),
         lambda: ops.ssm_scan(f32, f32, torch.zeros((128, 16)),
                              torch.zeros((1, 32, 16)), torch.zeros((1, 32, 16))),
+        lambda: ssm_scan.ssm_scan_bwd(f32, f32, torch.zeros((128, 16)),
+                                      torch.zeros((1, 32, 16)),
+                                      torch.zeros((1, 32, 16)), f32),
     ]
     before = dict(ops.LAUNCHES)
     for call in calls:
