@@ -317,9 +317,12 @@ Phases, each printing JSON lines:
             back in bf16; the step's median ms beside its bound, the last
             step profiled, peak memory, tokens/s; (c) ssm_scan_bwd against
             ssm_scan_bwd_plain on the first layer's scan operands and dy
-            from (b) (B 2, L 1,024, D 3,200, N 16) within 1e-4 of each
-            output's magnitude, the same bits twice, both timed beside the
-            bound; (d) 2 of 32 layers in bf16 through ``train.loop.run``
+            from (b) (B 2, L 1,024, D 3,200, N 16; bf16, u laid out
+            steps first, B and C the projection's strided slices, all read
+            in place) within 1e-4 of each output's
+            magnitude, the same bits twice and on the operands' float32
+            copies, both timed beside the bound, its layout and ptxas
+            resources; (d) 2 of 32 layers in bf16 through ``train.loop.run``
             with AsyncCheckpointer every 3 steps and failures injected at
             steps 2 (before the first checkpoint) and 5, the final loss
             within rtol 1e-4 of a failure-free run, the last checkpoint
@@ -3991,7 +3994,9 @@ def train_f32_part(cfg, seed: int, device: str) -> tuple:
 def bwd_recorder(n_calls: int):
     """Wrap ``ssm_scan.ssm_scan_bwd``, keeping the operands of its
     ``n_calls``-th call (a microbatch's backward calls it last layer first,
-    so call n_layers is layer 0's).  Returns (kept, restore)."""
+    so call n_layers is layer 0's), each copied with its strides (B and C
+    are slices of one projection).  Returns (kept, restore)."""
+    import torch
     from repro_torch.kernels import ssm_scan as scan_kernel
 
     wrapper, kept, seen = scan_kernel.ssm_scan_bwd, [], [0]
@@ -3999,7 +4004,9 @@ def bwd_recorder(n_calls: int):
     def record(*args):
         seen[0] += 1
         if seen[0] == n_calls:
-            kept.append(tuple(t.detach().clone() for t in args))
+            kept.append(tuple(torch.empty_strided(
+                t.shape, t.stride(), dtype=t.dtype, device=t.device).copy_(t)
+                for t in args))
         return wrapper(*args)
 
     scan_kernel.ssm_scan_bwd = record
@@ -4175,11 +4182,18 @@ def train_bwd_row(operands, bw: float, rates: dict, launches: int) -> dict:
     """(c) ``ssm_scan_bwd`` against ``ssm_scan_bwd_plain`` on the operands
     and dy the first layer's scan took in (b)'s first microbatch (bf16 u,
     delta, B, C; float32 A and dy): every output within TRAIN_BWD_TOL of
-    its largest magnitude, the same bits on a rerun, both timed, beside
-    the bound: two exps a (b, t, d, n) at the card's exp rate, or the
-    bytes of u, delta, dy, du and ddelta (float32) over the bandwidth."""
+    its largest magnitude, the same bits on a rerun and on the operands'
+    float32 copies, both timed, beside the bound: two exps a (b, t, d, n)
+    at the card's exp rate, or the bytes of u, delta, dy, du and ddelta
+    (float32) over the bandwidth.  ``device_ms`` sums every kernel of one
+    wrapper call (the scan's kernel and its partials' sum),
+    ``kernel_device_ms`` is the scan's kernel alone, ``cold_graph_ms`` the
+    call replayed in a CUDA graph on operands that come from device
+    memory, copied with their strides (read in place, as on the path)."""
+    import dataclasses
+
     import torch
-    from repro_torch.kernels import ops, ssm_scan
+    from repro_torch.kernels import _build, ops, ssm_scan
 
     u, dt, A, Bm, Cm, dy = operands
     Bt, L, D = u.shape
@@ -4187,8 +4201,10 @@ def train_bwd_row(operands, bw: float, rates: dict, launches: int) -> dict:
     before = ops.LAUNCHES["ssm_scan_bwd"]
     got = ssm_scan.ssm_scan_bwd(*operands)
     again = ssm_scan.ssm_scan_bwd(*operands)
+    copies = [t.float().contiguous() for t in operands]
+    widened = ssm_scan.ssm_scan_bwd(*copies)
     torch.cuda.synchronize()
-    check(ops.LAUNCHES["ssm_scan_bwd"] == before + 2,
+    check(ops.LAUNCHES["ssm_scan_bwd"] == before + 3,
           "ssm_scan_bwd: the kernel did not launch")
     want = ssm_scan.ssm_scan_bwd_plain(*operands)
     names = ("du", "ddelta", "dA", "dB", "dC")
@@ -4197,33 +4213,54 @@ def train_bwd_row(operands, bw: float, rates: dict, launches: int) -> dict:
         errs[name] = float((g - w).abs().max())
         rels[name] = errs[name] / max(float(w.abs().max()), 1e-30)
     same = all(torch.equal(a, b) for a, b in zip(got, again))
+    same_f32 = all(torch.equal(a, b) for a, b in zip(got, widened))
+    del again, copies, widened
     exp_ms = 2 * Bt * L * D * N / rates["exp_per_s"] * 1e3
     nbytes = 5 * 4 * Bt * L * D
     bytes_ms = nbytes / bw * 1e3
     ms = event_median_ms(lambda: ssm_scan.ssm_scan_bwd(*operands), inner=5)
     plain_ms = event_median_ms(lambda: ssm_scan.ssm_scan_bwd_plain(*operands),
                                inner=1, reps=2, warmup=0)
+    call_ms, by_kernel = profiled_call_ms(
+        lambda: ssm_scan.ssm_scan_bwd(*operands), SYMBOLS["ssm_scan_bwd"])
+    lay = ssm_scan.bwd_layout(Bt, L, D, N)
+    log = Path(str(_build.library_path()) + ".log").read_text()
     src, rep = KERNELS["ssm_scan_bwd"]
     row = {"name": "ssm_scan_bwd", "route": "cuda", "source": src,
            "replaces": rep, "launches": launches,
            "max_abs_err": max(errs.values()), "ms": ms,
-           "device_ms": profiled_device_ms(
+           "device_ms": call_ms, "device_ms_by_kernel": by_kernel,
+           "kernel_device_ms": profiled_device_ms(
                lambda: ssm_scan.ssm_scan_bwd(*operands),
                SYMBOLS["ssm_scan_bwd"]),
+           "cold_graph_ms": cold_graph_ms(ssm_scan.ssm_scan_bwd, nbytes,
+                                          *operands, keep_strides=True),
            "plain_ms": plain_ms, "bound_ms": max(exp_ms, bytes_ms),
            "bound_by": "operations" if exp_ms > bytes_ms else "bytes",
            "exp_ms": exp_ms, "bytes": nbytes, "bytes_ms": bytes_ms,
            "library_ms": None, "library_why": LIBRARY_WHY["ssm_scan_bwd"],
            "max_abs_err_by_output": errs, "max_rel_err_by_output": rels,
            "tolerance": TRAIN_BWD_TOL, "rerun_bit_equal": same,
-           "bwd_steps": ssm_scan.BWD_STEPS, "state_lanes":
-           ssm_scan.bwd_layout(N),
+           "bf16_equals_f32_copies": same_f32,
+           "operand_dtype": str(u.dtype).replace("torch.", ""),
+           "strides": {"u": list(u.stride()), "delta": list(dt.stride()),
+                       "B": list(Bm.stride()), "C": list(Cm.stride())},
+           "layout": {"states_a_lane": ssm_scan.BWD_STATES,
+                      "steps_between_checkpoints": ssm_scan.BWD_STEPS,
+                      "steps_a_round": ssm_scan.BWD_ROUND,
+                      "threads_a_block": ssm_scan.BWD_THREADS,
+                      **dataclasses.asdict(lay)},
+           "ptxas": [r for r in ptxas_resources(log, SYMBOLS["ssm_scan_bwd"])
+                     if f", {lay.lanes}>" in r["function"] or
+                     f"Li{lay.lanes}E" in r["function"]],
            "shape": f"B={Bt} L={L} D={D} N={N} ({TRAIN_ARCH}'s first layer, "
            "first microbatch of the first step in train.full; bf16 u, "
            "delta, B, C)"}
     check(max(rels.values()) <= TRAIN_BWD_TOL, f"ssm_scan_bwd: {rels} of "
           f"each output's magnitude from plain (past {TRAIN_BWD_TOL})")
     check(same, "ssm_scan_bwd: a rerun gave other bits")
+    check(same_f32, "ssm_scan_bwd: bf16 operands gave other bits than "
+          "their float32 copies")
     return row
 
 
@@ -4833,6 +4870,35 @@ def profiled_device_ms(fn, symbol: str, reps: int = 20, tries: int = 3):
     return None
 
 
+def profiled_call_ms(fn, symbol: str, reps: int = 20, tries: int = 3) -> tuple:
+    """Device time of one call of ``fn`` summed over every kernel it
+    launches, from torch.profiler's CUDA activity, and each kernel's part:
+    (ms, {kernel: ms}).  The profiler may drop some of a window's device
+    records, so a call is counted by the records of its one launch of the
+    kernel ``symbol``; a trace without them is taken again, up to
+    ``tries`` times, then (None, {})."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pat = re.compile(r"(^|[^A-Za-z_])" + symbol + r"\b")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU and
+               not e.is_user_annotation and e.self_device_time_total]
+        calls = sum(e.count for e in dev if pat.search(e.key))
+        if calls:
+            per = {e.key[:120]: e.self_device_time_total / calls / 1e3
+                   for e in dev}
+            return sum(per.values()), per
+    return None, {}
+
+
 def graph_ms(fns, reps: int = 21) -> float:
     """Device time per call of the calls ``fns`` without their host launch
     cost: captured in one CUDA graph, the graph replayed (median of
@@ -4865,14 +4931,25 @@ def hot_graph_ms(fn, *operands) -> float:
     return graph_ms([lambda: fn(*operands)] * 20)
 
 
-def cold_graph_ms(fn, nbytes: int, *operands) -> float:
+def cold_graph_ms(fn, nbytes: int, *operands,
+                  keep_strides: bool = False) -> float:
     """``graph_ms`` of one call of ``fn`` on each of enough copies of the
     operands that ``COLD_BYTES`` of the other calls' traffic (``nbytes``
     per call) pass between two calls on one copy: every call reads its
     operands from device memory, as a kernel does whose inputs were written
-    long before (a flushed SCT's words, a merge's streams)."""
+    long before (a flushed SCT's words, a merge's streams).  With
+    ``keep_strides`` each copy keeps its operand's strides (a slice stays
+    a slice, which ``clone`` would make contiguous)."""
+    import torch
+
+    def copy(t):
+        if not keep_strides:
+            return t.clone()
+        return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                   device=t.device).copy_(t)
+
     copies = 1 + -(-COLD_BYTES // nbytes)
-    return graph_ms([functools.partial(fn, *(t.clone() for t in operands))
+    return graph_ms([functools.partial(fn, *(copy(t) for t in operands))
                      for _ in range(copies)])
 
 

@@ -64,7 +64,8 @@ _SIGNATURES = {
     "repro_bloom_probe": [_P, _I64, _U32, _U32, _INT, _INT, _P, _I64, _INT,
                           _P, _P],
     "repro_ssm_scan": [_P] * 7 + [_I64] + [_INT] * 4 + [_P],
-    "repro_ssm_scan_bwd": [_P] * 12 + [_I64] + [_INT] * 4 + [_P],
+    "repro_ssm_scan_bwd": [_P] * 15 + [_I64] + [_INT] * 3 + [_I64] * 2 +
+                          [_INT] * 3 + [_P],
 }
 
 
@@ -113,7 +114,11 @@ def _flags() -> list:
         f"-DREPRO_REMAP_GROUPS={merge_remap.REMAP_GROUPS}",
         f"-DREPRO_SSM_STATES={ssm_scan.STATES_PER_LANE}",
         f"-DREPRO_SSM_ROUND={ssm_scan.STEPS_PER_ROUND}",
+        f"-DREPRO_SSM_BWD_STATES={ssm_scan.BWD_STATES}",
         f"-DREPRO_SSM_BWD_STEPS={ssm_scan.BWD_STEPS}",
+        f"-DREPRO_SSM_BWD_ROUND={ssm_scan.BWD_ROUND}",
+        f"-DREPRO_SSM_BWD_THREADS={ssm_scan.BWD_THREADS}",
+        f"-DREPRO_SSM_BWD_BLOCKS={ssm_scan.BWD_BLOCKS}",
         f"-DREPRO_FILTER_THREADS={packed_filter.FILTER_THREADS}",
         f"-DREPRO_FILTER_LOADS={packed_filter.FILTER_LOADS}"]
 
@@ -195,13 +200,14 @@ def launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
 
 
 def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype,
-                  ndim: int) -> None:
-    """Validate one kernel operand before its pointer goes to C."""
+                  ndim: int, contiguous: bool = True) -> None:
+    """Validate one kernel operand before its pointer goes to C (with
+    ``contiguous=False`` the kernel takes the operand's strides)."""
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if not t.is_cuda:
         raise ValueError(f"{name} must lie on the card, got {t.device}")

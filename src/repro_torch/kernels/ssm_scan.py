@@ -28,13 +28,19 @@ and never runs the Pallas scan there.  ``ssm_scan_bwd`` launches
 ``ssm_scan_bwd_plain`` (the reverse recurrence step by step) for tensors on
 the CPU; ``SSMScan`` is the ``torch.autograd.Function`` the mamba block
 calls, forward through ``ssm_scan`` and backward through ``ssm_scan_bwd``.
-The kernel sums dB and dC over the channels and dA over batch rows and
-steps in a fixed order, with no float atomics, so a rerun gives the same
-bits.
+The backward kernel reads bf16 u, delta, B and C as they come (u laid
+out steps first and B and C as strided slices of one projection, as the
+mamba block hands them over), so the model path makes no copies; a lane
+holds ``BWD_STATES`` states of one channel, ``bwd_layout`` gives a
+channel its lanes and a block its channels, and the state checkpoints go
+to a device scratch.  The kernel sums dB and dC over the channels and dA
+over batch rows and steps in a fixed order, with no float atomics, so a
+rerun gives the same bits.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import torch
@@ -51,11 +57,29 @@ DEFAULT_CHUNK = 32
 STATES_PER_LANE = 4
 STEPS_PER_ROUND = 8
 WARP = 32
-# steps between the backward kernel's state checkpoints (its build flag
-# REPRO_SSM_BWD_STEPS): the reverse walk recomputes a chunk of them into
-# registers from its checkpoint
-BWD_STEPS = 16
+# The backward kernel's build flags: states a lane (REPRO_SSM_BWD_STATES),
+# steps between state checkpoints, which the reverse walk recomputes into
+# registers (REPRO_SSM_BWD_STEPS), steps a round of the reverse walk, after
+# which dB and dC are summed over the block's channels
+# (REPRO_SSM_BWD_ROUND), threads a block (REPRO_SSM_BWD_THREADS; a block
+# takes BWD_THREADS / lanes channels) and the blocks an SM holds by
+# registers (REPRO_SSM_BWD_BLOCKS: at most 65,536 / (BWD_BLOCKS x
+# BWD_THREADS) registers a thread).  Chosen with
+# tools/ssm_scan_bwd_probe.py on an H100 (PERF.md section 6, row 13): of
+# 13 variants (states 1-8, steps 4-16, rounds 4-8, 128-256 threads, 3-4
+# blocks) none was faster at both hymba-1.5b's (B 2, L 1,024, D 3,200) and
+# falcon-mamba-7b's (D 8,192) widths; 4, 8, 4, 128, 4 ran 0.47 / 0.79 ms
+# cold on contiguous B and C (0.49 / 0.82 on the model path's slices), no
+# spills, 56 KB of shared memory (so falcon's 512 blocks fit one wave at 4
+# an SM); checkpoints every 4 steps were within 2-5 % at twice
+# the scratch, rounds of 8 faster at hymba but 72 KB (3 blocks an SM, two
+# waves at falcon), 2 states a lane two waves at falcon, 8 states 2x slower.
+BWD_STATES = 4
+BWD_STEPS = 8
+BWD_ROUND = 4
 BWD_THREADS = 128
+BWD_BLOCKS = 4
+BWD_CHUNK = 32            # steps a staged chunk (the kernel's kCh)
 
 
 def scan_layout(n: int) -> int:
@@ -66,10 +90,38 @@ def scan_layout(n: int) -> int:
     return min(WARP, 1 << max(0, groups - 1).bit_length())
 
 
-def bwd_layout(n: int) -> int:
-    """Lanes G of one channel in the backward kernel: one state a lane, a
-    power of two, at most a warp (past ``WARP`` states it runs passes)."""
-    return min(WARP, 1 << max(0, n - 1).bit_length())
+def bwd_lanes(n: int) -> int:
+    """Lanes G of one channel in the backward kernel: ``BWD_STATES``
+    states each, a power of two, at most a warp (past ``WARP *
+    BWD_STATES`` states the kernel runs passes)."""
+    groups = -(-n // BWD_STATES)
+    return min(WARP, 1 << max(0, groups - 1).bit_length())
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdLayout:
+    """How ``ssm_scan_bwd`` lays a shape out on the card."""
+    lanes: int           # G: lanes a channel
+    channels: int        # channels a block, BWD_THREADS / lanes
+    states: int          # states a pass, BWD_STATES * lanes
+    passes: int
+    d_blocks: int        # blocks along D
+    blocks: int          # the grid: batch rows x d_blocks
+    segments: int        # checkpoints a pass, one every BWD_STEPS steps
+
+
+def bwd_layout(bt: int, length: int, d: int, n: int) -> BwdLayout:
+    """The backward kernel's layout for u of [bt, length, d] and n states;
+    the kernel sizes its shared memory itself, the same at every shape of
+    one lane count (its checkpoints go to a device scratch of ``segments``
+    states a (batch row, channel, pass's state))."""
+    lanes = bwd_lanes(n)
+    channels = BWD_THREADS // lanes
+    states = BWD_STATES * lanes
+    d_blocks = d // channels
+    return BwdLayout(lanes, channels, states, -(-n // states), d_blocks,
+                     bt * d_blocks,
+                     -(-length // BWD_CHUNK) * (BWD_CHUNK // BWD_STEPS))
 
 
 def _dtype(*tensors: torch.Tensor) -> torch.dtype:
@@ -182,38 +234,87 @@ def ssm_scan_bwd_plain(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     return du, ddelta, dA, dB, dC
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous on a 16-byte line (cloned where it is not)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _u_operand(u: torch.Tensor, dtype: torch.dtype):
+    """u in ``dtype`` and whether it is laid out steps first, as the mamba
+    block's causal conv leaves it (the transpose of a contiguous [Bt, D,
+    L] on a 16-byte line, L of 16 bytes' worth): the kernel reads that
+    layout as it is; anything else is made contiguous."""
+    u = u.to(dtype)
+    bt, length, d = u.shape
+    cols = (not u.is_contiguous() and length > 1 and
+            u.stride() == (d * length, 1, length) and
+            (length * u.element_size()) % 16 == 0 and u.data_ptr() % 16 == 0)
+    return (u, True) if cols else (_aligned(u), False)
+
+
+def _bc_operands(B: torch.Tensor, C: torch.Tensor, dtype: torch.dtype):
+    """B and C in ``dtype`` with unit stride along N, one stride pair for
+    both and 4-byte rows: the strided slices of the mamba block's
+    projection as they are, anything else copied."""
+    B, C = B.to(dtype), C.to(dtype)
+    e = B.element_size()
+    ok = (B.stride() == C.stride() and B.stride(2) == 1 and
+          all((s * e) % 4 == 0 for s in B.stride()[:2]) and
+          B.data_ptr() % 4 == 0 and C.data_ptr() % 4 == 0)
+    return (B, C) if ok else (_aligned(B), _aligned(C))
+
+
 def ssm_scan_bwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
                  B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor
                  ) -> Tuple[torch.Tensor, ...]:
     """du, ddelta [Bt, L, D], dA [D, N], dB, dC [Bt, L, N], float32, for
     ``dy`` over y; the kernel's shape contract is the forward's
-    (``D % 128 == 0``, any N, any number of batch rows)."""
+    (``D % 128 == 0``, any N, any number of batch rows).  bf16 u, delta,
+    B and C (the model path; N even) are read as they are, other types as
+    float32 copies, the results the same bits either way; u laid out
+    steps first and B and C as strided slices are read in place."""
     if not _build.on_card(u, delta, A, B, C, dy):
         return ssm_scan_bwd_plain(u, delta, A, B, C, dy)
     bt, length, d, n = _check_bwd(u, delta, A, B, C, dy)
-    ops = [t.to(torch.float32).contiguous() for t in (u, delta, A, B, C, dy)]
-    for name, t, nd in zip(("u", "delta", "A", "B", "C", "dy"), ops,
-                           (3, 3, 2, 3, 3, 3)):
-        _build.check_operand(t, name, torch.float32, nd)
     dev = u.device
-    du = torch.zeros((bt, length, d), dtype=torch.float32, device=dev)
-    ddelta = torch.zeros_like(du)
     if not (bt and length and n):     # nothing to walk: zero gradients
-        return (du, ddelta, torch.zeros((d, n), device=dev),
+        return (torch.zeros((bt, length, d), device=dev),
+                torch.zeros((bt, length, d), device=dev),
+                torch.zeros((d, n), device=dev),
                 torch.zeros((bt, length, n), device=dev),
                 torch.zeros((bt, length, n), device=dev))
-    g = bwd_layout(n)
-    blocks = d // (BWD_THREADS // g)
-    chunks = -(-length // BWD_STEPS)
-    ck = torch.empty((bt, chunks, d, n), dtype=torch.float32, device=dev)
-    dA = torch.empty((bt, d, n), dtype=torch.float32, device=dev)
-    dB = torch.empty((bt, length, blocks, n), dtype=torch.float32, device=dev)
+    bf16 = n % 2 == 0 and all(t.dtype == torch.bfloat16
+                              for t in (u, delta, B, C))
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    u, u_cols = _u_operand(u, dtype)
+    delta = _aligned(delta.to(dtype))
+    B, C = _bc_operands(B, C, dtype)
+    A = A.to(torch.float32).contiguous()
+    dy = _aligned(dy.to(torch.float32))
+    for name, t, nd in zip(("u", "delta", "A", "B", "C", "dy"),
+                           (u, delta, A, B, C, dy), (3, 3, 2, 3, 3, 3)):
+        _build.check_operand(t, name, torch.float32 if name in ("A", "dy")
+                             else dtype, nd,
+                             contiguous=name not in ("u", "B", "C"))
+    lay = bwd_layout(bt, length, d, n)
+    f32 = dict(dtype=torch.float32, device=dev)
+    du = torch.empty((bt, length, d), **f32)
+    ddelta = torch.empty_like(du)
+    ck = torch.empty((bt, lay.segments, d, lay.states), **f32)
+    dA_part = torch.empty((bt, d, n), **f32)
+    dB_part = torch.empty((lay.d_blocks, bt, length, n), **f32)
+    dC_part = torch.empty_like(dB_part)
+    dA = torch.empty((d, n), **f32)
+    dB = torch.empty((bt, length, n), **f32)
     dC = torch.empty_like(dB)
     _build.launch("ssm_scan_bwd", "repro_ssm_scan_bwd", dev,
-                  *(t.data_ptr() for t in ops), ck.data_ptr(),
-                  du.data_ptr(), ddelta.data_ptr(), dA.data_ptr(),
-                  dB.data_ptr(), dC.data_ptr(), bt, length, d, n, g)
-    return du, ddelta, dA.sum(0), dB.sum(2), dC.sum(2)
+                  *(t.data_ptr() for t in (u, delta, A, B, C, dy, ck, du,
+                                           ddelta, dA_part, dB_part,
+                                           dC_part, dA, dB, dC)),
+                  bt, length, d, n, B.stride(0), B.stride(1), int(bf16),
+                  int(u_cols), lay.lanes)
+    return du, ddelta, dA, dB, dC
 
 
 class SSMScan(torch.autograd.Function):

@@ -19,9 +19,9 @@ import torch
 
 import repro_torch.core as T
 from repro_torch import AggSpec, GroupBy, ScanServer
-from repro_torch.kernels import (agg_scan, bitpack, bloom_probe, fused_scan,
-                                 merge_remap, multi_filter, opd_filter, ops,
-                                 packed_filter, ssm_scan)
+from repro_torch.kernels import (_build, agg_scan, bitpack, bloom_probe,
+                                 fused_scan, merge_remap, multi_filter,
+                                 opd_filter, ops, packed_filter, ssm_scan)
 
 pytestmark = pytest.mark.gpu
 WIDTHS = [1, 2, 4, 8, 16, 32]
@@ -1931,15 +1931,24 @@ def _close_to_plain(got, want, tol=1e-4):
         assert float((g - w).abs().max()) <= tol * max(scale, 1.0)
 
 
-@pytest.mark.parametrize("shape", [
-    (2, 37, 128, 1), (3, 50, 256, 16), (1, 33, 128, 32), (2, 20, 128, 40),
-    (1, 16, 256, 3), (4, 100, 384, 16), (2, 1024, 128, 16), (1, 7, 128, 64)])
-def test_ssm_scan_bwd_matches_plain_and_repeats_its_bits(card, shape):
-    """N 1, 3, 16, 32, 40 and 64 (past 32 in passes), L not a multiple of
-    the kernel's 16-step chunk, several batch rows: the kernel's du,
-    ddelta, dA, dB, dC within 1e-4 of the plain backward's largest
-    magnitude on the card, one launch, and the same bits on a rerun."""
+@pytest.mark.parametrize("shape,a_scale", [
+    ((2, 37, 128, 1), 1.0), ((3, 50, 256, 16), 1.0), ((1, 33, 128, 32), 1.0),
+    ((2, 20, 128, 40), 1.0), ((1, 16, 256, 3), 1.0), ((4, 100, 384, 16), 1.0),
+    ((2, 1024, 128, 16), 1.0), ((1, 7, 128, 64), 1.0),
+    pytest.param((2, 1024, 3200, 16), 1.0, id="hymba"),
+    pytest.param((1, 256, 8192, 16), 1.0, id="falcon_width"),
+    pytest.param((2, 1024, 256, 16), 0.05, id="decays_near_1")])
+def test_ssm_scan_bwd_matches_plain_and_repeats_its_bits(card, shape,
+                                                         a_scale):
+    """N 1, 3, 16, 32, 40 and 64 (past the kernel's states a pass in
+    passes), L not a multiple of its 32-step chunk, several batch rows,
+    hymba-1.5b's first layer in training (checkpoints in device memory),
+    falcon-mamba-7b's width, and decays near 1 (A scaled by 0.05, where a
+    reordered recurrence drifts): the kernel's du, ddelta, dA, dB, dC
+    within 1e-4 of the plain backward's largest magnitude on the card, one
+    launch, and the same bits on a rerun."""
     ops_ = [t.to(card) for t in _ssm_operands(shape, sum(shape) + 7)]
+    ops_[2] = ops_[2] * a_scale
     dy = torch.randn(ops_[0].shape, generator=torch.Generator().manual_seed(
         sum(shape))).to(card)
     want = ssm_scan.ssm_scan_bwd_plain(*ops_, dy)
@@ -1950,6 +1959,46 @@ def test_ssm_scan_bwd_matches_plain_and_repeats_its_bits(card, shape):
     _close_to_plain(got, want)
     again = ssm_scan.ssm_scan_bwd(*ops_, dy)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("shape,rank", [
+    pytest.param((2, 1024, 3200, 16), 100, id="hymba"),
+    pytest.param((2, 64, 8192, 16), 256, id="falcon_width"),
+    ((3, 50, 256, 16), 4), ((2, 40, 256, 16), 100), ((1, 33, 128, 2), 2),
+    ((2, 20, 128, 300), 10)])
+def test_ssm_scan_bwd_reads_bf16_as_its_float32_copies(card, shape, rank):
+    """bf16 u, delta, B and C as the mamba block hands them over (u laid
+    out steps first, as its causal conv leaves it; B and C strided slices
+    of one projection [Bt, L, rank + 2N] behind ``rank`` columns of dt,
+    hymba-1.5b's 100 and falcon-mamba-7b's 256), read by the kernel as
+    they are: B and C at every shape (falcon's on 16-byte lines, the
+    kernel's 16-byte copies, the others its 4-byte copies), u where L
+    fills 16-byte lines (L 1,024, 64 and 40; 50, 33 and 20 copy u).  The
+    same bits as the kernel on contiguous float32 copies (widening is
+    exact), and within 1e-4 of the plain backward of those copies."""
+    B, L, D, N = shape
+    u, dt, A, Bm, Cm = (t.to(card) for t in _ssm_operands(shape, 11))
+    proj = torch.zeros((B, L, rank + 2 * N), device=card,
+                       dtype=torch.bfloat16)
+    proj[..., rank:rank + N], proj[..., rank + N:] = Bm, Cm
+    u_cols = u.bfloat16().transpose(1, 2).contiguous().transpose(1, 2)
+    bf = [u_cols, dt.bfloat16(), A, proj[..., rank:rank + N],
+          proj[..., rank + N:]]
+    b_in, c_in = ssm_scan._bc_operands(bf[3], bf[4], torch.bfloat16)
+    assert b_in.data_ptr() == bf[3].data_ptr()
+    assert c_in.data_ptr() == bf[4].data_ptr()
+    vec = all(x % 16 == 0 for x in (bf[3].data_ptr(), bf[4].data_ptr(),
+                                    2 * bf[3].stride(0), 2 * bf[3].stride(1),
+                                    2 * N))
+    assert vec == (rank == 256)
+    f32 = [t.float().contiguous() for t in bf]
+    dy = torch.randn(u.shape, generator=torch.Generator().manual_seed(
+        12)).to(card)
+    got = ssm_scan.ssm_scan_bwd(*bf, dy)
+    want = ssm_scan.ssm_scan_bwd(*f32, dy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    _close_to_plain(got, ssm_scan.ssm_scan_bwd_plain(*f32, dy))
 
 
 def test_ssm_scan_autograd_on_the_card_matches_the_cpu(card):

@@ -99,9 +99,97 @@ def test_backward_shape_contract_raises():
         scan_kernel.ssm_scan_bwd(u, dt, A, Bm, Cm, dy[:, :3])
 
 
-def test_bwd_layout_takes_one_state_a_lane():
-    assert [scan_kernel.bwd_layout(n) for n in (1, 2, 3, 16, 17, 32, 33, 300)] \
-        == [1, 2, 4, 16, 32, 32, 32, 32]
+def test_bwd_lanes_hold_bwd_states_each():
+    """A channel's lanes in the backward kernel: the fewest, a power of two,
+    whose ``BWD_STATES`` states each cover N, at most a warp (then
+    passes)."""
+    k = scan_kernel.BWD_STATES
+    for n in (1, 2, 3, 4, 5, 8, 16, 17, 33, 64, 127, 128, 129, 300):
+        g = scan_kernel.bwd_lanes(n)
+        assert g & (g - 1) == 0 and 1 <= g <= 32
+        assert g * k >= n or g == 32
+        assert g == 1 or (g // 2) * k < n
+
+
+@pytest.mark.parametrize("width", ["published", "reduced"])
+def test_bwd_layout_fits_the_kernel_for_every_ssm_arch(width):
+    """Every SSM architecture's mixer at its published and its reduced()
+    width, at train, prefill and short shapes: a block of BWD_THREADS
+    threads (lanes x channels), channels dividing d_inner, every state
+    covered, a lane count the kernel is built for (its shared memory, the
+    same at every shape of one lane count, is held to a block's 227 KB by
+    a static_assert of each build, and the launcher raises the limit past
+    48 KB on each card) and a checkpoint every BWD_STEPS steps in the
+    device scratch."""
+    from repro_torch.configs import all_archs, get_config
+
+    cfgs = [get_config(a) for a in all_archs()]
+    cfgs = [c if width == "published" else c.reduced()
+            for c in cfgs if c.has_ssm]
+    assert {c.name.replace("-reduced", "") for c in cfgs} >= \
+        {"falcon-mamba-7b", "hymba-1.5b"}
+    for cfg in cfgs:
+        d, n = cfg.d_inner, cfg.ssm.d_state
+        for bt, length in ((2, 1024), (1, 2048), (4, 256), (1, 37), (8, 1)):
+            lay = scan_kernel.bwd_layout(bt, length, d, n)
+            assert lay.lanes in (1, 2, 4, 8, 16, 32)
+            assert lay.lanes * lay.channels == scan_kernel.BWD_THREADS
+            assert d % lay.channels == 0
+            assert lay.d_blocks * lay.channels == d
+            assert lay.blocks == bt * lay.d_blocks
+            assert lay.states * lay.passes >= n > lay.states * (lay.passes - 1)
+            assert lay.segments * scan_kernel.BWD_STEPS >= length
+            assert lay.segments % (scan_kernel.BWD_CHUNK //
+                                   scan_kernel.BWD_STEPS) == 0
+
+
+@pytest.mark.parametrize("length,in_place", [(64, True), (40, True),
+                                              (21, False)])
+def test_bwd_wrapper_reads_the_mamba_blocks_operands_in_place(length,
+                                                              in_place):
+    """The mamba block's bf16 scan operands (hymba-1.5b reduced): u laid
+    out steps first by the causal conv and B, C strided slices of one
+    projection go to the backward kernel as they are (the same storage, no
+    copy) where u's steps fill 16-byte lines; at L 21 u is copied."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_state
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(),
+                              dtype="bfloat16")
+    state = make_train_state(build_model(cfg), AdamWConfig(), 0,
+                             device="cpu")
+    lp = transformer._layer(state["params"]["layers"], 0)["ssm"]
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2, length, cfg.d_model)).astype(np.float32)).bfloat16()
+    u, dt, A, Bm, Cm, _ = ssm.mamba_features(x, lp, cfg)
+    assert not u.is_contiguous() and not Bm.is_contiguous()
+    got, cols = scan_kernel._u_operand(u, torch.bfloat16)
+    assert cols == in_place
+    assert (got.data_ptr() == u.data_ptr()) == in_place
+    b2, c2 = scan_kernel._bc_operands(Bm, Cm, torch.bfloat16)
+    assert b2.data_ptr() == Bm.data_ptr() and c2.data_ptr() == Cm.data_ptr()
+    assert scan_kernel._aligned(dt.bfloat16()).data_ptr() == dt.data_ptr()
+
+
+@pytest.mark.parametrize("dtype,rank,n,in_place", [
+    (torch.bfloat16, 100, 16, True), (torch.bfloat16, 256, 16, True),
+    (torch.bfloat16, 5, 16, False), (torch.float32, 5, 3, True)])
+def test_bc_operands_read_aligned_slices_in_place(dtype, rank, n, in_place):
+    """B and C cut from one projection [Bt, L, rank + 2N] as the mamba
+    block cuts them (hymba-1.5b's dt_rank 100, falcon-mamba-7b's 256): the
+    kernel reads them where they lie when a row and the slice's start fall
+    on 4 bytes; an odd bf16 offset (10 bytes) makes contiguous copies."""
+    proj = torch.zeros((2, 8, rank + 2 * n), dtype=dtype)
+    Bm, Cm = proj[..., rank:rank + n], proj[..., rank + n:]
+    b2, c2 = scan_kernel._bc_operands(Bm, Cm, dtype)
+    assert (b2.data_ptr() == Bm.data_ptr()) == in_place
+    assert (c2.data_ptr() == Cm.data_ptr()) == in_place
+    assert b2.is_contiguous() != in_place
+    assert torch.equal(b2, Bm) and torch.equal(c2, Cm)
 
 
 @pytest.mark.parametrize("impl", ["seq", "chunked"])
