@@ -18,7 +18,7 @@ array: a ``.npy`` of raw 2-byte fields (descr ``'<V2'``) with ``dtype:
 manifest entry, viewing the bits.  So the port restores the reference's
 bf16 checkpoints, which the reference itself cannot (ROADMAP §3).  The
 reference's ``mesh`` and ``spec_tree`` re-shard on a mesh (ROADMAP §1 item
-5(g)); ``device=`` takes their place on one card.
+5(g)(ii)); ``device=`` takes their place on one card.
 """
 
 from __future__ import annotations

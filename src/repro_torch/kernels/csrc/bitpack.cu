@@ -95,8 +95,8 @@ __global__ void __launch_bounds__(kPackThreads)
 template <int W, bool kWide, typename I>
 cudaError_t launch_pack(const int32_t* codes, uint32_t* words, I n,
                         cudaStream_t stream) {
-  static const repro::Resident res = repro::resident_blocks(
-      pack_codes_kernel<W, kWide, I>, kPackThreads, 0);
+  const repro::Resident res = repro::card_resident_blocks<
+      pack_codes_kernel<W, kWide, I>, kPackThreads, 0>();
   if (res.err != cudaSuccess) return res.err;
   const uint64_t groups = repro::packed_groups<W>(n);
   const uint64_t tiles = (groups + kPackTile - 1) / kPackTile;
@@ -197,8 +197,8 @@ __global__ void __launch_bounds__(kUnpackThreads)
 template <int W, bool kWide, typename I>
 cudaError_t launch_unpack(const uint32_t* words, int32_t* codes, I n,
                           cudaStream_t stream) {
-  static const repro::Resident res = repro::resident_blocks(
-      unpack_codes_kernel<W, kWide, I>, kUnpackThreads, 0);
+  const repro::Resident res = repro::card_resident_blocks<
+      unpack_codes_kernel<W, kWide, I>, kUnpackThreads, 0>();
   if (res.err != cudaSuccess) return res.err;
   const uint64_t tiles = (uint64_t(n) / 4 + kUnpackTile - 1) / kUnpackTile;
   unpack_codes_kernel<W, kWide, I>

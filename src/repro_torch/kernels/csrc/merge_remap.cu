@@ -203,8 +203,8 @@ template <bool kSmem, auto kKernel, typename... Args>
 cudaError_t launch_remap(uint64_t groups, int n_src, cudaStream_t stream,
                          Args... args) {
   constexpr size_t kMaxSmem = kSmem ? kSmemSources * sizeof(int32_t) : 0;
-  static const repro::Resident res =
-      repro::resident_blocks(kKernel, kRemapThreads, kMaxSmem);
+  const repro::Resident res =
+      repro::card_resident_blocks<kKernel, kRemapThreads, kMaxSmem>();
   if (res.err != cudaSuccess) return res.err;
   const uint64_t tiles = (groups + kRemapTile - 1) / kRemapTile;
   const size_t smem = kSmem ? n_src * sizeof(int32_t) : 0;

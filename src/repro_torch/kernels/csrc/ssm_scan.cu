@@ -71,6 +71,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch_grid.cuh"
+
 #ifndef REPRO_SSM_STATES
 #define REPRO_SSM_STATES 4
 #endif
@@ -411,19 +413,16 @@ __global__ void __launch_bounds__(kThreads) ssm_scan_kernel(Params p) {
   }
 }
 
-// One launch at G; raises the kernel's dynamic shared-memory limit once
-// where its ring needs more than the default 48 KB (the first call of a
-// shape runs outside any CUDA graph capture).
+// One launch at G; raises the kernel's dynamic shared-memory limit once on
+// each card where its ring needs more than the default 48 KB (the first
+// call of a shape on a card runs outside any CUDA graph capture).
 template <int G>
 int launch(Params p, int64_t bt, cudaStream_t s) {
   using S = Shape<G>;
-  static bool raised = false;
-  if (S::kSmem > (48 << 10) && !raised) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssm_scan_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(S::kSmem));
+  if constexpr (S::kSmem > (48 << 10)) {
+    const cudaError_t err =
+        repro::raise_smem_once<ssm_scan_kernel<G>, S::kSmem>();
     if (err != cudaSuccess) return static_cast<int>(err);
-    raised = true;
   }
   if (p.D % S::kCb) return static_cast<int>(cudaErrorInvalidValue);
   p.d_blocks = p.D / S::kCb;

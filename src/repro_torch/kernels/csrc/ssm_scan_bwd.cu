@@ -95,6 +95,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "launch_grid.cuh"
+
 #ifndef REPRO_SSM_BWD_STATES
 #define REPRO_SSM_BWD_STATES 4
 #endif
@@ -123,7 +125,6 @@ constexpr int kSegs = kCh / kR;            // checkpoints a chunk
 // registers a thread)
 constexpr int kMinBlocks = REPRO_SSM_BWD_BLOCKS;
 constexpr int kMaxSmem = 232448;           // 227 KB, a block's most
-constexpr int kMaxCards = 64;              // cards a process may launch on
 constexpr unsigned kFull = 0xFFFFFFFFu;
 static_assert(kS == 1 || kS == 2 || kS == 4 || kS == 8,
               "REPRO_SSM_BWD_STATES must be 1, 2, 4 or 8");
@@ -739,19 +740,9 @@ int launch(Params p, int64_t bt, float* dA, float* dB, float* dC,
   // past 48 KB, the limit raised once on each card (the attribute is a
   // card's; the first call on a card runs outside any CUDA graph capture)
   if constexpr (smem > (48 << 10)) {
-    static bool raised[kMaxCards] = {};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
+    const cudaError_t err =
+        repro::raise_smem_once<ssm_scan_bwd_kernel<T, G>, smem>();
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < 0 || dev >= kMaxCards)
-      return static_cast<int>(cudaErrorInvalidDevice);
-    if (!raised[dev]) {
-      err = cudaFuncSetAttribute(ssm_scan_bwd_kernel<T, G>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      raised[dev] = true;
-    }
   }
   const int64_t grid = bt * p.d_blocks;
   if (grid > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);

@@ -6,11 +6,15 @@ and fault-tolerant loop, on the card unless ``--device cpu`` is given.
 
 The flags are the reference's (``python -m repro.launch.train``) and
 ``--device``; ``--host-id`` / ``--num-hosts`` are the TokenStore's
-``dp_rank`` / ``dp_size`` and its seed.  The reference's ``--mesh`` and
-``--coordinator`` (``jax.distributed.initialize``) wait for ROADMAP §1
-item 5(g).  The TokenStore's selection scans run ``fused_zone_filter`` on
-the card.  Without ``--reduced`` the shape is the reference's ``train_4k``
-(256 x 4,096 tokens a step), which no single card holds.
+``dp_rank`` / ``dp_size`` and its seed.  The mesh's spec arithmetic is
+ported (``parallel/sharding.py``, ``launch/mesh.py``, ``state_specs``);
+the reference's ``--mesh`` and ``--coordinator``
+(``jax.distributed.initialize``) wait for ROADMAP §1 item 5(g)(ii), with
+``ShardCtx`` (the model's ``ctx``), ``moe_impl='ep'`` and
+``remat_policy='dots'``.  The TokenStore's selection scans run
+``fused_zone_filter`` on the card.  Without ``--reduced`` the shape is the
+reference's ``train_4k`` (256 x 4,096 tokens a step), which no single card
+holds.
 """
 
 from __future__ import annotations

@@ -13,8 +13,8 @@ Parameters keep the reference's tree and leaf names, stacked ``[L, ...]``
 ``[Ld, D, H, dh]``), held by ``EncDecLM``.  Every attention here has H
 key/value heads and no rope.  A loop over layers stands where the
 reference scans, each layer under ``transformer.remat`` with
-``cfg.remat`` (the reference's ``jax.checkpoint``); the mesh specs
-(``param_specs``, ``cache_specs``) wait for ROADMAP §1 item 5(g).
+``cfg.remat`` (the reference's ``jax.checkpoint``).  ``param_specs`` and
+``cache_specs`` give the reference's specs from the leaves' shapes alone.
 """
 
 from __future__ import annotations
@@ -30,9 +30,10 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (dense_init, embed_init, rms_norm,
                                        sinusoidal_pos, swiglu)
 from repro_torch.models.transformer import (Params, Tree, _attach, _layer,
-                                            _tree_of, _unstack, _xent,
-                                            as_tree, dtype_of, nest_tree,
-                                            remat)
+                                            _spec_of, _tree_of, _unstack,
+                                            _xent, as_tree, dtype_of,
+                                            nest_tree, remat)
+from repro_torch.parallel.sharding import P, dp_axes, fsdp_axis
 
 # decoder token length = encoder frames / TOKEN_RATIO for train/prefill
 TOKEN_RATIO = 8
@@ -88,6 +89,48 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Tree:
         else:
             flat[name] = torch.ones(shape, dtype=dt, device=gen.device)
     return nest_tree(flat)
+
+
+def param_specs(cfg: ArchConfig, mesh, fsdp_over_pod: bool = False,
+                layout: str = "train") -> Tree:
+    """The parameter tree's specs, from the leaves' shapes alone.
+    whisper-small is ~240M params and its train layout also serves, so
+    ``layout`` ('serve2d') changes nothing here, as in the reference."""
+    fs = fsdp_axis(mesh, fsdp_over_pod)
+    sp = _spec_of(leaf_shapes(cfg), mesh)
+
+    def attn_sp(stack):  # whisper: 12 heads, not TP-divisible -> 'seqq'
+        return {
+            "wq": sp(f"{stack}.wq", None, fs, None, None),
+            "wk": sp(f"{stack}.wk", None, fs, None, None),
+            "wv": sp(f"{stack}.wv", None, fs, None, None),
+            "wo": sp(f"{stack}.wo", None, None, None, fs),
+        }
+
+    def mlp_sp(stack):
+        return {
+            "wg": sp(f"{stack}.wg", None, fs, "model"),
+            "wu": sp(f"{stack}.wu", None, fs, "model"),
+            "wd": sp(f"{stack}.wd", None, "model", fs),
+        }
+
+    return {
+        "embed": sp("embed", "model", fs),
+        "enc_layers": {
+            "attn": attn_sp("enc_layers.attn"),
+            "mlp": mlp_sp("enc_layers.mlp"),
+            "ln1": P(None, None), "ln2": P(None, None),
+        },
+        "dec_layers": {
+            "attn": attn_sp("dec_layers.attn"),
+            "xattn": attn_sp("dec_layers.xattn"),
+            "mlp": mlp_sp("dec_layers.mlp"),
+            "ln1": P(None, None), "ln2": P(None, None), "ln3": P(None, None),
+        },
+        "enc_norm": P(None),
+        "dec_norm": P(None),
+        "lm_head": sp("lm_head", "model", fs),
+    }
 
 
 class EncDecLM(nn.Module):
@@ -210,6 +253,29 @@ def init_cache(cfg: ArchConfig, batch: int, enc_len: int, dec_len: int = 0,
             "pos": torch.full((Ld, batch, dec_len), -1, dtype=torch.int32,
                               device=device),
             "xk": zeros(enc_len), "xv": zeros(enc_len)}
+
+
+def cache_specs(cfg: ArchConfig, mesh, layout: str = "batch") -> Tree:
+    """'batch': batch over the data axes, sequence over `model`; 'tp2d':
+    batch replicated, sequence over both."""
+    dp = dp_axes(mesh)
+    dpa = dp if len(dp) > 1 else dp[0]
+    if layout == "tp2d":
+        both = tuple(dp) + ("model",)
+        return {
+            "k": P(None, None, both, None, None),
+            "v": P(None, None, both, None, None),
+            "pos": P(None, None, both),
+            "xk": P(None, None, both, None, None),
+            "xv": P(None, None, both, None, None),
+        }
+    return {
+        "k": P(None, dpa, "model", None, None),
+        "v": P(None, dpa, "model", None, None),
+        "pos": P(None, dpa, "model"),
+        "xk": P(None, dpa, "model", None, None),
+        "xv": P(None, dpa, "model", None, None),
+    }
 
 
 @functools.lru_cache(maxsize=8)

@@ -15,8 +15,11 @@ with ``cfg.remat`` and grad enabled each layer runs under
 layer body in ``jax.checkpoint``, so its activations are recomputed in the
 backward.  An encoder-decoder config raises ``ValueError`` here:
 ``models/encdec.py`` runs it, and ``registry.build_model`` dispatches on
-``cfg.enc_dec``.  The mesh specs and the ``remat_policy`` flag wait for
-ROADMAP §1 item 5(g).
+``cfg.enc_dec``.  ``param_specs``, ``param_specs_serve2d`` and
+``cache_specs`` give the reference's specs (``parallel/sharding.py``'s
+``PartitionSpec``) from the leaves' shapes alone, building no parameter.
+``ShardCtx`` (the mesh in the forward) and the ``remat_policy`` flag wait
+for ROADMAP §1 item 5(g)(ii).
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from repro_torch.models import flags
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import dense_init, embed_init, rms_norm, swiglu
+from repro_torch.parallel.sharding import (P, attn_mode, dp_axes, fsdp_axis,
+                                           safe_spec, tp_size)
 
 Tree = Dict[str, Any]
 
@@ -144,6 +149,132 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Tree:
         else:
             flat[name] = dense_init(gen, shape, fan_in[leaf], dt)
     return nest_tree(flat)
+
+
+# --------------------------------------------------------------------------- #
+# partition specs (mirror the parameter tree, from its shapes alone)
+# --------------------------------------------------------------------------- #
+def _spec_of(shapes: Dict[str, Tuple[int, ...]], mesh):
+    """``sp(name, *axes)``: ``safe_spec`` of the leaf ``name``'s shape."""
+    return lambda name, *axes: safe_spec(shapes[name], axes, mesh)
+
+
+def param_specs(cfg: ArchConfig, mesh, fsdp_over_pod: bool = False,
+                layout: str = "train") -> Tree:
+    """The parameter tree's specs: TP on heads / FFN / experts / d_inner,
+    ZeRO-3 FSDP over `data` (and `pod` with ``fsdp_over_pod``),
+    vocab-sharded embeddings; ``layout='serve2d'`` gives
+    ``param_specs_serve2d``."""
+    if layout == "serve2d":
+        return param_specs_serve2d(cfg, mesh)
+    fs = fsdp_axis(mesh, fsdp_over_pod)
+    tp = tp_size(mesh)
+    mode = attn_mode(cfg.n_heads, tp) if cfg.has_attn else "none"
+    sp = _spec_of(leaf_shapes(cfg), mesh)
+
+    layers: Tree = {"ln1": sp("layers.ln1", None, None)}
+    if cfg.has_attn:
+        if mode == "head":
+            layers["attn"] = {
+                "wq": sp("layers.attn.wq", None, fs, "model", None),
+                "wk": sp("layers.attn.wk", None, fs, None, None),
+                "wv": sp("layers.attn.wv", None, fs, None, None),
+                "wo": sp("layers.attn.wo", None, "model", None, fs),
+            }
+        else:  # 'seqq': weights replicated over model; seq dim shards compute
+            layers["attn"] = {
+                "wq": sp("layers.attn.wq", None, fs, None, None),
+                "wk": sp("layers.attn.wk", None, fs, None, None),
+                "wv": sp("layers.attn.wv", None, fs, None, None),
+                "wo": sp("layers.attn.wo", None, None, None, fs),
+            }
+    if cfg.moe is not None:
+        layers["moe"] = {
+            "router": sp("layers.moe.router", None, fs, None),
+            "wg": sp("layers.moe.wg", None, "model", fs, None),
+            "wu": sp("layers.moe.wu", None, "model", fs, None),
+            "wd": sp("layers.moe.wd", None, "model", None, fs),
+        }
+        layers["ln2"] = sp("layers.ln2", None, None)
+    elif cfg.has_mlp:
+        layers["mlp"] = {
+            "wg": sp("layers.mlp.wg", None, fs, "model"),
+            "wu": sp("layers.mlp.wu", None, fs, "model"),
+            "wd": sp("layers.mlp.wd", None, "model", fs),
+        }
+        layers["ln2"] = sp("layers.ln2", None, None)
+    if cfg.has_ssm:
+        layers["ssm"] = {
+            "in_proj": sp("layers.ssm.in_proj", None, fs, "model"),
+            "conv_w": sp("layers.ssm.conv_w", None, None, "model"),
+            "conv_b": sp("layers.ssm.conv_b", None, "model"),
+            "x_proj": sp("layers.ssm.x_proj", None, "model", None),
+            "dt_proj": sp("layers.ssm.dt_proj", None, None, "model"),
+            "dt_bias": sp("layers.ssm.dt_bias", None, "model"),
+            "A_log": sp("layers.ssm.A_log", None, "model", None),
+            "D": sp("layers.ssm.D", None, "model"),
+            "out_proj": sp("layers.ssm.out_proj", None, "model", fs),
+        }
+
+    specs = {
+        "embed": sp("embed", "model", fs),
+        "layers": layers,
+        "final_norm": P(None),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = sp("lm_head", "model", fs)
+    return specs
+
+
+def param_specs_serve2d(cfg: ArchConfig, mesh) -> Tree:
+    """Weight-stationary serving layout: every large weight sharded over
+    BOTH mesh axes (the 256 ranks act as one 16x16 TP grid), the token
+    batch replicated, so no parameter moves after load."""
+    sp = _spec_of(leaf_shapes(cfg), mesh)
+
+    layers: Tree = {"ln1": sp("layers.ln1", None, None)}
+    if cfg.has_attn:
+        layers["attn"] = {
+            "wq": sp("layers.attn.wq", None, None, "data", "model"),
+            "wk": sp("layers.attn.wk", None, "data", None, "model"),
+            "wv": sp("layers.attn.wv", None, "data", None, "model"),
+            "wo": sp("layers.attn.wo", None, "data", "model", None),
+        }
+    if cfg.moe is not None:
+        layers["moe"] = {
+            "router": sp("layers.moe.router", None, "data", None),
+            "wg": sp("layers.moe.wg", None, "model", "data", None),
+            "wu": sp("layers.moe.wu", None, "model", "data", None),
+            "wd": sp("layers.moe.wd", None, "model", None, "data"),
+        }
+        layers["ln2"] = sp("layers.ln2", None, None)
+    elif cfg.has_mlp:
+        layers["mlp"] = {
+            "wg": sp("layers.mlp.wg", None, "data", "model"),
+            "wu": sp("layers.mlp.wu", None, "data", "model"),
+            "wd": sp("layers.mlp.wd", None, "model", "data"),
+        }
+        layers["ln2"] = sp("layers.ln2", None, None)
+    if cfg.has_ssm:
+        layers["ssm"] = {
+            "in_proj": sp("layers.ssm.in_proj", None, "data", "model"),
+            "conv_w": sp("layers.ssm.conv_w", None, None, "model"),
+            "conv_b": sp("layers.ssm.conv_b", None, "model"),
+            "x_proj": sp("layers.ssm.x_proj", None, "model", None),
+            "dt_proj": sp("layers.ssm.dt_proj", None, None, "model"),
+            "dt_bias": sp("layers.ssm.dt_bias", None, "model"),
+            "A_log": sp("layers.ssm.A_log", None, "model", None),
+            "D": sp("layers.ssm.D", None, "model"),
+            "out_proj": sp("layers.ssm.out_proj", None, "model", "data"),
+        }
+    specs = {
+        "embed": sp("embed", "model", "data"),
+        "layers": layers,
+        "final_norm": P(None),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = sp("lm_head", "model", "data")
+    return specs
 
 
 class DecoderLM(nn.Module):
@@ -324,6 +455,35 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
         cache["ssm"] = torch.zeros((L, batch, di, N), dtype=torch.float32,
                                    device=device)
     return cache
+
+
+def cache_specs(cfg: ArchConfig, mesh, layout: str = "batch") -> Tree:
+    """KV cache sharding.
+
+    'batch' - batch over data axes, sequence over model (flash-decode).
+    'tp2d'  - batch replicated, sequence sharded over BOTH axes (pairs
+    with param_specs_serve2d)."""
+    dp = dp_axes(mesh)
+    dpa = dp if len(dp) > 1 else dp[0]
+    specs: Tree = {}
+    if layout == "tp2d":
+        both = tuple(dp) + ("model",)
+        if cfg.has_attn:
+            specs["k"] = P(None, None, both, None, None)
+            specs["v"] = P(None, None, both, None, None)
+            specs["pos"] = P(None, None, both)
+        if cfg.has_ssm:
+            specs["conv"] = P(None, None, None, both)
+            specs["ssm"] = P(None, None, both, None)
+        return specs
+    if cfg.has_attn:
+        specs["k"] = P(None, dpa, "model", None, None)
+        specs["v"] = P(None, dpa, "model", None, None)
+        specs["pos"] = P(None, dpa, "model")
+    if cfg.has_ssm:
+        specs["conv"] = P(None, dpa, None, "model")
+        specs["ssm"] = P(None, dpa, "model", None)
+    return specs
 
 
 def _layer_decode(x, lp, cache_l, pos: int, cfg: ArchConfig) -> torch.Tensor:

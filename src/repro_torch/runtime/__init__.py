@@ -1,1 +1,2 @@
-"""Fault-tolerance runtime of the training loop (``fault.py``)."""
+"""Fault-tolerance runtime of the training loop (``fault.py``) and the
+elastic mesh (``elastic.py``)."""

@@ -8,8 +8,9 @@ decays only leaves with ``ndim >= 2``, adds the decay to the update before
 float32 and keeps the moments in ``moment_dtype`` (bf16 allowed) while the
 update math is float32, casting the new parameter back to its dtype with
 no master copy.  Every function here is functional: it returns new
-tensors and leaves its inputs as they were.  The reference's
-``opt_specs`` is mesh code (ROADMAP §1 item 5(g)).
+tensors and leaves its inputs as they were.  ``opt_specs`` gives the
+moments their parameters' specs (ZeRO-3: an FSDP-sharded parameter has
+FSDP-sharded moments).
 """
 
 from __future__ import annotations
@@ -57,6 +58,10 @@ def init_opt_state(params, cfg: AdamWConfig) -> Dict[str, Any]:
     mdt = getattr(torch, cfg.moment_dtype)
     zeros = lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device)
     return {"mu": T.map_tree(zeros, params), "nu": T.map_tree(zeros, params)}
+
+
+def opt_specs(param_spec_tree) -> Dict[str, Any]:
+    return {"mu": param_spec_tree, "nu": param_spec_tree}
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -14,9 +14,10 @@ The step is functional: it returns a new state and never writes the one
 it was given (the loop restarts from ``init_state``; ROADMAP §3).  The
 state's parameters are plain tensors that do not require grad; each
 microbatch differentiates through detached aliases of them that do, so no
-autograd graph outlives a step and serving stays graph-free.  The
-reference's ``mesh`` argument and ``state_specs`` are mesh code and wait
-for ROADMAP §1 item 5(g).
+autograd graph outlives a step and serving stays graph-free.
+``state_specs`` gives the state's specs (the parameters' and the moments'
+alike, the step replicated); the reference's ``mesh`` argument waits for
+ROADMAP §1 item 5(g)(ii).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.parallel.sharding import P
 from repro_torch.train import tree as T
 from repro_torch.train.optimizer import (AdamWConfig, apply_updates,
                                          init_opt_state)
@@ -127,3 +129,12 @@ def make_train_step(
 
     train_step.grads = grads_of
     return train_step
+
+
+def state_specs(model, mesh, fsdp_over_pod: bool = False):
+    pspecs = model.param_specs(mesh, fsdp_over_pod=fsdp_over_pod)
+    return {
+        "params": pspecs,
+        "opt": {"mu": pspecs, "nu": pspecs},
+        "step": P(),
+    }

@@ -2099,3 +2099,77 @@ def test_checkpoint_round_trips_onto_the_card(card, tmp_path):
         for a, b in zip(T.leaves(back), T.leaves(state)):
             assert a.device.type == card.type and a.dtype == b.dtype
             assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------- #
+# the mesh on one card, and the launchers on a second card
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "whisper-small"])
+def test_host_mesh_keeps_every_leaf_bit_for_bit(card, arch):
+    """``make_host_mesh()`` starts a one-rank NCCL group and gives the
+    (1, 1) mesh; every leaf of the reduced model, distributed by its spec
+    in both layouts through ``tree_shardings``, is its whole leaf on
+    cuda:0, bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import flatten_tree
+    from repro_torch.parallel.sharding import tree_shardings
+
+    assert not dist.is_initialized()
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    leaves = flatten_tree(model.init(0, device=card).tree())
+    try:
+        mesh = make_host_mesh()
+        assert dist.get_backend() == "nccl"
+        assert tuple(mesh.shape) == (1, 1)
+        assert mesh.mesh_dim_names == ("data", "model")
+        for layout in ("train", "serve2d"):
+            placements = flatten_tree(tree_shardings(
+                mesh, model.param_specs(mesh, layout=layout)))
+            assert placements.keys() == leaves.keys()
+            for name, x in leaves.items():
+                local = distribute_tensor(x, mesh,
+                                          placements[name]).to_local()
+                assert local.device == torch.device("cuda", 0), name
+                assert local.dtype == x.dtype and torch.equal(local, x), name
+    finally:
+        dist.destroy_process_group()
+
+
+def test_launchers_on_a_second_card_after_the_first(card):
+    """The launchers that size their grids and raise their shared-memory
+    limits once a card: the SSM forward (a 56 KB ring at G 4, N 16), pack,
+    unpack, remap-pack and remap on cuda:1 after cuda:0 in one process,
+    each against its plain version."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: a per-card limit shows only on a "
+                    "second card, and the single H100 cannot show it")
+    rng = np.random.default_rng(7)
+    scan_ops = _ssm_operands((1, 64, 256, 16), 3)
+    want_scan = ssm_scan.ssm_scan_plain(*scan_ops)
+    codes = _codes(100_003, 16, rng)
+    words = bitpack.pack_codes_plain(codes, 16)
+    table = torch.from_numpy(rng.integers(-1, 2 ** 16, 70_000).astype(np.int32))
+    offsets = torch.tensor([0, 30_000], dtype=torch.int32)
+    srcs = torch.from_numpy(rng.integers(0, 2, 100_003).astype(np.int32))
+    evs = torch.from_numpy(rng.integers(-1, 30_000, 100_003).astype(np.int32))
+    remap_args = (evs, srcs, table, offsets)
+    for index in (0, 1):
+        dev = torch.device("cuda", index)
+        got = ssm_scan.ssm_scan(*(t.to(dev) for t in scan_ops))
+        for g, w in zip(got, want_scan):
+            assert g.device == dev
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+        assert torch.equal(bitpack.pack_codes(codes.to(dev), 16).cpu(), words)
+        assert torch.equal(bitpack.unpack_codes(words.to(dev), 16,
+                                                codes.shape[0]).cpu(), codes)
+        on = [t.to(dev) for t in remap_args]
+        assert torch.equal(merge_remap.remap_pack_codes(*on, 16).cpu(),
+                           merge_remap.remap_pack_codes_plain(*remap_args, 16))
+        assert torch.equal(merge_remap.remap_codes(*on).cpu(),
+                           merge_remap.remap_codes_plain(*remap_args))

@@ -16,6 +16,11 @@
   backends ``'jax_packed'``, ``'jax'`` and ``'numpy'`` build the same tree
   as ``'fused'``.
 * ``chip_smoke.py`` gives no result without a card or outside the repo.
+* ``src/repro_torch`` never imports ``torch.testing`` (the fake process
+  group is the tests'); the mesh builders default to the card.
+* No CUDA launcher keeps a per-process cache of a fact of the card: the
+  resident-block counts and the raised shared-memory limits are looked up
+  per card through ``csrc/launch_grid.cuh``.
 """
 
 import ast
@@ -89,6 +94,8 @@ def test_port_sources_import_neither_jax_nor_repro():
     "repro_torch.checkpoint, repro_torch.checkpoint.ckpt, "
     "repro_torch.runtime, repro_torch.runtime.fault, "
     "repro_torch.launch.train",
+    "repro_torch.parallel, repro_torch.parallel.sharding, "
+    "repro_torch.runtime.elastic, repro_torch.launch.mesh",
 ])
 def test_importing_the_port_loads_neither_jax_nor_repro(modules):
     code = (f"import sys, {modules}\n"
@@ -368,3 +375,69 @@ def test_chip_smoke_gives_no_result_without_a_card(tmp_path):
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+
+def test_port_sources_never_import_torch_testing():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = [(str(f.relative_to(ROOT)), m) for f in files
+           for m in _imported_modules(f)
+           if m == "torch.testing" or m.startswith("torch.testing.")]
+    assert not bad, bad
+
+
+def test_mesh_builders_default_to_the_card():
+    import inspect
+
+    from repro_torch.launch import mesh
+    from repro_torch.parallel import sharding
+    from repro_torch.runtime import elastic
+    for fn in (sharding.compat_make_mesh, elastic.make_elastic_mesh,
+               mesh.make_production_mesh, mesh.make_host_mesh):
+        param = inspect.signature(fn).parameters["device_type"]
+        assert param.default == "cuda", fn.__name__
+
+
+CSRC = PORT / "kernels" / "csrc"
+HELPERS = "launch_grid.cuh"
+
+
+def _code(path: Path) -> str:
+    """The source without its comments."""
+    text = re.sub(r"/\*.*?\*/", "", path.read_text(), flags=re.S)
+    return re.sub(r"//[^\n]*", "", text)
+
+
+def test_per_card_facts_are_looked_up_per_card():
+    """Outside ``launch_grid.cuh`` no launcher declares ``static`` storage
+    (only ``static_cast``, ``static_assert`` and ``static constexpr``
+    constants), sets a function attribute or asks for occupancy itself;
+    a resident-block count comes from ``repro::resident_blocks`` (the
+    current card, every call) or ``repro::card_resident_blocks`` (once a
+    card), and a shared-memory limit from ``repro::raise_smem_once``."""
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    assert (CSRC / HELPERS) in sources and len(sources) > 10
+    bad = []
+    for path in sources:
+        if path.name == HELPERS:
+            continue
+        code = _code(path)
+        for m in re.finditer(r"\bstatic\b(?!_)(?!\s+constexpr\b)", code):
+            bad.append((path.name, code[m.start():m.start() + 60]))
+        for name in ("cudaFuncSetAttribute", "cudaOccupancy"):
+            if name in code:
+                bad.append((path.name, name))
+        for m in re.finditer(r"(\w+::)?\bresident_blocks\b", code):
+            if m.group(1) != "repro::":
+                bad.append((path.name, m.group(0)))
+    assert not bad, bad
+    helpers = _code(CSRC / HELPERS)
+    for name in ("PerCard", "card_resident_blocks", "raise_smem_once",
+                 "std::call_once", "cudaErrorInvalidDevice", "kMaxCards"):
+        assert name in helpers, name
+    # the four launchers sized once per card, and the two smem raises
+    uses = {p.name: _code(p) for p in sources}
+    for name in ("bitpack.cu", "merge_remap.cu"):
+        assert "card_resident_blocks<" in uses[name], name
+    for name in ("ssm_scan.cu", "ssm_scan_bwd.cu"):
+        assert "raise_smem_once<" in uses[name], name
