@@ -4359,7 +4359,8 @@ def train_phase(args, card: str, device: str, bw: float, rates: dict,
     ``launch.train.main``), after lm.encdec with its weights freed:
     (a) ``train_f32_part``, (b) ``train_full_part`` at full width and
     depth, (c) ``train_bwd_row`` on (b)'s first-layer scan, (d)
-    ``train_loop_part``, (e) the launcher on the reduced config.  One line,
+    ``train_loop_part``, (e) the launcher on the reduced config on its
+    default ``--mesh host`` (a one-rank NCCL group it starts and ends).  One line,
     the phase within TRAIN_LIMIT_S.  Returns the ssm_scan_bwd row and the
     launches of (b)'s steps."""
     import gc
@@ -4428,7 +4429,8 @@ def train_phase(args, card: str, device: str, bw: float, rates: dict,
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         res = train_launch.main(["--arch", TRAIN_ARCH, "--reduced", "--steps",
-                                 "4", "--ckpt", tmp, "--device", device])
+                                 "4", "--ckpt", tmp, "--device", device,
+                                 "--mesh", "host"])
     line.update(launcher_s=time.perf_counter() - t0,
                 launcher_step=int(res.state["step"]),
                 launcher_losses=[m["loss_total"] for m in
@@ -4448,6 +4450,140 @@ def train_phase(args, card: str, device: str, bw: float, rates: dict,
     check(seconds <= TRAIN_LIMIT_S, f"train: the phase took {seconds:.1f} s "
           f"of its {TRAIN_LIMIT_S:.0f} s")
     return {"row": row, "launches": launches}
+
+
+TRAIN_MESH_LIMIT_S = 40.0
+
+
+def bits_checksum(state):
+    """Two exact integer checksums of each leaf's bits (as integers of the
+    leaf's width, widened to int64): their sum and their sum weighted by
+    position, both modulo 2^64; a DTensor on the (1, 1) mesh by its local
+    tensor, the whole leaf.  One int64 tensor on the host."""
+    import torch
+    from repro_torch.parallel.sharding import is_dtensor
+    from repro_torch.train import tree as T
+
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    sums = []
+    for t in T.leaves(state):
+        t = t.to_local() if is_dtensor(t) else t
+        bits = t.contiguous().view(ints[t.element_size()]).reshape(-1)
+        bits = bits.to(torch.int64)
+        pos = torch.arange(1, bits.numel() + 1, dtype=torch.int64,
+                           device=bits.device)
+        sums += [bits.sum(), (bits * pos).sum()]
+        del bits, pos
+    return torch.stack(sums).cpu()
+
+
+def train_mesh_phase(args, card: str, device: str, build_s: float) -> dict:
+    """train.mesh: TRAIN_ARCH at full width and depth in bf16 (random
+    weights from the seed), one step of TRAIN_SHAPE in 2 microbatches
+    without a mesh and one on ``make_host_mesh()``'s (1, 1) mesh (a
+    one-rank NCCL group, ``ShardCtx`` in the forward, the state and batch
+    as DTensors, each SSM layer's scan through ``local_map``), from one
+    state: the loss, every metric and every leaf of the new state bit for
+    bit (exact integer checksums of the bits: three states do not fit the
+    card), ``ssm_scan`` and ``ssm_scan_bwd`` launched as often on the mesh
+    path as off it.  The mesh step runs twice more, its caches warm: timed,
+    then profiled for the device's busy time (``train`` (b) profiles the
+    mesh-less step at this shape).  One line, the phase within TRAIN_MESH_LIMIT_S.  Returns
+    the mesh step's launches."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.parallel.sharding import mesh_axes
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    seed = args.seed + 50
+    B, S = TRAIN_SHAPE
+    model = build_model(cfg)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=2)
+    state = make_train_state(
+        model, ocfg, torch.Generator(device=device).manual_seed(seed),
+        device=device)
+    batch = train_batch(np.random.default_rng(seed), cfg.vocab, B, S, device)
+    assert not dist.is_initialized()
+    mesh = make_host_mesh(device)
+    line = {"phase": "train.mesh", "card": card, "arch": TRAIN_ARCH,
+            "source": cfg.source, "build_s": build_s,
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "dtype": cfg.dtype, "batch_shape": [B, S], "microbatches": 2,
+            "mesh": mesh_axes(mesh), "backend": dist.get_backend(),
+            "reduced": "none: full width and depth; random weights from the "
+            "seed (the repository holds none)"}
+    try:
+        steps = {"plain": make_train_step(model, ocfg, num_microbatches=2),
+                 "mesh": make_train_step(model, ocfg, mesh,
+                                         num_microbatches=2)}
+        out = {}
+        for name, step in steps.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            (new, m), launches = launch_window(lambda: step(state, batch))
+            loss = m["loss_total"].item()
+            out[name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                         "loss": loss,
+                         "metrics": {k: float(v) for k, v in m.items()},
+                         "launches": {k: launches.get(k, 0) for k in
+                                      ("ssm_scan", "ssm_scan_bwd")},
+                         "peak_allocated_gb":
+                         torch.cuda.max_memory_allocated() / 1e9,
+                         "sums": bits_checksum(new)}
+            del new, m
+        # the mesh step again, its caches warm: timed, then profiled
+        box = {}
+
+        def again():
+            box["new"], box["m"] = steps["mesh"](state, batch)
+            box["m"]["loss_total"].item()
+
+        t0 = time.perf_counter()
+        again()
+        out["mesh"]["warm_ms"] = (time.perf_counter() - t0) * 1e3
+        box.clear()
+        profiled = device_busy(again, top=4, host=False)
+        del box
+    finally:
+        dist.destroy_process_group()
+    same_bits = torch.equal(out["plain"]["sums"], out["mesh"]["sums"])
+    same_metrics = out["plain"]["metrics"] == out["mesh"]["metrics"]
+    for v in out.values():
+        v["leaf_checksums"] = len(v.pop("sums")) // 2
+    line.update(plain=out["plain"], mesh_step=out["mesh"],
+                mesh_profiled=profiled, state_bit_equal=same_bits,
+                metrics_equal=same_metrics,
+                mesh_over_plain_ms=out["mesh"]["warm_ms"] - out["plain"]["ms"])
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["seconds"] = seconds = time.perf_counter() - t_phase
+    emit(line)
+    want = {"ssm_scan": 2 * cfg.n_layers * 2, "ssm_scan_bwd": cfg.n_layers * 2}
+    check(out["plain"]["launches"] == out["mesh"]["launches"] == want,
+          f"train.mesh: the steps launched {out['plain']['launches']} off "
+          f"the mesh and {out['mesh']['launches']} on it, not {want}")
+    check(same_metrics, f"train.mesh: the metrics differ: "
+          f"{out['plain']['metrics']} off the mesh, "
+          f"{out['mesh']['metrics']} on it")
+    check(same_bits, "train.mesh: the new state on the mesh is not the "
+          "mesh-less one bit for bit")
+    check(all(np.isfinite(v) for v in out["mesh"]["metrics"].values()),
+          "train.mesh: a metric is not finite")
+    check(seconds <= TRAIN_MESH_LIMIT_S, f"train.mesh: the phase took "
+          f"{seconds:.1f} s of its {TRAIN_MESH_LIMIT_S:.0f} s")
+    return out["mesh"]["launches"]
 
 
 # --------------------------------------------------------------------------- #
@@ -5735,6 +5871,7 @@ def main() -> int:
     families = families_phase(args, prompts, card, "cuda", bw, rates, build_s)
     encdec_phase(args, prompts, card, "cuda", bw, rates, build_s)
     train = train_phase(args, card, "cuda", bw, rates, build_s)
+    mesh_launches = train_mesh_phase(args, card, "cuda", build_s)
     bench_launches, bench = bench_phase(args)
     launches["bloom_probe"] = bench_launches["bloom_probe"]
     # the scan's main path is now the SSM models' forwards (lm.families)
@@ -5745,7 +5882,9 @@ def main() -> int:
         if r["name"] == "ssm_scan":
             r.update(bench_launches=bench_launches["ssm_scan"],
                      path=families["path"],
-                     train_launches=train["launches"]["ssm_scan"])
+                     train_launches=train["launches"]["ssm_scan"],
+                     mesh_launches=mesh_launches["ssm_scan"])
+    train["row"]["mesh_launches"] = mesh_launches["ssm_scan_bwd"]
     rows.append(train["row"])
     for r in rows:
         emit({"phase": "kernel", **r})
@@ -5759,7 +5898,7 @@ def main() -> int:
     # aggregate kernel its SUM launch of agg.fast, for the packed range
     # filter fig5's largest SCT, for the bloom probe the micro-bench's
     table = [{**{k: r[k] for k in keep},
-              **({"path": r["path"]} if "path" in r else {})}
+              **{k: r[k] for k in ("path", "mesh_launches") if k in r}}
              for r in rows if r.get("main_path", True)]
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -16,9 +16,18 @@ bf16 leaves are written as the reference writes an ml_dtypes bfloat16
 array: a ``.npy`` of raw 2-byte fields (descr ``'<V2'``) with ``dtype:
 "bfloat16"`` in the manifest; ``restore`` reads them back by that
 manifest entry, viewing the bits.  So the port restores the reference's
-bf16 checkpoints, which the reference itself cannot (ROADMAP §3).  The
-reference's ``mesh`` and ``spec_tree`` re-shard on a mesh (ROADMAP §1 item
-5(g)(ii)); ``device=`` takes their place on one card.
+bf16 checkpoints, which the reference itself cannot (ROADMAP §3).
+
+A state on a mesh (DTensor leaves) is saved whole: each leaf is gathered
+(``full_tensor``) on the caller's thread by every rank, in ``save`` and in
+``AsyncCheckpointer.submit``, never on the writer thread, and only rank 0
+of the default process group writes; ``save`` and
+``AsyncCheckpointer.wait`` end at a barrier, so every rank sees the files
+after either (the reference has no save across processes; ROADMAP §3).
+``restore(..., mesh, spec_tree)`` re-shards on load, as the reference
+does: each rank loads every leaf whole and keeps its part by the leaf's
+spec (``spec_tree`` is flattened with its ``PartitionSpec`` tuples as
+leaves).  Without a mesh, ``device=`` places every leaf on one device.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.lsm import resolve_device
+from repro_torch.parallel import sharding
 from repro_torch.train import tree as T
 
 BF16 = "bfloat16"
@@ -53,11 +63,24 @@ class _Host:
         self.array, self.dtype = array, dtype
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() and \
+            dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def _to_host(leaf) -> _Host:
     if isinstance(leaf, _Host):
         return leaf
     if torch.is_tensor(leaf):
-        t = leaf.detach().cpu()
+        t = sharding.whole(leaf).detach().cpu()   # a DTensor: every rank
         if t.dtype == torch.bfloat16:
             return _Host(t.view(torch.int16).numpy().view(np.uint16), BF16)
         arr = t.numpy()
@@ -79,6 +102,17 @@ def _write(path: str, host: _Host) -> None:
 
 def save(directory: str, step: int, tree: Any,
          meta: Optional[Dict[str, Any]] = None, keep_last: int = 3) -> str:
+    """Every rank calls it; DTensor leaves are gathered, rank 0 writes."""
+    host = T.map_tree(_to_host, tree)
+    final = os.path.join(directory, f"step_{step:08d}")
+    if _rank() == 0:
+        _write_step(directory, step, host, meta, keep_last)
+    _barrier()
+    return final
+
+
+def _write_step(directory: str, step: int, tree: Any,
+                meta: Optional[Dict[str, Any]], keep_last: int) -> str:
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -132,11 +166,18 @@ def _load(path: str, dtype: str) -> torch.Tensor:
 
 
 def restore(directory: str, template: Any, step: Optional[int] = None,
-            device=None) -> Tuple[int, Any]:
+            mesh=None, spec_tree: Any = None, device=None) -> Tuple[int, Any]:
     """Restore into the structure of ``template`` (the newest complete
-    step unless ``step``), each leaf in its saved dtype, on ``device``
+    step unless ``step``), each leaf in its saved dtype.  With ``mesh``
+    and ``spec_tree`` each leaf becomes a DTensor on ``mesh`` placed by
+    its spec (each rank keeps its part); otherwise it goes to ``device``
     (the card unless the caller asks for the CPU)."""
-    dev = resolve_device(device)
+    spec_leaves = None
+    if mesh is not None and spec_tree is not None:
+        spec_leaves = T.leaves(spec_tree)
+        dev = resolve_device(mesh.device_type)
+    else:
+        dev = resolve_device(device)
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -145,11 +186,17 @@ def restore(directory: str, template: Any, step: Optional[int] = None,
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     paths, _ = T.flatten(template)
+    if spec_leaves is not None and len(spec_leaves) != len(paths):
+        raise ValueError(f"spec_tree has {len(spec_leaves)} specs, the "
+                         f"template {len(paths)} leaves")
     leaves = []
-    for path in paths:
+    for i, path in enumerate(paths):
         name = _leaf_name(path)
-        leaves.append(_load(os.path.join(d, name + ".npy"),
-                            manifest["leaves"][name]["dtype"]).to(dev))
+        leaf = _load(os.path.join(d, name + ".npy"),
+                     manifest["leaves"][name]["dtype"]).to(dev)
+        if spec_leaves is not None:
+            leaf = sharding.constrain(leaf, mesh, spec_leaves[i])
+        leaves.append(leaf)
     return int(manifest["step"]), T.unflatten(paths, leaves)
 
 
@@ -166,7 +213,11 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def submit(self, step: int, tree: Any, meta: Optional[Dict] = None) -> None:
-        self._q.put((int(step), T.map_tree(_to_host, tree), meta))
+        """Every rank calls it (DTensor leaves are gathered here); only
+        rank 0 queues the write."""
+        host = T.map_tree(_to_host, tree)
+        if _rank() == 0:
+            self._q.put((int(step), host, meta))
 
     def _run(self) -> None:
         while True:
@@ -176,16 +227,19 @@ class AsyncCheckpointer:
                 return
             step, tree, meta = item
             try:
-                save(self.directory, step, tree, meta, self.keep_last)
+                _write_step(self.directory, step, tree, meta, self.keep_last)
             except Exception as e:  # surfaced on wait()
                 self._errors.append(e)
             finally:
                 self._q.task_done()
 
     def wait(self) -> None:
+        """Until every queued save is on disk, then a barrier across
+        ranks."""
         self._q.join()
         if self._errors:
             raise self._errors[0]
+        _barrier()
 
     def close(self) -> None:
         self._q.put(None)

@@ -1,8 +1,9 @@
-"""Evaluation switches of the model stack that mean something on one card.
+"""Evaluation switches of the model stack.
 
-The reference's ``unroll_scans``, ``moe_impl`` and ``remat_policy``
-steer XLA lowering, the mesh or training; they come with those parts of
-the port.  ``serving_layout`` is here for the specs alone.
+The reference's ``unroll_scans`` steers XLA lowering and comes with the
+dry-run (ROADMAP §1 item 5(g)(iii)); ``moe_impl`` ('ep') comes with the
+moe family on a mesh (item 5(g)(ii-b)).  ``serving_layout`` chooses the
+specs alone until ``decode_step`` takes a mesh (item 5(g)(ii-b)).
 """
 
 # decode attention: 'repeat' materializes GQA-repeated K/V; 'grouped'
@@ -13,9 +14,13 @@ decode_gqa: str = "repeat"
 xent_impl: str = "onehot"
 # flash attention KV block length; attention goes blockwise past it
 kv_block: int = 1024
+# remat policy for a layer under cfg.remat: 'nothing' recomputes every
+# activation in the backward; 'dots' keeps the outputs of products with
+# no batch dimension (transformer.remat)
+remat_policy: str = "nothing"
 # serving parameter/cache layout: 'batch' = the train layout (batch over
 # the data axes); 'tp2d' = weights and the KV cache's sequence sharded
 # over both mesh axes, batch replicated.  Here it only chooses the specs
-# (registry.batch_pspec); the forward's 'tp2d' comes with the mesh in the
-# forward (ROADMAP §1 item 5(g)(ii)).
+# (registry.batch_pspec); 'tp2d' in decode comes with decode_step on a
+# mesh (ROADMAP §1 item 5(g)(ii-b)).
 serving_layout: str = "batch"

@@ -17,7 +17,7 @@ a rerun of a step on the same bits:
   with no float atomics.
 
 The reference's expert-parallel ``moe_ffn_ep`` (``shard_map`` over a mesh)
-and its ``moe_impl`` flag wait for ROADMAP §1 item 5(g)(ii).
+and its ``moe_impl`` flag wait for ROADMAP §1 item 5(g)(ii-b).
 """
 
 from __future__ import annotations

@@ -1,10 +1,14 @@
 """A uniform model API over the ported families: ``build_model(cfg)``
 returns a ModelAPI whose functions close over the config, dispatching on
 ``cfg.enc_dec`` as the reference does (``encdec`` for whisper-small,
-``transformer`` for the decoder-only families).  ``loss`` keeps the
-reference's signature ``loss(p, b, ctx=None, scan_impl='seq')``; ``ctx``,
-the reference's mesh context (``ShardCtx``), is taken only as None until
-ROADMAP §1 item 5(g)(ii).  ``param_specs`` and ``cache_specs`` give the
+``transformer`` for the decoder-only families).  ``loss``, ``prefill``
+and ``decode_step`` keep the reference's signatures (``loss(p, b,
+ctx=None, scan_impl='seq')``, ``prefill(p, b, ctx=None)``,
+``decode_step(p, c, t, pos, ctx=None)``).  ``ctx``, the mesh context
+(``transformer.ShardCtx``), runs ``loss`` and ``prefill`` on a mesh for
+the dense, ssm and hybrid families; the moe family, the encoder-decoder
+and ``decode_step`` raise ``ValueError`` on a ``ctx`` until ROADMAP §1
+item 5(g)(ii-b).  ``param_specs`` and ``cache_specs`` give the
 family's specs for a ``DeviceMesh``; ``input_specs`` gives every step
 input as a tensor on the ``meta`` device (shape and dtype, no storage),
 the reference's ``ShapeDtypeStruct``, and ``batch_pspec`` their specs."""
@@ -57,19 +61,34 @@ def init_model(cfg: ArchConfig, seed: Union[int, torch.Generator],
     return module(cfg, _family(cfg).init_params(cfg, gen))
 
 
-def _no_mesh(ctx) -> None:
+def _no_mesh(ctx, what: str) -> None:
     if ctx is not None:
-        raise ValueError("ctx, the reference's mesh context, has no meaning "
-                         "on one card (ROADMAP §1 item 5(g)(ii)); pass None")
+        raise ValueError(f"{what} on a mesh waits for ROADMAP §1 item "
+                         "5(g)(ii-b); pass ctx=None")
 
 
 def build_model(cfg: ArchConfig) -> ModelAPI:
     fam = _family(cfg)
     inputs = "frames" if cfg.enc_dec else "tokens"    # what prefill takes
+    # what takes no mesh yet: the encoder-decoder and the moe family
+    meshless = ("the encoder-decoder" if cfg.enc_dec else
+                "the moe family" if cfg.moe is not None else None)
 
     def loss(p, b, ctx=None, scan_impl="seq"):
-        _no_mesh(ctx)
-        return fam.lm_loss(p, b, cfg, scan_impl)
+        if meshless:
+            _no_mesh(ctx, meshless)
+            return fam.lm_loss(p, b, cfg, scan_impl=scan_impl)
+        return fam.lm_loss(p, b, cfg, ctx, scan_impl)
+
+    def prefill(p, b, ctx=None):
+        if meshless:
+            _no_mesh(ctx, meshless)
+            return fam.prefill(p, b[inputs], cfg)
+        return fam.prefill(p, b[inputs], cfg, ctx)
+
+    def decode_step(p, c, t, pos, ctx=None):
+        _no_mesh(ctx, "decode_step")
+        return fam.decode_step(p, c, t, pos, cfg)
 
     return ModelAPI(
         cfg=cfg,
@@ -80,8 +99,8 @@ def build_model(cfg: ArchConfig) -> ModelAPI:
             cfg, batch, seq_len, device=resolve_device(device)),
         cache_specs=lambda mesh, layout="batch": fam.cache_specs(
             cfg, mesh, layout),
-        decode_step=lambda p, c, t, pos: fam.decode_step(p, c, t, pos, cfg),
-        prefill=lambda p, b: fam.prefill(p, b[inputs], cfg),
+        decode_step=decode_step,
+        prefill=prefill,
     )
 
 

@@ -11,6 +11,19 @@ takes either and raises on anything else.  The kernel needs
 ``d_inner % 128 == 0``: every published and ``reduced()`` config meets
 it, and any other raises its ``ValueError``.
 
+On a mesh (``ctx``, ``models/transformer.py``'s ``ShardCtx``) the block's
+operands are DTensors, and the scan runs on each rank's shards through
+``local_map`` (``SSMScan`` takes ``data_ptr()`` of plain tensors): u and
+delta with their batch over the data axes and ``d_inner`` over `model`, A
+``[d_inner, N]`` over `model`, B and C with their batch over the data
+axes, whole over `model`.  A's gradient is a partial sum over the data
+ranks that split the batch, B's and C's over the `model` ranks that split
+``d_inner``, so they come back ``Partial``.  Where a rank's share of
+``d_inner`` would not be a multiple of the kernel's 128 lanes, ``d_inner``
+stays whole over `model` for the scan (as ``safe_spec`` drops an axis
+that does not divide).  The depthwise causal conv runs the same way, per
+channel on each rank's shard.
+
 Decode is one recurrence step carrying (conv window, SSM state), both
 written in place into the caller's cache (the reference returns copies).
 The state stays float32.
@@ -27,6 +40,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ssm_scan as scan_kernel
+from repro_torch.parallel.sharding import (mesh_axes, on_shards,
+                                           partial_where, placements)
 
 
 def log_f32(x: np.ndarray) -> np.ndarray:
@@ -66,7 +81,23 @@ def a_log_init(shape, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 def _conv1d_causal(x: torch.Tensor, w: torch.Tensor,
-                   b: torch.Tensor) -> torch.Tensor:
+                   b: torch.Tensor, ctx=None) -> torch.Tensor:
+    """Depthwise causal conv, on each rank's shard under ``ctx.mesh``."""
+    if ctx is None or ctx.mesh is None:
+        return _conv1d_local(x, w, b)
+    mesh, dm = ctx.mesh, _split_channels(ctx, x.shape[2], 1)
+    xs = placements(mesh, x.shape, (ctx.dp, None, dm))
+    ws = placements(mesh, w.shape, (None, dm))
+    bs = placements(mesh, b.shape, (dm,))
+    # the weights' gradients are partial sums on the dimensions that split
+    # the batch
+    return on_shards(mesh, _conv1d_local, (xs,), (xs, ws, bs),
+                     (xs, partial_where(xs, 0, ws), partial_where(xs, 0, bs))
+                     )(x, w, b)
+
+
+def _conv1d_local(x: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv: x [B,S,di], w [dk,di], b [di]; left-padded
     by dk-1, a cross-correlation as the reference's NWC/WIO conv."""
     dk, di = w.shape
@@ -75,12 +106,12 @@ def _conv1d_causal(x: torch.Tensor, w: torch.Tensor,
     return out.transpose(1, 2) + b.to(x.dtype)
 
 
-def mamba_features(x: torch.Tensor, p, cfg: ArchConfig):
+def mamba_features(x: torch.Tensor, p, cfg: ArchConfig, ctx=None):
     """Shared projections: returns (u, dt, A, Bm, Cm, z)."""
     di, N, dtr = cfg.d_inner, cfg.ssm.d_state, cfg.dt_rank
     xz = x @ p["in_proj"].to(x.dtype)
     u, z = xz[..., :di], xz[..., di:]
-    u = F.silu(_conv1d_causal(u, p["conv_w"], p["conv_b"]))
+    u = F.silu(_conv1d_causal(u, p["conv_w"], p["conv_b"], ctx))
     x_dbl = u @ p["x_proj"].to(x.dtype)
     dt_in = x_dbl[..., :dtr]
     Bm = x_dbl[..., dtr:dtr + N]
@@ -93,17 +124,42 @@ def mamba_features(x: torch.Tensor, p, cfg: ArchConfig):
 SCAN_IMPLS = ("seq", "chunked")
 
 
+def _split_channels(ctx, d: int, tile: int):
+    """`model` where it splits d channels into shares of whole ``tile``s,
+    else None."""
+    model = mesh_axes(ctx.mesh)["model"]
+    return "model" if d % model == 0 and (d // model) % tile == 0 else None
+
+
+def selective_scan(u, dt, A, Bm, Cm, chunk: int, ctx=None) -> torch.Tensor:
+    """y of ``SSMScan`` (the kernels), on each rank's shards under
+    ``ctx.mesh`` with the gradients' partial sums placed as ``Partial``."""
+    if ctx is None or ctx.mesh is None:
+        return scan_kernel.SSMScan.apply(u, dt, A, Bm, Cm, chunk)
+    mesh, dm = ctx.mesh, _split_channels(ctx, u.shape[2], scan_kernel.LANES)
+    act = placements(mesh, u.shape, (ctx.dp, None, dm))
+    a = placements(mesh, A.shape, (dm, None))
+    bc = placements(mesh, Bm.shape, (ctx.dp, None, None))
+    # A's gradient is a partial sum on the mesh dimensions that split the
+    # batch, B's and C's on those that split d_inner
+    da, dbc = partial_where(act, 0, a), partial_where(act, 2, bc)
+    run = on_shards(mesh, scan_kernel.SSMScan.apply, (act,),
+                    (act, act, a, bc, bc, None),
+                    (act, act, da, dbc, dbc, None))
+    return run(u, dt, A, Bm, Cm, chunk)
+
+
 def mamba_block(x: torch.Tensor, p, cfg: ArchConfig,
-                scan_impl: str = "seq") -> torch.Tensor:
+                scan_impl: str = "seq", ctx=None) -> torch.Tensor:
     """Full-sequence mamba block (training / prefill).  The scan's chunk
     divides L, so a prompt of any length runs; the kernel steps through L
     whatever the chunk."""
     if scan_impl not in SCAN_IMPLS:
         raise ValueError(f"scan_impl must be 'seq' or 'chunked', got "
                          f"{scan_impl!r}")
-    u, dt, A, Bm, Cm, z = mamba_features(x, p, cfg)
+    u, dt, A, Bm, Cm, z = mamba_features(x, p, cfg, ctx)
     chunk = math.gcd(x.shape[1], scan_kernel.DEFAULT_CHUNK)
-    y = scan_kernel.SSMScan.apply(u, dt, A, Bm, Cm, chunk)
+    y = selective_scan(u, dt, A, Bm, Cm, chunk, ctx)
     y = y.to(x.dtype) + p["D"].to(x.dtype) * u
     y = y * F.silu(z)
     return y @ p["out_proj"].to(x.dtype)

@@ -18,12 +18,24 @@ backward.  An encoder-decoder config raises ``ValueError`` here:
 ``cfg.enc_dec``.  ``param_specs``, ``param_specs_serve2d`` and
 ``cache_specs`` give the reference's specs (``parallel/sharding.py``'s
 ``PartitionSpec``) from the leaves' shapes alone, building no parameter.
-``ShardCtx`` (the mesh in the forward) and the ``remat_policy`` flag wait
-for ROADMAP §1 item 5(g)(ii).
+
+``ShardCtx`` carries a ``DeviceMesh`` through ``forward``, ``lm_loss`` and
+``prefill`` and places the reference's activation constraints (the
+embeddings, the attention modes 'head' and 'seqq', each layer's branch,
+the logits) as DTensor placements.  Under a mesh the parameters and the
+batch are DTensors (the train step places them by ``state_specs`` and
+``batch_pspec``), and the plain tensors the forward makes itself
+(positions, RoPE tables, masks) are taken as replicated on every rank
+(``implicit_replication``, entered by ``ShardCtx.scope``).  The mamba
+block's scan runs on each rank's shard (``models/ssm.py``).  With no mesh
+``constrain`` returns its input and the forward is the mesh-less one.
+``decode_step`` takes no ``ctx`` yet (ROADMAP §1 item 5(g)(ii-b)).
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
@@ -36,10 +48,38 @@ from repro_torch.models import flags
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import dense_init, embed_init, rms_norm, swiglu
+from repro_torch.parallel import sharding
 from repro_torch.parallel.sharding import (P, attn_mode, dp_axes, fsdp_axis,
                                            safe_spec, tp_size)
 
 Tree = Dict[str, Any]
+
+
+@dataclasses.dataclass
+class ShardCtx:
+    """Threaded through forward passes to place activation constraints."""
+    mesh: Any = None                # a DeviceMesh, or None
+    force_dp_none: bool = False     # tp2d serving: batch replicated
+
+    def constrain(self, x, *spec):
+        if self.mesh is None:
+            return x
+        return sharding.constrain(x, self.mesh, spec)
+
+    @property
+    def dp(self):
+        if self.mesh is None or self.force_dp_none:
+            return None
+        axes = dp_axes(self.mesh)
+        return axes if len(axes) > 1 else axes[0]
+
+    def scope(self):
+        """Where the forward and its backward run: under a mesh, plain
+        tensors count as replicated DTensors (every rank makes the same
+        ones); with none, nothing changes."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return sharding.replicating()
 
 
 def check_family(cfg: ArchConfig) -> None:
@@ -329,13 +369,41 @@ def _unstack(tree: Tree, n: int) -> List[Tree]:
     return [nest_tree({k: v[i] for k, v in flat.items()}) for i in range(n)]
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """``flags.remat_policy='dots'``: keep the outputs of products with no
+    batch dimension (the reference's ``dots_with_no_batch_dims_saveable``)
+    and recompute the rest.  ``x @ w`` reaches ``aten.mm`` (or ``addmm``);
+    an einsum with no batch dimension (the QKV, output and head
+    projections) reaches ``aten.bmm`` over a batch of one; attention's
+    einsums are batched over (B, H) and are recomputed."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    save = op in (aten.mm.default, aten.addmm.default) or (
+        op is aten.bmm.default and args[0].shape[0] == 1)
+    return CheckpointPolicy.MUST_SAVE if save else \
+        CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def remat(enabled: bool, fn, *args):
     """``fn(*args)``, under ``torch.utils.checkpoint`` when ``enabled``
     (``cfg.remat``) and grad is: its activations are recomputed in the
-    backward."""
-    if enabled and torch.is_grad_enabled():
+    backward, all of them (``flags.remat_policy`` 'nothing', the
+    reference's default) or all but the products' ('dots').  Values are
+    the same either way."""
+    if not (enabled and torch.is_grad_enabled()):
+        return fn(*args)
+    if flags.remat_policy == "nothing":
         return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    if flags.remat_policy == "dots":
+        import functools
+
+        from torch.utils.checkpoint import \
+            create_selective_checkpoint_contexts
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=(
+            functools.partial(create_selective_checkpoint_contexts,
+                              _save_dots)))
+    raise ValueError(f"flags.remat_policy must be 'nothing' or 'dots', got "
+                     f"{flags.remat_policy!r}")
 
 
 def _head(p: Tree, cfg: ArchConfig, dt: torch.dtype) -> torch.Tensor:
@@ -345,21 +413,39 @@ def _head(p: Tree, cfg: ArchConfig, dt: torch.dtype) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 # forward (training / prefill)
 # --------------------------------------------------------------------------- #
-def _layer_fwd(x, lp, cfg: ArchConfig, positions, scan_impl: str = "seq"
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _layer_fwd(x, lp, cfg: ArchConfig, positions, ctx: ShardCtx,
+               scan_impl: str = "seq") -> Tuple[torch.Tensor, torch.Tensor]:
     """One block; returns (x, aux loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    mode = attn_mode(cfg.n_heads, tp_size(ctx.mesh)) if (
+        cfg.has_attn and ctx.mesh is not None) else "head"
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     branch = None
     if cfg.has_attn:
-        q, k, v = attn_mod.qkv_proj(h, lp["attn"], cfg.rope_theta, positions)
+        # the attention branch reads h through a node of its own, so its
+        # three projections' gradients are summed before the mamba
+        # branch's is added, in one order on a mesh or off it
+        h_attn = h.view_as(h) if cfg.has_ssm else h
+        h_attn = ctx.constrain(h_attn, ctx.dp,
+                               "model" if mode == "seqq" else None, None)
+        q, k, v = attn_mod.qkv_proj(h_attn, lp["attn"], cfg.rope_theta,
+                                    positions)
+        if mode == "head":
+            q = ctx.constrain(q, ctx.dp, None, "model", None)
+        else:
+            q = ctx.constrain(q, ctx.dp, "model", None, None)
+            k = ctx.constrain(k, ctx.dp, None, None, None)
+            v = ctx.constrain(v, ctx.dp, None, None, None)
         o = attn_mod.attention(q, k, v, positions, positions, causal=True,
                                window=cfg.attn_window)
-        branch = attn_mod.out_proj(o, lp["attn"])
+        if mode == "seqq":
+            branch = _seqq_out_proj(o, lp["attn"]["wo"], ctx)
+        else:
+            branch = attn_mod.out_proj(o, lp["attn"])
     if cfg.has_ssm:
-        m = ssm_mod.mamba_block(h, lp["ssm"], cfg, scan_impl)
+        m = ssm_mod.mamba_block(h, lp["ssm"], cfg, scan_impl, ctx=ctx)
         branch = m if branch is None else (branch + m) * 0.5
-    x = x + branch
+    x = x + ctx.constrain(branch, ctx.dp, None, None)
     if cfg.moe is not None:
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
         y, aux = moe_mod.moe_ffn(h2, lp["moe"], cfg.moe)
@@ -370,34 +456,79 @@ def _layer_fwd(x, lp, cfg: ArchConfig, positions, scan_impl: str = "seq"
     return x, aux
 
 
+def _seqq_out_proj(o, wo, ctx: ShardCtx):
+    """The output projection in 'seqq' mode on a mesh, on each rank's
+    shards: DTensor would shard its weight gradient over `model` along
+    H * dh (a free split of the gathered o) and then cannot unflatten it to
+    [H, dh] where `model` does not divide H.  So o's sequence is gathered,
+    the weight gathered, each rank projects its rows, and the weight's
+    gradient comes back a partial sum over the ranks that split the
+    batch."""
+    from torch.distributed.tensor import Replicate
+    mesh = ctx.mesh
+    os_ = sharding.placements(mesh, o.shape, (ctx.dp, None, None, None))
+    out = sharding.placements(mesh, o.shape[:2] + wo.shape[-1:],
+                              (ctx.dp, None, None))
+    whole = (Replicate(),) * mesh.ndim
+    run = sharding.on_shards(
+        mesh, lambda o, wo: attn_mod.out_proj(o, {"wo": wo}), (out,),
+        (os_, whole), (os_, sharding.partial_where(os_, 0, whole)))
+    return run(o, wo)
+
+
+def _ctx(ctx) -> ShardCtx:
+    if ctx is None:
+        return ShardCtx()
+    if not isinstance(ctx, ShardCtx):
+        raise ValueError(f"ctx must be a ShardCtx or None, not "
+                         f"{type(ctx).__name__}")
+    return ctx
+
+
+def _no_experts_on_a_mesh(cfg: ArchConfig, ctx: ShardCtx) -> None:
+    if ctx.mesh is not None and cfg.moe is not None:
+        raise ValueError(f"{cfg.name}: the moe family on a mesh waits for "
+                         "ROADMAP §1 item 5(g)(ii-b); pass no ctx")
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
-            positions: Optional[torch.Tensor] = None, scan_impl: str = "seq"
+            ctx: Optional[ShardCtx] = None, scan_impl: str = "seq",
+            positions: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B,S] -> (logits [B,S,Vp], aux loss: the moe layers' sum, 0
     for the other families).  ``scan_impl`` ('seq' or 'chunked', the
     reference's two scans of the same recurrence) goes to the mamba
-    block."""
+    block.  Under ``ctx.mesh`` the logits are a DTensor."""
     check_family(cfg)
+    ctx = _ctx(ctx)
+    _no_experts_on_a_mesh(cfg, ctx)
     p = as_tree(params)
     B, S = tokens.shape
     dt = dtype_of(cfg)
-    x = p["embed"][tokens].to(dt)
-    if positions is None:
-        positions = torch.arange(S, device=tokens.device).expand(B, S)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in _unstack(p["layers"], cfg.n_layers):
-        x, a = remat(cfg.remat, _layer_fwd, x, lp, cfg, positions, scan_impl)
-        aux = aux + a
-    x = rms_norm(x, p["final_norm"], cfg.norm_eps)
-    logits = torch.einsum("bsd,vd->bsv", x, _head(p, cfg, dt))
+    with ctx.scope():
+        x = p["embed"][tokens].to(dt)
+        x = ctx.constrain(x, ctx.dp, None, None)
+        if positions is None:
+            positions = torch.arange(S, device=tokens.device).expand(B, S)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lp in _unstack(p["layers"], cfg.n_layers):
+            x, a = remat(cfg.remat, _layer_fwd, x, lp, cfg, positions, ctx,
+                         scan_impl)
+            aux = aux + a
+        x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+        logits = torch.einsum("bsd,vd->bsv", x, _head(p, cfg, dt))
+        logits = ctx.constrain(logits, ctx.dp, None, "model")
     return logits, aux
 
 
-def lm_loss(params: Params, batch, cfg: ArchConfig, scan_impl: str = "seq"
+def lm_loss(params: Params, batch, cfg: ArchConfig,
+            ctx: Optional[ShardCtx] = None, scan_impl: str = "seq"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy; batch = {'tokens', 'labels', 'mask'}."""
-    logits, aux = forward(params, batch["tokens"], cfg, scan_impl=scan_impl)
-    return _xent(logits, batch, aux, cfg)
+    ctx = _ctx(ctx)
+    logits, aux = forward(params, batch["tokens"], cfg, ctx, scan_impl)
+    with ctx.scope():
+        return _xent(logits, batch, aux, cfg)
 
 
 def _xent(logits, batch, aux, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -409,12 +540,15 @@ def _xent(logits, batch, aux, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor
         m = logits.detach().amax(-1)
         z = torch.exp((logits - m[..., None]).float()).sum(-1)
         lse = m.float() + torch.log(z)
-        gold = logits.gather(-1, labels)[..., 0].float()
+        gold = logits.gather(-1, labels).float()
     else:
         lf = logits.float()
         lse = torch.logsumexp(lf, -1)
-        gold = lf.gather(-1, labels)[..., 0]
-    nll = lse - gold
+        gold = lf.gather(-1, labels)
+    # the label's logit kept [B, S, 1] until it meets lse: on a mesh the
+    # gather over vocab-sharded logits is a masked partial sum, which
+    # DTensor reduces only at the shape it was gathered at
+    nll = (lse[..., None] - gold)[..., 0]
     if mask is not None:
         denom = torch.clamp(mask.sum(), min=1.0)
         loss = (nll * mask).sum() / denom
@@ -530,7 +664,10 @@ def decode_step(params: Params, cache: Dict[str, torch.Tensor],
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
-            scan_impl: str = "seq"):
+            ctx: Optional[ShardCtx] = None, scan_impl: str = "seq"):
     """Prefill = forward; the last position's logits (the serving engine
     fills its cache by teacher-forced decode steps)."""
-    return forward(params, tokens, cfg, scan_impl=scan_impl)[0][:, -1]
+    ctx = _ctx(ctx)
+    logits, _ = forward(params, tokens, cfg, ctx, scan_impl)
+    with ctx.scope():
+        return logits[:, -1]

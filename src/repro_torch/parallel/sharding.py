@@ -21,13 +21,19 @@ Only ``mesh_axes`` reads a mesh.  A dimension over several axes is split
 in mesh order, major to minor, as DTensor splits it; a tuple of axes out
 of mesh order raises ``ValueError``.
 
-The reference's ``shard`` (``with_sharding_constraint`` on an activation)
-is not here: it belongs to ``ShardCtx``, which ROADMAP §1 item 5(g)(ii)
-ports with the mesh in the forward.
+``constrain`` is the reference's ``with_sharding_constraint`` on a
+DTensor: ``safe_spec`` first (an axis that does not divide a dimension is
+dropped, as the reference drops it, though DTensor would take an uneven
+shard), then a plain tensor, which every rank holds whole, becomes a
+DTensor of those placements (each rank keeps its part, no collective),
+and a DTensor is redistributed to them.  It changes where values live,
+never what they are.  ``models/transformer.py``'s ``ShardCtx`` places the
+forward's constraints through it.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 SINGLE_POD_AXES = ("data", "model")
@@ -118,8 +124,10 @@ def attn_mode(n_heads: int, tp: int) -> str:
 
 def named(mesh, spec: PartitionSpec) -> Tuple[Any, ...]:
     """The DTensor placements of ``spec`` on ``mesh``: ``Shard(d)`` on each
-    mesh dimension that tensor dimension d is split over, ``Replicate()``
-    on the others."""
+    mesh dimension of several ranks that tensor dimension d is split over,
+    ``Replicate()`` on the others.  A mesh dimension of one rank splits
+    nothing, so it is ``Replicate()`` whatever the spec (DTensor would not
+    reshape a dimension sharded over it, a batch of one row, say)."""
     from torch.distributed.tensor import Replicate, Shard
     names = list(mesh_axes(mesh))
     placements: list = [Replicate()] * len(names)
@@ -141,8 +149,92 @@ def named(mesh, spec: PartitionSpec) -> Tuple[Any, ...]:
             raise ValueError(f"{spec}: dimension {d}'s axes {axes} are not in "
                              f"mesh order {tuple(names)}")
         for i in idx:
-            placements[i] = Shard(d)
+            if mesh.size(i) > 1:
+                placements[i] = Shard(d)
     return tuple(placements)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def whole(x):
+    """``x`` as a plain tensor: a DTensor gathered whole (``full_tensor``,
+    a collective every rank of its mesh runs), anything else as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def place(x, mesh, placements):
+    """``x`` as a DTensor of ``placements`` on ``mesh``.  A plain tensor is
+    taken as whole on every rank (a ``Replicate`` DTensor, then each rank
+    keeps its part: no collective) and stays differentiable; a DTensor is
+    redistributed (collectives where a placement changes)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    placements = tuple(placements)
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(mesh, placements)
+
+
+@contextlib.contextmanager
+def replicating():
+    """Plain tensors taken as replicated DTensors where they meet DTensors
+    (``implicit_replication``, which resets its flag on exit where this
+    restores it, so scopes nest).  The flag is thread-local state that
+    autograd hands to the threads running a backward called inside."""
+    import torch
+    prev = torch._C._get_dtensor_allow_implicit_replication()
+    torch._C._set_dtensor_allow_implicit_replication(True)
+    try:
+        yield
+    finally:
+        torch._C._set_dtensor_allow_implicit_replication(prev)
+
+
+def placements(mesh, shape, spec) -> Tuple[Any, ...]:
+    """The DTensor placements of ``safe_spec(shape, spec, mesh)``."""
+    return named(mesh, safe_spec(shape, spec, mesh))
+
+
+def constrain(x, mesh, spec):
+    """``x`` placed by ``safe_spec(x.shape, spec, mesh)``: the reference's
+    ``with_sharding_constraint``."""
+    return place(x, mesh, placements(mesh, x.shape, spec))
+
+
+def on_shards(mesh, fn, out_placements, in_placements,
+              in_grad_placements=None):
+    """``fn`` run by ``local_map`` on each rank's local tensors, its
+    DTensor inputs redistributed to ``in_placements`` first; each input's
+    gradient comes back placed by ``in_grad_placements`` (default: as the
+    input), so a gradient that is a partial sum over ranks must say
+    ``Partial`` there."""
+    from torch.distributed.tensor.experimental import local_map
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=in_placements,
+                     in_grad_placements=in_grad_placements,
+                     device_mesh=mesh, redistribute_inputs=True)
+
+
+def partial_where(act, dim: int, placements):
+    """``placements`` with ``Partial`` on each mesh dimension where ``act``
+    is ``Shard(dim)``: the gradient of an operand that every such rank
+    holds whole, summed over what those ranks split."""
+    from torch.distributed.tensor import Partial, Shard
+    return tuple(Partial() if p == Shard(dim) else q
+                 for p, q in zip(act, placements))
+
+
+def place_tree(tree, mesh, spec_tree):
+    """``constrain`` over a nested dict of tensors and its spec tree; a
+    leaf already a DTensor of its placements is kept as it is."""
+    if isinstance(spec_tree, PartitionSpec):
+        return constrain(tree, mesh, spec_tree)
+    return {k: place_tree(tree[k], mesh, spec_tree[k]) for k in tree}
 
 
 def tree_shardings(mesh, spec_tree):

@@ -4,8 +4,8 @@ geometry) and absorbing node loss in the data-parallel axes, the port of
 ``repro/runtime/elastic.py``.
 
 A rank here is a process of the default process group, one card each.
-Re-sharding a checkpoint on load onto the new mesh comes with the mesh in
-``ckpt.restore`` (ROADMAP §1 item 5(g)(ii)).
+A checkpoint re-shards on load onto the new mesh through
+``ckpt.restore(..., mesh, spec_tree)``.
 """
 
 from __future__ import annotations

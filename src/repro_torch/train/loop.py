@@ -11,7 +11,12 @@ data stream from the restored step (the data iterator must be re-seekable
 by step, which the TokenStore batches are via their deterministic
 ordering).  With no checkpoint yet the loop restarts from ``init_state``,
 which it never writes: the port's train step is functional, as the
-reference's is (ROADMAP §3).
+reference's is (ROADMAP §3).  On a mesh every rank runs the loop: the
+checkpoints gather the state and rank 0 writes them (``ckpt``), and a
+restore loads the whole state onto each rank's card, which the train step
+places on its mesh again (``make_train_step(mesh=...)`` places a plain
+state by ``state_specs``), so a replay is bit for bit the failure-free
+run.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch.checkpoint import ckpt
+from repro_torch.parallel import sharding
 from repro_torch.runtime.fault import (FailureInjector, InjectedFailure,
                                        StepMonitor)
 from repro_torch.train import tree as T
@@ -42,6 +48,10 @@ class LoopResult:
     metrics_history: List[Dict[str, float]]
     restarts: int
     monitor: StepMonitor
+
+
+def _step_of(state) -> int:
+    return int(sharding.whole(state["step"]))
 
 
 def run(
@@ -67,7 +77,7 @@ def run(
         _, state = ckpt.restore(cfg.ckpt_dir, init_state, device=device)
         logger(f"[loop] resumed from step {last}")
 
-    step = int(state["step"])
+    step = _step_of(state)
     while step < cfg.total_steps:
         try:
             batch = batch_fn(step)
@@ -108,7 +118,7 @@ def run(
             else:
                 _, state = ckpt.restore(cfg.ckpt_dir, init_state,
                                         device=device)
-                step = int(state["step"])
+                step = _step_of(state)
                 logger(f"[loop] restored step {step}")
     if ckpt_writer is not None:
         ckpt_writer.wait()

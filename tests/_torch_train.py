@@ -125,8 +125,15 @@ def check_against_reference(arch, variant):
     moments, the step) within PARAM_TOL but AdamW's normalised near-zero
     gradient elements (NEAR_ZERO), within 2 lr."""
     _, _, _, ref = reference(arch)
-    want_state, want_m, want_g = ref[variant]
-    got_state, got_m, got_g = port_step(arch, variant)
+    check_step(port_step(arch, variant), ref[variant])
+
+
+def check_step(got, want):
+    """``check_against_reference``'s comparison of the port's (new state,
+    metrics, (loss, gradients) or None) with the reference's (new state
+    as numpy, metrics, (loss, gradients as numpy))."""
+    want_state, want_m, want_g = want
+    got_state, got_m, got_g = got
     assert sorted(got_m) == sorted(want_m)
     for k, v in want_m.items():
         np.testing.assert_allclose(got_m[k], v, rtol=1e-5, atol=1e-7,

@@ -2173,3 +2173,100 @@ def test_launchers_on_a_second_card_after_the_first(card):
                            merge_remap.remap_pack_codes_plain(*remap_args, 16))
         assert torch.equal(merge_remap.remap_codes(*on).cpu(),
                            merge_remap.remap_codes_plain(*remap_args))
+
+
+# --------------------------------------------------------------------------- #
+# the mesh in the training path, on one card: the (1, 1) host mesh
+# --------------------------------------------------------------------------- #
+@pytest.fixture
+def host_mesh(card):
+    """``make_host_mesh()``: a one-rank NCCL group and its (1, 1) mesh,
+    destroyed after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    assert not dist.is_initialized()
+    try:
+        yield make_host_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch,layers,dtype", [
+    ("hymba-1.5b", None, "float32"), ("hymba-1.5b", 2, "bfloat16")])
+def test_mesh_step_is_the_meshless_step_bit_for_bit(card, host_mesh, arch,
+                                                    layers, dtype):
+    """One step of 2 microbatches on the host mesh (the state and batch as
+    DTensors, ``ShardCtx`` in the forward, each scan through
+    ``local_map``) against the same step without a mesh: the loss, every
+    metric and every leaf of the new state bit for bit, and the scan's
+    kernels launched as many times on the mesh path as off it.  The
+    reduced config in float32; 2 layers at full width in bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.parallel.sharding import is_dtensor
+    from repro_torch.train import tree as T
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_state, make_train_step
+
+    cfg = get_config(arch)
+    cfg = (cfg.reduced() if layers is None else
+           dataclasses.replace(cfg, n_layers=layers))
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    model = build_model(cfg)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=0)
+    state = make_train_state(model, ocfg, 0, device=card)
+    rng = np.random.default_rng(5)
+    S = 16 if layers is None else 512
+    toks = rng.integers(0, cfg.vocab, (4, S + 1))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1].astype(np.int32)),
+             "labels": torch.from_numpy(toks[:, 1:].astype(np.int32)),
+             "mask": torch.ones((4, S))}
+    out = []
+    for mesh in (None, host_mesh):
+        step = make_train_step(model, ocfg, mesh, num_microbatches=2)
+        ops.reset_launches()
+        new, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        out.append((new, {k: float(v) for k, v in metrics.items()},
+                    {k: ops.LAUNCHES[k] for k in ("ssm_scan",
+                                                  "ssm_scan_bwd")}))
+    (want, want_m, want_n), (got, got_m, got_n) = out
+    assert got_n == want_n == {"ssm_scan": 2 * cfg.n_layers * 2,
+                               "ssm_scan_bwd": cfg.n_layers * 2}
+    assert got_m == want_m
+    for a, b in zip(T.leaves(got), T.leaves(want)):
+        assert is_dtensor(a)
+        a = a.to_local()
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+def test_mesh_checkpoint_round_trips_on_the_card(card, host_mesh, tmp_path):
+    """A state on the host mesh (DTensors) saved, then restored onto the
+    mesh through its specs and without a mesh, bit for bit."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.parallel.sharding import is_dtensor, place_tree
+    from repro_torch.train import tree as T
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_state, state_specs
+
+    cfg = get_config("hymba-1.5b").reduced()
+    model = build_model(cfg)
+    state = make_train_state(model, AdamWConfig(), 3, device=card)
+    state["opt"]["mu"] = T.map_tree(lambda t: torch.randn_like(t.float()),
+                                    state["opt"]["mu"])
+    specs = state_specs(model, host_mesh)
+    on_mesh = place_tree(state, host_mesh, specs)
+    ckpt.save(str(tmp_path), 7, on_mesh)
+    for kw in ({"mesh": host_mesh, "spec_tree": specs}, {}):
+        step, back = ckpt.restore(str(tmp_path), state, **kw)
+        assert step == 7
+        for a, b in zip(T.leaves(back), T.leaves(state)):
+            assert is_dtensor(a) == bool(kw)
+            a = a.to_local() if kw else a
+            assert a.device.type == "cuda" and a.dtype == b.dtype
+            assert torch.equal(a, b)
