@@ -328,7 +328,15 @@ Phases, each printing JSON lines:
             within rtol 1e-4 of a failure-free run, the last checkpoint
             restored onto the card bit for bit the live state; (e) the
             launcher on the reduced config for 4 steps.  One line with the
-            phase's seconds beside the build's; within 60 s.
+            phase's seconds beside the build's; within 60 s.  Then
+            train.mesh: hymba-1.5b's step on the (1, 1) host mesh (a
+            one-rank NCCL group) bit for bit the mesh-less step, within
+            40 s; and train.mesh.moe: granite-moe-1b-a400m at full width
+            and depth in bf16, a step on the host mesh under moe_impl
+            'gather' at the published capacity_factor (assignments drop)
+            and under 'ep' at E / k, each bit for bit the mesh-less step,
+            the mesh step's warm ms, peak memory and device idle share;
+            within 40 s.
 18. bench:   the kernel micro-bench's entry points
             (``benchmarks/bench_kernels.py``): range_filter_packed on 2^20
             codes at widths 8 and 16, bloom_probe on a 2^14-bit bloom and
@@ -4586,6 +4594,150 @@ def train_mesh_phase(args, card: str, device: str, build_s: float) -> dict:
     return out["mesh"]["launches"]
 
 
+TRAIN_MESH_MOE_ARCH = "granite-moe-1b-a400m"
+TRAIN_MESH_MOE_LIMIT_S = 40.0
+
+
+def train_mesh_moe_phase(args, card: str, device: str,
+                         build_s: float) -> None:
+    """train.mesh.moe: TRAIN_MESH_MOE_ARCH at full width and depth in bf16
+    (random weights from the seed), steps of TRAIN_SHAPE in 2 microbatches
+    from one state, each once without a mesh and once on
+    ``make_host_mesh()``'s (1, 1) mesh (a one-rank NCCL group, each moe
+    layer's dispatch through ``local_map``): (a) the published
+    capacity_factor under ``moe_impl='gather'``, the dropped assignments
+    counted (over every dispatch of the step: the forward and remat's
+    recompute) and the same on both paths and above 0; (b) capacity_factor E / k under 'ep', whose per-shard capacity
+    T drops nothing, as the mesh-less one does not.  The loss, every metric
+    and every leaf of the new state bit for bit (``bits_checksum``).  The
+    'gather' mesh step runs twice more, its caches warm: timed, then
+    profiled for the device's busy time.  The path has no kernel of the
+    repository; its launches are read all the same.  One line, the phase
+    within TRAIN_MESH_MOE_LIMIT_S."""
+    import dataclasses
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model, flags, moe
+    from repro_torch.parallel.sharding import mesh_axes
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_MESH_MOE_ARCH)
+    seed = args.seed + 60
+    B, S = TRAIN_SHAPE
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=2)
+    state = make_train_state(
+        build_model(cfg), ocfg,
+        torch.Generator(device=device).manual_seed(seed), device=device)
+    batch = train_batch(np.random.default_rng(seed), cfg.vocab, B, S, device)
+    assert not dist.is_initialized()
+    mesh = make_host_mesh(device)
+    line = {"phase": "train.mesh.moe", "card": card,
+            "arch": TRAIN_MESH_MOE_ARCH, "source": cfg.source,
+            "build_s": build_s, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "experts": cfg.moe.n_experts,
+            "top_k": cfg.moe.top_k, "d_ff": cfg.d_ff, "dtype": cfg.dtype,
+            "batch_shape": [B, S], "microbatches": 2,
+            "mesh": mesh_axes(mesh), "backend": dist.get_backend(),
+            "reduced": "none: full width and depth; random weights from the "
+            "seed (the repository holds none)"}
+    dispatch, dropped = moe.dispatch, []
+
+    def counting(gate_idx, C, E):
+        order, slot, keep = dispatch(gate_idx, C, E)
+        dropped.append(torch.stack([(gate_idx < E).sum() - keep.sum(),
+                                    (gate_idx < E).sum()]))
+        return order, slot, keep
+
+    impl = flags.moe_impl
+    parts = {"gather": cfg.moe.capacity_factor,
+             "ep": cfg.moe.n_experts / cfg.moe.top_k}
+    out: dict = {}
+    try:
+        moe.dispatch = counting
+        for name, cf in parts.items():
+            flags.moe_impl = name
+            part_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cf))
+            model = build_model(part_cfg)
+            res = out[name] = {"capacity_factor": cf}
+            for path, on in (("plain", None), ("mesh", mesh)):
+                step = make_train_step(model, ocfg, on, num_microbatches=2)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                dropped.clear()
+                t0 = time.perf_counter()
+                (new, m), launches = launch_window(lambda: step(state, batch))
+                m["loss_total"].item()
+                counts = torch.stack(dropped).sum(0).tolist()
+                res[path] = {
+                    "ms": (time.perf_counter() - t0) * 1e3,
+                    "metrics": {k: float(v) for k, v in m.items()},
+                    "dropped_assignments": int(counts[0]),
+                    "assignments": int(counts[1]),
+                    "launches": {k: v for k, v in launches.items() if v},
+                    "peak_allocated_gb":
+                    torch.cuda.max_memory_allocated() / 1e9,
+                    "sums": bits_checksum(new)}
+                del new, m
+            if name == "gather":
+                moe.dispatch = dispatch
+                box, mesh_step = {}, step
+
+                def again():
+                    box["new"], box["m"] = mesh_step(state, batch)
+                    box["m"]["loss_total"].item()
+
+                t0 = time.perf_counter()
+                again()
+                res["mesh"]["warm_ms"] = (time.perf_counter() - t0) * 1e3
+                box.clear()
+                res["mesh_profiled"] = device_busy(again, top=4, host=False)
+                box.clear()
+                moe.dispatch = counting
+    finally:
+        moe.dispatch = dispatch
+        flags.moe_impl = impl
+        dist.destroy_process_group()
+    checks = []
+    for name, res in out.items():
+        plain, on = res["plain"], res["mesh"]
+        res["state_bit_equal"] = torch.equal(plain["sums"], on["sums"])
+        res["metrics_equal"] = plain["metrics"] == on["metrics"]
+        for v in (plain, on):
+            v["leaf_checksums"] = len(v.pop("sums")) // 2
+        want_drops = "above 0" if name == "gather" else "0"
+        drops = (plain["dropped_assignments"], on["dropped_assignments"])
+        checks += [
+            (res["metrics_equal"], f"train.mesh.moe {name}: the metrics "
+             f"differ: {plain['metrics']} off the mesh, {on['metrics']} "
+             "on it"),
+            (res["state_bit_equal"], f"train.mesh.moe {name}: the new state "
+             "on the mesh is not the mesh-less one bit for bit"),
+            (all(np.isfinite(v) for v in on["metrics"].values()),
+             f"train.mesh.moe {name}: a metric is not finite"),
+            (drops[0] == drops[1] and (drops[0] > 0) == (name == "gather"),
+             f"train.mesh.moe {name}: {drops} assignments dropped off and "
+             f"on the mesh, not {want_drops} on both")]
+    line.update(out)
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["seconds"] = seconds = time.perf_counter() - t_phase
+    emit(line)
+    for cond, msg in checks:
+        check(cond, msg)
+    check(seconds <= TRAIN_MESH_MOE_LIMIT_S, f"train.mesh.moe: the phase "
+          f"took {seconds:.1f} s of its {TRAIN_MESH_MOE_LIMIT_S:.0f} s")
+
+
 # --------------------------------------------------------------------------- #
 # the paper's Figure-5 pipeline: one planned range evaluated three ways
 # --------------------------------------------------------------------------- #
@@ -5872,6 +6024,7 @@ def main() -> int:
     encdec_phase(args, prompts, card, "cuda", bw, rates, build_s)
     train = train_phase(args, card, "cuda", bw, rates, build_s)
     mesh_launches = train_mesh_phase(args, card, "cuda", build_s)
+    train_mesh_moe_phase(args, card, "cuda", build_s)
     bench_launches, bench = bench_phase(args)
     launches["bloom_probe"] = bench_launches["bloom_probe"]
     # the scan's main path is now the SSM models' forwards (lm.families)

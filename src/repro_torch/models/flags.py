@@ -1,14 +1,20 @@
 """Evaluation switches of the model stack.
 
 The reference's ``unroll_scans`` steers XLA lowering and comes with the
-dry-run (ROADMAP §1 item 5(g)(iii)); ``moe_impl`` ('ep') comes with the
-moe family on a mesh (item 5(g)(ii-b)).  ``serving_layout`` chooses the
-specs alone until ``decode_step`` takes a mesh (item 5(g)(ii-b)).
+dry-run (ROADMAP §1 item 5(g)(iii)).  ``serving_layout`` chooses the specs
+alone until ``decode_step`` takes a mesh, which the dry-run reaches (item
+5(g)(iii)).
 """
 
 # decode attention: 'repeat' materializes GQA-repeated K/V; 'grouped'
 # contracts grouped q-heads against the raw cache.
 decode_gqa: str = "repeat"
+# MoE dispatch on a mesh: 'gather' = ``moe_ffn`` of the global batch (the
+# tokens gathered over the data axes, capacity and aux from all of them);
+# 'ep' = expert parallel, each data shard routed on its own (capacity per
+# shard and expert, the aux a mean over the shards).  Any other value
+# raises ValueError in a moe layer.
+moe_impl: str = "gather"
 # cross-entropy: 'onehot' takes the log-sum-exp of f32 logits; 'fused'
 # reduces the logits in their own dtype with f32 accumulation.
 xent_impl: str = "onehot"
@@ -22,5 +28,5 @@ remat_policy: str = "nothing"
 # the data axes); 'tp2d' = weights and the KV cache's sequence sharded
 # over both mesh axes, batch replicated.  Here it only chooses the specs
 # (registry.batch_pspec); 'tp2d' in decode comes with decode_step on a
-# mesh (ROADMAP §1 item 5(g)(ii-b)).
+# mesh (ROADMAP §1 item 5(g)(iii)).
 serving_layout: str = "batch"

@@ -6,9 +6,10 @@ and ``decode_step`` keep the reference's signatures (``loss(p, b,
 ctx=None, scan_impl='seq')``, ``prefill(p, b, ctx=None)``,
 ``decode_step(p, c, t, pos, ctx=None)``).  ``ctx``, the mesh context
 (``transformer.ShardCtx``), runs ``loss`` and ``prefill`` on a mesh for
-the dense, ssm and hybrid families; the moe family, the encoder-decoder
-and ``decode_step`` raise ``ValueError`` on a ``ctx`` until ROADMAP §1
-item 5(g)(ii-b).  ``param_specs`` and ``cache_specs`` give the
+the decoder-only families (the moe family by ``flags.moe_impl``); the
+encoder-decoder and ``decode_step``, which only the reference's dry-run
+runs on a mesh, raise ``ValueError`` on a ``ctx`` until ROADMAP §1 item
+5(g)(iii).  ``param_specs`` and ``cache_specs`` give the
 family's specs for a ``DeviceMesh``; ``input_specs`` gives every step
 input as a tensor on the ``meta`` device (shape and dtype, no storage),
 the reference's ``ShapeDtypeStruct``, and ``batch_pspec`` their specs."""
@@ -64,25 +65,22 @@ def init_model(cfg: ArchConfig, seed: Union[int, torch.Generator],
 def _no_mesh(ctx, what: str) -> None:
     if ctx is not None:
         raise ValueError(f"{what} on a mesh waits for ROADMAP §1 item "
-                         "5(g)(ii-b); pass ctx=None")
+                         "5(g)(iii); pass ctx=None")
 
 
 def build_model(cfg: ArchConfig) -> ModelAPI:
     fam = _family(cfg)
     inputs = "frames" if cfg.enc_dec else "tokens"    # what prefill takes
-    # what takes no mesh yet: the encoder-decoder and the moe family
-    meshless = ("the encoder-decoder" if cfg.enc_dec else
-                "the moe family" if cfg.moe is not None else None)
 
     def loss(p, b, ctx=None, scan_impl="seq"):
-        if meshless:
-            _no_mesh(ctx, meshless)
+        if cfg.enc_dec:
+            _no_mesh(ctx, "the encoder-decoder")
             return fam.lm_loss(p, b, cfg, scan_impl=scan_impl)
         return fam.lm_loss(p, b, cfg, ctx, scan_impl)
 
     def prefill(p, b, ctx=None):
-        if meshless:
-            _no_mesh(ctx, meshless)
+        if cfg.enc_dec:
+            _no_mesh(ctx, "the encoder-decoder")
             return fam.prefill(p, b[inputs], cfg)
         return fam.prefill(p, b[inputs], cfg, ctx)
 

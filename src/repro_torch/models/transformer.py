@@ -27,9 +27,12 @@ batch are DTensors (the train step places them by ``state_specs`` and
 ``batch_pspec``), and the plain tensors the forward makes itself
 (positions, RoPE tables, masks) are taken as replicated on every rank
 (``implicit_replication``, entered by ``ShardCtx.scope``).  The mamba
-block's scan runs on each rank's shard (``models/ssm.py``).  With no mesh
+block's scan runs on each rank's shard (``models/ssm.py``), and so does a
+moe layer's dispatch, by ``flags.moe_impl``: 'gather' (``moe_ffn`` of the
+global batch) or 'ep' (per data shard; ``models/moe.py``).  With no mesh
 ``constrain`` returns its input and the forward is the mesh-less one.
-``decode_step`` takes no ``ctx`` yet (ROADMAP §1 item 5(g)(ii-b)).
+``decode_step`` takes no ``ctx`` yet (ROADMAP §1 item 5(g)(iii)); its moe
+layers stay dropless.
 """
 
 from __future__ import annotations
@@ -448,7 +451,13 @@ def _layer_fwd(x, lp, cfg: ArchConfig, positions, ctx: ShardCtx,
     x = x + ctx.constrain(branch, ctx.dp, None, None)
     if cfg.moe is not None:
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        y, aux = moe_mod.moe_ffn(h2, lp["moe"], cfg.moe)
+        moe_mod.check_impl(flags.moe_impl)
+        if ctx.mesh is None:
+            y, aux = moe_mod.moe_ffn(h2, lp["moe"], cfg.moe)
+        elif flags.moe_impl == "ep":
+            y, aux = moe_mod.moe_ffn_ep(h2, lp["moe"], cfg.moe, ctx.mesh)
+        else:
+            y, aux = moe_mod.moe_ffn_mesh(h2, lp["moe"], cfg.moe, ctx.mesh)
         x = x + y
     elif cfg.has_mlp:
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
@@ -485,12 +494,6 @@ def _ctx(ctx) -> ShardCtx:
     return ctx
 
 
-def _no_experts_on_a_mesh(cfg: ArchConfig, ctx: ShardCtx) -> None:
-    if ctx.mesh is not None and cfg.moe is not None:
-        raise ValueError(f"{cfg.name}: the moe family on a mesh waits for "
-                         "ROADMAP §1 item 5(g)(ii-b); pass no ctx")
-
-
 def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
             ctx: Optional[ShardCtx] = None, scan_impl: str = "seq",
             positions: Optional[torch.Tensor] = None
@@ -501,7 +504,6 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
     block.  Under ``ctx.mesh`` the logits are a DTensor."""
     check_family(cfg)
     ctx = _ctx(ctx)
-    _no_experts_on_a_mesh(cfg, ctx)
     p = as_tree(params)
     B, S = tokens.shape
     dt = dtype_of(cfg)

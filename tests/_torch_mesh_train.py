@@ -10,8 +10,12 @@ starts; it places its state by ``state_specs`` and each batch by
 metrics, losses and gradients (``jax.value_and_grad`` of its loss under
 ``ShardCtx(mesh)``, summed over microbatches as its step sums them) to one
 ``.npz``.  The port's ranks (``_torch_mesh.spawn``) start from that state
-and batch.  This module imports no JAX at its top, so the ranks import it
-bare."""
+and batch.  A case is ``[arch, replace]`` or ``[arch, replace, flags]``:
+``replace`` goes to ``dataclasses.replace`` of the reduced config in
+float32 (``capacity_factor`` to its ``moe``), and ``flags`` (``moe_impl``)
+is set on the reference's ``models.flags`` and on every port rank's.
+Each rank also counts the assignments its moe layers drop in the step.
+This module imports no JAX at its top, so the ranks import it bare."""
 
 import dataclasses
 import functools
@@ -30,8 +34,42 @@ B, S = 4, 16
 
 
 def _config(pkg_base, arch, replace):
-    return dataclasses.replace(pkg_base.get_config(arch).reduced(),
-                               dtype="float32", **replace)
+    replace = dict(replace)
+    cf = replace.pop("capacity_factor", None)
+    cfg = dataclasses.replace(pkg_base.get_config(arch).reduced(),
+                              dtype="float32", **replace)
+    if cf is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+    return cfg
+
+
+def _case(case):
+    """(arch, replace, flags) of a case."""
+    arch, replace, *rest = case
+    return arch, replace, (rest[0] if rest else {})
+
+
+def _set_flags(flags_mod, values):
+    for name, value in values.items():
+        if not hasattr(flags_mod, name):
+            raise AttributeError(f"no flag {name!r}")
+        setattr(flags_mod, name, value)
+
+
+def _counting_drops(moe_mod):
+    """Wrap ``moe_mod.dispatch`` to count the assignments to this rank's
+    experts that it does not keep; returns the count's box."""
+    box = [0]
+    dispatch = moe_mod.dispatch
+
+    def record(gate_idx, C, E):
+        order, slot, keep = dispatch(gate_idx, C, E)
+        box[0] += int((gate_idx < E).sum()) - int(keep.sum())
+        return order, slot, keep
+
+    moe_mod.dispatch = record
+    return box
 
 
 def _flat(tree, prefix=""):
@@ -68,6 +106,7 @@ def reference_main(out_path, cases):
     import jax.numpy as jnp
 
     from repro.configs import base
+    from repro.models import flags
     from repro.models.registry import batch_pspec, build_model
     from repro.models.transformer import ShardCtx
     from repro.parallel.sharding import compat_make_mesh, tree_shardings
@@ -87,7 +126,10 @@ def reference_main(out_path, cases):
             {k: jnp.asarray(v) for k, v in batch.items()},
             tree_shardings(mesh, batch_pspec(cfg, shape, mesh)))
 
-    for key, (arch, replace) in cases.items():
+    defaults = {"moe_impl": flags.moe_impl}
+    for key, case in cases.items():
+        arch, replace, case_flags = _case(case)
+        _set_flags(flags, {**defaults, **case_flags})
         cfg = _config(base, arch, replace)
         model = build_model(cfg)
         ocfg = AdamWConfig(**OPT)
@@ -151,9 +193,12 @@ def reference(cases_json: str, out_path: str):
 def port_worker(rank, world, ref_path, cases):
     """Every case's step at each microbatch count on the (2, 2) mesh from
     the reference's state and batch: rank 0 returns (new state, metrics,
-    (loss, gradients)) gathered whole; every rank returns its metrics."""
+    (loss, gradients)) gathered whole; every rank returns its metrics and
+    (under ``.../drops``) the assignments its moe layers dropped in the
+    step."""
     from _torch_mesh import cpu_mesh, gathered
     from repro_torch.configs import base
+    from repro_torch.models import flags, moe
     from repro_torch.models.registry import build_model
     from repro_torch.models.weights import state_from_reference
     from repro_torch.train.optimizer import AdamWConfig
@@ -162,7 +207,11 @@ def port_worker(rank, world, ref_path, cases):
     data = np.load(ref_path)
     mesh = cpu_mesh((2, 2))
     out = {}
-    for key, (arch, replace) in cases.items():
+    defaults = {"moe_impl": flags.moe_impl}
+    drops = _counting_drops(moe)
+    for key, case in cases.items():
+        arch, replace, case_flags = _case(case)
+        _set_flags(flags, {**defaults, **case_flags})
         cfg = _config(base, arch, replace)
         state = state_from_reference(cfg, _read(data, f"{key}/init/"),
                                      device="cpu")
@@ -171,7 +220,9 @@ def port_worker(rank, world, ref_path, cases):
             step = make_train_step(build_model(cfg), AdamWConfig(**OPT),
                                    mesh, num_microbatches=n_mb)
             loss, _, grads = step.grads(state["params"], batch)
+            drops[0] = 0
             new, metrics = step(state, batch)
+            out[f"{key}/mb{n_mb}/drops"] = drops[0]
             metrics = {k: float(v) for k, v in metrics.items()}
             # every rank gathers (a collective); rank 0 returns the result
             whole = (gathered(new), metrics, (float(loss), gathered(grads)))

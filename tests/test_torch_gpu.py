@@ -2243,6 +2243,61 @@ def test_mesh_step_is_the_meshless_step_bit_for_bit(card, host_mesh, arch,
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("impl", ["gather", "ep"])
+def test_moe_mesh_step_is_the_meshless_step_bit_for_bit(card, host_mesh,
+                                                        monkeypatch, impl):
+    """Reduced granite-moe-1b-a400m in float32, one step of 2 microbatches
+    on the host mesh under ``moe_impl`` (each moe layer's dispatch through
+    ``local_map``) against the same step without a mesh: the loss, every
+    metric and every leaf of the new state bit for bit.  'gather' at the
+    published capacity_factor 1.25, where assignments drop; 'ep' at
+    E / k, where its per-shard capacity T drops nothing, as the mesh-less
+    one does not."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, flags, moe
+    from repro_torch.parallel.sharding import is_dtensor
+    from repro_torch.train import tree as T
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_state, make_train_step
+
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    cf = 1.25 if impl == "gather" else E / k
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf))
+    monkeypatch.setattr(flags, "moe_impl", impl)
+    model = build_model(cfg)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=0)
+    state = make_train_state(model, ocfg, 0, device=card)
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, cfg.vocab, (4, 17))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1].astype(np.int32)),
+             "labels": torch.from_numpy(toks[:, 1:].astype(np.int32)),
+             "mask": torch.ones((4, 16))}
+    dispatch, dropped = moe.dispatch, [0]
+
+    def counting(gate_idx, C, n):
+        order, slot, keep = dispatch(gate_idx, C, n)
+        dropped[0] += int((gate_idx < n).sum()) - int(keep.sum())
+        return order, slot, keep
+
+    monkeypatch.setattr(moe, "dispatch", counting)
+    out = []
+    for mesh in (None, host_mesh):
+        step = make_train_step(model, ocfg, mesh, num_microbatches=2)
+        new, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        out.append((new, {k: float(v) for k, v in metrics.items()}))
+    (want, want_m), (got, got_m) = out
+    assert (dropped[0] > 0) == (impl == "gather"), dropped
+    assert got_m == want_m
+    for a, b in zip(T.leaves(got), T.leaves(want)):
+        assert is_dtensor(a)
+        a = a.to_local()
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
 def test_mesh_checkpoint_round_trips_on_the_card(card, host_mesh, tmp_path):
     """A state on the host mesh (DTensors) saved, then restored onto the
     mesh through its specs and without a mesh, bit for bit."""

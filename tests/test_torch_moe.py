@@ -3,8 +3,9 @@ package's on the CPU, ``reduced()`` in float32: outputs and aux loss with
 and without ``dropless``, within rtol = atol = 1e-4; a capacity that
 drops assignments (the reference drops, and the port drops the same
 ones); router ties (the port picks the reference's experts, lower index
-first); the capacity rule; and the combine giving the same bits on a
-rerun.
+first); the capacity rules ('gather' and 'ep'); the combine giving the
+same bits on a rerun; and a ``moe_impl`` other than 'gather' or 'ep'
+raising.
 """
 
 import dataclasses
@@ -15,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_models import MOE, TOL, models
+from _torch_models import MOE, TOL, models, set_flag
 from repro.configs.base import MoECfg as RefMoECfg
 from repro.models import moe as ref_moe
 from repro_torch.configs.base import MoECfg
@@ -131,6 +132,29 @@ def test_capacity_rule():
     assert moe.capacity(MoECfg(4, 2, 4.0), 3, dropless=False) == 3
     assert moe.capacity(MoECfg(16, 2, 8.0), 100, dropless=False) == 100
     assert moe.capacity(MoECfg(4, 2, 1.0), 13, dropless=False) == 8
+
+
+def test_capacity_rule_ep():
+    """'ep' (the reference's ``moe_ffn_ep``): 2 x capacity_factor x T x k / E
+    rounded half up, at least 4, at most T, with no multiple of 4; E / k
+    gives T."""
+    assert moe.capacity_ep(MoECfg(4, 2, 0.5), 32) == 16
+    assert moe.capacity_ep(MoECfg(32, 8, 1.25), 4096) == 2560
+    assert moe.capacity_ep(MoECfg(32, 8, 1.25), 100) == 63
+    assert moe.capacity_ep(MoECfg(16, 2, 1.25), 6) == 4
+    assert moe.capacity_ep(MoECfg(32, 8, 4.0), 2048) == 2048
+
+
+@pytest.mark.parametrize("impl", ["scatter", "", "EP"])
+def test_an_unknown_moe_impl_raises(monkeypatch, impl):
+    _, cfg, _, port = models("granite-moe-1b-a400m")
+    tok = torch.zeros((1, 4), dtype=torch.long)
+    for ok in moe.IMPLS:
+        set_flag(monkeypatch, "moe_impl", ok)
+        transformer.forward(port, tok, cfg)
+    set_flag(monkeypatch, "moe_impl", impl)
+    with pytest.raises(ValueError, match="moe_impl"):
+        transformer.forward(port, tok, cfg)
 
 
 @pytest.mark.parametrize("arch", MOE)

@@ -1,10 +1,16 @@
 """``ShardCtx`` on a one-rank gloo (1, 1) mesh on the CPU: the forward, the
 loss, every gradient and ``prefill`` of each reduced decoder-only
-architecture without experts bit for bit the mesh-less path, from the
-reference's parameters (``models/weights.py``).  With no mesh
-``constrain`` hands back its input; ``remat_policy='dots'`` keeps the
-products' outputs and gives the gradients of 'nothing'; a ``ctx`` on the
-moe family, the encoder-decoder or ``decode_step`` raises."""
+architecture bit for bit the mesh-less path, from the reference's
+parameters (``models/weights.py``); the moe family under
+``moe_impl='gather'`` at the published capacity_factor (1.25) and at 0.5,
+which drops, and under 'ep' at capacity_factor E / k, where neither path
+drops.  With no mesh ``constrain`` hands back its input;
+``remat_policy='dots'`` keeps the products' outputs and gives the
+gradients of 'nothing'; a ``ctx`` on the encoder-decoder or
+``decode_step`` raises, and so does a moe layer under a ``moe_impl``
+other than 'gather' or 'ep'."""
+
+import dataclasses
 
 import pytest
 import torch
@@ -12,7 +18,7 @@ import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from _torch_mesh import cpu_mesh
-from _torch_models import DENSE, SSM, models, set_flag, tokens
+from _torch_models import DENSE, MOE, SSM, models, set_flag, tokens
 from _torch_train import one_thread  # noqa: F401
 from repro_torch.models import transformer
 from repro_torch.models.registry import build_model
@@ -52,9 +58,32 @@ def _loss_and_grads(model, tree, batch, ctx=None):
     return loss, metrics, grads
 
 
+def _moe_cases():
+    cases = []
+    for arch in MOE:
+        moe = models(arch)[1].moe
+        cases += [(arch, "gather", 1.25), (arch, "gather", 0.5),
+                  (arch, "ep", moe.n_experts / moe.top_k)]
+    return cases
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_mesh_path_is_the_meshless_path_bit_for_bit(mesh, arch):
     _, cfg, _, port = models(arch)
+    _check_mesh_path(mesh, cfg, port)
+
+
+@pytest.mark.parametrize("arch,impl,cf", _moe_cases())
+def test_moe_mesh_path_is_the_meshless_path_bit_for_bit(mesh, monkeypatch,
+                                                       arch, impl, cf):
+    _, cfg, _, port = models(arch)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf))
+    set_flag(monkeypatch, "moe_impl", impl)
+    _check_mesh_path(mesh, cfg, port)
+
+
+def _check_mesh_path(mesh, cfg, port):
     model = build_model(cfg)
     tree = T.map_tree(lambda t: t.detach(), port.tree())
     on_mesh = sharding.place_tree(tree, mesh, model.param_specs(mesh))
@@ -145,18 +174,25 @@ def test_remat_dots_saves_products_and_keeps_the_gradients(monkeypatch,
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "whisper-small"])
-def test_ctx_on_the_moe_family_and_the_encdec_raises(mesh, arch):
+def test_ctx_on_the_moe_family_and_the_encdec_raises(mesh, monkeypatch,
+                                                     arch):
+    """The encoder-decoder on a mesh waits for ROADMAP §1 item 5(g)(iii);
+    the moe family on a mesh raises for a ``moe_impl`` it does not have."""
     _, cfg, _, port = models(arch)
     model = build_model(cfg)
     batch = _batch(cfg)
+    match = r"5\(g\)\(iii\)"
     if cfg.enc_dec:
         batch["frames"] = torch.zeros((2, 24, cfg.d_model))
-    with pytest.raises(ValueError, match=r"5\(g\)\(ii-b\)"):
+    else:
+        set_flag(monkeypatch, "moe_impl", "scatter")
+        match = "moe_impl"
+    with pytest.raises(ValueError, match=match):
         model.loss(port, batch, ShardCtx(mesh))
-    with pytest.raises(ValueError, match=r"5\(g\)\(ii-b\)"):
+    with pytest.raises(ValueError, match=match):
         model.prefill(port, batch, ShardCtx(mesh))
     if not cfg.enc_dec:
-        with pytest.raises(ValueError, match=r"5\(g\)\(ii-b\)"):
+        with pytest.raises(ValueError, match=match):
             transformer.forward(port, batch["tokens"], cfg, ShardCtx(mesh))
 
 
@@ -164,6 +200,6 @@ def test_ctx_on_decode_step_raises(mesh):
     _, cfg, _, port = models("llama3-8b")
     model = build_model(cfg)
     cache = model.init_cache(2, 8, device="cpu")
-    with pytest.raises(ValueError, match=r"5\(g\)\(ii-b\)"):
+    with pytest.raises(ValueError, match=r"5\(g\)\(iii\)"):
         model.decode_step(port, cache, torch.zeros((2, 1), dtype=torch.long),
                           0, ShardCtx(mesh))
