@@ -336,7 +336,17 @@ Phases, each printing JSON lines:
             'gather' at the published capacity_factor (assignments drop)
             and under 'ep' at E / k, each bit for bit the mesh-less step,
             the mesh step's warm ms, peak memory and device idle share;
-            within 40 s.
+            within 40 s.  Then lm.mesh: the paths that only the dry-run
+            reaches on a mesh, each off the host mesh and on it under
+            ShardCtx from one set of weights, bit for bit: whisper-small
+            (bf16, 12 + 12 layers) prefill of 4 x 1,500 stub frames and
+            16 decode steps against its cross K/V, then one train step of
+            4 x (1,500 frames, 187 tokens) (loss, metrics, every leaf of
+            the new state); hymba-1.5b (4 of its 32 layers, full width)
+            prefill of a 64-token prompt (ssm_scan launched once a layer
+            on both paths) and hymba-1.5b's and granite-moe-1b-a400m's (4
+            of 24 layers) 16 decode steps under serving_layout 'batch'
+            and 'tp2d'; every step's ms on and off the mesh; within 40 s.
 18. bench:   the kernel micro-bench's entry points
             (``benchmarks/bench_kernels.py``): range_filter_packed on 2^20
             codes at widths 8 and 16, bloom_probe on a 2^14-bit bloom and
@@ -417,19 +427,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# device-memory bandwidth (bytes/s) from NVIDIA's data sheets, by card name
-BANDWIDTH = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
-             ("H100", 3.35e12))
-# float32 rate outside the tensor cores (FLOP/s), from the same data sheets
-FP32_RATE = (("H100 PCIe", 51.2e12), ("H200", 67e12), ("H100", 67e12))
-# dense bf16 tensor-core rate without sparsity (FLOP/s), from the same sheets
-BF16_RATE = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H200", 989e12),
-             ("H100", 989e12))
-# results per clock per SM on compute capability 9.0 (the CUDA C++
-# Programming Guide's arithmetic throughput table): exp2 (expf costs one)
-# and 32-bit integer add, multiply, shift and logic
-EXP_PER_CLOCK_PER_SM = 16
-INT32_PER_CLOCK_PER_SM = 64
+# the card's rates (bandwidth, FP32, bf16, exp and int32 per clock) come
+# from repro_torch.launch.card, which the dry-run's roofline reads too
 
 KERNELS = {
     "pack_codes": ("src/repro_torch/kernels/csrc/bitpack.cu",
@@ -4738,6 +4737,266 @@ def train_mesh_moe_phase(args, card: str, device: str,
           f"took {seconds:.1f} s of its {TRAIN_MESH_MOE_LIMIT_S:.0f} s")
 
 
+LM_MESH_LIMIT_S = 40.0
+LM_MESH_STEPS = 16           # decode steps of each part
+LM_MESH_BATCH = 4
+LM_MESH_PROMPT = 64          # hymba's prefill prompt, and the decoders' cache
+LM_MESH_ARCHS = ("hymba-1.5b", "granite-moe-1b-a400m")
+# their depth in lm.mesh: on an H100 a decode step on the host mesh took
+# 31-56 ms a hymba layer and 16-34 ms a granite layer as hosts varied,
+# DTensor's dispatch of ~200 ops a layer; at full depth the phase took
+# 71.4 s of its 40 s, at 8 layers 53.8 s (PERF.md section 6)
+LM_MESH_LAYERS = 4
+
+
+def timed(fn):
+    """(fn's result, its milliseconds on the host clock, the card synced
+    before and after)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def mesh_decode(model, params, cache, toks, ctx):
+    """LM_MESH_STEPS teacher-forced decode steps from ``cache``: (the
+    logits of each step gathered whole, the final cache, each step's
+    ms)."""
+    from repro_torch.parallel.sharding import whole
+
+    logits, ms = [], []
+    for t in range(toks.shape[1]):
+        (lg, cache), dt = timed(lambda: model.decode_step(
+            params, cache, toks[:, t:t + 1], t, ctx))
+        logits.append(whole(lg))
+        ms.append(dt)
+    return logits, cache, ms
+
+
+def same_decode(a, b) -> bool:
+    """Two ``mesh_decode`` results bit for bit: every step's logits and
+    every leaf of the final cache."""
+    from repro_torch.parallel.sharding import whole
+
+    return (all(torch_equal(x, y) for x, y in zip(a[0], b[0]))
+            and sorted(a[1]) == sorted(b[1])
+            and all(torch_equal(whole(a[1][k]), whole(b[1][k]))
+                    for k in a[1]))
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+    return torch.equal(x, y)
+
+
+def lm_mesh_phase(args, card: str, device: str, build_s: float) -> dict:
+    """lm.mesh: the paths that only the dry-run reaches on a mesh, each run
+    once without a mesh and once under ``ShardCtx`` on
+    ``make_host_mesh()``'s (1, 1) mesh (a one-rank NCCL group), from the
+    same weights (bf16, full width and depth, random from the seed) and
+    inputs, bit for bit: (a) whisper-small: ``prefill`` of LM_MESH_BATCH x
+    ENCDEC_FRAMES stub frames (encoder output and cross K/V), then
+    LM_MESH_STEPS ``decode_step``s against that cache (logits and every
+    cache leaf), then one train step of LM_MESH_BATCH x (ENCDEC_FRAMES
+    frames, ``dec_len_for(ENCDEC_FRAMES)`` tokens): the loss, every metric
+    and every leaf of the new state (``bits_checksum``); (b) hymba-1.5b
+    at LM_MESH_LAYERS layers (full width): ``prefill`` of an
+    LM_MESH_PROMPT-token prompt (logits, and the
+    ``ssm_scan`` launches, counted in a window around each prefill, equal
+    on and off the mesh, once a layer), then LM_MESH_STEPS decode steps
+    from an empty cache under ``serving_layout`` 'batch' and 'tp2d'; (c)
+    granite-moe-1b-a400m (moe, dropless) at LM_MESH_LAYERS layers: the
+    same decode steps under both layouts.  Each step's ms on and off the mesh in the line.  Returns the
+    ``ssm_scan`` launches of hymba's prefill on the mesh."""
+    import dataclasses
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model, flags
+    from repro_torch.models.encdec import dec_len_for
+    from repro_torch.models.transformer import ShardCtx
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.sharding import mesh_axes, whole
+    from repro_torch.train import tree as T
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    B, steps = LM_MESH_BATCH, LM_MESH_STEPS
+    assert not dist.is_initialized()
+    mesh = make_host_mesh(device)
+    ctx = ShardCtx(mesh)
+    line = {"phase": "lm.mesh", "card": card, "build_s": build_s,
+            "mesh": mesh_axes(mesh), "backend": dist.get_backend(),
+            "batch": B, "decode_steps": steps,
+            "reduced": "full width; whisper-small at full depth, hymba-1.5b "
+            "and granite-moe-1b-a400m at LM_MESH_LAYERS layers; random "
+            "weights from the seed (the repository holds none); whisper's "
+            "frames stubbed as in both packages"}
+    checks = []
+    layout0 = flags.serving_layout
+
+    def weights(cfg, seed):
+        model = build_model(cfg)
+        tree = T.map_tree(lambda t: t.detach(), model.init(
+            torch.Generator(device=device).manual_seed(seed),
+            device=device).tree())
+        return model, tree
+
+    def on_mesh(model, tree, layout="batch"):
+        return sharding.place_tree(tree, mesh, model.param_specs(
+            mesh, layout="serve2d" if layout == "tp2d" else "train"))
+
+    mesh_launches = 0
+    try:
+        # (a) whisper-small
+        cfg = get_config(ENCDEC_ARCH)
+        seed = args.seed + 70
+        rng = np.random.default_rng(seed)
+        model, tree = weights(cfg, seed)
+        frames = torch.from_numpy(rng.standard_normal(
+            (B, ENCDEC_FRAMES, cfg.d_model), dtype=np.float32)).to(device)
+        S = dec_len_for(ENCDEC_FRAMES)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S + 1))
+                                ).to(device)
+        part = {"arch": ENCDEC_ARCH, "layers": [cfg.n_enc_layers,
+                                                cfg.n_layers],
+                "d_model": cfg.d_model, "dtype": cfg.dtype,
+                "frames": ENCDEC_FRAMES, "tokens": S}
+        with torch.inference_mode():
+            runs = {}
+            for name, p, c in (("plain", tree, None),
+                               ("mesh", on_mesh(model, tree), ctx)):
+                got, ms = timed(lambda: model.prefill(p, {"frames": frames},
+                                                      c))
+                got = [whole(t) for t in got]
+                cache = model.init_cache(B, ENCDEC_FRAMES, device=device)
+                cache["xk"], cache["xv"] = got[1].clone(), got[2].clone()
+                dec = mesh_decode(model, p, cache, toks[:, :steps], c)
+                runs[name] = (got, dec)
+                part[f"{name}_prefill_ms"] = ms
+                part[f"{name}_decode_ms"] = dec[2]
+            prefill_equal = all(torch.equal(a, b) for a, b in zip(
+                runs["plain"][0], runs["mesh"][0]))
+            decode_equal = same_decode(runs["plain"][1], runs["mesh"][1])
+            del runs, cache, got, dec
+        part.update(prefill_bit_equal=prefill_equal,
+                    decode_bit_equal=decode_equal)
+        checks += [(prefill_equal, "lm.mesh whisper: prefill on the mesh is "
+                    "not the mesh-less one bit for bit"),
+                   (decode_equal, "lm.mesh whisper: decode on the mesh is "
+                    "not the mesh-less one bit for bit")]
+        ocfg = AdamWConfig(lr=1e-3, warmup_steps=2)
+        state = make_train_state(model, ocfg, torch.Generator(
+            device=device).manual_seed(seed + 1), device=device)
+        batch = {"frames": frames, "tokens": toks[:, :-1].int(),
+                 "labels": toks[:, 1:].int(),
+                 "mask": torch.ones((B, S), device=device)}
+        train = {}
+        for name, on in (("plain", None), ("mesh", mesh)):
+            step = make_train_step(model, ocfg, on)
+            (new, m), ms = timed(lambda: step(state, batch))
+            train[name] = {"ms": ms,
+                           "metrics": {k: float(v) for k, v in m.items()},
+                           "sums": bits_checksum(new)}
+            del new, m
+        state_equal = torch.equal(train["plain"]["sums"],
+                                  train["mesh"]["sums"])
+        metrics_equal = train["plain"]["metrics"] == train["mesh"]["metrics"]
+        for v in train.values():
+            v["leaf_checksums"] = len(v.pop("sums")) // 2
+        part.update(train_step=train, train_state_bit_equal=state_equal,
+                    train_metrics_equal=metrics_equal)
+        checks += [(state_equal, "lm.mesh whisper: the new state on the mesh "
+                    "is not the mesh-less one bit for bit"),
+                   (metrics_equal, f"lm.mesh whisper: the metrics differ: "
+                    f"{train['plain']['metrics']} off the mesh, "
+                    f"{train['mesh']['metrics']} on it"),
+                   (all(np.isfinite(v) for v in
+                        train["mesh"]["metrics"].values()),
+                    "lm.mesh whisper: a metric is not finite")]
+        line[ENCDEC_ARCH] = part
+        del model, tree, state, batch, frames
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b), (c) hymba-1.5b and granite-moe-1b-a400m
+        for i, arch in enumerate(LM_MESH_ARCHS):
+            cfg = dataclasses.replace(get_config(arch),
+                                      n_layers=LM_MESH_LAYERS)
+            seed = args.seed + 71 + i
+            rng = np.random.default_rng(seed)
+            model, tree = weights(cfg, seed)
+            toks = torch.from_numpy(rng.integers(
+                0, cfg.vocab, (B, LM_MESH_PROMPT))).to(device)
+            part = {"arch": arch, "family": cfg.family,
+                    "layers": cfg.n_layers, "d_model": cfg.d_model,
+                    "dtype": cfg.dtype, "cache": LM_MESH_PROMPT,
+                    "reduced": f"depth {get_config(arch).n_layers} -> "
+                    f"{cfg.n_layers} (the phase's time: DTensor's dispatch "
+                    "a layer a step); full width"}
+            with torch.inference_mode():
+                if cfg.has_ssm:
+                    pre = {}
+                    for name, p, c in (("plain", tree, None),
+                                       ("mesh", on_mesh(model, tree), ctx)):
+                        (lg, ms), launches = launch_window(lambda: timed(
+                            lambda: model.prefill(p, {"tokens": toks}, c)))
+                        pre[name] = whole(lg)
+                        part[f"{name}_prefill_ms"] = ms
+                        part[f"{name}_prefill_launches"] = launches["ssm_scan"]
+                    mesh_launches = part["mesh_prefill_launches"]
+                    equal = torch.equal(pre["plain"], pre["mesh"])
+                    part["prefill_bit_equal"] = equal
+                    checks += [
+                        (equal, f"lm.mesh {arch}: prefill on the mesh is not "
+                         "the mesh-less one bit for bit"),
+                        (part["plain_prefill_launches"] == mesh_launches
+                         == cfg.n_layers, f"lm.mesh {arch}: the prefill "
+                         f"launched ssm_scan {part['plain_prefill_launches']}"
+                         f" times off the mesh and {mesh_launches} on it, not "
+                         f"{cfg.n_layers}")]
+                for layout in ("batch", "tp2d"):
+                    flags.serving_layout = layout
+                    runs = {}
+                    for name, p, c in (("plain", tree, None),
+                                       ("mesh", on_mesh(model, tree, layout),
+                                        ctx)):
+                        cache = model.init_cache(B, LM_MESH_PROMPT,
+                                                 device=device)
+                        runs[name] = mesh_decode(model, p, cache,
+                                                 toks[:, :steps], c)
+                        part[f"{layout}_{name}_decode_ms"] = runs[name][2]
+                    equal = same_decode(runs["plain"], runs["mesh"])
+                    part[f"{layout}_decode_bit_equal"] = equal
+                    checks.append((equal, f"lm.mesh {arch} {layout}: decode "
+                                   "on the mesh is not the mesh-less one bit "
+                                   "for bit"))
+                    del runs
+            flags.serving_layout = layout0
+            line[arch] = part
+            del model, tree
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        flags.serving_layout = layout0
+        dist.destroy_process_group()
+    line["seconds"] = seconds = time.perf_counter() - t_phase
+    emit(line)
+    for cond, msg in checks:
+        check(cond, msg)
+    check(seconds <= LM_MESH_LIMIT_S, f"lm.mesh: the phase took "
+          f"{seconds:.1f} s of its {LM_MESH_LIMIT_S:.0f} s")
+    return {"ssm_scan": mesh_launches}
+
+
 # --------------------------------------------------------------------------- #
 # the paper's Figure-5 pipeline: one planned range evaluated three ways
 # --------------------------------------------------------------------------- #
@@ -5924,17 +6183,19 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     device_name = torch.cuda.get_device_name(0)
-    bw = next(rate for key, rate in BANDWIDTH if key in device_name)
+    from repro_torch.launch import card as card_rates
+    bw = card_rates.rate(card_rates.BANDWIDTH, device_name)
     max_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rates = {"sm_count": sms,
-             "exp_per_s": EXP_PER_CLOCK_PER_SM * sms * max_mhz * 1e6,
-             "int32_ops": INT32_PER_CLOCK_PER_SM * sms * max_mhz * 1e6,
-             "fp32_flops": next(r for key, r in FP32_RATE if key in device_name),
-             "bf16_flops": next(r for key, r in BF16_RATE if key in device_name)}
+             "exp_per_s": card_rates.EXP_PER_CLOCK_PER_SM * sms * max_mhz * 1e6,
+             "int32_ops": card_rates.INT32_PER_CLOCK_PER_SM * sms * max_mhz
+             * 1e6,
+             "fp32_flops": card_rates.rate(card_rates.FP32_RATE, device_name),
+             "bf16_flops": card_rates.rate(card_rates.BF16_RATE, device_name)}
 
     t0 = time.perf_counter()
     lib = _build.build()
@@ -6025,6 +6286,7 @@ def main() -> int:
     train = train_phase(args, card, "cuda", bw, rates, build_s)
     mesh_launches = train_mesh_phase(args, card, "cuda", build_s)
     train_mesh_moe_phase(args, card, "cuda", build_s)
+    lm_mesh = lm_mesh_phase(args, card, "cuda", build_s)
     bench_launches, bench = bench_phase(args)
     launches["bloom_probe"] = bench_launches["bloom_probe"]
     # the scan's main path is now the SSM models' forwards (lm.families)
@@ -6036,7 +6298,8 @@ def main() -> int:
             r.update(bench_launches=bench_launches["ssm_scan"],
                      path=families["path"],
                      train_launches=train["launches"]["ssm_scan"],
-                     mesh_launches=mesh_launches["ssm_scan"])
+                     mesh_launches=mesh_launches["ssm_scan"],
+                     lm_mesh_launches=lm_mesh["ssm_scan"])
     train["row"]["mesh_launches"] = mesh_launches["ssm_scan_bwd"]
     rows.append(train["row"])
     for r in rows:

@@ -36,12 +36,21 @@ channel its lanes and a block its channels, and the state checkpoints go
 to a device scratch.  The kernel sums dB and dC over the channels and dA
 over batch rows and steps in a fixed order, with no float atomics, so a
 rerun gives the same bits.
+
+Both wrappers are ``torch.library`` custom ops (``repro_torch::ssm_scan``,
+``repro_torch::ssm_scan_bwd``): the same kernels or plain versions behind
+them, plus a fake implementation that gives the outputs' shapes without
+computing them (``FakeTensorMode``: the dry-run traces a step on fake
+tensors) and a FLOP formula for ``torch.utils.flop_counter`` (the
+recurrence's operations per (batch row, step, channel, state),
+``SCAN_OPS`` and ``SCAN_BWD_OPS``, counted from the plain versions' lines).
+``SSMScan`` stays the autograd function around the two.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -168,7 +177,17 @@ def ssm_scan_plain(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
 def ssm_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, chunk: int = DEFAULT_CHUNK
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """y [Bt, L, D] and the final state [Bt, D, N], float32."""
+    """y [Bt, L, D] and the final state [Bt, D, N], float32 (float64 from a
+    float64 operand on the CPU): the custom op ``repro_torch::ssm_scan``."""
+    y, state = torch.ops.repro_torch.ssm_scan(u, delta, A, B, C, int(chunk))
+    return y, state
+
+
+@torch.library.custom_op("repro_torch::ssm_scan", mutates_args=())
+def _ssm_scan_op(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, chunk: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel for tensors on the card, the plain version on the CPU."""
     if not _build.on_card(u, delta, A, B, C):
         return ssm_scan_plain(u, delta, A, B, C, chunk)
     bt, length, d, n = _check(u, delta, A, B, C, chunk)
@@ -187,6 +206,49 @@ def ssm_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
                   *(t.data_ptr() for t in ops), y.data_ptr(),
                   state.data_ptr(), bt, length, d, n, scan_layout(n))
     return y, state
+
+
+def _out_dtype(*tensors: torch.Tensor) -> torch.dtype:
+    """The wrappers' output type: float32 on the card, the plain
+    versions' on the CPU."""
+    return torch.float32 if tensors[0].device.type != "cpu" else \
+        _dtype(*tensors)
+
+
+@_ssm_scan_op.register_fake
+def _ssm_scan_fake(u, delta, A, B, C, chunk):
+    bt, length, d, n = _check(u, delta, A, B, C, chunk)
+    f = _out_dtype(u, delta, A, B, C)
+    return u.new_empty((bt, length, d), dtype=f), \
+        u.new_empty((bt, d, n), dtype=f)
+
+
+# The recurrence's operations per (batch row, step, channel, state), an
+# exp counted as one, from the plain versions' lines.  Forward: delta * A,
+# its exp, a * x, (delta * u) * B, the add, x * C and y's sum (7), plus
+# delta * u per (batch row, step, channel).  Backward: the forward walk
+# without y (5), a = exp(delta * A) again (2), g = dy C + carry (2), dC
+# (2), dB (2), du (3), ddelta (6), dA (4) and the carry a * g (1) (27),
+# plus delta * u in the walk and in dB per (batch row, step, channel), and
+# dA's running sum over the steps per (step, channel, state).
+SCAN_OPS = 7
+SCAN_CHANNEL_OPS = 1
+SCAN_BWD_OPS = 27
+SCAN_BWD_CHANNEL_OPS = 2
+
+
+def scan_flops(u_shape, a_shape, backward: bool = False) -> int:
+    """The FLOP formula of ``ssm_scan`` (``backward=True``:
+    ``ssm_scan_bwd``) for u of ``u_shape`` [Bt, L, D] and A of ``a_shape``
+    [D, N]: ``SCAN_OPS`` (``SCAN_BWD_OPS``) per (Bt, L, D, N) plus
+    ``SCAN_CHANNEL_OPS`` (``SCAN_BWD_CHANNEL_OPS``) per (Bt, L, D), and
+    backward one per (L, D, N)."""
+    bt, length, d = u_shape
+    n = a_shape[1]
+    if backward:
+        return ((SCAN_BWD_OPS * n + SCAN_BWD_CHANNEL_OPS) * bt * length * d
+                + length * d * n)
+    return (SCAN_OPS * n + SCAN_CHANNEL_OPS) * bt * length * d
 
 
 def _check_bwd(u, delta, A, B, C, dy) -> Tuple[int, int, int, int]:
@@ -273,17 +335,23 @@ def ssm_scan_bwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     (``D % 128 == 0``, any N, any number of batch rows).  bf16 u, delta,
     B and C (the model path; N even) are read as they are, other types as
     float32 copies, the results the same bits either way; u laid out
-    steps first and B and C as strided slices are read in place."""
+    steps first and B and C as strided slices are read in place.  The
+    custom op ``repro_torch::ssm_scan_bwd``."""
+    return tuple(torch.ops.repro_torch.ssm_scan_bwd(u, delta, A, B, C, dy))
+
+
+@torch.library.custom_op("repro_torch::ssm_scan_bwd", mutates_args=())
+def _ssm_scan_bwd_op(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
+                     B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor
+                     ) -> List[torch.Tensor]:
+    """The kernel for tensors on the card, the plain version on the CPU."""
     if not _build.on_card(u, delta, A, B, C, dy):
-        return ssm_scan_bwd_plain(u, delta, A, B, C, dy)
+        return list(ssm_scan_bwd_plain(u, delta, A, B, C, dy))
     bt, length, d, n = _check_bwd(u, delta, A, B, C, dy)
     dev = u.device
     if not (bt and length and n):     # nothing to walk: zero gradients
-        return (torch.zeros((bt, length, d), device=dev),
-                torch.zeros((bt, length, d), device=dev),
-                torch.zeros((d, n), device=dev),
-                torch.zeros((bt, length, n), device=dev),
-                torch.zeros((bt, length, n), device=dev))
+        return [torch.zeros(s, device=dev)
+                for s in _bwd_shapes(bt, length, d, n)]
     bf16 = n % 2 == 0 and all(t.dtype == torch.bfloat16
                               for t in (u, delta, B, C))
     dtype = torch.bfloat16 if bf16 else torch.float32
@@ -314,7 +382,34 @@ def ssm_scan_bwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
                                            dC_part, dA, dB, dC)),
                   bt, length, d, n, B.stride(0), B.stride(1), int(bf16),
                   int(u_cols), lay.lanes)
-    return du, ddelta, dA, dB, dC
+    return [du, ddelta, dA, dB, dC]
+
+
+def _bwd_shapes(bt: int, length: int, d: int, n: int):
+    return ((bt, length, d), (bt, length, d), (d, n), (bt, length, n),
+            (bt, length, n))
+
+
+@_ssm_scan_bwd_op.register_fake
+def _ssm_scan_bwd_fake(u, delta, A, B, C, dy):
+    f = _out_dtype(u, delta, A, B, C, dy)
+    return [u.new_empty(s, dtype=f)
+            for s in _bwd_shapes(*_check_bwd(u, delta, A, B, C, dy))]
+
+
+def _register_flop_formulas() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.ssm_scan)
+    def _fwd(u, delta, A, *args, out_shape=None, **kwargs) -> int:
+        return scan_flops(u, A)
+
+    @register_flop_formula(torch.ops.repro_torch.ssm_scan_bwd)
+    def _bwd(u, delta, A, *args, out_shape=None, **kwargs) -> int:
+        return scan_flops(u, A, backward=True)
+
+
+_register_flop_formulas()
 
 
 class SSMScan(torch.autograd.Function):

@@ -1,4 +1,5 @@
 # Entry points of the port: launch/serve.py serves a model with
-# ServingEngine, launch/train.py trains one through train.loop, and
-# launch/mesh.py builds the production and host meshes.  The reference's
-# dry-run launcher waits for ROADMAP §1 item 5(g)(iii).
+# ServingEngine, launch/train.py trains one through train.loop,
+# launch/mesh.py builds the production and host meshes, and
+# launch/dryrun.py traces every (architecture x shape x mesh) cell on a
+# fake process group for its roofline on the card's rates (launch/card.py).

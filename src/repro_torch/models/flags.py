@@ -1,9 +1,8 @@
 """Evaluation switches of the model stack.
 
-The reference's ``unroll_scans`` steers XLA lowering and comes with the
-dry-run (ROADMAP §1 item 5(g)(iii)).  ``serving_layout`` chooses the specs
-alone until ``decode_step`` takes a mesh, which the dry-run reaches (item
-5(g)(iii)).
+The reference's ``unroll_scans`` has no counterpart: it unrolls the
+``lax.scan`` over layers for XLA's cost analysis, and the port's layers
+are a Python loop that every counter sees at full depth (ROADMAP §3).
 """
 
 # decode attention: 'repeat' materializes GQA-repeated K/V; 'grouped'
@@ -26,7 +25,7 @@ kv_block: int = 1024
 remat_policy: str = "nothing"
 # serving parameter/cache layout: 'batch' = the train layout (batch over
 # the data axes); 'tp2d' = weights and the KV cache's sequence sharded
-# over both mesh axes, batch replicated.  Here it only chooses the specs
-# (registry.batch_pspec); 'tp2d' in decode comes with decode_step on a
-# mesh (ROADMAP §1 item 5(g)(iii)).
+# over both mesh axes, batch replicated.  It chooses the specs
+# (registry.batch_pspec) and, on a mesh, how transformer.decode_step
+# places its batch ('tp2d': force_dp_none).
 serving_layout: str = "batch"

@@ -37,7 +37,7 @@ gathered over the data axes), and y is a partial sum over `model`.
 The aux is the same on every `model` rank, while the gates' part of the
 router's and x's gradients is a partial sum over `model`.  One placement
 covers both because each rank scales its aux's gradient by 1 / `model`
-(``_grad_scaled``), which leaves the value as it is.
+(``sharding.grad_scaled``), which leaves the value as it is.
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoECfg
 from repro_torch.parallel import sharding
-from repro_torch.parallel.sharding import dp_axes, mesh_axes
+from repro_torch.parallel.sharding import dp_axes, grad_scaled, mesh_axes
 
 IMPLS = ("gather", "ep")
 
@@ -176,23 +176,6 @@ def check_impl(impl: str) -> None:
 # --------------------------------------------------------------------------- #
 # on a mesh
 # --------------------------------------------------------------------------- #
-class _GradScale(torch.autograd.Function):
-    """The identity forward; the gradient times ``scale`` backward."""
-
-    @staticmethod
-    def forward(ctx, x, scale):
-        ctx.scale = scale
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g * ctx.scale, None
-
-
-def _grad_scaled(x: torch.Tensor, scale: float) -> torch.Tensor:
-    return x if scale == 1.0 else _GradScale.apply(x, scale)
-
-
 class _Mesh:
     """What the two paths read of a mesh: the `model` dimension and its
     ranks M that the experts split over (1 where `model` does not divide
@@ -233,27 +216,30 @@ class _Mesh:
         return sharding.on_shards(self.mesh, body, out, ins, grads)(*args)
 
 
-def moe_ffn_mesh(x, p, cfg: MoECfg, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn_mesh(x, p, cfg: MoECfg, mesh, dp, dropless: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """'gather' on ``mesh``: ``moe_ffn`` of the global batch, x a DTensor
-    [B,S,D].  Returns (y with its rows over the data axes, aux
+    [B,S,D] (``dropless`` as ``moe_ffn``'s: decode).  Returns (y with its
+    rows over ``dp``, the batch's axes: ``ShardCtx.dp``; aux
     replicated)."""
     m = _Mesh(mesh, cfg)
     B, S, D = x.shape
     T = B * S
-    C = capacity(cfg, T, False)
+    C = capacity(cfg, T, dropless)
 
     def body(x, router, wg, wu, wd):
         xt = x.reshape(T, D)
         gate_vals, gate_idx, aux = route(xt, router, cfg)
         y = experts(xt, gate_vals, gate_idx,
                     {"wg": wg, "wu": wu, "wd": wd}, C, cfg.n_experts, m.e_lo)
-        return y.reshape(B, S, D), _grad_scaled(aux, 1.0 / m.M)
+        return y.reshape(B, S, D), grad_scaled(aux, 1.0 / m.M)
 
     whole, w = m.at(), m.at(shard=m.split)
     part = m.at(partial=m.split)
     y, aux = m.run(body, (part, whole), (whole, whole, w, w, w),
                    (part, part, w, w, w), x, p)
-    return sharding.place(y, mesh, m.at(shard=m.dps)), aux
+    return sharding.place(y, mesh, sharding.placements(
+        mesh, y.shape, (dp, None, None))), aux
 
 
 def moe_ffn_ep(x, p, cfg: MoECfg, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -275,7 +261,7 @@ def moe_ffn_ep(x, p, cfg: MoECfg, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
             aux = aux / m.n_dp
         y = experts(xt, gate_vals, gate_idx, {"wg": wg, "wu": wu, "wd": wd},
                     capacity_ep(cfg, T), cfg.n_experts, m.e_lo)
-        return y.reshape(Bl, S, D), _grad_scaled(aux, 1.0 / m.M)
+        return y.reshape(Bl, S, D), grad_scaled(aux, 1.0 / m.M)
 
     rows, w = m.at(shard=m.dps), m.at(shard=m.split)
     rows_part = m.at(shard=m.dps, partial=m.split)

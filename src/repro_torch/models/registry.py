@@ -5,11 +5,10 @@ returns a ModelAPI whose functions close over the config, dispatching on
 and ``decode_step`` keep the reference's signatures (``loss(p, b,
 ctx=None, scan_impl='seq')``, ``prefill(p, b, ctx=None)``,
 ``decode_step(p, c, t, pos, ctx=None)``).  ``ctx``, the mesh context
-(``transformer.ShardCtx``), runs ``loss`` and ``prefill`` on a mesh for
-the decoder-only families (the moe family by ``flags.moe_impl``); the
-encoder-decoder and ``decode_step``, which only the reference's dry-run
-runs on a mesh, raise ``ValueError`` on a ``ctx`` until ROADMAP §1 item
-5(g)(iii).  ``param_specs`` and ``cache_specs`` give the
+(``transformer.ShardCtx``), runs all three on a mesh for every family
+(the moe family by ``flags.moe_impl``, ``decode_step`` by
+``flags.serving_layout``), as the reference's dry-run runs them
+(``launch/dryrun.py``).  ``param_specs`` and ``cache_specs`` give the
 family's specs for a ``DeviceMesh``; ``input_specs`` gives every step
 input as a tensor on the ``meta`` device (shape and dtype, no storage),
 the reference's ``ShapeDtypeStruct``, and ``batch_pspec`` their specs."""
@@ -62,31 +61,18 @@ def init_model(cfg: ArchConfig, seed: Union[int, torch.Generator],
     return module(cfg, _family(cfg).init_params(cfg, gen))
 
 
-def _no_mesh(ctx, what: str) -> None:
-    if ctx is not None:
-        raise ValueError(f"{what} on a mesh waits for ROADMAP §1 item "
-                         "5(g)(iii); pass ctx=None")
-
-
 def build_model(cfg: ArchConfig) -> ModelAPI:
     fam = _family(cfg)
     inputs = "frames" if cfg.enc_dec else "tokens"    # what prefill takes
 
     def loss(p, b, ctx=None, scan_impl="seq"):
-        if cfg.enc_dec:
-            _no_mesh(ctx, "the encoder-decoder")
-            return fam.lm_loss(p, b, cfg, scan_impl=scan_impl)
-        return fam.lm_loss(p, b, cfg, ctx, scan_impl)
+        return fam.lm_loss(p, b, cfg, ctx, scan_impl=scan_impl)
 
     def prefill(p, b, ctx=None):
-        if cfg.enc_dec:
-            _no_mesh(ctx, "the encoder-decoder")
-            return fam.prefill(p, b[inputs], cfg)
         return fam.prefill(p, b[inputs], cfg, ctx)
 
     def decode_step(p, c, t, pos, ctx=None):
-        _no_mesh(ctx, "decode_step")
-        return fam.decode_step(p, c, t, pos, cfg)
+        return fam.decode_step(p, c, t, pos, cfg, ctx)
 
     return ModelAPI(
         cfg=cfg,

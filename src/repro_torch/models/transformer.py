@@ -31,8 +31,13 @@ block's scan runs on each rank's shard (``models/ssm.py``), and so does a
 moe layer's dispatch, by ``flags.moe_impl``: 'gather' (``moe_ffn`` of the
 global batch) or 'ep' (per data shard; ``models/moe.py``).  With no mesh
 ``constrain`` returns its input and the forward is the mesh-less one.
-``decode_step`` takes no ``ctx`` yet (ROADMAP §1 item 5(g)(iii)); its moe
-layers stay dropless.
+``decode_step`` takes a ``ctx`` too (the dry-run's serve step): K/V
+written and read on the ranks that hold the cache's slots
+(``attention.cache_update_mesh``, ``decode_attention_mesh``), the mamba
+caches as DTensors, each moe layer's dispatch on the gathered tokens
+through ``local_map``, dropless; ``flags.serving_layout='tp2d'`` replicates
+the batch (``force_dp_none``) against a cache whose sequence is split over
+both mesh axes.
 """
 
 from __future__ import annotations
@@ -431,16 +436,27 @@ def _layer_fwd(x, lp, cfg: ArchConfig, positions, ctx: ShardCtx,
         h_attn = h.view_as(h) if cfg.has_ssm else h
         h_attn = ctx.constrain(h_attn, ctx.dp,
                                "model" if mode == "seqq" else None, None)
-        q, k, v = attn_mod.qkv_proj(h_attn, lp["attn"], cfg.rope_theta,
-                                    positions)
+        if ctx.mesh is None:
+            q, k, v = attn_mod.qkv_proj(h_attn, lp["attn"], cfg.rope_theta,
+                                        positions)
+        else:
+            a = lp["attn"]
+            q, k, v = attn_mod.heads_mesh(h_attn, [a["wq"], a["wk"], a["wv"]],
+                                          ctx, mode, True, cfg.rope_theta,
+                                          positions)
         if mode == "head":
             q = ctx.constrain(q, ctx.dp, None, "model", None)
         else:
             q = ctx.constrain(q, ctx.dp, "model", None, None)
             k = ctx.constrain(k, ctx.dp, None, None, None)
             v = ctx.constrain(v, ctx.dp, None, None, None)
-        o = attn_mod.attention(q, k, v, positions, positions, causal=True,
-                               window=cfg.attn_window)
+        if ctx.mesh is None:
+            o = attn_mod.attention(q, k, v, positions, positions,
+                                   causal=True, window=cfg.attn_window)
+        else:
+            o = attn_mod.attention_mesh(q, k, v, positions, positions, ctx,
+                                        mode, causal=True,
+                                        window=cfg.attn_window)
         if mode == "seqq":
             branch = _seqq_out_proj(o, lp["attn"]["wo"], ctx)
         else:
@@ -457,7 +473,8 @@ def _layer_fwd(x, lp, cfg: ArchConfig, positions, ctx: ShardCtx,
         elif flags.moe_impl == "ep":
             y, aux = moe_mod.moe_ffn_ep(h2, lp["moe"], cfg.moe, ctx.mesh)
         else:
-            y, aux = moe_mod.moe_ffn_mesh(h2, lp["moe"], cfg.moe, ctx.mesh)
+            y, aux = moe_mod.moe_ffn_mesh(h2, lp["moe"], cfg.moe, ctx.mesh,
+                                          ctx.dp)
         x = x + y
     elif cfg.has_mlp:
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
@@ -518,9 +535,30 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
                          scan_impl)
             aux = aux + a
         x = rms_norm(x, p["final_norm"], cfg.norm_eps)
-        logits = torch.einsum("bsd,vd->bsv", x, _head(p, cfg, dt))
+        logits = head_logits(x, _head(p, cfg, dt), ctx)
         logits = ctx.constrain(logits, ctx.dp, None, "model")
     return logits, aux
+
+
+def head_logits(x, head, ctx: ShardCtx) -> torch.Tensor:
+    """``einsum('bsd,vd->bsv', x, head)``; on a mesh on each rank's rows
+    (over the data axes) and vocabulary rows of the head (over `model`,
+    the head gathered over the data axes), the logits so placed: DTensor
+    would gather the whole logits' gradient over the data ranks (a
+    [B, S, V] all-gather, the dry-run found) to form the head's.  x's
+    gradient is a partial sum over the `model` ranks, the head's over
+    those that split the rows."""
+    if ctx.mesh is None:
+        return torch.einsum("bsd,vd->bsv", x, head)
+    mesh = ctx.mesh
+    xs = sharding.placements(mesh, x.shape, (ctx.dp, None, None))
+    hs = sharding.placements(mesh, head.shape, ("model", None))
+    out = sharding.placements(mesh, tuple(x.shape[:2]) + (head.shape[0],),
+                              (ctx.dp, None, "model"))
+    return sharding.on_shards(
+        mesh, lambda x, h: torch.einsum("bsd,vd->bsv", x, h), (out,),
+        (xs, hs), (sharding.partial_where(out, 2, xs),
+                   sharding.partial_where_split(xs, hs)))(x, head)
 
 
 def lm_loss(params: Params, batch, cfg: ArchConfig,
@@ -622,17 +660,31 @@ def cache_specs(cfg: ArchConfig, mesh, layout: str = "batch") -> Tree:
     return specs
 
 
-def _layer_decode(x, lp, cache_l, pos: int, cfg: ArchConfig) -> torch.Tensor:
+def _layer_decode(x, lp, cache_l, pos: int, cfg: ArchConfig,
+                  ctx: ShardCtx) -> torch.Tensor:
     """x [B,1,D]; cache_l = the layer's cache views, written in place."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     branch = None
     if cfg.has_attn:
         posv = torch.full((x.shape[0], 1), pos, dtype=torch.int64,
                           device=x.device)
-        q, k, v = attn_mod.qkv_proj(h, lp["attn"], cfg.rope_theta, posv)
-        ck, cv, cp = attn_mod.cache_update(cache_l["k"], cache_l["v"],
-                                           cache_l["pos"], k, v, pos)
-        o = attn_mod.decode_attention(q, ck, cv, cp, window=cfg.attn_window)
+        if ctx.mesh is None:
+            q, k, v = attn_mod.qkv_proj(h, lp["attn"], cfg.rope_theta, posv)
+            ck, cv, cp = attn_mod.cache_update(cache_l["k"], cache_l["v"],
+                                               cache_l["pos"], k, v, pos)
+            o = attn_mod.decode_attention(q, ck, cv, cp,
+                                          window=cfg.attn_window)
+        else:
+            a = lp["attn"]
+            q, k, v = attn_mod.heads_mesh(
+                h, [a["wq"], a["wk"], a["wv"]], ctx,
+                attn_mode(cfg.n_heads, tp_size(ctx.mesh)), True,
+                cfg.rope_theta, posv)
+            q = ctx.constrain(q, ctx.dp, None, None, None)  # whole heads
+            ck, cv, cp = attn_mod.cache_update_mesh(
+                cache_l["k"], cache_l["v"], cache_l["pos"], k, v, pos)
+            o = attn_mod.decode_attention_mesh(q, ck, cv, cp,
+                                               window=cfg.attn_window)
         branch = attn_mod.out_proj(o, lp["attn"])
     if cfg.has_ssm:
         m, _, _ = ssm_mod.mamba_decode_step(h, lp["ssm"], cfg,
@@ -641,7 +693,11 @@ def _layer_decode(x, lp, cache_l, pos: int, cfg: ArchConfig) -> torch.Tensor:
     x = x + branch
     if cfg.moe is not None:
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        y, _ = moe_mod.moe_ffn(h2, lp["moe"], cfg.moe, dropless=True)
+        if ctx.mesh is None:
+            y, _ = moe_mod.moe_ffn(h2, lp["moe"], cfg.moe, dropless=True)
+        else:
+            y, _ = moe_mod.moe_ffn_mesh(h2, lp["moe"], cfg.moe, ctx.mesh,
+                                        ctx.dp, dropless=True)
         x = x + y
     elif cfg.has_mlp:
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
@@ -650,18 +706,33 @@ def _layer_decode(x, lp, cache_l, pos: int, cfg: ArchConfig) -> torch.Tensor:
 
 
 def decode_step(params: Params, cache: Dict[str, torch.Tensor],
-                token: torch.Tensor, pos, cfg: ArchConfig):
+                token: torch.Tensor, pos, cfg: ArchConfig,
+                ctx: Optional[ShardCtx] = None):
     """token [B,1], pos an int -> (logits [B,Vp], the cache, updated in
-    place: the reference returns a new one)."""
+    place: the reference returns a new one).  Under ``ctx.mesh`` the
+    logits are a DTensor and the cache's leaves DTensors (a plain leaf is
+    placed by ``cache_specs`` of ``flags.serving_layout`` first, and the
+    placed cache is the one written and returned); 'tp2d' replicates the
+    batch (``force_dp_none``), as the reference does."""
     check_family(cfg)
+    ctx = _ctx(ctx)
+    if flags.serving_layout == "tp2d" and ctx.mesh is not None:
+        ctx = dataclasses.replace(ctx, force_dp_none=True)
     p = as_tree(params)
     pos = int(pos)
     dt = dtype_of(cfg)
-    x = p["embed"][token].to(dt)
-    for i in range(cfg.n_layers):
-        x = _layer_decode(x, _layer(p["layers"], i), _layer(cache, i), pos, cfg)
-    x = rms_norm(x, p["final_norm"], cfg.norm_eps)
-    logits = torch.einsum("bsd,vd->bsv", x, _head(p, cfg, dt))[:, 0]
+    with ctx.scope():
+        if ctx.mesh is not None:
+            cache = sharding.place_tree(cache, ctx.mesh, cache_specs(
+                cfg, ctx.mesh, flags.serving_layout))
+        x = p["embed"][token].to(dt)
+        x = ctx.constrain(x, ctx.dp, None, None)
+        for i in range(cfg.n_layers):
+            x = _layer_decode(x, _layer(p["layers"], i), _layer(cache, i),
+                              pos, cfg, ctx)
+        x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+        logits = torch.einsum("bsd,vd->bsv", x, _head(p, cfg, dt))[:, 0]
+        logits = ctx.constrain(logits, ctx.dp, "model")
     return logits, cache
 
 

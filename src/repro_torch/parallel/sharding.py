@@ -36,6 +36,8 @@ from __future__ import annotations
 import contextlib
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+import torch
+
 SINGLE_POD_AXES = ("data", "model")
 MULTI_POD_AXES = ("pod", "data", "model")
 
@@ -91,6 +93,11 @@ def compat_make_mesh(shape: Sequence[int], axis_names: Sequence[str],
                          f"{tuple(shape)} needs {need}")
     return init_device_mesh(device_type, tuple(int(s) for s in shape),
                             mesh_dim_names=tuple(axis_names))
+
+
+def mesh_dim(mesh, axis: str) -> int:
+    """The index of the mesh dimension named ``axis``."""
+    return list(mesh_axes(mesh)).index(axis)
 
 
 def world_size() -> int:
@@ -227,6 +234,36 @@ def partial_where(act, dim: int, placements):
     from torch.distributed.tensor import Partial, Shard
     return tuple(Partial() if p == Shard(dim) else q
                  for p, q in zip(act, placements))
+
+
+def partial_where_split(act, placements):
+    """``placements`` with ``Partial`` on each mesh dimension where ``act``
+    is a ``Shard`` of any dimension: the gradient of an operand that every
+    such rank holds whole against its part of ``act``."""
+    from torch.distributed.tensor import Partial
+    return tuple(Partial() if p.is_shard() else q
+                 for p, q in zip(act, placements))
+
+
+def grad_scaled(x, scale: float):
+    """``x``, its gradient times ``scale`` in the backward: where ranks that
+    each compute the same gradient of an operand share one ``Partial``
+    placement with others whose gradients are parts, each takes 1 /
+    ranks of the common one."""
+    return x if scale == 1.0 else _GradScale.apply(x, scale)
+
+
+class _GradScale(torch.autograd.Function):
+    """The identity forward; the gradient times ``scale`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
 
 
 def place_tree(tree, mesh, spec_tree):

@@ -10,7 +10,8 @@ starts; it places its state by ``state_specs`` and each batch by
 metrics, losses and gradients (``jax.value_and_grad`` of its loss under
 ``ShardCtx(mesh)``, summed over microbatches as its step sums them) to one
 ``.npz``.  The port's ranks (``_torch_mesh.spawn``) start from that state
-and batch.  A case is ``[arch, replace]`` or ``[arch, replace, flags]``:
+and batch (with ENC_FRAMES frames a row for the encoder-decoder).  A
+case is ``[arch, replace]`` or ``[arch, replace, flags]``:
 ``replace`` goes to ``dataclasses.replace`` of the reduced config in
 float32 (``capacity_factor`` to its ``moe``), and ``flags`` (``moe_impl``)
 is set on the reference's ``models.flags`` and on every port rank's.
@@ -31,6 +32,7 @@ SRC = os.path.join(os.path.dirname(HERE), "src")
 OPT = dict(lr=1e-3, warmup_steps=0)
 MICROBATCHES = (1, 2)
 B, S = 4, 16
+ENC_FRAMES = 24     # the encoder-decoder's frames a row
 
 
 def _config(pkg_base, arch, replace):
@@ -141,6 +143,9 @@ def reference_main(out_path, cases):
         batch = {"tokens": toks[:, :-1].astype(np.int32),
                  "labels": toks[:, 1:].astype(np.int32),
                  "mask": np.ones((B, S), np.float32)}
+        if cfg.enc_dec:
+            batch["frames"] = rng.normal(size=(B, ENC_FRAMES, cfg.d_model)
+                                         ).astype(np.float32)
         for k, v in _flat(jax.tree.map(np.asarray, state)).items():
             out[f"{key}/init/{k}"] = v
         for k, v in batch.items():

@@ -2325,3 +2325,121 @@ def test_mesh_checkpoint_round_trips_on_the_card(card, host_mesh, tmp_path):
             a = a.to_local() if kw else a
             assert a.device.type == "cuda" and a.dtype == b.dtype
             assert torch.equal(a, b)
+
+
+def _decode_steps(model, params, cache, toks, ctx=None):
+    from repro_torch.parallel.sharding import whole
+    out = []
+    for t in range(toks.shape[1]):
+        logits, cache = model.decode_step(params, cache, toks[:, t:t + 1], t,
+                                          ctx)
+        out.append(whole(logits))
+    torch.cuda.synchronize()
+    return out, {k: whole(v) for k, v in cache.items()}
+
+
+@pytest.mark.parametrize("layout", ["batch", "tp2d"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "falcon-mamba-7b",
+                                  "hymba-1.5b", "granite-moe-1b-a400m"])
+def test_mesh_decode_is_the_meshless_decode_bit_for_bit(card, host_mesh,
+                                                        monkeypatch, arch,
+                                                        layout):
+    """8 ``decode_step``s of a reduced config in float32 under ``ShardCtx``
+    on the host mesh (the cache as DTensors, K/V written and read through
+    ``attention.cache_update_mesh`` and ``decode_attention_mesh``) against
+    the same steps without a mesh: every step's logits and the cache bit
+    for bit, under both serving layouts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, flags
+    from repro_torch.models.transformer import ShardCtx
+    from repro_torch.parallel.sharding import place_tree
+    from repro_torch.train import tree as T
+
+    monkeypatch.setattr(flags, "serving_layout", layout)
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    tree = T.map_tree(lambda t: t.detach(), model.init(0, device=card).tree())
+    on_mesh = place_tree(tree, host_mesh, model.param_specs(
+        host_mesh, layout="serve2d" if layout == "tp2d" else "train"))
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, (2, 8))).to(card)
+    want = _decode_steps(model, tree, model.init_cache(2, 16, device=card),
+                         toks)
+    got = _decode_steps(model, on_mesh, model.init_cache(2, 16, device=card),
+                        toks, ShardCtx(host_mesh))
+    assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+    assert sorted(got[1]) == sorted(want[1])
+    assert all(torch.equal(got[1][k], want[1][k]) for k in want[1])
+
+
+def test_mesh_encdec_is_the_meshless_encdec_bit_for_bit(card, host_mesh):
+    """Reduced whisper-small in float32 on the host mesh: ``lm_loss`` and
+    every gradient, ``prefill`` and 8 ``decode_step``s against its cross
+    K/V, bit for bit the mesh-less ones."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import ShardCtx
+    from repro_torch.parallel.sharding import P, place_tree, whole
+    from repro_torch.train import tree as T
+
+    cfg = get_config("whisper-small").reduced()
+    model = build_model(cfg)
+    tree = T.map_tree(lambda t: t.detach(), model.init(0, device=card).tree())
+    ctx = ShardCtx(host_mesh)
+    on_mesh = place_tree(tree, host_mesh, model.param_specs(host_mesh))
+    rng = np.random.default_rng(8)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 17))).to(card)
+    frames = torch.from_numpy(rng.normal(size=(2, 24, cfg.d_model)).astype(
+        np.float32)).to(card)
+    batch = {"frames": frames, "tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "mask": torch.ones((2, 16), device=card)}
+    placed = place_tree(batch, host_mesh, {
+        k: P("data", *([None] * (v.dim() - 1))) for k, v in batch.items()})
+    out = []
+    for p, b, c in ((tree, batch, None), (on_mesh, placed, ctx)):
+        paths, leaves = T.flatten(p)
+        live = [t.detach().requires_grad_(True) for t in leaves]
+        with (c or ShardCtx()).scope():
+            loss, _ = model.loss(T.unflatten(paths, live), b, c)
+            grads = [whole(g) for g in torch.autograd.grad(loss, live)]
+        pre = [whole(t) for t in model.prefill(p, {"frames": b["frames"]}, c)]
+        cache = model.init_cache(2, 24, device=card)
+        cache["xk"], cache["xv"] = pre[1].clone(), pre[2].clone()
+        out.append((whole(loss), grads, pre,
+                    _decode_steps(model, p, cache, toks[:, :8], c)))
+    (l0, g0, p0, d0), (l1, g1, p1, d1) = out
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+    assert all(torch.equal(a, b) for a, b in zip(d0[0], d1[0]))
+    assert all(torch.equal(d0[1][k], d1[1][k]) for k in d0[1])
+
+
+def test_scan_ops_under_fake_mode_on_cuda_tensors(card):
+    """The scan's custom ops on fake tensors of the card: float32 outputs of
+    the kernels' shapes, nothing launched, the FLOP formula counted; on
+    real tensors the same ops launch the kernels."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    ops_ = _ssm_operands((2, 64, 256, 16), 9)
+    ops_ = [t.to(card) for t in ops_]
+    _build.reset_launches()
+    y, state = ssm_scan.ssm_scan(*ops_)
+    grads = ssm_scan.ssm_scan_bwd(*ops_, y)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ssm_scan"] == _build.LAUNCHES["ssm_scan_bwd"] == 1
+    mode = FakeTensorMode()
+    fake = [mode.from_tensor(t) for t in ops_]
+    _build.reset_launches()
+    with mode, FlopCounterMode(display=False) as count:
+        fy, fstate = ssm_scan.ssm_scan(*fake)
+        fgrads = ssm_scan.ssm_scan_bwd(*fake, fy)
+    assert _build.LAUNCHES["ssm_scan"] == _build.LAUNCHES["ssm_scan_bwd"] == 0
+    for f, r in zip((fy, fstate, *fgrads), (y, state, *grads)):
+        assert f.device.type == "cuda"
+        assert (f.shape, f.dtype) == (r.shape, r.dtype)
+    u, A = ops_[0], ops_[2]
+    assert count.get_total_flops() == (
+        ssm_scan.scan_flops(u.shape, A.shape)
+        + ssm_scan.scan_flops(u.shape, A.shape, backward=True))

@@ -6,9 +6,9 @@ parameters (``models/weights.py``); the moe family under
 which drops, and under 'ep' at capacity_factor E / k, where neither path
 drops.  With no mesh ``constrain`` hands back its input;
 ``remat_policy='dots'`` keeps the products' outputs and gives the
-gradients of 'nothing'; a ``ctx`` on the encoder-decoder or
-``decode_step`` raises, and so does a moe layer under a ``moe_impl``
-other than 'gather' or 'ep'."""
+gradients of 'nothing'; a moe layer under a ``moe_impl`` other than
+'gather' or 'ep' raises.  The encoder-decoder and ``decode_step`` on a
+mesh: tests/test_torch_mesh_encdec.py and tests/test_torch_mesh_decode.py."""
 
 import dataclasses
 
@@ -173,33 +173,18 @@ def test_remat_dots_saves_products_and_keeps_the_gradients(monkeypatch,
         _backward_products(model, tree, batch)
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "whisper-small"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m"])
 def test_ctx_on_the_moe_family_and_the_encdec_raises(mesh, monkeypatch,
                                                      arch):
-    """The encoder-decoder on a mesh waits for ROADMAP §1 item 5(g)(iii);
-    the moe family on a mesh raises for a ``moe_impl`` it does not have."""
+    """The moe family on a mesh raises for a ``moe_impl`` it does not
+    have (the encoder-decoder on a mesh: tests/test_torch_mesh_encdec.py)."""
     _, cfg, _, port = models(arch)
     model = build_model(cfg)
     batch = _batch(cfg)
-    match = r"5\(g\)\(iii\)"
-    if cfg.enc_dec:
-        batch["frames"] = torch.zeros((2, 24, cfg.d_model))
-    else:
-        set_flag(monkeypatch, "moe_impl", "scatter")
-        match = "moe_impl"
-    with pytest.raises(ValueError, match=match):
+    set_flag(monkeypatch, "moe_impl", "scatter")
+    with pytest.raises(ValueError, match="moe_impl"):
         model.loss(port, batch, ShardCtx(mesh))
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(ValueError, match="moe_impl"):
         model.prefill(port, batch, ShardCtx(mesh))
-    if not cfg.enc_dec:
-        with pytest.raises(ValueError, match=match):
-            transformer.forward(port, batch["tokens"], cfg, ShardCtx(mesh))
-
-
-def test_ctx_on_decode_step_raises(mesh):
-    _, cfg, _, port = models("llama3-8b")
-    model = build_model(cfg)
-    cache = model.init_cache(2, 8, device="cpu")
-    with pytest.raises(ValueError, match=r"5\(g\)\(iii\)"):
-        model.decode_step(port, cache, torch.zeros((2, 1), dtype=torch.long),
-                          0, ShardCtx(mesh))
+    with pytest.raises(ValueError, match="moe_impl"):
+        transformer.forward(port, batch["tokens"], cfg, ShardCtx(mesh))

@@ -263,9 +263,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
          "nounits"], stdout=subprocess.PIPE, text=True).stdout.split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    rates = {"exp_per_s": chip_smoke.EXP_PER_CLOCK_PER_SM * sms * mhz * 1e6}
-    bw = next(rate for key, rate in chip_smoke.BANDWIDTH
-              if key in torch.cuda.get_device_name(0))
+    from repro_torch.launch import card as card_rates
+    rates = {"exp_per_s": card_rates.EXP_PER_CLOCK_PER_SM * sms * mhz * 1e6}
+    bw = card_rates.rate(card_rates.BANDWIDTH, torch.cuda.get_device_name(0))
     results = []
 
     def emit(obj):
